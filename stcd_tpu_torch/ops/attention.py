@@ -1,0 +1,171 @@
+"""Cross-attention for the SRA blocks of ChangeFormer (counterpart of
+stcd_tpu/ops/attention.py).
+
+``cross_attention`` computes softmax(q k^T * scale) v over (B, H, N, D)
+queries and a small (B, H, M, D) key/value set, with optional dropout of
+the attention matrix after normalisation (inverted scaling). It dispatches
+on the tensor's device:
+
+- a CUDA tensor goes to the hand-written kernel ``csrc/cross_attention.cu``
+  (``cross_attention_kernel``), or the call raises: there is no fallback;
+- a CPU tensor goes to the plain PyTorch version ``attention_plain``, the
+  counterpart of the JAX ``_einsum_attention``.
+
+The dropout decision is the stateless uint32 hash of ``dropout_keep_mask``
+on (seed, flattened b*H+h, global row, col). The JAX package, the plain
+version here and the CUDA kernel compute it bit for bit alike.
+
+The TPU's auto rule (Pallas only for N >= 1024 and M >= 64) and its padding
+of M and D to 128 are not carried over: on a CUDA tensor every call goes to
+the kernel, which masks ragged tiles itself.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from stcd_tpu_torch.ops import _build
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32), without int64 overflow:
+    the product is split at bit 16 so each part stays below 2^48."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 finaliser on uint32 values held in int64."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _threshold(rate: float) -> int:
+    return min(int(round(rate * 2 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Keep iff hash(seed, bh, row, col) >= rate * 2^32 (stcd_tpu/ops/
+    attention.py:48-63). ``seed`` is an int; ``bh``, ``rows`` and ``cols``
+    are broadcastable integer tensors. uint32 arithmetic is done in int64
+    and masked to 32 bits after every multiply and add."""
+    seed = int(seed) & _M32
+    bh = bh.to(torch.int64) & _M32
+    h = (seed + _mul32(bh, 0x9E3779B9)) & _M32
+    h = (h + _mul32(rows.to(torch.int64) & _M32, 0x85EBCA6B)) & _M32
+    h = (h + _mul32(cols.to(torch.int64) & _M32, 0xC2B2AE35)) & _M32
+    h = _fmix32(_fmix32(h) ^ bh)
+    return h >= _threshold(rate)
+
+
+def _check_args(q, k, v, dropout_rate, dropout_seed):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("cross_attention takes (B, H, N, D) q and (B, H, M, D) k, v")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+
+
+def attention_plain(q, k, v, scale: float, dropout_rate: float = 0.0,
+                    dropout_seed=None) -> torch.Tensor:
+    """The plain version: f32 scores, softmax, the hash mask, f32 product;
+    the output takes q's dtype. Materialises the (B, H, N, M) matrix."""
+    _check_args(q, k, v, dropout_rate, dropout_seed)
+    b, h, n, _ = q.shape
+    m = k.shape[2]
+    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        dev = q.device
+        bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+        rows = torch.arange(n, device=dev).reshape(1, 1, n, 1)
+        cols = torch.arange(m, device=dev).reshape(1, 1, 1, m)
+        keep = dropout_keep_mask(dropout_seed, bh, rows, cols, dropout_rate)
+        p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros_like(p))
+    return torch.einsum("bhnm,bhmd->bhnd", p, v.float()).to(q.dtype)
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
+                           dropout_seed=None) -> torch.Tensor:
+    """Launch ``csrc/cross_attention.cu`` on q's device and current stream.
+
+    Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
+    device, D <= 128; raises on anything else. ``kernel_launches`` counts
+    the launches.
+
+    The kernel is forward only: its output has no grad_fn. So the call
+    raises where autograd would record it, rather than cut the gradient to
+    q, k and v silently."""
+    _check_args(q, k, v, dropout_rate, dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("cross_attention_kernel has no backward yet: call it "
+                           "under torch.no_grad() or torch.inference_mode()")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise RuntimeError("cross_attention_kernel needs CUDA tensors, got "
+                           f"{q.device}, {k.device}, {v.device}")
+    if not (q.device == k.device == v.device):
+        raise RuntimeError("q, k and v must lie on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise TypeError("q, k and v must share one dtype of float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("cross_attention_kernel needs contiguous q, k and v")
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if d > 128:
+        raise ValueError(f"cross_attention_kernel supports D <= 128, got {d}")
+    if n == 0 or m == 0 or b * h == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    use_dropout = dropout_rate > 0.0
+    seed = int(dropout_seed) & _M32 if use_dropout else 0
+    threshold = _threshold(dropout_rate) if use_dropout else 0
+    keep_scale = 1.0 / (1.0 - dropout_rate)
+    err = lib.stcd_cross_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, m, d,
+        _DTYPE_CODE[q.dtype], float(scale), int(use_dropout), seed, threshold,
+        keep_scale, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "stcd_cross_attention_fwd")
+    cross_attention_kernel.kernel_launches += 1
+    return out
+
+
+cross_attention_kernel.kernel_launches = 0
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None, dropout_rate: float = 0.0,
+                    dropout_seed=None, impl: Optional[str] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, H, N, D) q and (B, H, M, D) k, v.
+
+    ``impl=None`` picks by device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. ``impl="plain"`` or ``"kernel"`` forces
+    one; it exists so that a run on the card can hold the two against each
+    other."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl is None:
+        impl = "kernel" if q.is_cuda else "plain"
+    if impl == "kernel":
+        return cross_attention_kernel(q, k, v, scale, dropout_rate, dropout_seed)
+    if impl == "plain":
+        return attention_plain(q, k, v, scale, dropout_rate, dropout_seed)
+    raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")
