@@ -3,13 +3,18 @@
 
 Usage:
   python -m stcd_tpu_torch.cli.predict --image_a t1.png --image_b t2.png \\
-      --out change.png (--weights v6.pt | --init_seed 0) \\
+      --out change.png (--weights segcd.pt | --init_seed 0) \\
+      [--encoder resnet50 --decoder_channels 256,128,64,32,16] \\
+      [--net_G ChangeFormerV6] \\
       [--tile 256 --stride 128 --threshold 0.5 --prob_out probs.npy --bf16]
 
+The model is SegCD with ``--encoder`` and ``--decoder_channels`` unless
+``--net_G`` names a bespoke-zoo model, as in scripts/predict.py.
 ``--weights`` is a state_dict saved with ``torch.save`` under the original
 reference's names; ``--init_seed N`` builds seeded random weights instead.
-The change probability is the final scale's P(changed) = sum of the softmax
-classes 1..C-1.
+The change probability is the sigmoid of a 1-channel change logit (SegCD's
+third output), or for a multi-class head the final scale's P(changed) = sum
+of the softmax classes 1..C-1.
 """
 
 from __future__ import annotations
@@ -37,15 +42,20 @@ def build_model(args) -> torch.nn.Module:
     On a card, the model's f32 runs in full f32: cuDNN would otherwise run
     f32 convs in TF32, a 10-bit mantissa. ``--bf16`` is the reduced-precision
     route, and the only one."""
-    from stcd_tpu_torch.models.changeformer import init_weights
-    from stcd_tpu_torch.models.factory import define_G
-
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = define_G(args.net_G, n_class=args.n_class, embed_dim=args.embed_dim,
-                     device=device)
+    if args.net_G:
+        from stcd_tpu_torch.models.changeformer import init_weights
+        from stcd_tpu_torch.models.factory import define_G
+        model = define_G(args.net_G, n_class=args.n_class, embed_dim=args.embed_dim,
+                         device=device)
+    else:
+        from stcd_tpu_torch.models.segcd import SegCD, init_weights
+        dec = tuple(int(c) for c in args.decoder_channels.split(","))
+        model = SegCD(encoder_name=args.encoder, classes=1, decoder_channels=dec,
+                      device=device)
     if args.weights:
         sd = torch.load(args.weights, map_location=device, weights_only=True)
         model.load_state_dict(sd)
@@ -72,7 +82,7 @@ def make_base_fn(args, model: torch.nn.Module):
                else contextlib.nullcontext())
         with amp:
             preds = model(xa, xb)
-        if isinstance(preds, (list, tuple)):  # multi-scale: final only
+        if isinstance(preds, (list, tuple)):  # multi-scale: final only; SegCD: change
             preds = preds[-1]
         preds = preds.float().permute(0, 2, 3, 1)
         if preds.shape[-1] > 1:
@@ -85,13 +95,17 @@ def make_base_fn(args, model: torch.nn.Module):
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """Model and weight flags shared by predict and serve."""
-    p.add_argument("--net_G", default="ChangeFormerV6",
-                   help="define_G key; only ChangeFormerV6 is ported")
+    p.add_argument("--encoder", default="resnet50")
+    p.add_argument("--decoder_channels", default="256,128,64,32,16")
+    p.add_argument("--net_G", default=None,
+                   help="bespoke-zoo model key (models.factory.define_G; only "
+                        "ChangeFormerV6 is ported); overrides the SegCD default, "
+                        "--encoder and --decoder_channels are then ignored")
     p.add_argument("--weights", default=None,
                    help="state_dict .pt under the reference's names")
     p.add_argument("--init_seed", type=int, default=None,
                    help="seeded random weights instead of --weights")
-    p.add_argument("--n_class", type=int, default=2)
+    p.add_argument("--n_class", type=int, default=2, help="zoo head classes (with --net_G)")
     p.add_argument("--embed_dim", type=int, default=256,
                    help="decoder width (the published V6 width is 256)")
     p.add_argument("--tile", type=int, default=256)

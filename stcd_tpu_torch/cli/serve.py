@@ -7,7 +7,8 @@ micro-batching.
 
 Usage:
   python -m stcd_tpu_torch.cli.serve --init_seed 0 --port 8475 \\
-      [--weights v6.pt] [--batch 16 --tile 256 --max_wait_ms 5 --bf16]
+      [--weights segcd.pt] [--net_G ChangeFormerV6] \\
+      [--batch 16 --tile 256 --max_wait_ms 5 --bf16]
   curl -s localhost:8475/healthz
 """
 

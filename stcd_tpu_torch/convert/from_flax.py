@@ -1,11 +1,13 @@
-"""JAX variables -> the port's state_dict: the exact inverse of
+"""JAX variables -> the port's state_dict: the exact inverses of
 stcd_tpu/convert/torch_to_flax.py::convert_changeformer_v6 and
-_convert_mit_encoder (:458-493, :588-616).
+_convert_mit_encoder (:458-493, :588-616), and of convert_resnet,
+convert_unet_decoder and convert_unetseg (:39-70, :177-212).
 
 It takes the nested dicts of arrays that flax holds (numpy or anything
 ``np.asarray`` reads) and returns a flat state_dict of CPU tensors under the
 original reference's names, which ``ChangeFormerV6.load_state_dict`` takes
-with ``strict=True``. Each helper undoes one helper of the forward
+with ``strict=True`` (and so do UnetSeg, SegCD and FFCTLCD for
+``unetseg_from_flax``). Each helper undoes one helper of the forward
 converter.
 """
 
@@ -20,7 +22,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return torch.from_numpy(np.array(x, copy=True))  # JAX arrays are read-only views
 
 
 def _conv_w(k) -> torch.Tensor:
@@ -125,4 +127,57 @@ def changeformer_v6_from_flax(params: Dict[str, Any],
         _conv_b(sd, f"TDec_x2.{name}.0.conv1.conv2d", dec[name]["conv1"])
         _conv_b(sd, f"TDec_x2.{name}.0.conv2.conv2d", dec[name]["conv2"])
     _conv_b(sd, "TDec_x2.change_probability.conv2d", dec["change_probability"])
+    return sd
+
+
+def resnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                     prefix: str = "") -> StateDict:
+    """Inverse of convert_resnet: ResNetEncoder (params, batch_stats) ->
+    torchvision names under ``prefix`` (e.g. ``"encoder."``)."""
+    sd: StateDict = {}
+    sd[f"{prefix}conv1.weight"] = _conv_w(params["conv1"]["kernel"])
+    _bn(sd, f"{prefix}bn1", params["bn1"], stats["bn1"])
+    li = 1
+    while f"layer{li}" in params:
+        lp, ls = params[f"layer{li}"], stats[f"layer{li}"]
+        bi = 0
+        while f"block{bi}" in lp:
+            bp, bs = lp[f"block{bi}"], ls[f"block{bi}"]
+            base = f"{prefix}layer{li}.{bi}"
+            ci = 1
+            while f"conv{ci}" in bp:
+                sd[f"{base}.conv{ci}.weight"] = _conv_w(bp[f"conv{ci}"]["kernel"])
+                _bn(sd, f"{base}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+                ci += 1
+            if "downsample_conv" in bp:
+                sd[f"{base}.downsample.0.weight"] = _conv_w(bp["downsample_conv"]["kernel"])
+                _bn(sd, f"{base}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+            bi += 1
+        li += 1
+    return sd
+
+
+def unet_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                           prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_unet_decoder: ``block{i}/conv{1,2}/{conv,bn}`` ->
+    smp's ``{prefix}.blocks.{i}.conv{1,2}.{0,1}``."""
+    sd: StateDict = {}
+    i = 0
+    while f"block{i}" in params:
+        for cname in ("conv1", "conv2"):
+            p = params[f"block{i}"][cname]
+            base = f"{prefix}.blocks.{i}.{cname}"
+            _conv_b(sd, f"{base}.0", p["conv"])
+            if "bn" in p:
+                _bn(sd, f"{base}.1", p["bn"], stats[f"block{i}"][cname]["bn"])
+        i += 1
+    return sd
+
+
+def unetseg_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> StateDict:
+    """JAX UnetSeg / SegCD / FFCTLCD (params, batch_stats) -> the port's
+    state_dict; ``convert_unetseg`` of the result gives the inputs back."""
+    sd = resnet_from_flax(params["encoder"], batch_stats["encoder"], "encoder.")
+    sd.update(unet_decoder_from_flax(params["decoder"], batch_stats["decoder"]))
+    _conv_b(sd, "segmentation_head.0", params["segmentation_head"]["conv"])
     return sd

@@ -1,0 +1,147 @@
+"""ResNet encoder with the smp stage contract (counterpart of
+stcd_tpu/encoders/resnet.py). NCHW; state_dict names are torchvision's
+(``conv1``, ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0/.1``), so
+ImageNet checkpoints of torchvision load as they are.
+
+``forward(x)`` returns the 6-level pyramid
+[x, conv1-bn-relu (/2), maxpool+layer1 (/4), layer2 (/8), layer3 (/16),
+layer4 (/32)]. BatchNorm is the port's own (``layers/norm.py``): momentum
+0.9 in flax's sense, eps 1e-5, biased running variance, as the JAX encoder.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stcd_tpu_torch.layers.norm import BatchNorm
+
+
+def _downsample(in_c: int, out_c: int, stride: int, device) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Conv2d(in_c, out_c, 1, stride=stride, bias=False, device=device),
+        BatchNorm(out_c, device=device))
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (stcd_tpu/encoders/resnet.py:36-79). It does not
+    dilate: like the reference's local copy it clamps the dilation to 1, so
+    ``replace_stride_with_dilation`` on resnet18/34 only turns strides into 1."""
+
+    expansion = 1
+
+    def __init__(self, in_c: int, features: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False, device=None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_c, features, 3, stride=stride, padding=1, bias=False,
+                               device=device)
+        self.bn1 = BatchNorm(features, device=device)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False, device=device)
+        self.bn2 = BatchNorm(features, device=device)
+        self.downsample = _downsample(in_c, features, stride, device) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return torch.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    """1x1, 3x3, 1x1 with the stride on the 3x3 conv (torchvision v1.5;
+    stcd_tpu/encoders/resnet.py:82-132)."""
+
+    expansion = 4
+
+    def __init__(self, in_c: int, features: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False, device=None):
+        super().__init__()
+        out_c = features * self.expansion
+        self.conv1 = nn.Conv2d(in_c, features, 1, bias=False, device=device)
+        self.bn1 = BatchNorm(features, device=device)
+        self.conv2 = nn.Conv2d(features, features, 3, stride=stride, padding=dilation,
+                               dilation=dilation, bias=False, device=device)
+        self.bn2 = BatchNorm(features, device=device)
+        self.conv3 = nn.Conv2d(features, out_c, 1, bias=False, device=device)
+        self.bn3 = BatchNorm(out_c, device=device)
+        self.downsample = _downsample(in_c, out_c, stride, device) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return torch.relu(out + identity)
+
+
+RESNET_CFGS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+}
+
+
+def resnet_out_channels(name: str) -> Tuple[int, ...]:
+    e = RESNET_CFGS[name][0].expansion
+    return (3, 64, 64 * e, 128 * e, 256 * e, 512 * e)
+
+
+def _make_layer(block, in_c: int, features: int, blocks: int, stride: int, dilation: int,
+                prev_dilation: int, device) -> nn.Sequential:
+    """One stage: the first block may downsample and takes the previous
+    stage's dilation (stcd_tpu/encoders/resnet.py:166-211)."""
+    out_c = features * block.expansion
+    layers = [block(in_c, features, stride=stride, dilation=prev_dilation,
+                    downsample=(stride != 1 or in_c != out_c), device=device)]
+    layers += [block(out_c, features, dilation=dilation, device=device)
+               for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
+class ResNetEncoder(nn.Module):
+    """smp-contract ResNet encoder (stcd_tpu/encoders/resnet.py:214-281).
+
+    ``replace_stride_with_dilation``: a True entry turns the stride of
+    layer2, layer3 or layer4 into dilation, as torchvision does."""
+
+    def __init__(self, arch: str = "resnet50", depth: int = 5,
+                 replace_stride_with_dilation: Sequence[bool] = (False, False, False),
+                 device=None):
+        super().__init__()
+        block, layers = RESNET_CFGS[arch]
+        self.depth = depth
+        self.out_channels = resnet_out_channels(arch)[:depth + 1]
+        if depth >= 1:
+            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, device=device)
+            self.bn1 = BatchNorm(64, device=device)
+        if depth >= 2:
+            self.layer1 = _make_layer(block, 64, 64, layers[0], 1, 1, 1, device)
+        in_c, dilation = 64 * block.expansion, 1
+        for i, replace in enumerate(replace_stride_with_dilation):
+            prev_dilation = dilation
+            stride = 2
+            if replace:
+                dilation *= 2
+                stride = 1
+            if depth >= 3 + i:
+                features = 128 * 2 ** i
+                setattr(self, f"layer{2 + i}",
+                        _make_layer(block, in_c, features, layers[1 + i], stride, dilation,
+                                    prev_dilation, device))
+                in_c = features * block.expansion
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        features = [x]
+        if self.depth >= 1:
+            x = torch.relu(self.bn1(self.conv1(x)))
+            features.append(x)
+        if self.depth >= 2:
+            x = self.layer1(F.max_pool2d(x, 3, stride=2, padding=1))
+            features.append(x)
+        for i in range(2, self.depth):
+            x = getattr(self, f"layer{i}")(x)
+            features.append(x)
+        return features

@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels at first use and loads them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds) under
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) under
 ``build/stcd_tpu_torch/`` beside the package. The library's file name carries
 a hash of the sources and flags, so an edited source builds anew and an
 unchanged one loads the library already there. A file lock keeps concurrent
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stcd_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -38,6 +39,18 @@ def _nvcc() -> str:
         return cand
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
                        " the CUDA kernels of stcd_tpu_torch cannot be built")
+
+
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all, raise for the first that
+    failed with its output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{output}")
 
 
 def library_path() -> Path:
@@ -61,14 +74,18 @@ def build() -> Path:
             if so.exists():  # another process built it while we waited
                 return so
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
+            nvcc = _nvcc()
+            objs = {src: tmp.with_suffix(f".{src.stem}.o")
+                    for src in sorted(CSRC.glob("*.cu"))}
+            try:
+                _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in objs.items()])
+                _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *[str(obj) for obj in objs.values()]]])
+                os.replace(tmp, so)
+            finally:
+                for path in (tmp, *objs.values()):
+                    path.unlink(missing_ok=True)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return so
@@ -82,6 +99,8 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, f, i, u, u,
                                              f, i, p]
     lib.stcd_cross_attention_fwd.restype = i
+    lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.stcd_augment_fwd.restype = i
     lib.stcd_cuda_error_string.argtypes = [i]
     lib.stcd_cuda_error_string.restype = ctypes.c_char_p
     return lib

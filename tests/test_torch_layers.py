@@ -82,3 +82,32 @@ def test_eval_preprocess_matches_jax(dtype):
     got = eval_preprocess(torch.from_numpy(x)).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_batchnorm_train_gradients_match_jax(seed):
+    """Autograd through the port's BatchNorm (var = E[x^2] - E[x]^2 clamped,
+    x * w + b) gives JAX's gradients for the input, the scale and the bias;
+    the in-place running update sits under no_grad and does not disturb it."""
+    import jax
+
+    x, bn, variables = _bn_case(seed)
+    g = np.random.default_rng(seed + 10).standard_normal(x.shape).astype(np.float32)
+
+    def loss(params, xj):
+        y, _ = JaxBatchNorm(use_running_average=False, momentum=0.9).apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, xj,
+            mutable=["batch_stats"])
+        return jnp.sum(y * jnp.asarray(g)) + jnp.sum(y ** 2)
+
+    want_p, want_x = jax.grad(loss, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    xt = _nchw(x).requires_grad_()
+    y = bn.train()(xt)
+    ((y * _nchw(g)).sum() + (y ** 2).sum()).backward()
+    np.testing.assert_allclose(xt.grad.numpy().transpose(0, 2, 3, 1), np.asarray(want_x),
+                               atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(bn.weight.grad.numpy(), np.asarray(want_p["scale"]),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), np.asarray(want_p["bias"]),
+                               atol=1e-4, rtol=1e-5)
+    assert not bn.running_mean.requires_grad and int(bn.num_batches_tracked) == 1

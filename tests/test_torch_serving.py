@@ -31,6 +31,10 @@ from stcd_tpu_torch.models.changeformer import ChangeFormerV6
 from stcd_tpu_torch.models.factory import define_G
 from stcd_tpu_torch.serving.server import BatchingEngine, serve
 
+from stcd_tpu.models.segcd import SegCD as JaxSegCD
+from stcd_tpu_torch.convert.from_flax import unetseg_from_flax
+from stcd_tpu_torch.models.segcd import SegCD
+
 from test_torch_changeformer import NARROW, NARROW_EMBED, JaxNarrowV6, _perturb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,6 +77,70 @@ def test_engine_with_port_model_matches_jax_engine():
     assert got.shape == (96, 80, 1)
     assert stats["tiles"] == 4 and stats["batches"] >= 2 and stats["errors"] == 0
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_engine_with_port_segcd_matches_jax_engine():
+    """SegCD returns (mask_t1, mask_t2, change): the predict function takes
+    the change logit's sigmoid, as scripts/predict.py does."""
+    a, b = _scene(1)
+    dec = (32, 24, 16, 12, 8)
+    model = JaxSegCD(encoder_name="resnet18", classes=1, decoder_channels=dec)
+    z = jnp.zeros((1, 64, 64, 3))
+    variables = _perturb(jax.jit(model.init)(jax.random.PRNGKey(0), z, z), seed=6)
+
+    @jax.jit
+    def jax_fn(ta, tb):
+        _, _, diff = model.apply(variables, jax_eval_preprocess(ta), jax_eval_preprocess(tb))
+        return jax.nn.sigmoid(diff.astype(jnp.float32))
+
+    engine = JaxBatchingEngine(jax_fn, tile=64, stride=32, batch=2)
+    try:
+        want = engine.predict_pair(a, b)
+    finally:
+        engine.close()
+
+    port = SegCD("resnet18", decoder_channels=dec, classes=1)
+    port.load_state_dict(unetseg_from_flax(variables["params"], variables["batch_stats"]))
+    fn = cli_predict.make_base_fn(argparse.Namespace(bf16=False), port.eval())
+    engine = BatchingEngine(fn, tile=64, stride=32, batch=2, device="cpu")
+    try:
+        got = engine.predict_pair(a, b)
+        stats = engine.stats_snapshot()
+    finally:
+        engine.close()
+    assert got.shape == (96, 80, 1) and stats["errors"] == 0
+    assert got.min() >= 0 and got.max() <= 1
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_predict_cli_defaults_to_segcd(tmp_path):
+    """Without --net_G the model is SegCD with --encoder and
+    --decoder_channels, from seeded weights or a saved state_dict."""
+    parser = argparse.ArgumentParser()
+    cli_predict.add_model_args(parser)
+    args = parser.parse_args(["--init_seed", "0", "--device", "cpu"])
+    assert args.net_G is None and args.encoder == "resnet50"
+    assert args.decoder_channels == "256,128,64,32,16"
+    a, b = _scene(5, 64, 64)
+    Image.fromarray((a * 255).astype(np.uint8)).save(tmp_path / "a.png")
+    Image.fromarray((b * 255).astype(np.uint8)).save(tmp_path / "b.png")
+    common = ["--image_a", str(tmp_path / "a.png"), "--image_b", str(tmp_path / "b.png"),
+              "--encoder", "resnet18", "--decoder_channels", "32,24,16,12,8",
+              "--device", "cpu", "--tile", "64", "--batch", "1"]
+    cli_predict.main(common + ["--init_seed", "0", "--prob_out", str(tmp_path / "p.npy"),
+                               "--out", str(tmp_path / "mask.png")])
+    probs = np.load(tmp_path / "p.npy")
+    assert probs.shape == (64, 64, 1) and np.isfinite(probs).all()
+    assert probs.min() >= 0 and probs.max() <= 1
+    args = parser.parse_args(["--init_seed", "0", "--device", "cpu", "--encoder", "resnet18",
+                              "--decoder_channels", "32,24,16,12,8"])
+    model = cli_predict.build_model(args)
+    assert isinstance(model, SegCD) and not model.training
+    torch.save(model.state_dict(), tmp_path / "segcd.pt")
+    cli_predict.main(common + ["--weights", str(tmp_path / "segcd.pt"),
+                               "--prob_out", str(tmp_path / "p2.npy"),
+                               "--out", str(tmp_path / "mask2.png")])
+    np.testing.assert_array_equal(np.load(tmp_path / "p2.npy"), probs)
 
 
 def _toy_fn(a, b):
@@ -148,7 +216,8 @@ def test_serve_cli_end_to_end():
         port = s.getsockname()[1]
     proc = subprocess.Popen(
         [sys.executable, "-m", "stcd_tpu_torch.cli.serve", "--device", "cpu",
-         "--batch", "2", "--tile", "64", "--init_seed", "0", "--port", str(port)],
+         "--net_G", "ChangeFormerV6", "--batch", "2", "--tile", "64", "--init_seed", "0",
+         "--port", str(port)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     url = f"http://127.0.0.1:{port}"
     try:
@@ -181,7 +250,8 @@ def test_predict_cli_writes_mask_and_probs(tmp_path):
     Image.fromarray((a * 255).astype(np.uint8)).save(tmp_path / "a.png")
     Image.fromarray((b * 255).astype(np.uint8)).save(tmp_path / "b.png")
     common = ["--image_a", str(tmp_path / "a.png"), "--image_b", str(tmp_path / "b.png"),
-              "--device", "cpu", "--tile", "64", "--stride", "48", "--batch", "2"]
+              "--net_G", "ChangeFormerV6", "--device", "cpu", "--tile", "64",
+              "--stride", "48", "--batch", "2"]
     cli_predict.main(common + ["--init_seed", "0", "--prob_out", str(tmp_path / "p.npy"),
                                "--out", str(tmp_path / "out" / "mask.png")])
     probs = np.load(tmp_path / "p.npy")

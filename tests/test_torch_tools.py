@@ -36,3 +36,24 @@ def test_plain_attention_swaps_and_restores_the_sra_call():
             torch.testing.assert_close(out, attention.attention_plain(q, k, v, 8 ** -0.5))
             raise KeyError("restored on the way out")
     assert changeformer.cross_attention is attention.cross_attention
+
+
+def test_seeded_cd_batch_is_fixed_by_its_seed():
+    from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
+
+    one, two = (seeded_cd_batch(3, 16, seed=1, device="cpu") for _ in range(2))
+    assert one["A"].shape == one["B"].shape == (3, 16, 16, 3)
+    assert one["A"].dtype == torch.uint8 and one["label"].shape == (3, 16, 16, 1)
+    assert all(torch.equal(one[k], two[k]) for k in one)
+    assert not torch.equal(one["A"], one["B"])
+    assert 0.1 < one["label"].mean().item() < 0.3
+    assert not torch.equal(one["A"], seeded_cd_batch(3, 16, seed=2, device="cpu")["A"])
+
+
+@pytest.mark.parametrize("mode", ["serve", "train"])
+def test_profile_step_needs_a_card(mode, monkeypatch):
+    from stcd_tpu_torch.tools import profile_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_step.main(["--mode", mode])
