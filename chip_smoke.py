@@ -16,6 +16,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    augmentation kernel against its plain version at the train step's shape
    (128 images of 256x256, uint8 and float32), with every gate on, every
    gate off, a ragged size, and the contrast op first, in the middle and last.
+   Then the attention backward kernel against autograd through the plain
+   version at the four SRA shapes of the V6 train step (batch 8 at 512x512,
+   M = 256) and at BIT's decoder shape (M = 4), f32 and bf16, dropout 0 and
+   0.1, two runs bit-identical, with the backward of
+   F.scaled_dot_product_attention as the yardstick; the forward kernel is
+   held against the plain version at these shapes too (output and the rows'
+   log-sum-exp) and timed. Then the bn_stats kernel against its plain
+   version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
+   f32, two runs bit-identical, its VJP against autograd, with
+   torch.batch_norm_stats as the yardstick.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -30,6 +40,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    draws: the same loss and counts.
 6. SegCD serving: one round of 512x512 requests through the engine with the
    full-width SegCD.
+7. ChangeFormerV6 training: CDTrainer.train_step at full width (embed 256),
+   512x512 pairs, batch 8, bf16 autocast, AdamW 1e-4, multi-scale
+   cross-entropy, dropout live, seeded weights and data. Checks a finite
+   falling loss and 13 forward and 13 backward attention launches a step; then
+   one fp32 step with the kernels and one with the plain attention from one
+   seed: the same loss.
+8. BIT training: base_transformer_pos_s4_dd8 with the TrainerConfig defaults
+   (sgd, lr 0.01), 256x256 pairs, batch 32, fp32: the same checks with 16
+   forward and 16 backward launches a step.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -38,6 +57,7 @@ before it lists the kernels with their launches, errors, times and bounds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -56,6 +76,21 @@ SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls per encoder stage
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 64, 3, 10
 STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernel against plain augmentation
 STEP_CM_PIXELS = 64  # of 8 x 256 x 256: pixels whose probability sits at the threshold
+# backward, max |kernel - plain| <= atol * max(1, max |plain|) on dq, dk, dv: dk and dv
+# are sums over up to 16384 rows and reach 100 at BIT's shape, so the bound scales
+BWD_F32_ATOL = 2e-5  # summation order of the products and of the sum over Q tiles
+BWD_BF16_ATOL = 2e-2  # bf16 roundings of g, of the saved output and of the result
+# the forward at the training shapes, max |kernel - plain| <= F32_ATOL or BF16_ATOL times
+# max(1, max |plain|): over M = 4 keys an output reaches 4, where one bf16 ulp is 1.6e-2
+LSE_ATOL = 2e-5  # rows' log-sum-exp (about 6, f32 whatever the inputs) against torch.logsumexp
+BN_REL_TOL = 1e-5  # bn_stats against a float64 sum, relative to max(1, |sum|)
+V6_TRAIN = dict(batch=8, size=512, warm=2, steps=10, launches=13)
+BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16)
+ATTN_STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernels against plain attention
+BIT_SHAPE = (32, 8, 4096, 4, 64)  # (B, H, N, M, D) of one decoder block at batch 32
+BIT_SCALE = 32 ** -0.5  # BIT scales by the model dim, not the head dim
+BN_SHAPES = ((128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512),
+             (128, 16, 16, 1024), (128, 256, 256, 16), (128, 128, 128, 32))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -242,6 +277,288 @@ def phase_augment_kernel(torch):
         if main is None:
             main = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound, "bound_by": by}
     return {**main, "max_abs_err": max_err}
+
+
+def attention_bwd_bound_ms(shape, itemsize: int) -> tuple:
+    """(bound_ms, bound_by) of one attention backward: q, k, v, g read and
+    dq, dk, dv written once over the memory rate, against five products
+    (10 N M D) and the softmax and its transpose (8 N M) over the f32 rate of
+    the CUDA cores."""
+    b, h, n, m, d = shape
+    nbytes = b * h * (3 * n + 4 * m) * d * itemsize
+    ops = b * h * n * m * (10 * d + 8)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_attention_backward(torch, attention):
+    """The backward kernel against autograd through the plain version, and the
+    forward kernel at the training shapes: its output against the plain
+    version, its log-sum-exp against torch.logsumexp of the plain scores, and
+    its times. ``fwd_max_abs_err`` in the result is the forward's."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    v6 = sra_shapes(V6_TRAIN["batch"], V6_TRAIN["size"])
+    cases = [(shape, None) for shape in v6] + [(BIT_SHAPE, BIT_SCALE)]
+    max_err = fwd_max_err = 0.0
+    table = {}
+    for (b, h, n, m, d), scale in cases:
+        scale = d ** -0.5 if scale is None else scale
+        for dtype, atol, fwd_atol in ((torch.float32, BWD_F32_ATOL, F32_ATOL),
+                                      (torch.bfloat16, BWD_BF16_ATOL, BF16_ATOL)):
+            q, k, v, g = (torch.randn(b, h, rows, d, generator=gen).to("cuda", dtype)
+                          for rows in (n, m, m, n))
+            name = str(dtype).replace("torch.", "")
+            for rate in (0.0, 0.1):
+                seed = 4321 if rate else None
+
+                def graph(impl):
+                    leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+                    out = attention.cross_attention(*leaves, scale=scale, dropout_rate=rate,
+                                                    dropout_seed=seed, impl=impl)
+                    return out, leaves
+
+                def run(impl):
+                    out, leaves = graph(impl)
+                    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+                (out, got), (_, again), (out_plain, want) = (run("kernel"), run("kernel"),
+                                                             run("plain"))
+                # the forward kernel at this shape: its output and the rows' log-sum-exp
+                # that it hands to the backward
+                _, lse = attention.launch_forward(q, k, v, scale, rate, seed, want_lse=True)
+                lse_plain = torch.logsumexp(torch.einsum(
+                    "bhnd,bhmd->bhnm", q.float(), k.float()) * scale, dim=-1)
+                torch.cuda.synchronize()
+                require(out.dtype == dtype and out.shape == q.shape,
+                        f"forward output {out.dtype} {tuple(out.shape)}")
+                fwd_err = (out.float() - out_plain.float()).abs().max().item()
+                fwd_bound = fwd_atol * max(1.0, out_plain.float().abs().max().item())
+                require(fwd_err <= fwd_bound, f"forward disagrees with plain by {fwd_err} > "
+                        f"{fwd_bound} at {(b, h, n, m, d)} {name} dropout={rate}")
+                lse_err = (lse - lse_plain).abs().max().item()
+                require(lse.shape == (b, h, n) and lse_err <= LSE_ATOL,
+                        f"log-sum-exp disagrees with torch.logsumexp by {lse_err} > "
+                        f"{LSE_ATOL} at {(b, h, n, m, d)} {name}")
+                fwd_max_err = max(fwd_max_err, fwd_err, lse_err)
+                del out, out_plain, lse, lse_plain
+                for which, a, c, w in zip(("dq", "dk", "dv"), got, again, want):
+                    require(a.dtype == dtype and a.shape == w.shape,
+                            f"{which} is {a.dtype} {tuple(a.shape)}")
+                    require(bool(torch.equal(a, c)), f"{which}: two backward runs differ")
+                    err = (a.float() - w.float()).abs().max().item()
+                    bound = atol * max(1.0, w.float().abs().max().item())
+                    require(err <= bound, f"{which} disagrees with autograd through the "
+                            f"plain version by {err} > {bound} at {(b, h, n, m, d)} {name}")
+                    max_err = max(max_err, err)
+                errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+                times = {}
+                for impl in ("kernel", "plain"):
+                    out, leaves = graph(impl)
+                    times[impl] = time_ms(lambda: torch.autograd.grad(
+                        out, leaves, g, retain_graph=True), runs=10)
+                    del out, leaves
+                t_fwd = time_ms(lambda: attention.cross_attention(
+                    q, k, v, scale=scale, dropout_rate=rate, dropout_seed=seed), runs=10)
+                print(f"attention backward (B,H,N,M,D)={(b, h, n, m, d)} {name} "
+                      f"dropout={rate}: max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                      f"{errs[2]:.3e} (atol {atol} x max(1, max|plain|)), two runs "
+                      f"identical; forward output {fwd_err:.3e} (atol {fwd_atol} x "
+                      f"max(1, max|plain|)), log-sum-exp {lse_err:.3e} (atol {LSE_ATOL}); "
+                      f"kernel {times['kernel']:.4f} ms plain "
+                      f"{times['plain']:.4f} ms; forward kernel {t_fwd:.4f} ms", flush=True)
+                row = {"ms": times["kernel"], "plain_ms": times["plain"], "fwd_ms": t_fwd}
+                if rate == 0.0:
+                    # the one PyTorch call for the same function: a yardstick
+                    # timed here, never on the port's path
+                    leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+                    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                        out, leaves, g, retain_graph=True), runs=10)
+                    t_plain_fwd = time_ms(lambda: attention.cross_attention(
+                        q, k, v, scale=scale, impl="plain"), runs=10)
+                    t_sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=scale), runs=10)
+                    del out, leaves
+                    bound, by = attention_bwd_bound_ms((b, h, n, m, d), q.element_size())
+                    fbound, fby = attention_bound_ms((b, h, n, m, d), q.element_size())
+                    row.update(bound_ms=bound, bound_by=by)
+                    print(f"attention backward (B,H,N,M,D)={(b, h, n, m, d)} {name}: "
+                          f"backward of F.scaled_dot_product_attention "
+                          f"{row['library_ms']:.4f} ms; bound {bound:.4f} ms ({by}); "
+                          f"forward: plain {t_plain_fwd:.4f} ms, "
+                          f"F.scaled_dot_product_attention {t_sdpa_fwd:.4f} ms, bound "
+                          f"{fbound:.4f} ms ({fby})", flush=True)
+                table[((b, h, n, m, d), name, rate)] = row
+            del q, k, v, g
+            torch.cuda.empty_cache()
+
+    # one V6 train step is 3/3/4/3 backward launches in bf16 with dropout 0.1
+    def per_step(key, rate):
+        return sum(depth * table[(s, "bfloat16", rate)][key]
+                   for depth, s in zip(SRA_DEPTHS, v6))
+
+    kinds = {table[(s, "bfloat16", 0.0)]["bound_by"] for s in v6}
+    res = {"max_abs_err": max_err, "fwd_max_abs_err": fwd_max_err,
+           "ms": per_step("ms", 0.1),
+           "plain_ms": per_step("plain_ms", 0.1), "library_ms": per_step("library_ms", 0.0),
+           "bound_ms": per_step("bound_ms", 0.0),
+           "bound_by": kinds.pop() if len(kinds) == 1 else "operations"}
+    print(f"attention backward per V6 train step (13 launches, bf16, dropout 0.1): kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, backward of "
+          f"F.scaled_dot_product_attention (dropout 0) {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms; forward kernel {per_step('fwd_ms', 0.1):.4f} ms",
+          flush=True)
+    return res
+
+
+def phase_bn_stats(torch):
+    """The bn_stats kernel against its plain version and a float64 sum."""
+    from stcd_tpu_torch.ops.bn_stats import bn_stats, bn_stats_kernel
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    bn_stats_kernel.kernel_launches = 0
+    max_err = 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for shape in BN_SHAPES:
+        base = torch.randn(shape, generator=gen) * 2.0 + 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            x = base.to("cuda", dtype)
+            got, again, plain = bn_stats(x), bn_stats(x), bn_stats(x, impl="plain")
+            x64 = x.reshape(-1, shape[-1]).double()
+            want = (x64.sum(0), (x64 * x64).sum(0))
+            torch.cuda.synchronize()
+            errs = []
+            for a, c, w in zip(got, again, want):
+                require(a.dtype == torch.float32 and a.shape == (shape[-1],),
+                        f"bn_stats output {a.dtype} {tuple(a.shape)}")
+                require(bool(torch.equal(a, c)), f"bn_stats {shape}: two runs differ")
+                errs.append(((a.double() - w).abs() / w.abs().clamp_min(1.0)).max().item())
+            plain_err = max(((p.double() - w).abs() / w.abs().clamp_min(1.0)).max().item()
+                            for p, w in zip(plain, want))
+            del x64, want
+            t_kernel = time_ms(lambda: bn_stats(x))
+            t_plain = time_ms(lambda: bn_stats(x, impl="plain"))
+            # the one PyTorch call that computes BatchNorm's statistics: a yardstick
+            nchw = x.permute(0, 3, 1, 2)
+            t_lib = time_ms(lambda: torch.batch_norm_stats(nchw, 1e-5))
+            bound = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            name = str(dtype).replace("torch.", "")
+            print(f"bn_stats {shape} {name}: rel err against float64 sum {errs[0]:.3e} "
+                  f"sumsq {errs[1]:.3e} (tol {BN_REL_TOL}; plain {plain_err:.3e}), two runs "
+                  f"identical; kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms "
+                  f"torch.batch_norm_stats {t_lib:.4f} ms bound {bound:.4f} ms (bytes)",
+                  flush=True)
+            require(max(errs) <= BN_REL_TOL, f"bn_stats is off by {max(errs)} at {shape}")
+            max_err = max(max_err, *errs)
+            if dtype == torch.bfloat16:  # what a bf16 SegCD step would hand it
+                for key, t in (("ms", t_kernel), ("plain_ms", t_plain),
+                               ("library_ms", t_lib), ("bound_ms", bound)):
+                    total[key] += t
+            del x
+        torch.cuda.empty_cache()
+
+    # the VJP, dx = g_sum + 2 x g_sumsq, against autograd through the plain version
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -7)):
+        x = (torch.randn(BN_SHAPES[2], generator=gen)).to("cuda", dtype)
+        w1, w2 = (torch.randn(x.shape[-1], generator=gen).to("cuda") for _ in range(2))
+        dx = []
+        for impl in ("kernel", "plain"):
+            leaf = x.clone().requires_grad_()
+            s1, s2 = bn_stats(leaf, impl=impl)
+            dx.append(torch.autograd.grad((s1 * w1).sum() + (s2 * w2).sum(), leaf)[0])
+        err = ((dx[0].float() - dx[1].float()).abs()
+               / dx[1].float().abs().clamp_min(1.0)).max().item()
+        print(f"bn_stats VJP {BN_SHAPES[2]} {str(dtype).replace('torch.', '')}: rel err "
+              f"against autograd of the plain version {err:.3e} (tol {tol:.1e})", flush=True)
+        require(dx[0].dtype == dtype and err <= tol, f"bn_stats VJP is off by {err}")
+    launches = bn_stats_kernel.kernel_launches
+    print(f"bn_stats over the six SegCD-r50 shapes in bf16: kernel {total['ms']:.4f} ms, "
+          f"plain {total['plain_ms']:.4f} ms, torch.batch_norm_stats "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms; {launches} "
+          f"launches in this phase (a standalone op: no model calls it)", flush=True)
+    return {**total, "max_abs_err": max_err, "bound_by": "bytes", "launches": launches,
+            "path": "standalone"}
+
+
+def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
+    """CDTrainer.train_step at full width: timed steps on one fixed batch, the
+    attention launches counted, then one fp32 step with the kernels against
+    one with the plain attention. Returns (forward, backward) launches."""
+    from stcd_tpu_torch.tools.profile_step import plain_attention, trainer_setup
+
+    kernel = attention.cross_attention_kernel
+    trainer, state, batch = trainer_setup(net_G)
+    cfg = trainer.cfg
+    require(cfg.batch_size == plan["batch"] and cfg.img_size == plan["size"],
+            f"{net_G} setup is {cfg.batch_size} x {cfg.img_size}")
+    n_steps = plan["warm"] + plan["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.kernel_launches = kernel.backward_launches = 0
+    outs, events = [], []
+    for _ in range(n_steps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        outs.append(trainer.train_step(state, *batch))
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    fwd, bwd = kernel.kernel_launches, kernel.backward_launches
+    losses = [float(loss) for loss, _ in outs]
+    pixels = cfg.batch_size * cfg.img_size ** 2
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"{net_G}: non-finite loss: {losses}")
+    require(sum(losses[-3:]) / 3 < losses[0],
+            f"{net_G}: the loss did not fall on a fixed batch: {losses}")
+    for _, cm in outs:
+        require(int(cm.sum()) == pixels, f"confusion counts sum to {int(cm.sum())}")
+    require(state.step == n_steps, f"{state.step} updates for {n_steps} steps")
+    require(fwd == plan["launches"] * n_steps and bwd == plan["launches"] * n_steps,
+            f"{net_G}: {fwd} forward and {bwd} backward attention launches in {n_steps} "
+            f"steps, expected {plan['launches']} each a step")
+    times = sorted(e0.elapsed_time(e1) for e0, e1 in events[plan["warm"]:])
+    step_ms = times[len(times) // 2]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    precision = "bf16 autocast" if state.bf16 else "fp32 with TF32 off"
+    print(f"training: {net_G}, batch {cfg.batch_size}, {cfg.img_size}x{cfg.img_size}, "
+          f"{precision}, {cfg.optimizer} lr {cfg.lr}, loss {cfg.loss}"
+          f"{' multi-scale' if cfg.multi_scale_train else ''}, {n_steps} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; attention launches {fwd} forward and "
+          f"{bwd} backward = {plan['launches']} x {n_steps} each", flush=True)
+    print(f"training {net_G} on {gpu_label} (a smoke reading, median of {plan['steps']} "
+          f"steps by CUDA events): step {step_ms:.3f} ms; "
+          f"{cfg.batch_size / step_ms * 1e3:.2f} pairs/s; peak device memory "
+          f"{peak_gib:.2f} GiB", flush=True)
+    del state, outs, trainer, batch
+    torch.cuda.empty_cache()
+
+    # one fp32 step (TF32 is off) from the same weights, batch and generator seed,
+    # with the kernels and with the plain attention under autograd
+    got = {}
+    for impl in ("kernel", "plain"):
+        trainer, state, batch = trainer_setup(net_G, batch_size=fp32_batch,
+                                              dtype=torch.float32)
+        before = kernel.kernel_launches + kernel.backward_launches
+        with plain_attention() if impl == "plain" else contextlib.nullcontext():
+            loss, cm = trainer.train_step(state, *batch)
+        got[impl] = (float(loss), cm.cpu(),
+                     kernel.kernel_launches + kernel.backward_launches - before)
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    require(got["kernel"][2] == 2 * plan["launches"] and got["plain"][2] == 0,
+            f"{net_G} fp32 step: {got['kernel'][2]} kernel launches with the kernels and "
+            f"{got['plain'][2]} with the plain attention")
+    d_loss = abs(got["kernel"][0] - got["plain"][0])
+    d_cm = int((got["kernel"][1] - got["plain"][1]).abs().sum()) // 2
+    print(f"one fp32 {net_G} train step at batch {fp32_batch}, kernels against plain "
+          f"attention: loss {got['kernel'][0]:.6f} vs {got['plain'][0]:.6f} "
+          f"(|d|={d_loss:.2e}, atol {ATTN_STEP_LOSS_ATOL}); confusion counts differ in "
+          f"{d_cm} pixels (at most {STEP_CM_PIXELS})", flush=True)
+    require(d_loss <= ATTN_STEP_LOSS_ATOL, f"{net_G}: step losses differ by {d_loss}")
+    require(d_cm <= STEP_CM_PIXELS, f"{net_G}: confusion counts differ in {d_cm} pixels")
+    return fwd, bwd
 
 
 def drive(engine, scenes):
@@ -500,9 +817,12 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     attn = phase_kernels(torch, attention)
     aug = phase_augment_kernel(torch)
+    attn_bwd = phase_attention_backward(torch, attention)
+    attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"])
+    bn = phase_bn_stats(torch)
 
     # phase 4: serving
-    attn["launches"] = phase_serving(torch, np, attention, gpu_label)
+    serving_launches = phase_serving(torch, np, attention, gpu_label)
 
     # phase 5: training
     aug["launches"] = phase_training(torch, augment.apply_augment_kernel, gpu_label)
@@ -511,15 +831,36 @@ def main() -> int:
     # phase 6: SegCD serving
     phase_segcd_serving(torch, np)
 
+    # phases 7 and 8: the trainer's step for ChangeFormerV6 and for BIT
+    v6_fwd, v6_bwd = phase_trainer(torch, attention, gpu_label, "ChangeFormerV6",
+                                   V6_TRAIN, fp32_batch=2)
+    bit_fwd, bit_bwd = phase_trainer(torch, attention, gpu_label,
+                                     "base_transformer_pos_s4_dd8", BIT_TRAIN, fp32_batch=8)
+    # every path's count was taken from 0 just before it and read just after
+    attn["launches"] = serving_launches + v6_fwd + bit_fwd
+    attn["launches_by_path"] = {"v6_serving": serving_launches, "v6_training": v6_fwd,
+                                "bit_training": bit_fwd}
+    attn_bwd["launches"] = v6_bwd + bit_bwd
+    attn_bwd["launches_by_path"] = {"v6_training": v6_bwd, "bit_training": bit_bwd}
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
         {"name": "cross_attention", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/cross_attention.cu",
-         "replaces": "stcd_tpu/ops/attention.py:77", **{k: attn[k] for k in keys}},
+         "replaces": "stcd_tpu/ops/attention.py:77", **{k: attn[k] for k in keys},
+         "launches_by_path": attn["launches_by_path"]},
+        {"name": "cross_attention_bwd", "route": "cuda",
+         "source": "stcd_tpu_torch/ops/csrc/cross_attention_bwd.cu",
+         "replaces": "stcd_tpu/ops/attention.py:141", **{k: attn_bwd[k] for k in keys},
+         "launches_by_path": attn_bwd["launches_by_path"]},
         {"name": "augment", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/augment.cu",
          "replaces": "stcd_tpu/ops/augment_kernel.py:44", **{k: aug[k] for k in keys}},
+        {"name": "bn_stats", "route": "cuda",
+         "source": "stcd_tpu_torch/ops/csrc/bn_stats.cu",
+         "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},
+         "path": "standalone"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

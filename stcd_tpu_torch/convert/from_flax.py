@@ -1,7 +1,8 @@
 """JAX variables -> the port's state_dict: the exact inverses of
 stcd_tpu/convert/torch_to_flax.py::convert_changeformer_v6 and
 _convert_mit_encoder (:458-493, :588-616), and of convert_resnet,
-convert_unet_decoder and convert_unetseg (:39-70, :177-212).
+convert_unet_decoder and convert_unetseg (:39-70, :177-212), and of convert_bit
+(:365-436).
 
 It takes the nested dicts of arrays that flax holds (numpy or anything
 ``np.asarray`` reads) and returns a flat state_dict of CPU tensors under the
@@ -180,4 +181,46 @@ def unetseg_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> St
     sd = resnet_from_flax(params["encoder"], batch_stats["encoder"], "encoder.")
     sd.update(unet_decoder_from_flax(params["decoder"], batch_stats["decoder"]))
     _conv_b(sd, "segmentation_head.0", params["segmentation_head"]["conv"])
+    return sd
+
+
+def _bit_transformer_from_flax(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """Inverse of _bit_transformer (:374-401)."""
+    i = 0
+    while f"attn{i}" in p:
+        a, f = f"{prefix}.layers.{i}.0.fn", f"{prefix}.layers.{i}.1.fn"
+        _ln(sd, f"{a}.norm", p[f"norm_attn{i}"])
+        attn = p[f"attn{i}"]
+        for name in ("to_qkv", "to_q", "to_k", "to_v"):
+            if name in attn:
+                _linear(sd, f"{a}.fn.{name}", attn[name])
+        _linear(sd, f"{a}.fn.to_out.0", attn["to_out"])
+        _ln(sd, f"{f}.norm", p[f"norm_ff{i}"])
+        _linear(sd, f"{f}.fn.net.0", p[f"ff{i}"]["Dense_0"])
+        _linear(sd, f"{f}.fn.net.3", p[f"ff{i}"]["Dense_1"])
+        i += 1
+
+
+def bit_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> StateDict:
+    """JAX BASETransformer / ResNetCD (params, batch_stats) -> the port's
+    state_dict under the original BIT's names; ``convert_bit`` of the result
+    gives the inputs back."""
+    bb = params["backbone"]
+    sd = resnet_from_flax(bb["ResNetEncoder_0"],
+                          batch_stats["backbone"]["ResNetEncoder_0"], "resnet.")
+    _conv_b(sd, "conv_pred", bb["conv_pred"])
+    cls = params["classifier"]
+    sd["classifier.0.weight"] = _conv_w(cls["conv1"]["kernel"])
+    _bn(sd, "classifier.1", cls["bn"], batch_stats["classifier"]["bn"])
+    _conv_b(sd, "classifier.3", cls["conv2"])
+    if "conv_a" in params:
+        sd["conv_a.weight"] = _conv_w(params["conv_a"]["kernel"])
+    if "pos_embedding" in params:
+        sd["pos_embedding"] = _t(params["pos_embedding"])
+    if "pos_embedding_decoder" in params:  # (1, H, W, C) -> (1, C, H, W)
+        sd["pos_embedding_decoder"] = _t(np.transpose(
+            np.asarray(params["pos_embedding_decoder"]), (0, 3, 1, 2)))
+    for name in ("transformer", "transformer_decoder"):
+        if name in params:
+            _bit_transformer_from_flax(sd, name, params[name])
     return sd

@@ -11,7 +11,9 @@ reference; between stages and in the decoder they are NCHW.
 Numerics follow the JAX package: LayerNorm eps 1e-5 in the patch embeds and
 the SRA norm and 1e-6 in the blocks and stage norms; exact GELU; BatchNorm
 with the JAX semantics (``layers/norm.py``); the SRA product goes through
-``ops.attention.cross_attention`` (the CUDA kernel on a CUDA tensor).
+``ops.attention.cross_attention`` (the CUDA kernels on a CUDA tensor, in both
+directions). Train-mode randomness (dropout, DropPath, the attention mask's
+seeds) is drawn from one explicit generator: ``layers/stochastic.py``.
 """
 
 from __future__ import annotations
@@ -25,23 +27,8 @@ from torch import nn
 
 from stcd_tpu_torch.layers.modules import resize_bilinear
 from stcd_tpu_torch.layers.norm import BatchNorm
+from stcd_tpu_torch.layers.stochastic import Dropout, DropPath, Stochastic, draw_seed
 from stcd_tpu_torch.ops.attention import cross_attention
-
-
-class DropPath(nn.Module):
-    """Per-sample stochastic depth in training; identity in eval."""
-
-    def __init__(self, rate: float = 0.0):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x):
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
-                           dtype=x.dtype).bernoulli_(keep)
-        return x * mask / keep
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -82,16 +69,18 @@ class MixFFN(nn.Module):
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.dwconv = DWConv(hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x, h, w):
         x = F.gelu(self.dwconv(self.fc1(x), h, w))
         return self.drop(self.fc2(self.drop(x)))
 
 
-class SRAttention(nn.Module):
+class SRAttention(Stochastic):
     """Spatial-reduction attention (ref :298-358): queries from every token,
-    keys and values from an sr-strided conv + LayerNorm (eps 1e-5)."""
+    keys and values from an sr-strided conv + LayerNorm (eps 1e-5). In
+    training with ``attn_drop > 0`` each call draws one uint32 seed for the
+    attention kernel's hash mask from ``self.generator``, on the device."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = True, attn_drop: float = 0.0,
@@ -104,7 +93,7 @@ class SRAttention(nn.Module):
         self.q = nn.Linear(dim, dim, bias=qkv_bias, device=device)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
         if sr_ratio > 1:
             self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio, device=device)
             self.norm = nn.LayerNorm(dim, eps=1e-5, device=device)
@@ -121,7 +110,7 @@ class SRAttention(nn.Module):
         kv = self.kv(kv_in).reshape(b, -1, 2, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
         if self.training and self.attn_drop > 0.0:
-            seed = int(torch.randint(0, 2 ** 32, (1,), dtype=torch.int64))
+            seed = draw_seed(self.generator, x.device)
             rate = self.attn_drop
         else:
             seed, rate = None, 0.0
@@ -204,11 +193,11 @@ class ConvDiff(nn.Sequential):
             nn.Conv2d(in_channels, out_channels, 3, padding=1, device=device),
             nn.PReLU(1, 0.25, device=device),
             BatchNorm(out_channels, device=device),
-            nn.Dropout(0.6),
+            Dropout(0.6),
             nn.Conv2d(out_channels, out_channels, 3, padding=1, device=device),
             nn.PReLU(1, 0.25, device=device),
             BatchNorm(out_channels, device=device),
-            nn.Dropout(0.6))
+            Dropout(0.6))
 
 
 class MakePrediction(nn.Sequential):

@@ -1,7 +1,7 @@
 """Builds the package's CUDA kernels at first use and loads them with ctypes.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
-together, and the objects are linked into one shared library with a plain C
+together (a ``csrc/*.cuh`` is a header that sources share), and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
 ``build/stcd_tpu_torch/`` beside the package. The library's file name carries
 a hash of the sources and flags, so an edited source builds anew and an
@@ -56,7 +56,7 @@ def _run_all(cmds) -> None:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstcd_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -96,9 +96,15 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entries."""
     lib = ctypes.CDLL(str(build()))
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, f, i, u, u,
-                                             f, i, p]
+    ll = ctypes.c_longlong
+    lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, u, p,
+                                             u, f, i, p]
     lib.stcd_cross_attention_fwd.restype = i
+    lib.stcd_cross_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, i, f, i, u, p, u,
+                                                        f, i, p]
+    lib.stcd_cross_attention_bwd.restype = i
+    lib.stcd_bn_stats_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.stcd_bn_stats_fwd.restype = i
     lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.stcd_augment_fwd.restype = i
     lib.stcd_cuda_error_string.argtypes = [i]

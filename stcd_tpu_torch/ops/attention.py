@@ -7,9 +7,10 @@ the attention matrix after normalisation (inverted scaling). It dispatches
 on the tensor's device:
 
 - a CUDA tensor goes to the hand-written kernel ``csrc/cross_attention.cu``
-  (``cross_attention_kernel``), or the call raises: there is no fallback;
+  (``cross_attention_kernel``), or the call raises: there is no fallback.
+  Under autograd its gradient is the kernel ``csrc/cross_attention_bwd.cu``;
 - a CPU tensor goes to the plain PyTorch version ``attention_plain``, the
-  counterpart of the JAX ``_einsum_attention``.
+  counterpart of the JAX ``_einsum_attention``; its gradient is autograd's.
 
 The dropout decision is the stateless uint32 hash of ``dropout_keep_mask``
 on (seed, flattened b*H+h, global row, col). The JAX package, the plain
@@ -52,14 +53,22 @@ def _threshold(rate: float) -> int:
     return min(int(round(rate * 2 ** 32)), 2 ** 32 - 1)
 
 
+def _seed_u32(seed):
+    """The dropout seed as uint32 held in int64: a Python int, or a
+    one-element integer tensor (drawn on the device, never read on the host)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _M32
+    return int(seed) & _M32
+
+
 def dropout_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     """Keep iff hash(seed, bh, row, col) >= rate * 2^32 (stcd_tpu/ops/
-    attention.py:48-63). ``seed`` is an int; ``bh``, ``rows`` and ``cols``
-    are broadcastable integer tensors. uint32 arithmetic is done in int64
-    and masked to 32 bits after every multiply and add."""
-    seed = int(seed) & _M32
+    attention.py:48-63). ``seed`` is an int or a one-element integer tensor;
+    ``bh``, ``rows`` and ``cols`` are broadcastable integer tensors. uint32
+    arithmetic is done in int64 and masked to 32 bits after every multiply
+    and add."""
     bh = bh.to(torch.int64) & _M32
-    h = (seed + _mul32(bh, 0x9E3779B9)) & _M32
+    h = (_seed_u32(seed) + _mul32(bh, 0x9E3779B9)) & _M32
     h = (h + _mul32(rows.to(torch.int64) & _M32, 0x85EBCA6B)) & _M32
     h = (h + _mul32(cols.to(torch.int64) & _M32, 0xC2B2AE35)) & _M32
     h = _fmix32(_fmix32(h) ^ bh)
@@ -99,24 +108,13 @@ def attention_plain(q, k, v, scale: float, dropout_rate: float = 0.0,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# query rows per block of the backward, kBlockN in attention_common.cuh: it sizes the
+# scratch; the C entry gets the tile count and refuses one that is not its own
+BWD_BLOCK_N = 64
 
 
-def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
-                           dropout_seed=None) -> torch.Tensor:
-    """Launch ``csrc/cross_attention.cu`` on q's device and current stream.
-
-    Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
-    device, D <= 128; raises on anything else. ``kernel_launches`` counts
-    the launches.
-
-    The kernel is forward only: its output has no grad_fn. So the call
-    raises where autograd would record it, rather than cut the gradient to
-    q, k and v silently."""
+def _check_kernel_args(q, k, v, dropout_rate, dropout_seed):
     _check_args(q, k, v, dropout_rate, dropout_seed)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("cross_attention_kernel has no backward yet: call it "
-                           "under torch.no_grad() or torch.inference_mode()")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise RuntimeError("cross_attention_kernel needs CUDA tensors, got "
                            f"{q.device}, {k.device}, {v.device}")
@@ -133,22 +131,115 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
         raise ValueError(f"cross_attention_kernel supports D <= 128, got {d}")
     if n == 0 or m == 0 or b * h == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if isinstance(dropout_seed, torch.Tensor) and dropout_rate > 0.0 and not (
+            dropout_seed.device == q.device and dropout_seed.dtype == torch.int64
+            and dropout_seed.numel() == 1):
+        raise ValueError("a tensor dropout_seed must be one int64 on q's device, got "
+                         f"{dropout_seed.dtype} {tuple(dropout_seed.shape)} on "
+                         f"{dropout_seed.device}")
+
+
+def _dropout_args(dropout_rate, dropout_seed):
+    """(use_dropout, seed value, seed pointer, threshold, keep_scale) as the
+    C entries take them. A tensor seed is passed by pointer and read on the
+    device; an int seed by value."""
+    if dropout_rate <= 0.0:
+        return 0, 0, None, 0, 1.0
+    if isinstance(dropout_seed, torch.Tensor):
+        value, ptr = 0, dropout_seed.data_ptr()
+    else:
+        value, ptr = int(dropout_seed) & _M32, None
+    return 1, value, ptr, _threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
+
+
+def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
+    """One launch of the forward kernel on checked arguments: ``(out, lse)``,
+    where ``lse`` is the float32 (B, H, N) log-sum-exp of each row's scaled
+    scores, which the backward kernel reads, or None when not asked for."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
     lib = _build.load_library()
     out = torch.empty_like(q)
-    use_dropout = dropout_rate > 0.0
-    seed = int(dropout_seed) & _M32 if use_dropout else 0
-    threshold = _threshold(dropout_rate) if use_dropout else 0
-    keep_scale = 1.0 / (1.0 - dropout_rate)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_lse else None
+    use_dropout, seed, seed_ptr, threshold, keep_scale = _dropout_args(dropout_rate,
+                                                                       dropout_seed)
     err = lib.stcd_cross_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, m, d,
-        _DTYPE_CODE[q.dtype], float(scale), int(use_dropout), seed, threshold,
-        keep_scale, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if want_lse else None, b * h, n, m, d, _DTYPE_CODE[q.dtype],
+        float(scale), use_dropout, seed, seed_ptr, threshold, keep_scale, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "stcd_cross_attention_fwd")
     cross_attention_kernel.kernel_launches += 1
-    return out
+    return out, lse
+
+
+class _CrossAttentionFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel behind it. It saves q, k,
+    v, the output and the rows' log-sum-exp (the JAX side saves q, k, v and
+    the seed and rebuilds the rest): the backward kernel then needs one pass
+    over the keys. Under autocast q, k, v arrive in bfloat16 from the
+    projections and the incoming gradient has the output's dtype; it is cast
+    to q's dtype if it has not, and made contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed_tensor, scale, dropout_rate, int_seed):
+        seed = seed_tensor if seed_tensor is not None else int_seed
+        out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, True)
+        ctx.save_for_backward(q, k, v, out, lse, seed_tensor)
+        ctx.scale, ctx.dropout_rate, ctx.int_seed = scale, dropout_rate, int_seed
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse, seed_tensor = ctx.saved_tensors
+        seed = seed_tensor if seed_tensor is not None else ctx.int_seed
+        g = g.to(q.dtype).contiguous()
+        b, h, n, d = q.shape
+        m = k.shape[2]
+        tiles = (n + BWD_BLOCK_N - 1) // BWD_BLOCK_N
+        lib = _build.load_library()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # each block's share of dk and dv, summed in tile order by a second launch
+        dk_part = torch.empty((b * h, tiles, m, d), dtype=torch.float32, device=q.device)
+        dv_part = torch.empty_like(dk_part)
+        use_dropout, value, seed_ptr, threshold, keep_scale = _dropout_args(
+            ctx.dropout_rate, seed)
+        err = lib.stcd_cross_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dk_part.data_ptr(), dv_part.data_ptr(), tiles, b * h, n, m, d,
+            _DTYPE_CODE[q.dtype],
+            float(ctx.scale), use_dropout, value, seed_ptr, threshold, keep_scale,
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "stcd_cross_attention_bwd")
+        cross_attention_kernel.backward_launches += 1
+        return dq, dk, dv, None, None, None, None
+
+
+def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
+                           dropout_seed=None) -> torch.Tensor:
+    """Launch ``csrc/cross_attention.cu`` on q's device and current stream.
+
+    Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
+    device, D <= 128; raises on anything else. ``dropout_seed`` is an int, or
+    one int64 on q's device, which the kernel reads there. Where autograd
+    records the call, the gradient is ``csrc/cross_attention_bwd.cu``.
+    ``kernel_launches`` counts the forward launches and ``backward_launches``
+    the backward ones."""
+    _check_kernel_args(q, k, v, dropout_rate, dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # a tensor seed travels as a saved tensor, an int seed as an attribute
+        is_tensor = isinstance(dropout_seed, torch.Tensor)
+        return _CrossAttentionFunction.apply(
+            q, k, v, dropout_seed if is_tensor else None, float(scale),
+            float(dropout_rate), None if is_tensor else dropout_seed)
+    return launch_forward(q, k, v, scale, dropout_rate, dropout_seed, False)[0]
 
 
 cross_attention_kernel.kernel_launches = 0
+cross_attention_kernel.backward_launches = 0
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

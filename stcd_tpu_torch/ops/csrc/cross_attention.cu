@@ -20,6 +20,9 @@
 //   plain PyTorch versions.
 // - Inputs f32 or bf16, math in f32, output in q's dtype. Any N and M (the
 //   ragged last Q tile and KV chunk are masked); D <= 128.
+// - When the caller will need the gradient it also writes each row's
+//   log-sum-exp of the scaled scores, from which cross_attention_bwd.cu
+//   rebuilds the softmax in one pass.
 //
 // What bounds it: at the ChangeFormerV6 SRA shapes (M = 64, D = 64 or 80)
 // each block does only 2*64*64*D flops per tile against its own loads, and the
@@ -28,61 +31,21 @@
 // CUDA cores in f32 from shared memory. wgmma tiles, TMA loads and keeping
 // several Q tiles per block in flight are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockN = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kChunk = 32;                      // keys per chunk: one per lane
-constexpr int kMaxD = 128;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// murmur3 finaliser, as _fmix32 in stcd_tpu/ops/attention.py
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ bool keep_element(uint32_t seed, uint32_t bh, uint32_t row,
-                                             uint32_t col, uint32_t threshold) {
-  uint32_t h = seed + bh * 0x9E3779B9u + row * 0x85EBCA6Bu + col * 0xC2B2AE35u;
-  h = fmix32(fmix32(h) ^ bh);
-  return h >= threshold;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
+using namespace stcd;
 
 // DPL = ceil(D / 32): output columns held per lane.
 template <typename T, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 cross_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int n, int m,
-                           int d, float scale, int use_dropout, uint32_t seed,
-                           uint32_t threshold, float keep_scale) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int n, int m, int d, float scale,
+                           int use_dropout, uint32_t seed_value,
+                           const long long* __restrict__ seed_ptr, uint32_t threshold,
+                           float keep_scale) {
   extern __shared__ float smem[];
   const int ks = d + 1;              // padded stride: lane j reads row j conflict-free
   float* qs = smem;                  // [kBlockN][d]
@@ -94,6 +57,7 @@ cross_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
   const T* qb = q + (size_t)bh * n * d;
   const T* kb = k + (size_t)bh * m * d;
   const T* vb = v + (size_t)bh * m * d;
@@ -197,13 +161,16 @@ cross_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col_d = lane + 32 * c;
       if (col_d < d) store_as(orow + col_d, acc[r][c] / l_run[r]);
     }
+    // the row's log-sum-exp of the scaled scores, for the backward kernel
+    if (lse != nullptr && lane == 0) lse[(size_t)bh * n + gr] = m_run[r] + logf(l_run[r]);
   }
 }
 
 template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                   int m, int d, float scale, int use_dropout, uint32_t seed,
-                   uint32_t threshold, float keep_scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int bh, int n, int m, int d, float scale, int use_dropout,
+                   uint32_t seed, const long long* seed_ptr, uint32_t threshold,
+                   float keep_scale, cudaStream_t stream) {
   auto kernel = cross_attention_fwd_kernel<T, DPL>;
   const size_t smem = (size_t)(kBlockN * d + 2 * kChunk * (d + 1)) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -214,29 +181,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (n + kBlockN - 1) / kBlockN);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), n, m, d, scale, use_dropout, seed, threshold, keep_scale);
+      static_cast<T*>(o), lse, n, m, d, scale, use_dropout, seed, seed_ptr, threshold,
+      keep_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
-                       int n, int m, int d, float scale, int use_dropout, uint32_t seed,
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int bh, int n, int m, int d, float scale,
+                       int use_dropout, uint32_t seed, const long long* seed_ptr,
                        uint32_t threshold, float keep_scale, cudaStream_t stream) {
   switch ((d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, stream);
-    default: return launch<T, 4>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, stream);
+    case 1: return launch<T, 1>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
+    case 2: return launch<T, 2>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
+    case 3: return launch<T, 3>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
+    default: return launch<T, 4>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
   }
 }
 
 }  // namespace
 
 // q: (bh, n, d), k and v: (bh, m, d), o: (bh, n, d), all contiguous on `device`.
-// dtype: 0 = float32, 1 = bfloat16 (all four tensors). Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (all four tensors). lse: float32 (bh, n) that
+// takes each row's log-sum-exp, or null. seed_ptr: a device int64 whose low 32
+// bits are the dropout seed, or null to take `seed`. Returns a cudaError_t.
 extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void* v,
-                                        void* o, int bh, int n, int m, int d, int dtype,
-                                        float scale, int use_dropout, unsigned int seed,
+                                        void* o, float* lse, int bh, int n, int m, int d,
+                                        int dtype, float scale, int use_dropout,
+                                        unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
                                         int device, void* stream) {
   if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
@@ -247,8 +219,8 @@ extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = dtype == 0
-            ? dispatch_d<float>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, s)
-            : dispatch_d<__nv_bfloat16>(q, k, v, o, bh, n, m, d, scale, use_dropout, seed, threshold, keep_scale, s);
+            ? dispatch_d<float>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s)
+            : dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s);
   return (int)err;
 }
 

@@ -1,14 +1,27 @@
 """Device-step profile of the port on one CUDA card: the ChangeFormerV6
-serving step, or the SegCD stage-2 train step (the counterpart of
-benchmarks/profile_changeformer.py and of bench.py's timed loop).
+serving step, the SegCD stage-2 train step, or the trainer's step for
+ChangeFormerV6 or BIT (the counterpart of benchmarks/profile_changeformer.py
+and of bench.py's timed loops).
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
   python -m stcd_tpu_torch.tools.profile_step [--out profile.json] \\
       [--init_seed 0 | --weights v6.pt] [--tile 256]
   python -m stcd_tpu_torch.tools.profile_step --mode train [--out profile.json]
+  python -m stcd_tpu_torch.tools.profile_step --mode train --net_G ChangeFormerV6
+  python -m stcd_tpu_torch.tools.profile_step --mode train \\
+      --net_G base_transformer_pos_s4_dd8
 
-``--mode train`` runs the step that ``create_train_state`` and
+``--mode train --net_G ...`` runs ``CDTrainer.train_step`` at the full-size
+configuration of ``TRAINER_SETUPS``: ChangeFormerV6 (embed 256) on 512x512
+pairs at batch 8 in bf16 autocast with AdamW and the multi-scale
+cross-entropy, dropout live; or BIT ``base_transformer_pos_s4_dd8`` on 256x256
+pairs at batch 32 in fp32 (TF32 off) with the ``TrainerConfig`` defaults. It
+gives step ms (median of 10) with the attention plain, kernel, kernel, plain,
+the profile below with the attention kernels' device ms per step
+(``attention_fwd``, ``attention_bwd``), and the peak memory.
+
+``--mode train`` without ``--net_G`` runs the step that ``create_train_state`` and
 ``make_cd_steps(augment=True)`` build for SegCD with a ResNet-50 encoder and
 the (256, 128, 64, 32, 16) decoder on 256x256 pairs, seeded random weights and
 a fixed seeded uint8 batch on the card: in bf16 autocast at batch 64, and in
@@ -68,16 +81,17 @@ def union_length(intervals) -> float:
 
 @contextlib.contextmanager
 def plain_attention():
-    """Run every SRA block with the plain PyTorch attention."""
-    from stcd_tpu_torch.models import changeformer
+    """Run every SRA block of ChangeFormer and every decoder block of BIT
+    with the plain PyTorch attention (and autograd's backward)."""
+    from stcd_tpu_torch.models import bit, changeformer
     from stcd_tpu_torch.ops import attention
 
-    changeformer.cross_attention = functools.partial(attention.cross_attention,
-                                                     impl="plain")
+    plain = functools.partial(attention.cross_attention, impl="plain")
+    changeformer.cross_attention = bit.cross_attention = plain
     try:
         yield
     finally:
-        changeformer.cross_attention = attention.cross_attention
+        changeformer.cross_attention = bit.cross_attention = attention.cross_attention
 
 
 def time_steps(step, n: int):
@@ -140,7 +154,18 @@ def profile_steps(step, n: int = 3, top: int = 15, groups=None):
 TRAIN_PRECISIONS = (("bf16", True, 64), ("fp32", False, 8))  # name, autocast, batch
 TRAIN_GROUPS = {
     "augment_kernel": ("gray_mean_partials", "pointwise_chain", "blur_normalize"),
+    "attention_fwd": ("cross_attention_fwd_kernel",),
+    "attention_bwd": ("cross_attention_bwd_kernel", "reduce_tiles_kernel"),
     "optimizer": ("multi_tensor_apply", "adam"),
+}
+# The full-size trainer steps: TrainerConfig keywords beyond the defaults.
+# V6: the model, size, batch, precision and optimizer of bench.py's secondary
+# configuration. BIT: the TrainerConfig defaults (sgd, lr 0.01, linear, ce).
+TRAINER_SETUPS = {
+    "ChangeFormerV6": dict(embed_dim=256, img_size=512, batch_size=8, lr=1e-4,
+                           optimizer="adamw", loss="ce", multi_scale_train=True,
+                           normalize=True, dtype=torch.bfloat16),
+    "base_transformer_pos_s4_dd8": dict(img_size=256, batch_size=32),
 }
 
 
@@ -151,6 +176,19 @@ def seeded_cd_batch(batch: int, size: int, seed: int, device) -> dict:
                           dtype=torch.uint8).to(device) for _ in range(2))
     label = (torch.rand(batch, size, size, 1, generator=gen) > 0.8).float().to(device)
     return {"A": a, "B": b, "label": label}
+
+
+def trainer_setup(net_G: str, **overrides):
+    """(trainer, state, (a, b, label)) of TRAINER_SETUPS[net_G] on the card:
+    weights from seed 0, one fixed uint8 batch from seed 1, the step's draws
+    from the config's seed. ``overrides`` replace TrainerConfig keywords."""
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    cfg = TrainerConfig(net_G=net_G, **{**TRAINER_SETUPS[net_G], **overrides})
+    trainer = CDTrainer(cfg, steps_per_epoch=1000)
+    state = trainer.init_state("cuda", init_seed=0)
+    data = seeded_cd_batch(cfg.batch_size, cfg.img_size, seed=1, device="cuda")
+    return trainer, state, (data["A"], data["B"], data["label"])
 
 
 def print_profile(prof) -> None:
@@ -211,6 +249,48 @@ def profile_train(gpu: str, size: int = 256) -> dict:
     return res
 
 
+def profile_trainer(gpu: str, net_G: str) -> dict:
+    """CDTrainer.train_step at TRAINER_SETUPS[net_G]: step ms with the
+    attention plain, kernel, kernel, plain, then the profile with the kernels."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, state, batch = trainer_setup(net_G)
+    cfg = trainer.cfg
+    n = cfg.batch_size
+
+    def step():
+        return trainer.train_step(state, *batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    groups = []
+    for attn in ("plain", "kernel", "kernel", "plain"):
+        with plain_attention() if attn == "plain" else contextlib.nullcontext():
+            time_steps(step, 3)  # warm this path
+            host, dev = time_steps(step, STEPS)
+        groups.append({"attention": attn, "host_ms": host, "event_ms": dev})
+    prof = profile_steps(step, groups=TRAIN_GROUPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev = float(np.median([g["event_ms"] for g in groups if g["attention"] == "kernel"]))
+    precision = "bf16 autocast" if state.bf16 else "fp32, TF32 off"
+    res = {"gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
+           "net_G": net_G, "size": cfg.img_size, "batch": n, "precision": precision,
+           "optimizer": cfg.optimizer, "groups": groups, "pairs_per_s": n / dev * 1e3,
+           "peak_gib": peak, "profile": prof}
+    print(f"== train {net_G} batch {n} at {cfg.img_size}x{cfg.img_size}, {precision}, "
+          f"{cfg.optimizer}, on {gpu}: step ms (median of {STEPS}; host / events)",
+          flush=True)
+    for g in groups:
+        print(f"  {g['attention']:6s} {g['host_ms']:.3f} / {g['event_ms']:.3f}")
+    print(f"  {n / dev * 1e3:.2f} pairs/s with the kernels; peak device memory "
+          f"{peak:.3f} GiB")
+    print_profile(prof)
+    if prof is not None:
+        share = prof["device_ms_per_step"] / dev
+        res["busy_share_unprofiled"] = share
+        print(f"  kernel time over the unprofiled step: {100 * share:.1f} %")
+    return res
+
+
 def main(argv=None) -> dict:
     from stcd_tpu_torch.cli.predict import add_model_args, build_model, make_base_fn
 
@@ -219,8 +299,12 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default=None, help="write the numbers as JSON here")
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
     add_model_args(p)
-    p.set_defaults(net_G="ChangeFormerV6")  # the serving step profiled here is V6's
     args = p.parse_args(argv)
+    if args.mode == "train" and args.net_G not in (None, *TRAINER_SETUPS):
+        raise SystemExit(f"--mode train takes no --net_G (SegCD) or one of "
+                         f"{sorted(TRAINER_SETUPS)}")
+    if args.mode == "serve" and args.net_G is None:
+        args.net_G = "ChangeFormerV6"  # the serving step profiled here is V6's
     if args.init_seed is None and args.weights is None:
         args.init_seed = 0
     if not torch.cuda.is_available():
@@ -231,7 +315,8 @@ def main(argv=None) -> dict:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"gpu: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if args.mode == "train":
-        res = profile_train(gpu, args.tile)
+        res = (profile_train(gpu, args.tile) if args.net_G is None
+               else profile_trainer(gpu, args.net_G))
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(res, f, indent=1)

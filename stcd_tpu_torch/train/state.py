@@ -1,11 +1,12 @@
 """Train state of the port (counterpart of stcd_tpu/train/state.py): the
-module (parameters and BatchNorm buffers), Adam, the schedule and the count
-of updates made. The state is mutable; a train step updates it in place."""
+module (parameters and BatchNorm buffers), the optimizer (Adam, SGD or AdamW),
+the schedule, the generator of the step's random draws and the count of
+updates made. The state is mutable; a train step updates it in place."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -23,6 +24,45 @@ class AdamConfig(NamedTuple):
     eps: float = 1e-8
 
 
+class SGDConfig(NamedTuple):
+    """optax.chain(add_decayed_weights(wd), sgd(schedule, momentum)): the
+    decay joins the gradient before the momentum trace and the rate scales
+    the trace, which is ``torch.optim.SGD`` with dampening 0."""
+
+    schedule: Schedule
+    momentum: float = 0.99
+    weight_decay: float = 5e-4
+
+
+class AdamWConfig(NamedTuple):
+    """optax.adamw(schedule, b1, b2, weight_decay): the update is
+    -lr (adam + wd p). ``torch.optim.AdamW`` first scales p by 1 - lr wd and
+    then subtracts lr adam: the same step, p taken before the update in both."""
+
+    schedule: Schedule
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+
+
+OptimizerConfig = Union[AdamConfig, SGDConfig, AdamWConfig]
+
+
+def make_optimizer(tx: OptimizerConfig, params) -> torch.optim.Optimizer:
+    """The torch optimizer that takes the steps of ``tx``'s optax chain."""
+    lr = tx.schedule(0)
+    if isinstance(tx, SGDConfig):
+        return torch.optim.SGD(params, lr=lr, momentum=tx.momentum, dampening=0.0,
+                               weight_decay=tx.weight_decay)
+    if isinstance(tx, AdamWConfig):
+        return torch.optim.AdamW(params, lr=lr, betas=(tx.b1, tx.b2), eps=tx.eps,
+                                 weight_decay=tx.weight_decay)
+    if isinstance(tx, AdamConfig):
+        return torch.optim.Adam(params, lr=lr, betas=(tx.b1, tx.b2), eps=tx.eps)
+    raise TypeError(f"not an optimizer config: {tx!r}")
+
+
 def adam_poly(base_lr: float = 1e-3, num_epochs: int = 60, iters_per_epoch: int = 100,
               power: float = 0.9, b1: float = 0.9, b2: float = 0.999) -> AdamConfig:
     """The reference's optimizer: Adam(lr=1e-3, betas=(0.9, 0.999)) with a
@@ -37,6 +77,7 @@ class TrainState:
     schedule: Schedule
     bf16: bool = False
     step: int = 0
+    generator: Optional[torch.Generator] = None  # the step's draws; None: the global one
 
     @property
     def device(self) -> torch.device:
@@ -48,7 +89,7 @@ class TrainState:
         return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16)
 
     def apply_gradients(self) -> None:
-        """One Adam update at the schedule's rate for this step. The rate
+        """One optimizer update at the schedule's rate for this step. The rate
         is the schedule at the count before the update, as optax takes it."""
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
@@ -56,9 +97,13 @@ class TrainState:
         self.step += 1
 
 
-def create_train_state(model: nn.Module, tx: AdamConfig, device="cuda", bf16: bool = False,
-                       encoder_weights: Optional[str] = None) -> TrainState:
-    """Move ``model`` to ``device`` and wrap it with Adam into a TrainState.
+def create_train_state(model: nn.Module, tx: OptimizerConfig, device="cuda",
+                       bf16: bool = False, encoder_weights: Optional[str] = None,
+                       seed: Optional[int] = None) -> TrainState:
+    """Move ``model`` to ``device`` and wrap it with ``tx``'s optimizer into a
+    TrainState. ``seed`` gives the state a generator of its own on that device
+    for the step's random draws (dropout, DropPath, attention seeds,
+    augmentation).
 
     ``device`` is ``"cuda"`` unless the caller asks for the CPU; ``cuda``
     without a card raises. On a card the model is laid out channels_last.
@@ -77,6 +122,8 @@ def create_train_state(model: nn.Module, tx: AdamConfig, device="cuda", bf16: bo
                 "state_dict (ROADMAP.md Queue 1 #6)")
         sd = torch.load(encoder_weights, map_location=device, weights_only=True)
         model.encoder.load_state_dict(sd, strict=True)
-    optimizer = torch.optim.Adam(model.parameters(), lr=tx.schedule(0),
-                                 betas=(tx.b1, tx.b2), eps=tx.eps)
-    return TrainState(model=model, optimizer=optimizer, schedule=tx.schedule, bf16=bf16)
+    generator = None
+    if seed is not None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(model=model, optimizer=make_optimizer(tx, model.parameters()),
+                      schedule=tx.schedule, bf16=bf16, generator=generator)

@@ -3,7 +3,9 @@
 The plain PyTorch cross_attention is held against the JAX einsum path and
 against the Pallas kernel in interpret mode, with and without dropout, at
 atol 2e-5 (the tolerance of tests/test_ops.py); the dropout hash is held
-bit for bit. The CUDA kernel itself is held against the plain version on
+bit for bit. Autograd through the plain version is held against jax.grad
+through the Pallas backward kernel (interpret mode) and the einsum path at
+atol 1e-5. The CUDA kernels themselves are held against the plain version on
 the card by chip_smoke.py (this suite imports JAX, which the card's machine
 does not have)."""
 
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from stcd_tpu.ops.attention import (_einsum_attention, cross_attention_interpret,
@@ -75,17 +78,73 @@ def test_cpu_tensor_dispatches_to_plain_and_kernel_raises():
         cross_attention(q, k, v, impl="einsum")
 
 
+GRAD_CASES = [  # (n, m, d, rate, scale): the shapes the train steps bring
+    (128, 16, 32, 0.0, None),
+    (128, 16, 32, 0.1, None),
+    (100, 37, 80, 0.1, None),     # ragged N and M, D = 80
+    (96, 4, 64, 0.0, 32 ** -0.5),  # BIT: M = 4, scaled by the model dim
+    (64, 256, 64, 0.0, None),     # V6 training: M = 256
+    (64, 256, 80, 0.1, None),
+    (33, 5, 16, 0.1, None),
+]
+
+
+@pytest.mark.parametrize("n,m,d,rate,scale", GRAD_CASES)
+def test_plain_gradients_match_jax(n, m, d, rate, scale):
+    """Autograd through the plain version against jax.grad through the
+    Pallas backward kernel in interpret mode (block_n 32, so that several Q
+    tiles accumulate dk and dv) and through the einsum path; atol 1e-5 on dq,
+    dk, dv (float32 summation order) for a seeded cotangent ~ N(0, 1 / n),
+    which keeps the sums over the n rows of order one."""
+    q, k, v = _qkv(n, m, d, seed=n + m + d, b=1)
+    cot = (np.random.default_rng(7).standard_normal(q.shape) * n ** -0.5).astype(np.float32)
+    scale = d ** -0.5 if scale is None else scale
+    seed = SEED if rate else None
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = cross_attention(tq, tk, tv, scale=scale, dropout_rate=rate, dropout_seed=seed)
+    (out * torch.from_numpy(cot)).sum().backward()
+    got = [t.grad.numpy() for t in (tq, tk, tv)]
+    jseed = None if seed is None else jnp.uint32(seed)
+
+    def loss_kernel(q, k, v):
+        return jnp.sum(cross_attention_interpret(q, k, v, scale, block_n=32,
+                                                 dropout_rate=rate,
+                                                 dropout_seed=jseed) * cot)
+
+    def loss_einsum(q, k, v):
+        return jnp.sum(_einsum_attention(q, k, v, scale, rate, jseed) * cot)
+
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for loss in (loss_kernel, loss_einsum):
+        wants = jax.grad(loss, argnums=(0, 1, 2))(*args)
+        for name, g, w in zip("qkv", got, wants):
+            np.testing.assert_allclose(g, np.asarray(w), atol=1e-5,
+                                       err_msg=f"d{name} via {loss.__name__}")
+
+
+def test_tensor_seed_is_the_int_seed():
+    """A seed drawn as a tensor (never read on the host) gives the mask of
+    the same seed as an int; only its low 32 bits count."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(40, 9, 24, seed=5))
+    with torch.no_grad():
+        want = cross_attention(q, k, v, dropout_rate=0.3, dropout_seed=SEED)
+        got = cross_attention(q, k, v, dropout_rate=0.3,
+                              dropout_seed=torch.tensor([SEED + 5 * 2 ** 32]))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("grad_arg", [0, 1, 2])
-def test_kernel_refuses_tensors_that_need_grad(grad_arg):
-    """The kernel has no backward: where autograd would record the call it
-    raises, before it looks at the device, instead of detaching q, k or v."""
+def test_kernel_checks_the_device_with_and_without_grad(grad_arg):
+    """On a CPU tensor impl="kernel" raises, whether autograd would record
+    the call or not."""
     qkv = [torch.from_numpy(a) for a in _qkv(16, 4, 8)]
     qkv[grad_arg].requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         cross_attention_kernel(*qkv, scale=8 ** -0.5)
-    with pytest.raises(RuntimeError, match="CUDA"):  # no grad: the device check
+    with pytest.raises(RuntimeError, match="CUDA"):
         with torch.no_grad():
             cross_attention_kernel(*qkv, scale=8 ** -0.5)
+    assert cross_attention_kernel.backward_launches == 0
 
 
 def test_bf16_plain_upcasts_and_returns_q_dtype():

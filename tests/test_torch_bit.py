@@ -1,0 +1,220 @@
+"""stcd_tpu_torch BIT (models/bit.py) against the JAX models, float32 on the
+CPU, on one set of weights: one JAX init, perturbed with numpy, converted with
+bit_from_flax.
+
+(a) eval forward of base_transformer_pos_s4_dd8 and base_resnet18 through
+    both define_G factories at 64x64, and of the variants the keys do not
+    reach (pooled tokens, decoder position embedding, no decoder, no softmax);
+(b) train-mode loss and the gradient of every parameter (BIT's dropout rates
+    are 0, so nothing is neutralised), running statistics;
+(c) bit_from_flax then convert_bit gives the JAX trees back exactly;
+(d) three steps of the ported CDTrainer.train_step against the JAX one with
+    the TrainerConfig defaults (sgd, lr 0.01, linear, ce).
+
+Tolerances are stated where they are used."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from stcd_tpu.convert.torch_to_flax import convert_bit
+from stcd_tpu.losses.functional import cross_entropy as jax_cross_entropy
+from stcd_tpu.models import bit as jbit
+from stcd_tpu.models.factory import define_G as jax_define_G
+from stcd_tpu.train import trainer as jtrainer
+from stcd_tpu.train.state import TrainState as JaxTrainState
+from stcd_tpu_torch.convert.from_flax import bit_from_flax
+from stcd_tpu_torch.losses.functional import cross_entropy
+from stcd_tpu_torch.models import bit as tbit
+from stcd_tpu_torch.models.factory import define_G
+from stcd_tpu_torch.train import trainer as ttrainer
+
+from test_torch_changeformer import _inputs, _nchw, _perturb
+from test_torch_changeformer_train import _assert_close
+
+N, HW = 2, 64
+ATOL, RTOL = 2e-4, 1e-3  # eval forward: convolutions sum in another order
+
+
+def _init(jax_model, seed=1, hw=HW):
+    z = jnp.zeros((1, hw, hw, 3))
+    return _perturb(jax.jit(jax_model.init)(jax.random.PRNGKey(0), z, z), seed=seed)
+
+
+def _load(port, variables):
+    port.load_state_dict(bit_from_flax(variables["params"], variables["batch_stats"]))
+    return port
+
+
+def _compare_eval(jax_model, port, seed):
+    variables = _init(jax_model, seed)
+    a, b = _inputs(N, HW, seed=seed + 10)
+    want = jax.jit(jax_model.apply)(variables, jnp.asarray(a), jnp.asarray(b))
+    with torch.no_grad():
+        got = _load(port, variables).eval()(_nchw(a), _nchw(b))
+    assert got.shape == (N, 2, HW, HW)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("net_G", ["base_transformer_pos_s4_dd8", "base_resnet18",
+                                   "base_transformer_pos_s4",
+                                   "base_transformer_pos_s4_dd8_dedim8"])
+def test_define_g_eval_forward_matches_jax(net_G):
+    _compare_eval(jax_define_G(net_G), define_G(net_G), seed=1)
+
+
+VARIANTS = {
+    "pooled_tokens": dict(tokenizer=False, pool_mode="max"),
+    "avg_pooled_tokens": dict(tokenizer=False, pool_mode="ave"),
+    "decoder_pos": dict(with_decoder_pos="learned"),
+    "no_decoder": dict(with_decoder=False),
+    "no_softmax": dict(decoder_softmax=False),
+    "no_pos_no_upsample": dict(with_pos=None, if_upsample_2x=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_eval_forward_matches_jax(name):
+    kw = dict(resnet_stages_num=4, dec_depth=2, **VARIANTS[name])
+    port_kw = dict(kw)
+    if "with_decoder_pos" in kw:  # the feature map of a 64x64 input is 16x16
+        port_kw["decoder_pos_size"] = HW // 4
+    _compare_eval(jbit.BASETransformer(**kw), tbit.BASETransformer(**port_kw), seed=2)
+
+
+@pytest.mark.parametrize("net_G", ["base_transformer_pos_s4_dd8", "base_resnet18"])
+def test_converter_round_trip_is_exact(net_G):
+    variables = _init(jax_define_G(net_G), seed=3)
+    port = _load(define_G(net_G), variables)  # strict: every name is taken
+    dec_depth = 8 if "dd8" in net_G else 1
+    stages = 4 if "transformer" in net_G else 5
+    params, stats = convert_bit({k: v.numpy() for k, v in port.state_dict().items()},
+                                dec_depth=dec_depth, resnet_stages_num=stages)
+    for want_tree, got_tree in ((variables["params"], params),
+                                (variables["batch_stats"], stats)):
+        want = {jax.tree_util.keystr(p): v
+                for p, v in jax.tree_util.tree_flatten_with_path(want_tree)[0]}
+        got = {jax.tree_util.keystr(p): v
+               for p, v in jax.tree_util.tree_flatten_with_path(got_tree)[0]}
+        assert set(want) == set(got)
+        for key, v in want.items():
+            assert np.array_equal(np.asarray(got[key]), np.asarray(v)), key
+
+
+def test_state_dict_names_are_the_original_bit_names():
+    names = set(define_G("base_transformer_pos_s4_dd8").state_dict())
+    for name in ("resnet.conv1.weight", "resnet.layer3.1.bn2.running_var",
+                 "conv_pred.bias", "conv_a.weight", "pos_embedding",
+                 "transformer.layers.0.0.fn.norm.weight",
+                 "transformer.layers.0.0.fn.fn.to_qkv.weight",
+                 "transformer.layers.0.1.fn.fn.net.3.bias",
+                 "transformer_decoder.layers.7.0.fn.fn.to_k.weight",
+                 "transformer_decoder.layers.7.0.fn.fn.to_out.0.bias",
+                 "classifier.0.weight", "classifier.1.running_mean", "classifier.3.bias"):
+        assert name in names, name
+    assert not any(n.startswith("resnet.layer4") for n in names)  # 4 stages
+
+
+def test_train_mode_gradients_match_jax():
+    """Loss within 1e-5 relative; running statistics within 1e-5 of their
+    largest entry. Every parameter's gradient within 1e-2 of its largest
+    entry against JAX and within 2e-3 against a float64 run of the port: the
+    backward of the classifier's train-mode BatchNorm (its input, the
+    upsampled |f1 - f2|, is non-negative and smooth) loses digits in float32,
+    and every gradient upstream inherits that. Against float64 the port is
+    off by 9e-4 at classifier.0.weight and JAX by 6e-3, so the wider bound is
+    for the reference's own rounding."""
+    model = jax_define_G("base_transformer_pos_s4_dd8")
+    variables = _init(model, seed=4)
+    a, b = _inputs(N, HW, seed=14)
+    label = np.random.default_rng(15).integers(0, 2, (N, HW, HW)).astype(np.int32)
+
+    def loss_fn(params):
+        pred, mutated = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, jnp.asarray(a),
+            jnp.asarray(b), True, mutable=["batch_stats"])
+        return jax_cross_entropy(pred, jnp.asarray(label)), mutated["batch_stats"]
+
+    (want_loss, new_stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+    want = bit_from_flax(grads, new_stats)
+
+    port = _load(define_G("base_transformer_pos_s4_dd8"), variables).train()
+    loss = cross_entropy(port(_nchw(a), _nchw(b)), torch.from_numpy(label))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    old = bit_from_flax(variables["params"], variables["batch_stats"])
+    port64 = _load(define_G("base_transformer_pos_s4_dd8"), variables).double().train()
+    cross_entropy_64 = torch.nn.functional.cross_entropy(
+        port64(_nchw(a).double(), _nchw(b).double()), torch.from_numpy(label).long())
+    cross_entropy_64.backward()
+    exact = dict(port64.named_parameters())
+    for name, p in port.named_parameters():
+        assert p.grad is not None, name
+        _assert_close(p.grad.numpy(), want[name].numpy(), 1e-2, f"grad of {name}")
+        _assert_close(p.grad.numpy(), exact[name].grad.numpy(), 2e-3,
+                      f"grad of {name} against float64")
+    for name, buf in port.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            _assert_close(buf.numpy(), want[name].numpy(), 1e-5, name)
+            assert not np.allclose(buf.numpy(), old[name].numpy())
+
+
+@pytest.mark.parametrize("net_G", ["base_transformer_pos_s4_dd8", "base_resnet18"])
+def test_three_trainer_steps_match_jax(net_G, tmp_path):
+    """TrainerConfig defaults (sgd momentum 0.99 with weight decay 5e-4, lr
+    0.01, linear, ce). eval_step on the initial state within the eval
+    forward's tolerance. Then three train steps: the first loss within 1e-5
+    relative, the later ones within 2e-3; confusion counts within 1 % of the
+    pixels. The parameters are compared by how far three steps moved them
+    from the init, within 0.1 of the largest move in each tensor (a step not
+    taken shows as 1, one of the wrong sign as 2): momentum 0.99 adds up the
+    three gradients' noise, which test_train_mode_gradients_match_jax traces
+    to the reference's float32, and it reaches 0.07 of the move here. What
+    the optimizer does with one given gradient is pinned at 3e-6 in
+    test_torch_train_steps.py."""
+    kw = dict(net_G=net_G, img_size=HW, max_epochs=2)
+    jt = jtrainer.CDTrainer(jtrainer.TrainerConfig(checkpoint_dir=str(tmp_path), **kw),
+                            {"train": [None] * 2})
+    variables = _init(jt.model, seed=5)
+    jstate = JaxTrainState.create_with_stats(
+        apply_fn=jt.model.apply, params=variables["params"],
+        batch_stats=variables["batch_stats"], tx=jt.tx)
+    tt = ttrainer.CDTrainer(ttrainer.TrainerConfig(**kw), steps_per_epoch=2)
+    _load(tt.model, variables)
+    tstate = tt.init_state("cpu")
+
+    rng = np.random.default_rng(6)
+    a, b = (rng.uniform(0, 1, (N, HW, HW, 3)).astype(np.float32) for _ in range(2))
+    label = (rng.uniform(size=(N, HW, HW, 1)) > 0.8).astype(np.float32)
+    final, cm = tt.eval_step(tstate, *(torch.from_numpy(t) for t in (a, b, label)))
+    want_final, want_cm = jt.eval_step(jstate, jnp.asarray(a), jnp.asarray(b),
+                                       jnp.asarray(label))
+    np.testing.assert_allclose(final.numpy().transpose(0, 2, 3, 1), np.asarray(want_final),
+                               atol=ATOL, rtol=RTOL)
+    assert np.abs(cm.numpy() - np.asarray(want_cm)).sum() <= 4
+    for step in range(3):
+        a, b = (rng.uniform(0, 1, (N, HW, HW, 3)).astype(np.float32) for _ in range(2))
+        label = (rng.uniform(size=(N, HW, HW, 1)) > 0.8).astype(np.float32)
+        jstate, want_loss, want_cm = jt.train_step(
+            jstate, jnp.asarray(a), jnp.asarray(b), jnp.asarray(label),
+            jax.random.PRNGKey(step))
+        loss, cm = tt.train_step(tstate, *(torch.from_numpy(t) for t in (a, b, label)))
+        np.testing.assert_allclose(loss.item(), float(want_loss),
+                                   rtol=1e-5 if step == 0 else 2e-3, err_msg=f"step {step}")
+        assert np.abs(cm.numpy() - np.asarray(want_cm)).sum() <= 0.01 * N * HW * HW
+    want = bit_from_flax(jstate.params, jstate.batch_stats)
+    init = bit_from_flax(variables["params"], variables["batch_stats"])
+    for name, p in tstate.model.named_parameters():
+        want_moved = want[name].numpy() - init[name].numpy()
+        assert np.abs(want_moved).max() > 0, f"{name} did not move"
+        _assert_close(p.detach().numpy() - init[name].numpy(), want_moved, 0.1,
+                      f"change of {name}")
+    final, cm = tt.eval_step(tstate, *(torch.from_numpy(t) for t in (a, b, label)))
+    _, want_cm = jt.eval_step(jstate, jnp.asarray(a), jnp.asarray(b), jnp.asarray(label))
+    assert final.shape == (N, 2, HW, HW) and bool(torch.isfinite(final).all())
+    assert np.abs(cm.numpy() - np.asarray(want_cm)).sum() <= 0.01 * N * HW * HW

@@ -117,3 +117,49 @@ def test_schedule_rejects_unknown_policy_and_poly_starts_at_base():
     sched = tsched.poly_schedule(1e-3, 60, 1000)
     assert sched(0) == 1e-3  # step 0 uses the base rate
     assert sched(1) == pytest.approx(1e-3 * (1 - 1 / 60000) ** 0.9)
+
+
+def _logits_and_target(seed, n=2, c=3, hw=8, target_hw=None):
+    rng = np.random.default_rng(seed)
+    target_hw = target_hw or hw
+    logits = rng.standard_normal((n, hw, hw, c)).astype(np.float32) * 2
+    target = rng.integers(0, c, (n, target_hw, target_hw)).astype(np.int32)
+    target.reshape(-1)[::7] = 255  # ignored pixels
+    return logits, target
+
+
+@pytest.mark.parametrize("case", ["plain", "weights", "resized", "resized_weights",
+                                  "channel_axis_target", "all_ignored"])
+def test_cross_entropy_value_and_gradient_match_jax(case):
+    """NCHW logits in the port, NHWC in JAX; atol 1e-6 on the value and 1e-7
+    on the gradient of a mean loss; 1e-5 and 1e-6 where the logits are first
+    resized bilinearly (align_corners=True, another summation order)."""
+    resized = case.startswith("resized")
+    logits, target = _logits_and_target(3, target_hw=16 if resized else None)
+    weight = np.array([0.2, 1.0, 2.5], np.float32) if "weights" in case else None
+    if case == "all_ignored":
+        target[:] = 255
+    jt = jnp.asarray(target)[..., None] if case == "channel_axis_target" else jnp.asarray(target)
+    want, want_grad = jax.value_and_grad(jloss.cross_entropy)(
+        jnp.asarray(logits), jt, None if weight is None else jnp.asarray(weight))
+    x = torch.from_numpy(np.ascontiguousarray(logits.transpose(0, 3, 1, 2))).requires_grad_()
+    tt = torch.from_numpy(target)
+    if case == "channel_axis_target":
+        tt = tt[:, None]
+    got = tloss.cross_entropy(x, tt, None if weight is None else torch.from_numpy(weight))
+    got.backward()
+    vtol, gtol = (1e-5, 1e-6) if resized else (1e-6, 1e-7)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), float(want), atol=vtol, rtol=vtol)
+    np.testing.assert_allclose(x.grad.numpy().transpose(0, 2, 3, 1), np.asarray(want_grad),
+                               atol=gtol)
+    if case == "all_ignored":
+        assert got.item() == 0.0
+
+
+def test_cross_entropy_takes_bf16_logits_in_float32():
+    logits, target = _logits_and_target(4)
+    x = torch.from_numpy(np.ascontiguousarray(logits.transpose(0, 3, 1, 2)))
+    got = tloss.cross_entropy(x.to(torch.bfloat16), torch.from_numpy(target))
+    want = tloss.cross_entropy(x.to(torch.bfloat16).float(), torch.from_numpy(target))
+    assert got.dtype == torch.float32 and got.item() == want.item()

@@ -57,3 +57,31 @@ def test_profile_step_needs_a_card(mode, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         profile_step.main(["--mode", mode])
+
+
+def test_plain_attention_also_swaps_the_bit_decoder_call():
+    from stcd_tpu_torch.models import bit
+
+    with plain_attention():
+        assert bit.cross_attention.keywords == {"impl": "plain"}
+    assert bit.cross_attention is attention.cross_attention
+
+
+@pytest.mark.parametrize("net_G", ["ChangeFormerV6", "base_transformer_pos_s4_dd8"])
+def test_trainer_setups_are_trainer_configs(net_G):
+    """The full-size setups name real TrainerConfig fields and models, and
+    --mode train takes them; the step itself needs the card."""
+    from stcd_tpu_torch.tools import profile_step
+    from stcd_tpu_torch.train.trainer import TrainerConfig
+
+    cfg = TrainerConfig(net_G=net_G, **profile_step.TRAINER_SETUPS[net_G])
+    assert cfg.img_size in (256, 512) and cfg.batch_size in (8, 32)
+    assert set(profile_step.TRAIN_GROUPS) >= {"attention_fwd", "attention_bwd",
+                                              "augment_kernel", "optimizer"}
+
+
+def test_profile_step_train_refuses_an_unknown_net_g():
+    from stcd_tpu_torch.tools import profile_step
+
+    with pytest.raises(SystemExit, match="--mode train takes"):
+        profile_step.main(["--mode", "train", "--net_G", "SNUNet"])

@@ -23,7 +23,8 @@ from stcd_tpu.train.state import TrainState as JaxTrainState
 from stcd_tpu.train.steps import make_cd_steps as jax_make_cd_steps
 from stcd_tpu_torch.convert.from_flax import resnet_from_flax, unetseg_from_flax
 from stcd_tpu_torch.models.segcd import SegCD
-from stcd_tpu_torch.train.state import AdamConfig, adam_poly, create_train_state
+from stcd_tpu_torch.train.state import (AdamConfig, AdamWConfig, SGDConfig, adam_poly,
+                                        create_train_state)
 from stcd_tpu_torch.train.schedules import poly_schedule
 from stcd_tpu_torch.train.steps import make_cd_steps
 
@@ -286,3 +287,41 @@ def test_create_train_state_device_weights_and_bf16(init, tmp_path, monkeypatch)
     out = make_cd_steps(augment=False)[0](bf16, _to_torch(_batches(7, 1)[0]))
     assert out["loss"].dtype == torch.float32 and torch.isfinite(out["loss"])
     assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_optimizer_steps_on_given_gradients_match_optax(optimizer):
+    """Three updates of one weight tensor on given gradients, with a rate
+    (0.1, halved each step) and a weight decay (0.5) large enough that every
+    term shows: the decay joining the gradient ahead of the momentum trace
+    (sgd), -lr (adam + wd p) against (1 - lr wd) p - lr adam (adamw), and the
+    rate taken at the count before the update. The chains are those of the
+    JAX trainer's _make_optimizer with these numbers. atol 3e-6, a few float32
+    ulps of weights as large as 2, which move by 0.02 to 0.3 a step."""
+    schedule = lambda step: 0.1 * 0.5 ** step
+    rng = np.random.default_rng(0)
+    w0 = rng.standard_normal((4, 5)).astype(np.float32)
+    grads = [rng.standard_normal((4, 5)).astype(np.float32) for _ in range(3)]
+
+    if optimizer == "sgd":
+        tx = optax.chain(optax.add_decayed_weights(0.5), optax.sgd(schedule, momentum=0.99))
+        cfg = SGDConfig(schedule, momentum=0.99, weight_decay=0.5)
+    else:
+        tx = optax.adamw(schedule, b1=0.9, b2=0.999, weight_decay=0.5)
+        cfg = AdamWConfig(schedule, b1=0.9, b2=0.999, weight_decay=0.5)
+    params, opt_state = jnp.asarray(w0), tx.init(jnp.asarray(w0))
+
+    model = torch.nn.Linear(5, 4, bias=False)
+    with torch.no_grad():
+        model.weight.copy_(torch.from_numpy(w0))
+    state = create_train_state(model, cfg, device="cpu")
+    for step, g in enumerate(grads):
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, params)
+        moved = np.abs(np.asarray(updates)).max()
+        params = optax.apply_updates(params, updates)
+        model.weight.grad = torch.from_numpy(g.copy())
+        state.apply_gradients()
+        assert moved > 0.02, f"step {step} moves the weights by {moved}"
+        np.testing.assert_allclose(model.weight.detach().numpy(), np.asarray(params),
+                                   atol=3e-6, rtol=0, err_msg=f"step {step}")
+    assert state.step == 3
