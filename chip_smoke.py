@@ -25,15 +25,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    log-sum-exp) and timed. Then the bn_stats kernel against its plain
    version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
    f32, two runs bit-identical, its VJP against autograd, with
-   torch.batch_norm_stats as the yardstick.
+   torch.batch_norm_stats as the yardstick. Then the four matmul kernels
+   (the product alone; with the BatchNorm sums in a 2-D and in a row
+   decomposition; with the sums formed on the tensor cores) against their plain
+   version and a float64 sum of its f32 accumulator, bf16, at the five
+   ResNet-50 bottleneck shapes of their tools and two ragged shapes, two runs
+   bit-identical, with torch.matmul as the yardstick.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
    attention kernel 13 times, that the stitched probabilities match the same
    weights run with the plain attention, and that a bf16 request is finite.
 5. training: the SegCD stage-2 train step through create_train_state and
-   make_cd_steps: ResNet-50 encoder, decoder (256, 128, 64, 32, 16), 256x256
-   pairs, batch 64, augmentation on, bf16 autocast, seeded weights and data.
+   make_cd_steps (stage_setup of tools/profile_step.py): ResNet-50 encoder,
+   decoder (256, 128, 64, 32, 16), 256x256 pairs, batch 64, augmentation on,
+   bf16 autocast, seeded weights and data.
    Checks finite falling losses, moving BatchNorm statistics, the confusion
    counts, and one augmentation kernel launch per step. Then one fp32 step at
    batch 8 with the kernel and one with the plain augmentation on the same
@@ -49,6 +55,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. BIT training: base_transformer_pos_s4_dd8 with the TrainerConfig defaults
    (sgd, lr 0.01), 256x256 pairs, batch 32, fp32: the same checks with 16
    forward and 16 backward launches a step.
+9. stage-1 training: the UnetSeg step (make_seg_steps), ResNet-50 encoder,
+   decoder (256, 128, 64, 32, 16), 256x256 images, batch 64, augmentation on,
+   bf16 autocast: the checks of phase 5.
+10. stage-3 training: the SegCD fine-tune step (make_semi_cd_steps) on 32
+   synthesized and 32 real pairs, one forward over 64 pairs: the checks of
+   phase 5, the three loss terms finite, one augmentation launch over the 128
+   images of a step.
+11. the loop: run_training for 2 epochs of 3 seeded batches of 16 pairs at full
+   width into a temporary directory; the best model, last_ckpt, a snapshot and
+   the scalar log exist, and restore_last gives back the step, the weights
+   and the Adam moments.
+12. the tools: bench_conv_bn_epilogue and bench_bnstats_diag, the entry points
+   of the four matmul kernels, through their main(); their rows are printed.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -74,6 +93,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 ROUNDS = 4  # rounds of 4 concurrent requests; the first one is not timed
 SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls per encoder stage
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 64, 3, 10
+LOOP_BATCH, LOOP_BATCHES = 16, 3  # the epoch loop: pairs a batch, batches an epoch
 STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernel against plain augmentation
 STEP_CM_PIXELS = 64  # of 8 x 256 x 256: pixels whose probability sits at the threshold
 # backward, max |kernel - plain| <= atol * max(1, max |plain|) on dq, dk, dv: dk and dv
@@ -89,6 +109,16 @@ BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16)
 ATTN_STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernels against plain attention
 BIT_SHAPE = (32, 8, 4096, 4, 64)  # (B, H, N, M, D) of one decoder block at batch 32
 BIT_SCALE = 32 ** -0.5  # BIT scales by the model dim, not the head dim
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# the four matmul kernels, bf16 operands: y against the plain version within one bf16
+# ulp of the largest output (the two sum K products in another order, so an f32
+# accumulator at a rounding boundary may fall to either side)
+MM_Y_ATOL = 1e-2  # times max(1, max |plain|)
+# their sums against a float64 sum of the plain f32 accumulator, on BatchNorm's scales
+# (|d mean| / std, |d var| / var): f32 sums over up to 524288 rows in tiles of 128
+MM_BN_TOL = 1e-4
+MM_RAGGED = (1000, 72, 200)  # no dimension a multiple of its tile; K, N multiples of 8
+MM_RAGGED_ODD = (333, 37, 91)  # nothing a multiple of 8: the element-wise loads and stores
 BN_SHAPES = ((128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512),
              (128, 16, 16, 1024), (128, 256, 256, 16), (128, 128, 128, 32))
 
@@ -482,6 +512,96 @@ def phase_bn_stats(torch):
             "path": "standalone"}
 
 
+def matmul_bound_ms(m: int, k: int, n: int, stats: bool) -> tuple:
+    """(bound_ms, bound_by) of one product: x, w read and y (and the two f32[N]
+    sums) written once over the memory rate, against 2 M K N operations over the
+    dense bf16 tensor-core rate."""
+    nbytes = 2 * (m * k + k * n + m * n) + (8 * n if stats else 0)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * m * k * n / BF16_TENSOR_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_matmul_stats(torch):
+    """The four matmul kernels against their plain version and a float64 sum
+    of the plain f32 accumulator, at the shapes their tools run and two ragged
+    ones. Returns {function name: result}."""
+    from stcd_tpu_torch.ops import matmul_stats as ops
+    from stcd_tpu_torch.tools import bench_bnstats_diag, bench_conv_bn_epilogue
+
+    kernels = {"matmul_stats": (ops.matmul_stats, bench_conv_bn_epilogue.SHAPES),
+               "matmul_bf16": (ops.matmul_bf16, bench_bnstats_diag.SHAPES),
+               "matmul_stats_rows": (ops.matmul_stats_rows, bench_bnstats_diag.SHAPES),
+               "matmul_stats_mma": (ops.matmul_stats_mma, bench_bnstats_diag.SHAPES)}
+    res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
+                  "bound_by": set()} for name in kernels}
+    cases = [(shape, True) for shape in bench_conv_bn_epilogue.SHAPES]
+    cases += [(MM_RAGGED, False), (MM_RAGGED_ODD, False)]
+    for (m, k, n), on_path in cases:
+        x, w = bench_conv_bn_epilogue.operands(m, k, n, torch.device("cuda"), seed=7)
+        y_plain, _, _ = ops.matmul_stats(x, w, impl="plain")
+        acc = (x.float() @ w.float()).double()  # the plain version's f32 accumulator
+        want = (acc.sum(0), (acc * acc).sum(0))
+        del acc
+        mean = want[0] / m
+        var = (want[1] / m - mean ** 2).clamp_min(1e-6)
+        y_scale = max(1.0, y_plain.float().abs().max().item())
+        t_lib = time_ms(lambda: torch.matmul(x, w)) if on_path else None
+        for name, (fn, shapes) in kernels.items():
+            stats = name != "matmul_bf16"
+            timed = on_path and (m, k, n) in shapes
+            got, again = fn(x, w, impl="kernel"), fn(x, w, impl="kernel")
+            torch.cuda.synchronize()
+            y = got[0] if stats else got
+            require(y.dtype == torch.bfloat16 and y.shape == (m, n),
+                    f"{name} output {y.dtype} {tuple(y.shape)}")
+            for a, c in zip(got if stats else (got,), again if stats else (again,)):
+                require(bool(torch.equal(a, c)), f"{name} {(m, k, n)}: two runs differ")
+            y_err = (y.float() - y_plain.float()).abs().max().item()
+            require(y_err <= MM_Y_ATOL * y_scale, f"{name} {(m, k, n)}: y is off by {y_err} > "
+                    f"{MM_Y_ATOL} x {y_scale}")
+            bn_err = 0.0
+            if stats:
+                require(got[1].dtype == torch.float32 and got[1].shape == (n,)
+                        and got[2].shape == (n,), f"{name} sums {tuple(got[1].shape)}")
+                g_mean = got[1].double() / m
+                g_var = got[2].double() / m - g_mean ** 2
+                bn_err = max(((g_mean - mean).abs() / var.sqrt()).max().item(),
+                             ((g_var - var).abs() / var).max().item())
+                require(bn_err <= MM_BN_TOL, f"{name} {(m, k, n)}: BN-scaled sums are off by "
+                        f"{bn_err} > {MM_BN_TOL}")
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], y_err)
+            r["max_bn_scaled_err"] = max(r["max_bn_scaled_err"], bn_err)
+            line = (f"{name} (M,K,N)={(m, k, n)}: max|dy|={y_err:.3e} (atol {MM_Y_ATOL} x "
+                    f"{y_scale:.1f}), BN-scaled sums {bn_err:.3e} (tol {MM_BN_TOL}), two runs "
+                    f"identical")
+            if timed:
+                t_kernel = time_ms(lambda: fn(x, w, impl="kernel"))
+                t_plain = time_ms(lambda: fn(x, w, impl="plain"), runs=5)
+                bound, by = matmul_bound_ms(m, k, n, stats)
+                line += (f"; kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms torch.matmul "
+                         f"{t_lib:.4f} ms bound {bound:.4f} ms ({by})")
+                r["ms"] += t_kernel
+                r["plain_ms"] += t_plain
+                r["bound_ms"] += bound
+                r["bound_by"].add(by)
+                if not stats:
+                    r["library_ms"] += t_lib
+            print(line, flush=True)
+        del x, w, y_plain, want
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        kinds = r.pop("bound_by")
+        r["bound_by"] = kinds.pop() if len(kinds) == 1 else "operations"
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"{name} over its tool's {len(kernels[name][1])} shapes: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, one library call (torch.matmul) {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return res
+
+
 def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
     """CDTrainer.train_step at full width: timed steps on one fixed batch, the
     attention launches counted, then one fp32 step with the kernels against
@@ -676,25 +796,22 @@ def phase_serving(torch, np, attention, gpu_label):
     return launches
 
 
-def phase_training(torch, augment_kernel, gpu_label):
-    """The SegCD-r50 stage-2 train step at batch 64, then kernel against
-    plain augmentation inside one fp32 step. Returns the kernel's launches on
-    the bf16 run."""
-    from stcd_tpu_torch.data.augment import params_to, sample_pair_params
-    from stcd_tpu_torch.models.segcd import SegCD, init_weights
-    from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
-    from stcd_tpu_torch.train.state import adam_poly, create_train_state
-    from stcd_tpu_torch.train.steps import make_cd_steps
+STAGE_NAMES = {1: "UnetSeg resnet50 (stage 1, make_seg_steps)",
+               2: "SegCD resnet50 (stage 2, make_cd_steps)",
+               3: "SegCD resnet50 (stage 3, make_semi_cd_steps, 32 synthesized + 32 real pairs)"}
 
-    def new_state(bf16):
-        model = init_weights(SegCD("resnet50", classes=1,
-                                   decoder_channels=(256, 128, 64, 32, 16)), seed=0)
-        return create_train_state(model, adam_poly(1e-3, 60, 1000), device="cuda",
-                                  bf16=bf16)
 
-    train_step, _ = make_cd_steps(augment=True)
-    state = new_state(bf16=True)
-    data = seeded_cd_batch(TRAIN_BATCH, TILE, seed=1, device="cuda")
+def phase_training(torch, augment_kernel, gpu_label, stage=2):
+    """The train step of STCD stage 1, 2 or 3 at full width and batch 64
+    through create_train_state and the stage's make_*_steps, then kernel
+    against plain augmentation inside one fp32 step on the same draws.
+    Returns the kernel's launches on the bf16 run."""
+    from stcd_tpu_torch.data.augment import (params_to, sample_augment_params,
+                                             sample_pair_params)
+    from stcd_tpu_torch.tools.profile_step import seeded_stage_batch, stage_setup
+
+    state, train_step, _ = stage_setup(stage, bf16=True)
+    data = seeded_stage_batch(stage, TRAIN_BATCH, TILE, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     bn_mean0 = state.model.encoder.bn1.running_mean.clone()
     torch.cuda.synchronize()
@@ -710,9 +827,12 @@ def phase_training(torch, augment_kernel, gpu_label):
     torch.cuda.synchronize()
     launches = augment_kernel.kernel_launches
     n_steps = TRAIN_WARM + TRAIN_STEPS
+    terms = ("loss", "seg_loss", "cd_loss", "ct_loss") if stage == 3 else ("loss",)
+    for term in terms:
+        values = [float(o[term]) for o in outs]
+        require(all(x == x and abs(x) != float("inf") for x in values),
+                f"stage {stage}: non-finite {term}: {values}")
     losses = [float(o["loss"]) for o in outs]
-    require(all(x == x and abs(x) != float("inf") for x in losses),
-            f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"the loss did not fall on a fixed batch: {losses}")
     for o in outs:
         require(int(o["cm"].sum()) == TRAIN_BATCH * TILE * TILE,
@@ -724,35 +844,132 @@ def phase_training(torch, augment_kernel, gpu_label):
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events[TRAIN_WARM:])
     step_ms = times[len(times) // 2]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"training: SegCD resnet50 (256,128,64,32,16), batch {TRAIN_BATCH}, "
+    last = ", ".join(f"{t} {float(outs[-1][t]):.4f}" for t in terms[1:])
+    print(f"training: {STAGE_NAMES[stage]} (256,128,64,32,16), batch {TRAIN_BATCH}, "
           f"{TILE}x{TILE}, augment on, bf16 autocast, {n_steps} steps: loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}; augment kernel launches {launches}",
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}{'; last step: ' + last if last else ''}; "
+          f"augment kernel launches {launches}", flush=True)
+    print(f"training stage {stage} on {gpu_label} (a smoke reading, median of {TRAIN_STEPS} "
+          f"steps by CUDA events): step {step_ms:.3f} ms; {TRAIN_BATCH / step_ms * 1e3:.2f} "
+          f"{'images' if stage == 1 else 'pairs'}/s; peak device memory {peak_gib:.2f} GiB",
           flush=True)
-    print(f"training on {gpu_label} (a smoke reading, median of {TRAIN_STEPS} steps by "
-          f"CUDA events): step {step_ms:.3f} ms; {TRAIN_BATCH / step_ms * 1e3:.2f} "
-          f"pairs/s; peak device memory {peak_gib:.2f} GiB", flush=True)
     del state, outs
     torch.cuda.empty_cache()
 
     # one fp32 step (TF32 is off) from the same init on the same draws, with the
-    # kernel and with the plain augmentation
-    small = {k: v[:8] for k, v in data.items()}
-    draws = tuple(params_to(p, "cuda") for p in
-                  sample_pair_params(torch.Generator().manual_seed(3), 8))
+    # kernel and with the plain augmentation: 8 samples (stage 3: 4 + 4 pairs)
+    cpu_gen = torch.Generator().manual_seed(3)
+    if stage == 1:
+        small = {k: v[:8] for k, v in data.items()}
+        draws = params_to(sample_augment_params(cpu_gen, 8, 0.5), "cuda")
+    elif stage == 2:
+        small = {k: v[:8] for k, v in data.items()}
+        draws = tuple(params_to(p, "cuda") for p in sample_pair_params(cpu_gen, 8))
+    else:
+        small = {k: v[:4] for k, v in data.items()}
+        draws = tuple(tuple(params_to(p, "cuda") for p in sample_pair_params(cpu_gen, 4, jp))
+                      for jp in (0.5, 0.8))
     got = {}
     for impl in ("kernel", "plain"):
-        out = train_step(new_state(bf16=False), small, aug_params=draws, augment_impl=impl)
+        out = train_step(stage_setup(stage, bf16=False)[0], small, aug_params=draws,
+                         augment_impl=impl)
         got[impl] = (float(out["loss"]), out["cm"].cpu())
     require(augment_kernel.kernel_launches == launches + 1,
             "the plain-augmentation step launched the kernel")
     d_loss = abs(got["kernel"][0] - got["plain"][0])
     d_cm = int((got["kernel"][1] - got["plain"][1]).abs().sum()) // 2
-    print(f"one fp32 train step at batch 8, kernel against plain augmentation: loss "
-          f"{got['kernel'][0]:.6f} vs {got['plain'][0]:.6f} (|d|={d_loss:.2e}, atol "
+    print(f"one fp32 stage-{stage} train step at batch 8, kernel against plain augmentation: "
+          f"loss {got['kernel'][0]:.6f} vs {got['plain'][0]:.6f} (|d|={d_loss:.2e}, atol "
           f"{STEP_LOSS_ATOL}); confusion counts differ in {d_cm} pixels "
           f"(at most {STEP_CM_PIXELS})", flush=True)
     require(d_loss <= STEP_LOSS_ATOL, f"step losses differ by {d_loss}")
     require(d_cm <= STEP_CM_PIXELS, f"confusion counts differ in {d_cm} pixels")
+    return launches
+
+
+def phase_loop(torch, augment_kernel):
+    """run_training for 2 epochs of 3 seeded device batches of 16 pairs at
+    full width (SegCD-r50, stage 2, bf16) into a temporary directory; the
+    artifacts exist and restore_last gives back the step and the weights.
+    Returns the augmentation kernel's launches."""
+    import tempfile
+
+    from stcd_tpu_torch.tools.profile_step import seeded_stage_batch, stage_setup
+    from stcd_tpu_torch.train.checkpoint import CheckpointManager
+    from stcd_tpu_torch.train.loops import run_training
+
+    state, train_step, eval_step = stage_setup(2, bf16=True)
+    train = [seeded_stage_batch(2, LOOP_BATCH, TILE, seed=10 + i, device="cuda")
+             for i in range(LOOP_BATCHES)]
+    evals = [seeded_stage_batch(2, LOOP_BATCH, TILE, seed=20, device="cuda")]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    augment_kernel.kernel_launches = 0
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.monotonic()
+        state, best, history = run_training(train_step, eval_step, state, train, evals,
+                                            n_epochs=2, save_dir=save_dir, rng=gen,
+                                            log_every=1)
+        torch.cuda.synchronize()
+        loop_s = time.monotonic() - t0
+        launches = augment_kernel.kernel_launches
+        files = sorted(os.listdir(save_dir))
+        require(len(history) == 2 and state.step == 2 * LOOP_BATCHES,
+                f"{len(history)} epochs, {state.step} steps")
+        require(launches == 2 * LOOP_BATCHES, f"{launches} augment launches in the loop")
+        require("last_ckpt" in files and "2.00_model" in files
+                and sum(f.endswith("_best_model") for f in files) == 1,
+                f"checkpoint files: {files}")
+        with open(os.path.join(save_dir, "logs", "scalars.jsonl")) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+        require({"train/loss", "train/IoU", "train/imgs_per_sec", "val/IoU"} <= tags,
+                f"scalar log tags: {sorted(tags)}")
+        for h in history:  # precision and F1 are nan while nothing is predicted changed
+            require(0.0 <= h["val"]["OA"] <= 1.0 and 0.0 <= h["train"]["OA"] <= 1.0,
+                    f"epoch metrics: {h}")
+        fresh = stage_setup(2, bf16=True)[0]
+        restored = CheckpointManager(save_dir).restore_last(fresh)
+        require(restored is not None and restored[1] == 2 and fresh.step == state.step,
+                f"restore_last gave {restored and restored[1:]} at step {fresh.step}")
+        for (name, want), got in zip(state.model.state_dict().items(),
+                                     fresh.model.state_dict().values()):
+            require(bool(torch.equal(want, got)), f"restore_last: {name} differs")
+        want_opt, got_opt = (st.optimizer.state_dict()["state"] for st in (state, fresh))
+        require(len(want_opt) > 100 and want_opt.keys() == got_opt.keys()
+                and all(torch.equal(want_opt[i]["exp_avg"], got_opt[i]["exp_avg"])
+                        for i in want_opt), "restore_last: Adam moments differ")
+    print(f"loop: run_training, SegCD resnet50, 2 epochs x {LOOP_BATCHES} batches of "
+          f"{LOOP_BATCH} pairs, bf16: {loop_s:.1f} s with evals and checkpoints; best IoU "
+          f"{best:.4f}; files {files}; restore_last gives back step {fresh.step}, the "
+          f"weights and the Adam moments; augment kernel launches {launches}", flush=True)
+    return launches
+
+
+def phase_tools(torch):
+    """The two feasibility benchmarks' entry points on the card: they are the
+    main path of the four matmul kernels. Returns each kernel's launches."""
+    from stcd_tpu_torch.ops import matmul_stats as ops
+    from stcd_tpu_torch.tools import bench_bnstats_diag, bench_conv_bn_epilogue
+
+    wrappers = {"matmul_stats": ops.matmul_stats_kernel, "matmul_bf16": ops.matmul_bf16_kernel,
+                "matmul_stats_rows": ops.matmul_stats_rows_kernel,
+                "matmul_stats_mma": ops.matmul_stats_mma_kernel}
+    for wrapper in wrappers.values():
+        wrapper.kernel_launches = 0
+    rows = {"bench_conv_bn_epilogue": bench_conv_bn_epilogue.main([]),
+            "bench_bnstats_diag": bench_bnstats_diag.main([])}
+    torch.cuda.synchronize()
+    launches = {name: wrapper.kernel_launches for name, wrapper in wrappers.items()}
+    require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3,
+            "the tools did not return a row for each shape")
+    for row in rows["bench_conv_bn_epilogue"]:
+        require(row["impl"] == "kernel" and row["relerr"] == row["relerr"]
+                and row["matmul_stats_ms"] > 0, f"bench_conv_bn_epilogue row: {row}")
+    for row in rows["bench_bnstats_diag"]:
+        require(row["impl"] == "kernel" and row["y_equal"]
+                and row["cross_variant_err"] == row["cross_variant_err"],
+                f"bench_bnstats_diag row: {row}")
+    print("tools rows json: " + json.dumps(rows), flush=True)
+    print(f"tools: kernel launches {launches}", flush=True)
     return launches
 
 
@@ -820,12 +1037,14 @@ def main() -> int:
     attn_bwd = phase_attention_backward(torch, attention)
     attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"])
     bn = phase_bn_stats(torch)
+    mm = phase_matmul_stats(torch)
 
     # phase 4: serving
     serving_launches = phase_serving(torch, np, attention, gpu_label)
 
-    # phase 5: training
-    aug["launches"] = phase_training(torch, augment.apply_augment_kernel, gpu_label)
+    # phase 5: training, the stage-2 step
+    aug_by_path = {"stage2_step": phase_training(torch, augment.apply_augment_kernel,
+                                                 gpu_label)}
     aug["library_ms"] = None  # no single PyTorch call computes this function
 
     # phase 6: SegCD serving
@@ -836,6 +1055,18 @@ def main() -> int:
                                    V6_TRAIN, fp32_batch=2)
     bit_fwd, bit_bwd = phase_trainer(torch, attention, gpu_label,
                                      "base_transformer_pos_s4_dd8", BIT_TRAIN, fp32_batch=8)
+    # phases 9 to 11: the stage-1 and stage-3 steps and the epoch loop
+    for stage in (1, 3):
+        aug_by_path[f"stage{stage}_step"] = phase_training(
+            torch, augment.apply_augment_kernel, gpu_label, stage=stage)
+    aug_by_path["run_training"] = phase_loop(torch, augment.apply_augment_kernel)
+    aug["launches"] = sum(aug_by_path.values())
+
+    # phase 12: the two feasibility benchmarks, the matmul kernels' entry points
+    for name, launches in phase_tools(torch).items():
+        require(launches > 0, f"the tools never launched {name}")
+        mm[name]["launches"] = launches
+
     # every path's count was taken from 0 just before it and read just after
     attn["launches"] = serving_launches + v6_fwd + bit_fwd
     attn["launches_by_path"] = {"v6_serving": serving_launches, "v6_training": v6_fwd,
@@ -856,11 +1087,20 @@ def main() -> int:
          "launches_by_path": attn_bwd["launches_by_path"]},
         {"name": "augment", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/augment.cu",
-         "replaces": "stcd_tpu/ops/augment_kernel.py:44", **{k: aug[k] for k in keys}},
+         "replaces": "stcd_tpu/ops/augment_kernel.py:44", **{k: aug[k] for k in keys},
+         "launches_by_path": aug_by_path},
         {"name": "bn_stats", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},
          "path": "standalone"},
+        *[{"name": name, "route": "cuda",
+           "source": "stcd_tpu_torch/ops/csrc/matmul_stats.cu", "replaces": replaces,
+           **{k: mm[name][k] for k in keys},
+           "max_bn_scaled_err": mm[name]["max_bn_scaled_err"]}
+          for name, replaces in (("matmul_stats", "benchmarks/bench_conv_bn_epilogue.py:30"),
+                                 ("matmul_bf16", "benchmarks/bench_bnstats_diag.py:24"),
+                                 ("matmul_stats_rows", "benchmarks/bench_bnstats_diag.py:46"),
+                                 ("matmul_stats_mma", "benchmarks/bench_bnstats_diag.py:88"))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

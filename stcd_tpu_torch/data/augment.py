@@ -176,9 +176,9 @@ def sample_augment_params(generator: torch.Generator, n: int, jitter_p: float,
     }
 
 
-def concat_params(pa: Params, pb: Params) -> Params:
-    """The draws of two batches as one batch (A's images first)."""
-    return {k: torch.cat([pa[k], pb[k]], dim=0) for k in pa}
+def concat_params(*params: Params) -> Params:
+    """The draws of several batches as one batch, in the order given."""
+    return {k: torch.cat([p[k] for p in params], dim=0) for k in params[0]}
 
 
 def params_to(params: Params, device) -> Params:
@@ -212,12 +212,15 @@ def apply_augment_reference(imgs: torch.Tensor, params: Params) -> torch.Tensor:
 
 
 def train_augment(generator: torch.Generator, imgs: torch.Tensor,
-                  jitter_p: float = 0.5, impl: Optional[str] = None) -> torch.Tensor:
+                  jitter_p: float = 0.5, aug_params: Optional[Params] = None,
+                  impl: Optional[str] = None) -> torch.Tensor:
     """The train-time pipeline on an (N, H, W, 3) batch: every image draws
-    its own coins and factors."""
+    its own coins and factors. ``aug_params`` (one dict of draws) replaces
+    the sampling."""
     from stcd_tpu_torch.ops.augment import apply_augment_batch
 
-    params = sample_augment_params(generator, imgs.shape[0], jitter_p)
+    params = aug_params if aug_params is not None else sample_augment_params(
+        generator, imgs.shape[0], jitter_p)
     return apply_augment_batch(imgs, params_to(params, imgs.device), impl=impl)
 
 

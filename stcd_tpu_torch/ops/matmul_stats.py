@@ -1,0 +1,186 @@
+"""A bf16 matrix product, alone or with the BatchNorm sums of its f32 result
+(counterpart of the four Pallas functions of the JAX repo's feasibility
+benchmarks, benchmarks/bench_conv_bn_epilogue.py and
+benchmarks/bench_bnstats_diag.py).
+
+A ResNet bottleneck's 1x1 convolution is a matrix product ``x (M, K) . w (K,
+N)``; the functions ask whether it can emit ``sum(y)`` and ``sum(y^2)`` over
+its rows while the output tile is still on chip:
+
+- ``matmul_bf16(x, w) -> y``                          (``pallas_mm``)
+- ``matmul_stats(x, w) -> (y, sum, sumsq)``            (``pallas_fused``):
+  one block for each (M tile, N tile);
+- ``matmul_stats_rows(x, w) -> (y, sum, sumsq)``       (``pallas_1d``): a
+  block owns its rows across all N;
+- ``matmul_stats_mma(x, w) -> (y, sum, sumsq)``        (``pallas_mxu_stats``):
+  as ``_rows``, the two sums formed on the tensor cores.
+
+x and w are bfloat16, the accumulation is float32, y is the accumulator
+rounded to bfloat16 once, and the sums, float32[N], are those of the float32
+accumulator before it is rounded. Each dispatches on the tensors' device:
+
+- CUDA tensors go to the hand-written kernels of ``csrc/matmul_stats.cu``
+  (``*_kernel``), or the call raises: there is no fallback;
+- CPU tensors go to the plain PyTorch versions (``*_plain``).
+
+The JAX functions' ``bm``, ``bn`` and ``pipeline`` are TPU tile arguments and
+their ``m % bm == 0`` rule is the TPU grid's; here any M, K, N >= 1 is taken
+and the tile geometry is fixed (``GEOMETRY``). Like the JAX functions these
+have no gradient: they raise on inputs that require grad.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from stcd_tpu_torch.ops import _build
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# BM, BN, BK of matmul_stats.cu: it only sizes the scratch here, and the C entry
+# refuses a scratch whose tile count is not its own.
+TILE_ROWS, TILE_COLS, TILE_DEPTH = 128, 64, 64
+GEOMETRY = (f"{TILE_ROWS} x {TILE_COLS} output tiles, K in chunks of {TILE_DEPTH}, 8 warps of "
+            f"32 x 32 (wmma m16n16k16 bf16), partial sums per {TILE_ROWS}-row tile")
+_MAX_BLOCKS = 2 ** 31 - 1
+
+
+def _check_args(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"the product takes x (M, K) and w (K, N), got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"the product takes bfloat16 operands, got {x.dtype} and {w.dtype}")
+    if min(*x.shape, *w.shape) < 1:
+        raise ValueError(f"empty operand: {tuple(x.shape)} . {tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"x is on {x.device} and w on {w.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("the product has no gradient (the JAX functions have none): "
+                           "detach the operands or call it under torch.no_grad()")
+
+
+def _accumulator(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check_args(x, w)
+    return x.float() @ w.float()
+
+
+def matmul_bf16_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version: the float32 product of the upcast operands, rounded
+    to bfloat16."""
+    return _accumulator(x, w).bfloat16()
+
+
+def matmul_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
+    """The plain version of the three functions with sums: they compute one
+    function. The sums are of the float32 accumulator, not of the rounded y."""
+    acc = _accumulator(x, w)
+    return acc.bfloat16(), acc.sum(0), (acc * acc).sum(0)
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: bool):
+    _check_args(x, w)
+    if not x.is_cuda:
+        raise RuntimeError(f"{entry} needs CUDA tensors, got {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{entry} needs contiguous row-major operands")
+    m, k = x.shape
+    n = w.shape[1]
+    m_tiles = -(-m // TILE_ROWS)
+    blocks = m_tiles * (-(-n // TILE_COLS) if grid_2d else 1)
+    if blocks > _MAX_BLOCKS or max(k, n) > 2 ** 31 - 1:
+        raise ValueError(f"{entry}: ceil(M / {TILE_ROWS}) tiles"
+                         f"{' times ceil(N / %d)' % TILE_COLS if grid_2d else ''} must not "
+                         f"exceed {_MAX_BLOCKS} blocks, got {blocks} for M={m}, N={n}")
+    lib = _build.load_library()
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if not stats:
+        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, *tail)
+        _build.check(lib, err, entry)
+        return y
+    out = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
+    err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+                              part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                              m, k, n, m_tiles, *tail)
+    _build.check(lib, err, entry)
+    return y, out[0], out[1]
+
+
+def matmul_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the product alone on x's device and current stream. Takes
+    contiguous bfloat16 CUDA tensors; raises on anything else.
+    ``kernel_launches`` counts the calls."""
+    y = _launch("stcd_matmul_bf16", x, w, stats=False, grid_2d=False)
+    matmul_bf16_kernel.kernel_launches += 1
+    return y
+
+
+def matmul_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
+    """Launch the product with sums, one block for each (M tile, N tile)."""
+    out = _launch("stcd_matmul_stats", x, w, stats=True, grid_2d=True)
+    matmul_stats_kernel.kernel_launches += 1
+    return out
+
+
+def matmul_stats_rows_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
+    """Launch the product with sums, one block for each M tile across all N."""
+    out = _launch("stcd_matmul_stats_rows", x, w, stats=True, grid_2d=False)
+    matmul_stats_rows_kernel.kernel_launches += 1
+    return out
+
+
+def matmul_stats_mma_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
+    """Launch the product with the sums formed on the tensor cores."""
+    out = _launch("stcd_matmul_stats_mma", x, w, stats=True, grid_2d=False)
+    matmul_stats_mma_kernel.kernel_launches += 1
+    return out
+
+
+for _kernel in (matmul_bf16_kernel, matmul_stats_kernel, matmul_stats_rows_kernel,
+                matmul_stats_mma_kernel):
+    _kernel.kernel_launches = 0
+
+
+def _dispatch(kernel, plain, x, w, impl):
+    if impl is None:
+        impl = "kernel" if x.is_cuda else "plain"
+    if impl == "kernel":
+        return kernel(x, w)
+    if impl == "plain":
+        return plain(x, w)
+    raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")
+
+
+def matmul_bf16(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None
+                ) -> torch.Tensor:
+    """y = x . w in bfloat16 with float32 accumulation.
+
+    ``impl=None`` picks by device: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. ``impl="plain"`` or ``"kernel"`` forces one; it
+    exists so that a run on the card can hold the two against each other."""
+    return _dispatch(matmul_bf16_kernel, matmul_bf16_plain, x, w, impl)
+
+
+def matmul_stats(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None) -> Stats:
+    """(y, sum, sumsq): the product and the column sums of its float32
+    accumulator and of its square; 2-D decomposition. ``impl`` as above."""
+    return _dispatch(matmul_stats_kernel, matmul_stats_plain, x, w, impl)
+
+
+def matmul_stats_rows(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None
+                      ) -> Stats:
+    """The function of ``matmul_stats`` with a block owning its rows across
+    all N, so that x is read from device memory once. ``impl`` as above."""
+    return _dispatch(matmul_stats_rows_kernel, matmul_stats_plain, x, w, impl)
+
+
+def matmul_stats_mma(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None
+                     ) -> Stats:
+    """The function of ``matmul_stats_rows`` with the two sums formed on the
+    tensor cores (ones . acc and ones . acc^2, each as three exact TF32 parts,
+    so the sums keep float32 accuracy). ``impl`` as above."""
+    return _dispatch(matmul_stats_mma_kernel, matmul_stats_plain, x, w, impl)

@@ -7,7 +7,8 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
   python -m stcd_tpu_torch.tools.profile_step [--out profile.json] \\
       [--init_seed 0 | --weights v6.pt] [--tile 256]
-  python -m stcd_tpu_torch.tools.profile_step --mode train [--out profile.json]
+  python -m stcd_tpu_torch.tools.profile_step --mode train [--stage 1|2|3] \\
+      [--out profile.json]
   python -m stcd_tpu_torch.tools.profile_step --mode train --net_G ChangeFormerV6
   python -m stcd_tpu_torch.tools.profile_step --mode train \\
       --net_G base_transformer_pos_s4_dd8
@@ -25,11 +26,15 @@ the profile below with the attention kernels' device ms per step
 ``make_cd_steps(augment=True)`` build for SegCD with a ResNet-50 encoder and
 the (256, 128, 64, 32, 16) decoder on 256x256 pairs, seeded random weights and
 a fixed seeded uint8 batch on the card: in bf16 autocast at batch 64, and in
-fp32 with TF32 off at batch 8. For each it gives step ms (median of 10, host
-clock and CUDA events), a torch.profiler trace of 3 steps (device ms per
-kernel name, busy share of the profiled window, and the kernel time as a
-share of the unprofiled step), the device ms per step of the augmentation
-kernel and of the optimizer's kernels, and the peak memory.
+fp32 with TF32 off at batch 8. ``--stage 1`` runs ``make_seg_steps`` on
+UnetSeg with the same encoder and decoder at the same batches of single
+images, ``--stage 3`` ``make_semi_cd_steps`` on SegCD with half the batch
+synthesized pairs and half real pairs (one forward over the whole batch). For
+each it gives step ms (median of 10, host clock and CUDA events), a
+torch.profiler trace of 3 steps (device ms per kernel name, busy share of the
+profiled window, and the kernel time as a share of the unprofiled step), the
+device ms per step of the augmentation kernel and of the optimizer's kernels,
+and the peak memory.
 
 ``--mode serve`` (the default) profiles the serving step. A step there
 is what the serving engine's worker runs for one device batch: two
@@ -178,6 +183,45 @@ def seeded_cd_batch(batch: int, size: int, seed: int, device) -> dict:
     return {"A": a, "B": b, "label": label}
 
 
+def seeded_stage_batch(stage: int, batch: int, size: int, seed: int, device) -> dict:
+    """A fixed train batch of ``batch`` samples for STCD stage 1, 2 or 3: stage
+    1 holds ``image`` and ``label``; stage 2 ``A``, ``B`` and ``label``; stage 3
+    ``batch // 2`` synthesized pairs (``A``, ``B``, ``s_label_A``, ``c_label``)
+    and as many real pairs (``CA``, ``CB``, ``CL``), so that its one forward
+    covers ``batch`` pairs."""
+    if stage == 2:
+        return seeded_cd_batch(batch, size, seed, device)
+    if stage == 1:
+        data = seeded_cd_batch(batch, size, seed, device)
+        return {"image": data["A"], "label": data["label"]}
+    if stage != 3 or batch % 2:
+        raise ValueError(f"stage {stage} with batch {batch}: stages are 1, 2, 3 and stage 3 "
+                         "takes an even batch")
+    syn = seeded_cd_batch(batch // 2, size, seed, device)
+    real = seeded_cd_batch(batch // 2, size, seed + 1000, device)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 2000)
+    s_label = (torch.rand(batch // 2, size, size, 1, generator=gen) > 0.8).float().to(device)
+    return {"A": syn["A"], "B": syn["B"], "s_label_A": s_label, "c_label": syn["label"],
+            "CA": real["A"], "CB": real["B"], "CL": real["label"]}
+
+
+def stage_setup(stage: int, bf16: bool, device="cuda"):
+    """(state, train_step, eval_step) of STCD stage 1, 2 or 3 at full width:
+    UnetSeg (stage 1) or SegCD with a ResNet-50 encoder and the
+    (256, 128, 64, 32, 16) decoder, weights from seed 0, Adam with the
+    reference's Poly schedule, augmentation on."""
+    from stcd_tpu_torch.models.segcd import SegCD, UnetSeg, init_weights
+    from stcd_tpu_torch.train.state import adam_poly, create_train_state
+    from stcd_tpu_torch.train.steps import make_cd_steps, make_seg_steps, make_semi_cd_steps
+
+    cls = UnetSeg if stage == 1 else SegCD
+    make = {1: make_seg_steps, 2: make_cd_steps, 3: make_semi_cd_steps}[stage]
+    model = init_weights(cls("resnet50", classes=1, decoder_channels=(256, 128, 64, 32, 16)),
+                         seed=0)
+    state = create_train_state(model, adam_poly(1e-3, 60, 1000), device=device, bf16=bf16)
+    return (state, *make(augment=True))
+
+
 def trainer_setup(net_G: str, **overrides):
     """(trainer, state, (a, b, label)) of TRAINER_SETUPS[net_G] on the card:
     weights from seed 0, one fixed uint8 batch from seed 1, the step's draws
@@ -205,22 +249,18 @@ def print_profile(prof) -> None:
               f"{k['name'][:100]}")
 
 
-def profile_train(gpu: str, size: int = 256) -> dict:
-    """The SegCD-r50 stage-2 train step in each of TRAIN_PRECISIONS."""
-    from stcd_tpu_torch.models.segcd import SegCD, init_weights
-    from stcd_tpu_torch.train.state import adam_poly, create_train_state
-    from stcd_tpu_torch.train.steps import make_cd_steps
-
+def profile_train(gpu: str, size: int = 256, stage: int = 2) -> dict:
+    """The train step of STCD stage 1, 2 or 3 (UnetSeg-r50 or SegCD-r50) in
+    each of TRAIN_PRECISIONS."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "model": "SegCD resnet50 (256,128,64,32,16)", "size": size, "precisions": {}}
-    train_step, _ = make_cd_steps(augment=True)
+           "model": f"{'UnetSeg' if stage == 1 else 'SegCD'} resnet50 (256,128,64,32,16)",
+           "stage": stage, "size": size, "precisions": {}}
+    unit = "images" if stage == 1 else "pairs"  # what a batch counts
     for name, bf16, batch in TRAIN_PRECISIONS:
-        model = init_weights(SegCD("resnet50", classes=1), seed=0)
-        state = create_train_state(model, adam_poly(1e-3, 60, 1000), device="cuda",
-                                   bf16=bf16)
-        data = seeded_cd_batch(batch, size, seed=1, device="cuda")
+        state, train_step, _ = stage_setup(stage, bf16)
+        data = seeded_stage_batch(stage, batch, size, seed=1, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(2)
 
         def step():
@@ -232,11 +272,11 @@ def profile_train(gpu: str, size: int = 256) -> dict:
         prof = profile_steps(step, groups=TRAIN_GROUPS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         res["precisions"][name] = {"batch": batch, "host_ms": host, "event_ms": dev,
-                                   "pairs_per_s": batch / dev * 1e3, "peak_gib": peak,
+                                   f"{unit}_per_s": batch / dev * 1e3, "peak_gib": peak,
                                    "profile": prof}
-        print(f"== train {name} batch {batch} on {gpu}: step ms (median of {STEPS}; "
-              f"host / events) {host:.3f} / {dev:.3f}; {batch / dev * 1e3:.1f} pairs/s; "
-              f"peak device memory {peak:.3f} GiB", flush=True)
+        print(f"== train stage {stage} {name} batch {batch} on {gpu}: step ms (median of "
+              f"{STEPS}; host / events) {host:.3f} / {dev:.3f}; {batch / dev * 1e3:.1f} "
+              f"{unit}/s; peak device memory {peak:.3f} GiB", flush=True)
         print_profile(prof)
         if prof is not None:
             # the profiler slows the host, so its window understates the busy
@@ -244,7 +284,7 @@ def profile_train(gpu: str, size: int = 256) -> dict:
             share = prof["device_ms_per_step"] / dev
             res["precisions"][name]["busy_share_unprofiled"] = share
             print(f"  kernel time over the unprofiled step: {100 * share:.1f} %")
-        del state, model, data
+        del state, data
         torch.cuda.empty_cache()
     return res
 
@@ -298,6 +338,8 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--out", default=None, help="write the numbers as JSON here")
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
+    p.add_argument("--stage", type=int, choices=(1, 2, 3), default=2,
+                   help="--mode train without --net_G: the STCD stage whose step is timed")
     add_model_args(p)
     args = p.parse_args(argv)
     if args.mode == "train" and args.net_G not in (None, *TRAINER_SETUPS):
@@ -315,7 +357,7 @@ def main(argv=None) -> dict:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"gpu: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if args.mode == "train":
-        res = (profile_train(gpu, args.tile) if args.net_G is None
+        res = (profile_train(gpu, args.tile, args.stage) if args.net_G is None
                else profile_trainer(gpu, args.net_G))
         if args.out:
             with open(args.out, "w") as f:

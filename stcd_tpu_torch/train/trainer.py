@@ -2,12 +2,11 @@
 stcd_tpu/train/trainer.py, ``CDTrainer._build_steps`` and what it calls).
 
 Ported: ``TrainerConfig``, the optimizer choice sgd / adam / adamw, the loss
-dispatch ce / bce / cd_loss with multi-scale training, multi-scale inference,
+dispatch ce / bce / cd_loss / fl / miou / mmiou with multi-scale training, multi-scale inference,
 and ``train_step`` / ``eval_step`` with on-device normalisation, augmentation,
 bf16 autocast and confusion counts. Not ported yet: the epoch loop
 (``train_models``, ``_run_epoch``), ``CDEvaluator``, checkpoints and logging
-(ROADMAP.md Queue 1 #6), the losses fl / miou / mmiou (Queue 1 #5), and
-pipeline and tensor parallelism (Queue 1 #11).
+(ROADMAP.md Queue 1 #6), and pipeline and tensor parallelism (Queue 1 #11).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX
@@ -21,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from stcd_tpu_torch.data.augment import eval_preprocess, to_float01, train_augment_pair
@@ -88,10 +88,12 @@ class CDTrainer:
     """The args-driven training harness over the ``define_G`` zoo: it builds
     the model, the schedule and the optimizer config from ``cfg`` and offers
     ``init_state``, ``train_step`` and ``eval_step``. ``steps_per_epoch``
-    stands for the length of the train loader (the schedules are per epoch)."""
+    stands for the length of the train loader (the schedules are per epoch);
+    ``alpha`` for the class counts the JAX trainer scans its train loader for."""
 
-    def __init__(self, cfg: TrainerConfig, steps_per_epoch: int = 1):
+    def __init__(self, cfg: TrainerConfig, steps_per_epoch: int = 1, alpha=None):
         self.cfg = cfg
+        self.alpha = alpha  # class counts (``get_alpha``) for the losses fl and miou
         self.model = define_G(cfg.net_G, n_class=cfg.n_class, embed_dim=cfg.embed_dim)
         schedule = get_scheduler(cfg.lr_policy, cfg.lr, max(steps_per_epoch, 1),
                                  max_epochs=cfg.max_epochs,
@@ -133,9 +135,19 @@ class CDTrainer:
                         "loss='ce'")
                 fn = L.bce_loss if cfg.loss == "bce" else L.cd_loss
                 losses.append(w * fn(torch.sigmoid(pred.float()), g))
-            elif cfg.loss in ("fl", "miou", "mmiou"):
-                raise NotImplementedError(
-                    f"loss={cfg.loss!r} is not ported yet (ROADMAP.md Queue 1 #5)")
+            elif cfg.loss == "fl":
+                losses.append(w * L.focal_loss(pred, g[:, 0], alpha=self.alpha, gamma=2.0,
+                                               smooth=1e-5))
+            elif cfg.loss == "miou":
+                if self.alpha is None:
+                    raise ValueError("loss='miou' weighs the classes by their frequency: "
+                                     "pass alpha=losses.functional.get_alpha(train_loader) "
+                                     "to CDTrainer")
+                a = np.asarray(self.alpha, np.float64)
+                losses.append(w * L.miou_loss(pred, g[:, 0], weight=1.0 - a / a.sum(),
+                                              n_classes=cfg.n_class))
+            elif cfg.loss == "mmiou":
+                losses.append(w * L.mmiou_loss(pred, g[:, 0], n_classes=cfg.n_class))
             else:
                 raise NotImplementedError(cfg.loss)
         return sum(losses)

@@ -35,8 +35,56 @@ def test_port_never_imports_jax_or_the_jax_package():
     for name in ("encoders.resnet", "decoders.unet", "models.segcd", "losses.functional",
                  "metrics.confusion", "train.schedules", "train.state", "train.steps",
                  "data.augment", "ops.augment", "tools.profile_step", "ops.bn_stats",
-                 "models.bit", "train.trainer", "layers.stochastic"):
+                 "models.bit", "train.trainer", "layers.stochastic", "ops.matmul_stats",
+                 "tools.bench_conv_bn_epilogue", "tools.bench_bnstats_diag", "train.loops",
+                 "train.checkpoint", "utils.logging", "data.io"):
         assert f"stcd_tpu_torch.{name}" in res["modules"], name
-    assert len(res["modules"]) >= 34
+    assert len(res["modules"]) >= 41
     assert res["bad"] == []
     assert res["built"] == 0
+
+
+def _imported_roots(path):
+    """Top-level names of every import statement in a source file, wherever
+    it stands (module level or inside a function)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_names_jax_or_the_jax_package_in_an_import():
+    """The lazy imports too: chip_smoke.py and every module of the port,
+    read as source, import nothing of JAX, of stcd_tpu or of benchmarks/."""
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "stcd_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) >= 45
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stcd_tpu", "benchmarks", "bench"}
+    for path in sources:
+        assert not _imported_roots(path) & banned, path
+
+
+def test_chip_smoke_imports_without_jax_and_fails_without_a_card():
+    """Importing chip_smoke.py pulls in neither JAX nor the JAX package, and
+    without a CUDA card its main() returns non-zero and prints no result."""
+    probe = ("import json, sys, torch, chip_smoke\n"
+             "torch.cuda.is_available = lambda: False\n"
+             "rc = chip_smoke.main()\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'stcd_tpu'))\n"
+             "print(json.dumps({'rc': rc, 'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1  # nothing but the probe's own line: no result was printed
+    res = json.loads(lines[0])
+    assert res["rc"] != 0 and res["bad"] == []
+    assert "needs a CUDA card" in out.stderr

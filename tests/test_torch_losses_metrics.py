@@ -163,3 +163,130 @@ def test_cross_entropy_takes_bf16_logits_in_float32():
     got = tloss.cross_entropy(x.to(torch.bfloat16), torch.from_numpy(target))
     want = tloss.cross_entropy(x.to(torch.bfloat16).float(), torch.from_numpy(target))
     assert got.dtype == torch.float32 and got.item() == want.item()
+
+
+def _logits_and_ids(seed, classes=3, ignore=False):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 2, (2, 6, 5, classes)).astype(np.float32)  # NHWC, as JAX takes it
+    target = rng.integers(0, classes, (2, 6, 5))
+    if ignore:  # ids outside [0, classes): the 255 ignore id and a negative one
+        target[0, 0, :3] = 255
+        target[1, 2, 1] = -1
+    return logits, target.astype(np.int64)
+
+
+def _nchw_leaf(logits):
+    return torch.from_numpy(logits).permute(0, 3, 1, 2).contiguous().requires_grad_()
+
+
+def _hold_value_and_grad(got, leaf, want, want_grad):
+    got.backward()
+    assert got.dtype == torch.float32 and torch.isfinite(leaf.grad).all()
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(leaf.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_grad),
+                               atol=1e-7, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["plain", "ignore_ids", "float_alpha", "array_alpha",
+                                  "no_smooth_gamma2", "probabilities"])
+def test_focal_loss_value_and_gradient_match_jax(case):
+    """The port takes NCHW logits where JAX takes NHWC. Ids outside [0, C)
+    fold to class 0 on both sides; a float alpha sits on balance_index, an
+    array alpha is normalised and inverted."""
+    logits, target = _logits_and_ids(3, ignore=case == "ignore_ids")
+    kw = {"plain": {}, "ignore_ids": {"gamma": 2.0},
+          "float_alpha": {"alpha": 0.25, "balance_index": 1, "gamma": 2.0},
+          "array_alpha": {"alpha": [5.0, 1.0, 2.0]},
+          "no_smooth_gamma2": {"smooth": 0.0, "gamma": 2.0},
+          "probabilities": {"apply_nonlin": False}}[case]
+    if case == "probabilities":
+        logits = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    jkw = {k: (jnp.asarray(v) if k == "alpha" else v) for k, v in kw.items()}
+    want, want_grad = jax.value_and_grad(
+        lambda x: jloss.focal_loss(x, jnp.asarray(target), **jkw))(jnp.asarray(logits))
+    leaf = _nchw_leaf(logits)
+    _hold_value_and_grad(tloss.focal_loss(leaf, torch.from_numpy(target), **kw), leaf,
+                         want, want_grad)
+
+
+@pytest.mark.parametrize("name,kw", [("miou_loss", {}), ("miou_loss", {"weight": [0.3, 0.7, 1.5]}),
+                                     ("mmiou_loss", {})], ids=["miou", "miou_weighted", "mmiou"])
+@pytest.mark.parametrize("ignore", [False, True], ids=["ids_in_range", "ignore_ids"])
+def test_soft_iou_losses_match_jax(name, kw, ignore):
+    """An id outside [0, C) has an all-zero one-hot row on both sides: it
+    adds its probabilities to the union and nothing to the intersection."""
+    logits, target = _logits_and_ids(4, ignore=ignore)
+    want, want_grad = jax.value_and_grad(
+        lambda x: getattr(jloss, name)(x, jnp.asarray(target), n_classes=3, **kw))(
+            jnp.asarray(logits))
+    leaf = _nchw_leaf(logits)
+    got = getattr(tloss, name)(leaf, torch.from_numpy(target), n_classes=3, **kw)
+    _hold_value_and_grad(got, leaf, want, want_grad)
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_agree", "all_disagree"])
+def test_contrastive_loss_matches_jax(case):
+    rng = np.random.default_rng(5)
+    pred = rng.uniform(0.01, 0.99, (4, 8, 8, 1)).astype(np.float32)
+    first = (rng.uniform(size=(2, 8, 8, 1)) > 0.6).astype(np.float32)
+    second = {"mixed": (rng.uniform(size=first.shape) > 0.6).astype(np.float32),
+              "all_agree": first, "all_disagree": 1.0 - first}[case]
+    want, want_grad = jax.value_and_grad(jloss.contrastive_loss)(
+        jnp.asarray(pred), jnp.asarray(first), jnp.asarray(second))
+    leaf = torch.from_numpy(pred).requires_grad_()
+    got = tloss.contrastive_loss(leaf, torch.from_numpy(first), torch.from_numpy(second))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want_grad), atol=1e-7, rtol=1e-4)
+    # the layout does not matter: the same numbers as NCHW give the same loss
+    nchw = tloss.contrastive_loss(torch.from_numpy(pred).permute(0, 3, 1, 2),
+                                  torch.from_numpy(first).permute(0, 3, 1, 2),
+                                  torch.from_numpy(second).permute(0, 3, 1, 2))
+    assert nchw.item() == pytest.approx(got.item(), abs=1e-7)
+
+
+def test_get_alpha_matches_jax_on_arrays_and_tensors():
+    rng = np.random.default_rng(6)
+    labels = [rng.integers(0, 2, (2, 8, 8, 1)), rng.integers(0, 4, (2, 8, 8, 1))]
+    labels[0][0, 0, :4] = 255  # folds into class 0
+    want = jloss.get_alpha([{"label": lab} for lab in labels])
+    got = tloss.get_alpha([{"label": torch.from_numpy(labels[0])}, {"L": labels[1]}])
+    assert got.dtype == np.float64 and got.shape == (4,)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == 2 * 2 * 8 * 8
+
+
+@pytest.mark.parametrize("loss", ["fl", "miou", "mmiou"])
+def test_trainer_loss_dispatch_matches_the_jax_formulas(loss):
+    """CDTrainer._pxl_loss with the class losses: focal with gamma 2 and the
+    class counts as alpha, mIoU weighed by 1 - frequency, mmIoU; multi-scale
+    with a nearest-downsampled label."""
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    rng = np.random.default_rng(7)
+    full = rng.normal(0, 2, (2, 8, 8, 2)).astype(np.float32)
+    half = rng.normal(0, 2, (2, 4, 4, 2)).astype(np.float32)
+    gt = rng.integers(0, 2, (2, 8, 8, 1)).astype(np.float32)
+    alpha = np.array([300.0, 84.0])
+    cfg = TrainerConfig(net_G="base_resnet18", n_class=2, loss=loss, multi_scale_train=True,
+                        multi_pred_weights=(0.5, 1.0))
+    trainer = CDTrainer(cfg, alpha=alpha)
+    got = trainer._pxl_loss([torch.from_numpy(half).permute(0, 3, 1, 2),
+                             torch.from_numpy(full).permute(0, 3, 1, 2)],
+                            torch.from_numpy(gt).permute(0, 3, 1, 2))
+
+    def jax_one(pred, g):
+        if loss == "fl":
+            return jloss.focal_loss(pred, g[..., 0], alpha=alpha, gamma=2.0, smooth=1e-5)
+        if loss == "miou":
+            return jloss.miou_loss(pred, g[..., 0], weight=1.0 - alpha / alpha.sum(),
+                                   n_classes=2)
+        return jloss.mmiou_loss(pred, g[..., 0], n_classes=2)
+
+    want = (0.5 * jax_one(jnp.asarray(half), jnp.asarray(gt)[:, ::2, ::2])
+            + 1.0 * jax_one(jnp.asarray(full), jnp.asarray(gt)))
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-6, rtol=1e-5)
+    if loss == "miou":
+        with pytest.raises(ValueError, match="get_alpha"):
+            CDTrainer(cfg)._pxl_loss([torch.from_numpy(full).permute(0, 3, 1, 2)],
+                                     torch.from_numpy(gt).permute(0, 3, 1, 2))

@@ -59,6 +59,52 @@ def test_profile_step_needs_a_card(mode, monkeypatch):
         profile_step.main(["--mode", mode])
 
 
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_profile_step_takes_the_three_stages_and_needs_a_card(stage, monkeypatch):
+    """--mode train --stage N parses (default 2); the step itself needs the
+    card, and stage_setup's device is the card unless the caller asks for the
+    CPU."""
+    from stcd_tpu_torch.tools import profile_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_step.main(["--mode", "train", "--stage", str(stage)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_step.stage_setup(stage, bf16=False)
+    with pytest.raises(SystemExit):
+        profile_step.main(["--mode", "train", "--stage", "4"])
+
+
+@pytest.mark.parametrize("stage,keys", [
+    (1, {"image", "label"}), (2, {"A", "B", "label"}),
+    (3, {"A", "B", "CA", "CB", "s_label_A", "c_label", "CL"})])
+def test_seeded_stage_batch_feeds_the_stage_step(stage, keys, monkeypatch):
+    """The batch of each stage has the keys its step reads, and one step of
+    the full-size setup's make_*_steps runs on it (narrowed here to resnet18)."""
+    from stcd_tpu_torch.models import segcd
+    from stcd_tpu_torch.tools import profile_step
+
+    data = profile_step.seeded_stage_batch(stage, 4, 32, seed=1, device="cpu")
+    assert set(data) == keys
+    n = 2 if stage == 3 else 4  # stage 3: half synthesized, half real
+    assert all(v.shape[0] == n and v.shape[1:3] == (32, 32) for v in data.values())
+    again = profile_step.seeded_stage_batch(stage, 4, 32, seed=1, device="cpu")
+    assert all(torch.equal(data[k], again[k]) for k in data)
+    if stage == 3:
+        assert not torch.equal(data["A"], data["CA"])
+        with pytest.raises(ValueError, match="even batch"):
+            profile_step.seeded_stage_batch(3, 3, 32, seed=1, device="cpu")
+
+    narrow = {"UnetSeg": segcd.UnetSeg, "SegCD": segcd.SegCD}
+    for name, cls in narrow.items():
+        monkeypatch.setattr(segcd, name, lambda enc, classes, decoder_channels, cls=cls: cls(
+            "resnet18", classes=classes, decoder_channels=(32, 24, 16, 12, 8)))
+    state, train_step, eval_step = profile_step.stage_setup(stage, bf16=False, device="cpu")
+    out = train_step(state, data, torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["loss"]) and state.step == 1
+    assert int(out["cm"].sum()) == 4 * 32 * 32
+
+
 def test_plain_attention_also_swaps_the_bit_decoder_call():
     from stcd_tpu_torch.models import bit
 

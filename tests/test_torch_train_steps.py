@@ -1,4 +1,5 @@
-"""stcd_tpu_torch's make_cd_steps against the JAX make_cd_steps: the same
+"""stcd_tpu_torch's make_cd_steps, make_seg_steps and make_semi_cd_steps
+against the JAX functions of the same names: the same
 init (one JAX init, perturbed, converted), the same batches (numpy, from a
 seed), float32 on the CPU. SegCD resnet18, decoder (32, 24, 16, 12, 8),
 32x32, batch 2.
@@ -18,15 +19,18 @@ import jax.numpy as jnp
 from stcd_tpu.data import augment as jaug
 from stcd_tpu.losses.functional import bce_dice as jax_bce_dice
 from stcd_tpu.models.segcd import SegCD as JaxSegCD
+from stcd_tpu.models.segcd import UnetSeg as JaxUnetSeg
 from stcd_tpu.train.schedules import poly_schedule as jax_poly_schedule
 from stcd_tpu.train.state import TrainState as JaxTrainState
 from stcd_tpu.train.steps import make_cd_steps as jax_make_cd_steps
+from stcd_tpu.train.steps import make_seg_steps as jax_make_seg_steps
+from stcd_tpu.train.steps import make_semi_cd_steps as jax_make_semi_cd_steps
 from stcd_tpu_torch.convert.from_flax import resnet_from_flax, unetseg_from_flax
-from stcd_tpu_torch.models.segcd import SegCD
+from stcd_tpu_torch.models.segcd import SegCD, UnetSeg
 from stcd_tpu_torch.train.state import (AdamConfig, AdamWConfig, SGDConfig, adam_poly,
                                         create_train_state)
 from stcd_tpu_torch.train.schedules import poly_schedule
-from stcd_tpu_torch.train.steps import make_cd_steps
+from stcd_tpu_torch.train.steps import make_cd_steps, make_seg_steps, make_semi_cd_steps
 
 DEC = (32, 24, 16, 12, 8)
 N, HW = 2, 32
@@ -325,3 +329,226 @@ def test_optimizer_steps_on_given_gradients_match_optax(optimizer):
         np.testing.assert_allclose(model.weight.detach().numpy(), np.asarray(params),
                                    atol=3e-6, rtol=0, err_msg=f"step {step}")
     assert state.step == 3
+
+
+# --- stage 1 (make_seg_steps) and stage 3 (make_semi_cd_steps) ---
+
+def _seg_batches(seed, count, uint8=False, n=2 * N):
+    """4 images by default: the deepest level then normalises over 4 values, as it
+    does for the 2 folded pairs of the other tests (over 2 values BatchNorm is
+    all noise)."""
+    return [{"image": b["A"], "label": b["label"]} for b in _batches(seed, count, uint8, n)]
+
+
+def _semi_batches(seed, count, uint8=False, n=N):
+    """n synthesized pairs (A, B, s_label_A, c_label) and n real pairs (CA, CB, CL)."""
+    rng = np.random.default_rng(seed + 100)
+    out = []
+    for syn, real in zip(_batches(seed, count, uint8, n), _batches(seed + 50, count, uint8, n)):
+        s_label = (rng.uniform(size=(n, HW, HW, 1)) > 0.8).astype(np.float32)
+        out.append({"A": syn["A"], "B": syn["B"], "s_label_A": s_label,
+                    "c_label": syn["label"], "CA": real["A"], "CB": real["B"],
+                    "CL": real["label"]})
+    return out
+
+
+@pytest.fixture(scope="module")
+def seg_init():
+    model = JaxUnetSeg(encoder_name="resnet18", classes=1, decoder_channels=DEC)
+    variables = _perturb(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3))),
+                         seed=2)
+    return model, variables
+
+
+def _hold_parameters(state, jstate, variables):
+    """Parameters after a few SGD updates: every tensor moved, and the port's
+    movement is the JAX one to 1e-2 of the tensor's largest movement plus 4
+    float32 ulps of its weights (three roundings of the update). The tensors
+    of encoder.layer4 get 0.2: at 32x32 its BatchNorm layers normalise over 4
+    values, which amplifies float32 noise in their gradients (the running
+    statistics of those layers are held loosely for the same reason)."""
+    want = unetseg_from_flax(jstate.params, jstate.batch_stats)
+    start = unetseg_from_flax(variables["params"], variables["batch_stats"])
+    got = state.model.state_dict()
+    names = [k for k in want if "running" not in k and "num_batches" not in k]
+    assert len(names) >= 60
+    for name in names:
+        moved = (want[name] - start[name]).abs().max().item()
+        assert moved > 0, f"{name} did not move"
+        share = 0.2 if name.startswith("encoder.layer4") else 1e-2
+        atol = share * moved + 5e-7 * max(1.0, want[name].abs().max().item())
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=atol,
+                                   err_msg=name)
+
+
+STAGES = {
+    1: (jax_make_seg_steps, make_seg_steps, _seg_batches),
+    3: (jax_make_semi_cd_steps, make_semi_cd_steps, _semi_batches),
+}
+
+
+def _states(stage, init, seg_init, sgd=False):
+    """(JAX model, variables, JAX state, port state) of a stage, with Adam as in
+    the stage-2 tests or with SGD (momentum 0.9, no decay) at the same schedule."""
+    model, variables = seg_init if stage == 1 else init
+    schedule = jax_poly_schedule(*SCHEDULE)
+    jstate = JaxTrainState.create_with_stats(
+        apply_fn=model.apply, params=variables["params"], batch_stats=variables["batch_stats"],
+        tx=optax.sgd(schedule, momentum=0.9) if sgd else optax.adam(schedule))
+    port = (UnetSeg if stage == 1 else SegCD)("resnet18", decoder_channels=DEC, classes=1)
+    port.load_state_dict(unetseg_from_flax(variables["params"], variables["batch_stats"]),
+                         strict=True)
+    tx = (SGDConfig(poly_schedule(*SCHEDULE), momentum=0.9, weight_decay=0.0) if sgd
+          else AdamConfig(poly_schedule(*SCHEDULE)))
+    return model, variables, jstate, create_train_state(port, tx, device="cpu")
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_three_steps_of_stages_1_and_3_without_augmentation(stage, init, seg_init):
+    jmake, make, batches_of = STAGES[stage]
+    # SGD, so that the parameters can be held after the updates: Adam moves a parameter
+    # whose gradient is float32 noise around 0 by +-lr a step (the stage-2 test holds Adam)
+    model, variables, jstate, state = _states(stage, init, seg_init, sgd=True)
+    jtrain, _ = jmake(model, augment=False)
+    train_step, _ = make(augment=False)
+    terms = ("loss", "seg_loss", "cd_loss", "ct_loss") if stage == 3 else ("loss",)
+    for i, batch in enumerate(batches_of(8, 3)):
+        jstate, want = jtrain(jstate, _to_jax(batch), jax.random.PRNGKey(i))
+        got = train_step(state, _to_torch(batch))
+        assert set(got) == set(want) == {*terms, "cm"}
+        for term in terms:
+            np.testing.assert_allclose(got[term].item(), float(want[term]), atol=1e-5, rtol=0,
+                                       err_msg=f"{term} of step {i}")
+        # 4 images, or all 2N pairs of stage 3's concatenated batch
+        assert int(got["cm"].sum()) == 2 * N * HW * HW
+        if i == 0:
+            _hold_counts(got["cm"], want["cm"])
+            _hold_running_stats(state, jstate.batch_stats, variables, atol=2e-4)
+    assert state.step == 3 and int(jstate.step) == 3
+    _hold_parameters(state, jstate, variables)
+
+
+def _pair_draws(key, n, jitter_p):
+    """The draws of jaug._train_augment_pair_impl for n pairs, as torch dicts."""
+    keys = jax.random.split(key, n)
+    k_shared = jax.vmap(lambda k: jax.random.split(k, 3))(keys)
+    coin = jax.vmap(lambda k: jax.random.uniform(k[0]) < jitter_p)(k_shared)
+    return tuple({k: torch.from_numpy(np.asarray(v).copy())
+                  for k, v in jaug._batched_params(k_shared[:, i], jitter_p, coin).items()}
+                 for i in (1, 2))
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_first_step_of_stages_1_and_3_with_injected_augmentation(stage, init, seg_init):
+    """The JAX step samples its draws from the rng; the same draws, made here
+    with its key structure, drive the port's step. Stage 1: every image its
+    own coins. Stage 3: one jitter coin per pair, p = 0.5 for the synthesized
+    pairs and p = 0.8 for the real ones, the 4N images in one augmentation call."""
+    from stcd_tpu_torch.ops import augment as ops_augment
+
+    jmake, make, batches_of = STAGES[stage]
+    model, _, jstate, state = _states(stage, init, seg_init)
+    batch = batches_of(9, 1, uint8=True)[0]
+    rng = jax.random.PRNGKey(13)
+    aug_key, _ = jax.random.split(rng)  # steps.py: aug_key, drop_key = split(rng)
+    if stage == 1:
+        keys = jax.random.split(aug_key, 2 * N)  # _train_augment_impl: per-sample keys
+        draws = {k: torch.from_numpy(np.asarray(v).copy())
+                 for k, v in jaug._batched_params(keys, 0.5).items()}
+    else:
+        k_syn, k_real = jax.random.split(aug_key, 2)  # _augment_pairs: one key per pair list
+        draws = (_pair_draws(k_syn, N, 0.5), _pair_draws(k_real, N, 0.8))
+        for pa, pb in draws:
+            assert torch.equal(pa["jitter_apply"], pb["jitter_apply"])
+    _, want = jmake(model, augment=True)[0](jstate, _to_jax(batch), rng)
+    train_step, _ = make(augment=True)
+
+    calls = []
+    plain = ops_augment.apply_augment_batch
+
+    def counting(imgs, params, impl=None):
+        calls.append(imgs.shape[0])
+        return plain(imgs, params, impl=impl)
+
+    ops_augment.apply_augment_batch = counting
+    try:
+        got = train_step(state, _to_torch(batch), aug_params=draws)
+    finally:
+        ops_augment.apply_augment_batch = plain
+    assert calls == [2 * N if stage == 1 else 4 * N]  # one augmentation call a step
+    for term in want:
+        if term != "cm":
+            np.testing.assert_allclose(got[term].item(), float(want[term]), atol=1e-4, rtol=0,
+                                       err_msg=term)
+    # sampling from a generator instead: finite losses, another batch of draws
+    sampled = train_step(state, _to_torch(batch), torch.Generator().manual_seed(0))
+    assert all(torch.isfinite(v).all() for v in sampled.values()) and state.step == 2
+    assert sampled["loss"].item() != got["loss"].item()
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_accumulation_of_stages_1_and_3_matches_jax(stage, init, seg_init):
+    """accum_steps=2 against the JAX step: under accumulation stage 3 builds
+    each micro-batch from its own slices of the synthesized and the real
+    halves, not from a slice of the concatenation."""
+    jmake, make, batches_of = STAGES[stage]
+    model, variables, jstate, state = _states(stage, init, seg_init)
+    # stage 1: 8 images, so a micro-batch normalises over 4 values at the deepest
+    # level as the 2-pair batches of the other tests do; stage 3: 2 + 2 pairs each
+    batch = batches_of(10, 1, n=8 if stage == 1 else 4)[0]
+    jstate, want = jmake(model, augment=False, accum_steps=2)[0](
+        jstate, _to_jax(batch), jax.random.PRNGKey(0))
+    got = make(augment=False, accum_steps=2)[0](state, _to_torch(batch))
+    for term in want:
+        if term != "cm":
+            np.testing.assert_allclose(got[term].item(), float(want[term]), atol=1e-5, rtol=0,
+                                       err_msg=term)
+    _hold_counts(got["cm"], want["cm"])
+    _hold_running_stats(state, jstate.batch_stats, variables, atol=2e-4)
+    assert int(state.model.encoder.bn1.num_batches_tracked) == 2 and state.step == 1
+    with pytest.raises(ValueError, match="not divisible"):
+        make(augment=False, accum_steps=3)[0](state, _to_torch(batch))
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_remat_equals_no_remat_in_stages_1_and_3(stage, accum, init, seg_init):
+    _, make, batches_of = STAGES[stage]
+    batch = _to_torch(batches_of(11, 1, n=4)[0])
+    outs = {}
+    for remat in (False, True):
+        state = _states(stage, init, seg_init)[3]
+        outs[remat] = (make(augment=False, remat=remat, accum_steps=accum)[0](state, batch),
+                       state)
+    (plain, s0), (remat, s1) = outs[False], outs[True]
+    assert all(torch.equal(plain[k], remat[k]) for k in plain)
+    for (name, p0), (_, p1) in zip(s0.model.named_parameters(), s1.model.named_parameters()):
+        torch.testing.assert_close(p1.grad, p0.grad, atol=1e-7, rtol=1e-5, msg=name)
+    sd0, sd1 = s0.model.state_dict(), s1.model.state_dict()
+    assert all(torch.equal(sd0[k], sd1[k]) for k in sd0 if "running" in k or "num_batches" in k)
+    assert int(sd1["encoder.bn1.num_batches_tracked"]) == accum
+
+
+def test_stage_1_eval_step_matches_jax_and_stage_3_eval_is_stage_2s(init, seg_init):
+    model, variables, jstate, state = _states(1, init, seg_init)
+    batch = _seg_batches(12, 1)[0]
+    want = jax_make_seg_steps(model, augment=False)[1](jstate, _to_jax(batch))
+    got = make_seg_steps()[1](state, _to_torch(batch))
+    assert got["probs"].shape == (2 * N, HW, HW, 1) and not got["probs"].requires_grad
+    np.testing.assert_allclose(got["probs"].numpy(), np.asarray(want["probs"]),
+                               atol=2e-4, rtol=1e-3)
+    near = int((np.abs(np.asarray(want["probs"]) - 0.5) < 2e-4).sum())
+    assert np.abs(got["cm"].numpy() - np.asarray(want["cm"])).sum() <= 2 * near
+    assert not state.model.training and state.step == 0
+
+    cd_batch = _to_torch(_batches(6, 1)[0])
+    semi_eval, cd_eval = make_semi_cd_steps()[1], make_cd_steps()[1]
+    a, b = semi_eval(_port_state(init), cd_batch), cd_eval(_port_state(init), cd_batch)
+    assert torch.equal(a["probs"], b["probs"]) and torch.equal(a["cm"], b["cm"])
+
+
+def test_stage_3_refuses_unequal_halves(init):
+    batch = _to_torch(_semi_batches(13, 1)[0])
+    batch["CA"], batch["CB"], batch["CL"] = (batch[k][:1] for k in ("CA", "CB", "CL"))
+    with pytest.raises(ValueError, match="synthesized pairs but 1 real"):
+        make_semi_cd_steps(augment=False)[0](_port_state(init), batch)
