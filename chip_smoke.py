@@ -11,15 +11,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from ops/csrc with nvcc.
 3. kernels against plain: the SRA attention kernel against its plain
    PyTorch version at the four ChangeFormerV6 SRA shapes of a 16-pair batch
-   of 256x256 tiles, plus a ragged shape; f32 and bf16, dropout 0 and 0.1;
+   of 256x256 tiles, plus ragged shapes that cross the edges of its three
+   variants (M of 1, 8, 9, 255, 257; D of 36, 40, 72, 128; N no multiple of a
+   tile; one head); f32 and bf16, dropout 0 and 0.1;
    F.scaled_dot_product_attention is timed beside it as a yardstick. Then the
    augmentation kernel against its plain version at the train step's shape
    (128 images of 256x256, uint8 and float32), with every gate on, every
    gate off, a ragged size, and the contrast op first, in the middle and last.
    Then the attention backward kernel against autograd through the plain
    version at the four SRA shapes of the V6 train step (batch 8 at 512x512,
-   M = 256) and at BIT's decoder shape (M = 4), f32 and bf16, dropout 0 and
-   0.1, two runs bit-identical, with the backward of
+   M = 256), at BIT's decoder shape (M = 4) and at the ragged shapes, f32 and
+   bf16, dropout 0 and 0.1, two runs bit-identical, with the backward of
    F.scaled_dot_product_attention as the yardstick; the forward kernel is
    held against the plain version at these shapes too (output and the rows'
    log-sum-exp) and timed. Then the bn_stats kernel against its plain
@@ -49,12 +51,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. ChangeFormerV6 training: CDTrainer.train_step at full width (embed 256),
    512x512 pairs, batch 8, bf16 autocast, AdamW 1e-4, multi-scale
    cross-entropy, dropout live, seeded weights and data. Checks a finite
-   falling loss and 13 forward and 13 backward attention launches a step; then
+   falling loss and 13 forward and 13 backward attention launches a step, all
+   of the tensor-core variant; then
    one fp32 step with the kernels and one with the plain attention from one
    seed: the same loss.
 8. BIT training: base_transformer_pos_s4_dd8 with the TrainerConfig defaults
    (sgd, lr 0.01), 256x256 pairs, batch 32, fp32: the same checks with 16
-   forward and 16 backward launches a step.
+   forward and 16 backward launches a step, all of the M <= 8 variant.
 9. stage-1 training: the UnetSeg step (make_seg_steps), ResNet-50 encoder,
    decoder (256, 128, 64, 32, 16), 256x256 images, batch 64, augmentation on,
    bf16 autocast: the checks of phase 5.
@@ -85,7 +88,12 @@ import threading
 import time
 
 F32_ATOL = 2e-5  # summation order and expf against the plain f32 softmax
-BF16_ATOL = 1e-2  # one bf16 ulp of the output near 1
+# bf16 outputs, times max(1, max |plain|): one bf16 ulp is 2^-8 to 2^-7 of the value, so
+# 1e-2 of the largest output covers one ulp anywhere. The tensor-core variant rounds p to
+# bf16 before p v, which moves the f32 result by at most 2^-9 sum_j p_j |v_j| (half an
+# ulp of an output of that size): the kernel's and the plain version's bf16 outputs then
+# differ by at most one ulp, where before they differed in the f32 summation order only
+BF16_ATOL = 1e-2
 PROBS_ATOL = 1e-3  # stitched P(changed), kernel against plain attention
 BATCH, TILE, SCENE = 16, 256, 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
@@ -104,12 +112,18 @@ BWD_BF16_ATOL = 2e-2  # bf16 roundings of g, of the saved output and of the resu
 # max(1, max |plain|): over M = 4 keys an output reaches 4, where one bf16 ulp is 1.6e-2
 LSE_ATOL = 2e-5  # rows' log-sum-exp (about 6, f32 whatever the inputs) against torch.logsumexp
 BN_REL_TOL = 1e-5  # bn_stats against a float64 sum, relative to max(1, |sum|)
-V6_TRAIN = dict(batch=8, size=512, warm=2, steps=10, launches=13)
-BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16)
+V6_TRAIN = dict(batch=8, size=512, warm=2, steps=10, launches=13, variant="mma_bf16")
+BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16, variant="small_m")
 ATTN_STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernels against plain attention
 BIT_SHAPE = (32, 8, 4096, 4, 64)  # (B, H, N, M, D) of one decoder block at batch 32
 BIT_SCALE = 32 ** -0.5  # BIT scales by the model dim, not the head dim
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# (B, H, N, M, D) across the edges of the attention variants: M = 8 | 9 (small_m |
+# tensor cores or f32), one key, M = 255 | 257 around the 256 keys of a backward pass,
+# D with and without whole 16-byte pieces and whole 16-column k-steps, N no multiple of
+# a tile, a single head. Held to atol x max(1, max |plain|), as the training shapes are.
+RAGGED_SHAPES = ((1, 1, 77, 9, 36), (2, 2, 333, 1, 40), (2, 1, 300, 8, 128),
+                 (2, 1, 200, 255, 40), (1, 2, 130, 257, 72), (1, 1, 260, 300, 128))
 # the four matmul kernels, bf16 operands: y against the plain version within one bf16
 # ulp of the largest output (the two sum K products in another order, so an f32
 # accumulator at a rounding boundary may fall to either side)
@@ -140,17 +154,28 @@ def sra_shapes(batch: int = BATCH, tile: int = TILE):
     return out
 
 
-def time_ms(fn, runs: int = 20) -> float:
-    """Median over ``runs`` launches, each timed with CUDA events."""
+def time_ms(fn, runs: int = 20, graph: bool = False) -> float:
+    """Median over ``runs`` launches, each timed with CUDA events. With
+    ``graph`` the call is captured once into a CUDA graph and the replays are
+    timed: a kernel of a few tens of microseconds is then not timed by the
+    host's pace of launching it."""
     import torch
     for _ in range(3):
         fn()
+    run = fn
+    if graph:
+        torch.cuda.synchronize()
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            fn()
+        run = captured.replay
+        run()
     times = []
     for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        run()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
@@ -158,15 +183,42 @@ def time_ms(fn, runs: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def attention_bound_ms(shape, itemsize: int) -> tuple:
-    """(bound_ms, bound_by) of one attention call: q, k, v read and o written
-    once over the memory rate, against the two products and the softmax over
-    the f32 rate of the CUDA cores (the kernel's math is f32)."""
+def profiled_ms(fn, runs: int = 10) -> float:
+    """Device time of one call, from torch.profiler: the kernels' time summed
+    over ``runs`` calls. For a call that goes through the autograd engine, which
+    a CUDA graph cannot capture apart from its forward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    require(total_us > 0, "torch.profiler saw no device time")
+    return total_us / runs / 1e3
+
+
+def _attention_bound(shape, dtype, rows_moved, products, softmax_ops) -> tuple:
+    """(bound_ms, bound_by): ``rows_moved`` rows of D values of ``dtype`` over
+    the memory rate, against ``products`` and ``softmax_ops`` operations per
+    (row, key) pair. float32: both at the f32 rate of the CUDA cores. bfloat16:
+    the products at the dense bf16 tensor-core rate, the softmax at the f32 rate."""
+    import torch
     b, h, n, m, d = shape
-    nbytes = b * h * (2 * n + 2 * m) * d * itemsize
-    ops = b * h * n * m * (4 * d + 5)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    by_bytes = b * h * rows_moved * d * dtype.itemsize / HBM_BYTES_PER_S * 1e3
+    product_rate = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    by_ops = b * h * n * m * (products * d / product_rate + softmax_ops / F32_FLOPS) * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def attention_bound_ms(shape, dtype) -> tuple:
+    """(bound_ms, bound_by) of one attention call: q, k, v read and o written
+    once, against the two products (4 N M D) and the softmax (5 N M)."""
+    _, _, n, m, _ = shape
+    return _attention_bound(shape, dtype, 2 * n + 2 * m, 4, 5)
 
 
 def phase_kernels(torch, attention):
@@ -174,10 +226,12 @@ def phase_kernels(torch, attention):
 
     cross_attention = attention.cross_attention
     gen = torch.Generator(device="cpu").manual_seed(0)
-    cases = [(shape, True) for shape in sra_shapes()] + [((2, 2, 1000, 37, 80), False)]
+    cases = [(shape, True, False) for shape in sra_shapes()]
+    cases += [((2, 2, 1000, 37, 80), False, False)]
+    cases += [(shape, False, True) for shape in RAGGED_SHAPES]
     max_err = 0.0
     stage_ms = {}
-    for (b, h, n, m, d), on_path in cases:
+    for (b, h, n, m, d), on_path, scaled in cases:
         for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
             q, k, v = (torch.randn(b, h, rows, d, generator=gen).to("cuda", dtype)
                        for rows in (n, m, m))
@@ -193,19 +247,23 @@ def phase_kernels(torch, attention):
                 require(got.dtype == dtype and got.shape == q.shape,
                         f"kernel output {got.dtype} {tuple(got.shape)}")
                 err = (got.float() - want.float()).abs().max().item()
-                t_kernel = time_ms(lambda: run("kernel"))
-                t_plain = time_ms(lambda: run("plain"))
+                relative = scaled or dtype == torch.bfloat16
+                bound = atol * (max(1.0, want.float().abs().max().item()) if relative else 1.0)
+                t_kernel = time_ms(lambda: run("kernel"), graph=True)
+                t_plain = time_ms(lambda: run("plain"), graph=True)
                 name = str(dtype).replace("torch.", "")
-                print(f"attention (B,H,N,M,D)={(b, h, n, m, d)} {name} dropout={rate}: "
-                      f"max|err|={err:.3e} (atol {atol}) kernel {t_kernel:.4f} ms "
-                      f"plain {t_plain:.4f} ms", flush=True)
-                require(err <= atol, f"kernel disagrees with plain by {err} > {atol}")
+                print(f"attention (B,H,N,M,D)={(b, h, n, m, d)} {name} dropout={rate} "
+                      f"[{attention.select_variant(dtype, m)}]: max|err|={err:.3e} "
+                      f"(atol {atol}{' x max(1, max|plain|)' if relative else ''}) kernel "
+                      f"{t_kernel:.4f} ms plain {t_plain:.4f} ms", flush=True)
+                require(err <= bound, f"kernel disagrees with plain by {err} > {bound}")
                 max_err = max(max_err, err)
                 if on_path and rate == 0.0:
                     # the one PyTorch call for the same function: a yardstick
                     # timed here, never on the port's path
-                    t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                    bound, by = attention_bound_ms((b, h, n, m, d), q.element_size())
+                    t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                     graph=True)
+                    bound, by = attention_bound_ms((b, h, n, m, d), dtype)
                     print(f"attention (B,H,N,M,D)={(b, h, n, m, d)} {name}: "
                           f"F.scaled_dot_product_attention {t_sdpa:.4f} ms; "
                           f"bound {bound:.4f} ms ({by})", flush=True)
@@ -309,16 +367,12 @@ def phase_augment_kernel(torch):
     return {**main, "max_abs_err": max_err}
 
 
-def attention_bwd_bound_ms(shape, itemsize: int) -> tuple:
+def attention_bwd_bound_ms(shape, dtype) -> tuple:
     """(bound_ms, bound_by) of one attention backward: q, k, v, g read and
-    dq, dk, dv written once over the memory rate, against five products
-    (10 N M D) and the softmax and its transpose (8 N M) over the f32 rate of
-    the CUDA cores."""
-    b, h, n, m, d = shape
-    nbytes = b * h * (3 * n + 4 * m) * d * itemsize
-    ops = b * h * n * m * (10 * d + 8)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    dq, dk, dv written once, against five products (10 N M D) and the softmax
+    and its transpose (8 N M)."""
+    _, _, n, m, _ = shape
+    return _attention_bound(shape, dtype, 3 * n + 4 * m, 10, 8)
 
 
 def phase_attention_backward(torch, attention):
@@ -330,10 +384,11 @@ def phase_attention_backward(torch, attention):
 
     gen = torch.Generator(device="cpu").manual_seed(5)
     v6 = sra_shapes(V6_TRAIN["batch"], V6_TRAIN["size"])
-    cases = [(shape, None) for shape in v6] + [(BIT_SHAPE, BIT_SCALE)]
+    cases = [(shape, None, True) for shape in v6] + [(BIT_SHAPE, BIT_SCALE, True)]
+    cases += [(shape, None, False) for shape in RAGGED_SHAPES + ((2, 2, 1000, 37, 80),)]
     max_err = fwd_max_err = 0.0
     table = {}
-    for (b, h, n, m, d), scale in cases:
+    for (b, h, n, m, d), scale, on_path in cases:
         scale = d ** -0.5 if scale is None else scale
         for dtype, atol, fwd_atol in ((torch.float32, BWD_F32_ATOL, F32_ATOL),
                                       (torch.bfloat16, BWD_BF16_ATOL, BF16_ATOL)):
@@ -357,7 +412,7 @@ def phase_attention_backward(torch, attention):
                                                              run("plain"))
                 # the forward kernel at this shape: its output and the rows' log-sum-exp
                 # that it hands to the backward
-                _, lse = attention.launch_forward(q, k, v, scale, rate, seed, want_lse=True)
+                out, lse = attention.launch_forward(q, k, v, scale, rate, seed, want_lse=True)
                 lse_plain = torch.logsumexp(torch.einsum(
                     "bhnd,bhmd->bhnm", q.float(), k.float()) * scale, dim=-1)
                 torch.cuda.synchronize()
@@ -372,7 +427,6 @@ def phase_attention_backward(torch, attention):
                         f"log-sum-exp disagrees with torch.logsumexp by {lse_err} > "
                         f"{LSE_ATOL} at {(b, h, n, m, d)} {name}")
                 fwd_max_err = max(fwd_max_err, fwd_err, lse_err)
-                del out, out_plain, lse, lse_plain
                 for which, a, c, w in zip(("dq", "dk", "dv"), got, again, want):
                     require(a.dtype == dtype and a.shape == w.shape,
                             f"{which} is {a.dtype} {tuple(a.shape)}")
@@ -383,37 +437,47 @@ def phase_attention_backward(torch, attention):
                             f"plain version by {err} > {bound} at {(b, h, n, m, d)} {name}")
                     max_err = max(max_err, err)
                 errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
-                times = {}
-                for impl in ("kernel", "plain"):
-                    out, leaves = graph(impl)
-                    times[impl] = time_ms(lambda: torch.autograd.grad(
-                        out, leaves, g, retain_graph=True), runs=10)
-                    del out, leaves
+                # the backward kernel through its wrapper, replayed from a CUDA graph; the
+                # plain version's backward is autograd's: device time from the profiler
+                times = {"kernel": time_ms(lambda: attention.launch_backward(
+                    q, k, v, out, lse, g, scale, rate, seed), runs=10, graph=True)}
+                del out, out_plain, lse, lse_plain
+                if on_path:
+                    plain_out, leaves = graph("plain")
+                    times["plain"] = profiled_ms(lambda: torch.autograd.grad(
+                        plain_out, leaves, g, retain_graph=True))
+                    del plain_out, leaves
                 t_fwd = time_ms(lambda: attention.cross_attention(
-                    q, k, v, scale=scale, dropout_rate=rate, dropout_seed=seed), runs=10)
+                    q, k, v, scale=scale, dropout_rate=rate, dropout_seed=seed), runs=10,
+                    graph=True)
                 print(f"attention backward (B,H,N,M,D)={(b, h, n, m, d)} {name} "
-                      f"dropout={rate}: max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                      f"dropout={rate} [{attention.select_variant(dtype, m)}]: max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
                       f"{errs[2]:.3e} (atol {atol} x max(1, max|plain|)), two runs "
                       f"identical; forward output {fwd_err:.3e} (atol {fwd_atol} x "
                       f"max(1, max|plain|)), log-sum-exp {lse_err:.3e} (atol {LSE_ATOL}); "
-                      f"kernel {times['kernel']:.4f} ms plain "
-                      f"{times['plain']:.4f} ms; forward kernel {t_fwd:.4f} ms", flush=True)
-                row = {"ms": times["kernel"], "plain_ms": times["plain"], "fwd_ms": t_fwd}
-                if rate == 0.0:
+                      f"kernel {times['kernel']:.4f} ms"
+                      + (f" plain {times['plain']:.4f} ms" if on_path else "")
+                      + f"; forward kernel {t_fwd:.4f} ms", flush=True)
+                row = {"ms": times["kernel"], "plain_ms": times.get("plain"), "fwd_ms": t_fwd}
+                if rate == 0.0 and on_path:
                     # the one PyTorch call for the same function: a yardstick
                     # timed here, never on the port's path
                     leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
                     out = F.scaled_dot_product_attention(*leaves, scale=scale)
-                    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
-                        out, leaves, g, retain_graph=True), runs=10)
+                    row["library_ms"] = profiled_ms(lambda: torch.autograd.grad(
+                        out, leaves, g, retain_graph=True))
                     t_plain_fwd = time_ms(lambda: attention.cross_attention(
-                        q, k, v, scale=scale, impl="plain"), runs=10)
+                        q, k, v, scale=scale, impl="plain"), runs=10, graph=True)
                     t_sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, scale=scale), runs=10)
+                        q, k, v, scale=scale), runs=10, graph=True)
                     del out, leaves
-                    bound, by = attention_bwd_bound_ms((b, h, n, m, d), q.element_size())
-                    fbound, fby = attention_bound_ms((b, h, n, m, d), q.element_size())
-                    row.update(bound_ms=bound, bound_by=by)
+                    bound, by = attention_bwd_bound_ms((b, h, n, m, d), dtype)
+                    fbound, fby = attention_bound_ms((b, h, n, m, d), dtype)
+                    row.update(bound_ms=bound, bound_by=by, fwd_bound_ms=fbound,
+                               fwd_plain_ms=t_plain_fwd, fwd_library_ms=t_sdpa_fwd)
+                    require(dtype != torch.bfloat16 or (row["ms"] >= bound and t_fwd >= fbound),
+                            f"a bf16 kernel reads above its bound at {(b, h, n, m, d)}: backward "
+                            f"{row['ms']} ms against {bound}, forward {t_fwd} against {fbound}")
                     print(f"attention backward (B,H,N,M,D)={(b, h, n, m, d)} {name}: "
                           f"backward of F.scaled_dot_product_attention "
                           f"{row['library_ms']:.4f} ms; bound {bound:.4f} ms ({by}); "
@@ -430,16 +494,32 @@ def phase_attention_backward(torch, attention):
                    for depth, s in zip(SRA_DEPTHS, v6))
 
     kinds = {table[(s, "bfloat16", 0.0)]["bound_by"] for s in v6}
+    bit = table[(BIT_SHAPE, "float32", 0.0)]
+    bit_calls = BIT_TRAIN["launches"]
     res = {"max_abs_err": max_err, "fwd_max_abs_err": fwd_max_err,
            "ms": per_step("ms", 0.1),
            "plain_ms": per_step("plain_ms", 0.1), "library_ms": per_step("library_ms", 0.0),
            "bound_ms": per_step("bound_ms", 0.0),
-           "bound_by": kinds.pop() if len(kinds) == 1 else "operations"}
+           "bound_by": kinds.pop() if len(kinds) == 1 else "operations",
+           # a step's launches at their shapes: V6 in bf16 with dropout 0.1, BIT in f32
+           "ms_by_path": {"bf16_v6_train_step": per_step("ms", 0.1),
+                          "bit_step": bit_calls * bit["ms"]},
+           "fwd_ms_by_path": {"bf16_v6_train_step": per_step("fwd_ms", 0.1),
+                              "bit_step": bit_calls * bit["fwd_ms"]}}
     print(f"attention backward per V6 train step (13 launches, bf16, dropout 0.1): kernel "
           f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, backward of "
           f"F.scaled_dot_product_attention (dropout 0) {res['library_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.4f} ms; forward kernel {per_step('fwd_ms', 0.1):.4f} ms",
-          flush=True)
+          f"{res['bound_ms']:.4f} ms; forward kernel {per_step('fwd_ms', 0.1):.4f} ms "
+          f"(dropout 0: {per_step('fwd_ms', 0.0):.4f} ms, plain "
+          f"{per_step('fwd_plain_ms', 0.0):.4f} ms, F.scaled_dot_product_attention "
+          f"{per_step('fwd_library_ms', 0.0):.4f} ms, bound {per_step('fwd_bound_ms', 0.0):.4f} "
+          f"ms)", flush=True)
+    print(f"attention per BIT train step ({bit_calls} + {bit_calls} launches, f32, M = 4): "
+          f"forward kernel {bit_calls * bit['fwd_ms']:.4f} ms (plain "
+          f"{bit_calls * bit['fwd_plain_ms']:.4f}, bound "
+          f"{bit_calls * bit['fwd_bound_ms']:.4f}), backward kernel "
+          f"{bit_calls * bit['ms']:.4f} ms (plain {bit_calls * bit['plain_ms']:.4f}, "
+          f"bound {bit_calls * bit['bound_ms']:.4f})", flush=True)
     return res
 
 
@@ -605,7 +685,8 @@ def phase_matmul_stats(torch):
 def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
     """CDTrainer.train_step at full width: timed steps on one fixed batch, the
     attention launches counted, then one fp32 step with the kernels against
-    one with the plain attention. Returns (forward, backward) launches."""
+    one with the plain attention. Every launch of the timed steps must be of
+    ``plan["variant"]``. Returns (forward, backward) launches."""
     from stcd_tpu_torch.tools.profile_step import plain_attention, trainer_setup
 
     kernel = attention.cross_attention_kernel
@@ -617,6 +698,8 @@ def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.kernel_launches = kernel.backward_launches = 0
+    kernel.forward_variants.clear()
+    kernel.backward_variants.clear()
     outs, events = [], []
     for _ in range(n_steps):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -626,6 +709,7 @@ def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
         events.append((e0, e1))
     torch.cuda.synchronize()
     fwd, bwd = kernel.kernel_launches, kernel.backward_launches
+    variants = (dict(kernel.forward_variants), dict(kernel.backward_variants))
     losses = [float(loss) for loss, _ in outs]
     pixels = cfg.batch_size * cfg.img_size ** 2
     require(all(x == x and abs(x) != float("inf") for x in losses),
@@ -638,6 +722,8 @@ def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
     require(fwd == plan["launches"] * n_steps and bwd == plan["launches"] * n_steps,
             f"{net_G}: {fwd} forward and {bwd} backward attention launches in {n_steps} "
             f"steps, expected {plan['launches']} each a step")
+    require(variants == ({plan["variant"]: fwd}, {plan["variant"]: bwd}),
+            f"{net_G}: attention variants {variants}, expected only {plan['variant']}")
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events[plan["warm"]:])
     step_ms = times[len(times) // 2]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -646,7 +732,8 @@ def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
           f"{precision}, {cfg.optimizer} lr {cfg.lr}, loss {cfg.loss}"
           f"{' multi-scale' if cfg.multi_scale_train else ''}, {n_steps} steps: loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; attention launches {fwd} forward and "
-          f"{bwd} backward = {plan['launches']} x {n_steps} each", flush=True)
+          f"{bwd} backward = {plan['launches']} x {n_steps} each, all {plan['variant']}",
+          flush=True)
     print(f"training {net_G} on {gpu_label} (a smoke reading, median of {plan['steps']} "
           f"steps by CUDA events): step {step_ms:.3f} ms; "
           f"{cfg.batch_size / step_ms * 1e3:.2f} pairs/s; peak device memory "
@@ -729,12 +816,14 @@ def phase_serving(torch, np, attention, gpu_label):
                             device="cuda")
     try:
         kernel.kernel_launches = 0
+        kernel.forward_variants.clear()
         results = [drive(engine, rounds[0])]
         t0 = time.monotonic()
         for scenes in rounds[1:]:
             results.append(drive(engine, scenes))
         timed_s = time.monotonic() - t0
         launches = kernel.kernel_launches
+        variants = dict(kernel.forward_variants)
         stats = engine.stats_snapshot()
     finally:
         engine.close()
@@ -749,6 +838,7 @@ def phase_serving(torch, np, attention, gpu_label):
             f"engine stats {stats}")
     require(launches == 13 * stats["batches"] and launches > 0,
             f"{launches} kernel launches for {stats['batches']} device batches")
+    require(variants == {"f32_cuda": launches}, f"fp32 serving launched {variants}")
     tiles_per_s = 4 * (SCENE // TILE) ** 2 * (ROUNDS - 1) / timed_s
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"serving: {n_req} requests, {stats['tiles']} tiles in {stats['batches']} "
@@ -782,16 +872,19 @@ def phase_serving(torch, np, attention, gpu_label):
                             device="cuda")
     try:
         before = kernel.kernel_launches
+        kernel.forward_variants.clear()
         bf16 = engine.predict_pair(*rounds[0][0])
         bf16_batches = engine.stats_snapshot()["batches"]
     finally:
         engine.close()
+    require(dict(kernel.forward_variants) == {"mma_bf16": 13 * bf16_batches},
+            f"the bf16 request launched {dict(kernel.forward_variants)}")
     require(bool(np.isfinite(bf16).all()) and bf16.min() >= 0 and bf16.max() <= 1,
             "bf16 request gave non-finite or out-of-range probabilities")
     require(kernel.kernel_launches - before == 13 * bf16_batches,
             "the bf16 request did not go through the attention kernel")
     print(f"bf16 autocast request: finite, {kernel.kernel_launches - before} kernel "
-          f"launches; max|dP| against fp32 "
+          f"launches, all mma_bf16; max|dP| against fp32 "
           f"{float(np.abs(bf16 - results[0][0]).max()):.3e}", flush=True)
     return launches
 
@@ -1073,6 +1166,11 @@ def main() -> int:
                                 "bit_training": bit_fwd}
     attn_bwd["launches"] = v6_bwd + bit_bwd
     attn_bwd["launches_by_path"] = {"v6_training": v6_bwd, "bit_training": bit_bwd}
+    # the variant each path launched (each path's run required that it launched no other)
+    attn["variants"] = {"f32_cuda": serving_launches, V6_TRAIN["variant"]: v6_fwd,
+                        BIT_TRAIN["variant"]: bit_fwd}
+    attn_bwd["variants"] = {V6_TRAIN["variant"]: v6_bwd, BIT_TRAIN["variant"]: bit_bwd}
+    attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1080,11 +1178,13 @@ def main() -> int:
         {"name": "cross_attention", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/cross_attention.cu",
          "replaces": "stcd_tpu/ops/attention.py:77", **{k: attn[k] for k in keys},
-         "launches_by_path": attn["launches_by_path"]},
+         "launches_by_path": attn["launches_by_path"], "variants": attn["variants"],
+         "ms_by_path": attn["ms_by_path"]},
         {"name": "cross_attention_bwd", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/cross_attention_bwd.cu",
          "replaces": "stcd_tpu/ops/attention.py:141", **{k: attn_bwd[k] for k in keys},
-         "launches_by_path": attn_bwd["launches_by_path"]},
+         "launches_by_path": attn_bwd["launches_by_path"], "variants": attn_bwd["variants"],
+         "ms_by_path": attn_bwd["ms_by_path"]},
         {"name": "augment", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/augment.cu",
          "replaces": "stcd_tpu/ops/augment_kernel.py:44", **{k: aug[k] for k in keys},

@@ -10,6 +10,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from stcd_tpu_torch.cli.predict import resolve_device
+
 
 def tile_origins(h: int, w: int, tile: int = 256, stride: int = 256) -> list:
     """Top-left (y, x) corners covering an (h, w) scene. Edge tiles are
@@ -49,10 +51,12 @@ def stitch_tiles(tiles: np.ndarray, origins: list, out_hw: Tuple[int, int]
 @torch.inference_mode()
 def predict_scene(predict_fn: Callable, image_a: np.ndarray,
                   image_b: Optional[np.ndarray] = None, tile: int = 256,
-                  stride: int = 256, batch: int = 4, device="cpu") -> np.ndarray:
+                  stride: int = 256, batch: int = 4, device="cuda") -> np.ndarray:
     """Run ``predict_fn(tiles_a[, tiles_b]) -> probs`` (NHWC tensors on
     ``device``) over a whole scene. The last short batch is zero-padded to
-    ``batch`` and the padding dropped after, so every step has one shape."""
+    ``batch`` and the padding dropped after, so every step has one shape.
+    ``device`` defaults to the card; without one the call raises."""
+    device = resolve_device(device)
     tiles_a, origins = extract_tiles(image_a, tile, stride)
     tiles_b = extract_tiles(image_b, tile, stride)[0] if image_b is not None else None
     n = tiles_a.shape[0]

@@ -97,11 +97,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     ll = ctypes.c_longlong
-    lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, u, p,
-                                             u, f, i, p]
+    lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                                             i, u, p, u, f, i, p]
     lib.stcd_cross_attention_fwd.restype = i
-    lib.stcd_cross_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, i, f, i, u, p, u,
-                                                        f, i, p]
+    lib.stcd_cross_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, i, i, i, i, f, i, u,
+                                                        p, u, f, i, p]
     lib.stcd_cross_attention_bwd.restype = i
     lib.stcd_bn_stats_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
     lib.stcd_bn_stats_fwd.restype = i

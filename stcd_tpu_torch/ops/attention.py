@@ -8,7 +8,11 @@ on the tensor's device:
 
 - a CUDA tensor goes to the hand-written kernel ``csrc/cross_attention.cu``
   (``cross_attention_kernel``), or the call raises: there is no fallback.
-  Under autograd its gradient is the kernel ``csrc/cross_attention_bwd.cu``;
+  Under autograd its gradient is the kernel ``csrc/cross_attention_bwd.cu``.
+  Both sources hold three variants and ``select_variant`` picks one from
+  (dtype, M) alone: ``small_m`` for M <= 8 (a lane group per query row, f32
+  math), ``mma_bf16`` for bfloat16 at M > 8 (both products on the tensor
+  cores) and ``f32_cuda`` for float32 at M > 8 (CUDA cores);
 - a CPU tensor goes to the plain PyTorch version ``attention_plain``, the
   counterpart of the JAX ``_einsum_attention``; its gradient is autograd's.
 
@@ -23,6 +27,7 @@ the kernel, which masks ragged tiles itself.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -108,9 +113,125 @@ def attention_plain(q, k, v, scale: float, dropout_rate: float = 0.0,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# query rows per block of the backward, kBlockN in attention_common.cuh: it sizes the
-# scratch; the C entry gets the tile count and refuses one that is not its own
-BWD_BLOCK_N = 64
+# The variants of the two kernels, by their code in attention_common.cuh. The
+# sizing below mirrors the geometry of the CUDA sources; the C entries get the
+# numbers and refuse a launch whose numbers are not their own.
+VARIANTS = ("f32_cuda", "mma_bf16", "small_m")
+SMALL_M = 8                # kSmallM: keys the small_m variant holds
+MAX_SMEM_BYTES = 232448    # dynamic shared memory a block may ask for on sm_90
+SMS = 132                  # streaming multiprocessors of an H100
+MIN_BLOCKS = 2 * SMS       # a grid covers the card at least twice where N allows
+_F32_BLOCK_N, _F32_CHUNK = 64, 32   # kBlockN, kChunk
+_MMA_WARPS, _MMA_ROWS, _MMA_PAD, _MMA_KEY_CHUNK = 8, 16, 8, 64
+_MMA_BWD_ROWS = 128        # kBwdRows
+_MMA_BWD_MIN_BLOCKS = 128  # of the tensor-core backward: see backward_plan
+_SMALL_ROWS = 32           # rows a small_m block covers in one pass at 8 lanes a row
+
+
+def select_variant(dtype: torch.dtype, m: int) -> str:
+    """The kernel variant for q's dtype and the number of keys."""
+    if m <= SMALL_M:
+        return "small_m"
+    return "mma_bf16" if dtype == torch.bfloat16 else "f32_cuda"
+
+
+def _ceil_to(x: int, step: int) -> int:
+    return -(-x // step) * step
+
+
+def _rows_per_block(bh: int, n: int, granule: int, slots: int, overhead: float,
+                    max_tiles: Optional[int] = None, min_blocks: int = MIN_BLOCKS) -> int:
+    """Query rows a block walks, in whole tiles of ``granule`` rows. Of the
+    tile counts that leave at least ``min_blocks`` blocks over all heads (or
+    one tile a block, if none does), take the one with the least time, counted
+    as waves of ``slots`` concurrent blocks times the tiles a block walks plus
+    ``overhead`` (a block's fixed work: staging K and V, writing its partial,
+    in tile times); of equals the largest, which leaves the fewest partials."""
+    tiles = -(-n // granule)
+    best_cost, best = None, 1
+    for per_block in range(1, min(tiles, max_tiles or tiles) + 1):
+        blocks = bh * -(-tiles // per_block)
+        if blocks < min_blocks and per_block > 1:
+            break
+        cost = -(-blocks // slots) * (per_block + overhead)
+        if best_cost is None or cost <= best_cost:
+            best_cost, best = cost, per_block
+    return best * granule
+
+
+def _mma_dpad(d: int) -> int:
+    """D as the tensor-core kernels pad it in shared memory (their template
+    instances: 2, 4, 5 or 8 k-steps of 16)."""
+    return next(p for p in (32, 64, 80, 128) if d <= p)
+
+
+def forward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
+    """Launch geometry of the forward kernel: ``rows_per_block`` query rows
+    for each of ``blocks`` blocks, and its dynamic shared memory."""
+    row_tiles = 1
+    if variant == "f32_cuda":
+        rows = _F32_BLOCK_N
+        smem = (_F32_BLOCK_N * d + 2 * _F32_CHUNK * (d + 1)) * 4
+    elif variant == "mma_bf16":
+        dpad = _mma_dpad(d)
+        row_bytes = (dpad + _MMA_PAD) * 2
+        # D <= 64: one 16-row tile a warp and two blocks an SM (more warps to hide
+        # latency). 64 < D <= 80: K and V leave room for one block an SM, so a warp
+        # takes two tiles (a K or V fragment then feeds two products) where blocks of
+        # 256 rows still fill the card. D > 80: one tile (registers).
+        row_tiles = 2 if dpad == 80 and bh * (n // (2 * _MMA_WARPS * _MMA_ROWS)) >= SMS else 1
+        q_rows = _MMA_WARPS * 2 * row_tiles * _MMA_ROWS  # two Q tiles a warp
+        cap = ((MAX_SMEM_BYTES - q_rows * row_bytes) // (2 * row_bytes)
+               // _MMA_KEY_CHUNK * _MMA_KEY_CHUNK)
+        kv_rows = min(_ceil_to(m, _MMA_KEY_CHUNK), cap)  # K and V stay resident if m fits
+        smem = (2 * kv_rows + q_rows) * row_bytes
+        rows = _rows_per_block(bh, n, _MMA_WARPS * row_tiles * _MMA_ROWS,
+                               SMS * max(1, min(2, MAX_SMEM_BYTES // smem)), 0.5,
+                               max_tiles=16)
+    elif variant == "small_m":
+        rows = _rows_per_block(bh, n, _SMALL_ROWS, 8 * SMS, 0.5, max_tiles=8)
+        smem = 0  # K and V as f32 in static shared memory
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    return {"rows_per_block": rows, "row_tiles": row_tiles, "blocks": bh * -(-n // rows),
+            "smem_bytes": smem}
+
+
+def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
+    """Launch geometry of the backward kernel: each of ``splits`` blocks a head
+    owns ``rows_per_split`` query rows and leaves its dk and dv sums as
+    partials in the scratch ``(bh, parts, m, d)``; a second launch sums the
+    partials in index order."""
+    if variant == "f32_cuda":
+        rows = _F32_BLOCK_N
+        splits = parts = -(-n // rows)
+        smem = (2 * _F32_BLOCK_N * d + 2 * _F32_CHUNK * (d + 1)
+                + 2 * _F32_BLOCK_N * (_F32_CHUNK + 1)) * 4
+    elif variant == "mma_bf16":
+        dpad = _mma_dpad(d)
+        keys_per_warp = 32 if dpad <= 80 else 16  # the dk, dv accumulators are registers
+        kvr = _ceil_to(min(m, _MMA_WARPS * keys_per_warp), keys_per_warp)  # keys of a pass
+        key_groups = 1
+        while key_groups * keys_per_warp < kvr:
+            key_groups *= 2
+        # A block fills an SM (its shared memory), so the grid has to cover the card
+        # once, not twice, and head counts are powers of two: 128 blocks hold 97 % of
+        # the SMs. With MIN_BLOCKS the partials were four times as many and the call
+        # measured 18 to 45 % slower at the ChangeFormerV6 training shapes.
+        rows = _rows_per_block(bh, n, _MMA_BWD_ROWS, SMS, 0.5,
+                               min_blocks=_MMA_BWD_MIN_BLOCKS)
+        splits = -(-n // rows)
+        parts = splits * (_MMA_WARPS // key_groups)  # spare warps split a tile's rows
+        smem = ((2 * kvr + 2 * _MMA_BWD_ROWS) * (dpad + _MMA_PAD)
+                + kvr * (_MMA_BWD_ROWS + _MMA_PAD)) * 2 + 2 * _MMA_BWD_ROWS * 4
+    elif variant == "small_m":
+        rows = _rows_per_block(bh, n, _SMALL_ROWS, 2 * SMS, 4.0)  # the block's reduction
+        splits = parts = -(-n // rows)
+        smem = 0
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    return {"rows_per_split": rows, "splits": splits, "parts": parts,
+            "blocks": bh * splits, "scratch_shape": (bh, parts, m, d), "smem_bytes": smem}
 
 
 def _check_kernel_args(q, k, v, dropout_rate, dropout_seed):
@@ -158,6 +279,11 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
     scores, which the backward kernel reads, or None when not asked for."""
     b, h, n, d = q.shape
     m = k.shape[2]
+    variant = select_variant(q.dtype, m)
+    if variant == "mma_bf16" and not scale > 0.0:
+        raise ValueError(f"the bfloat16 kernel takes the row max before scaling and needs "
+                         f"scale > 0, got {scale}")
+    plan = forward_plan(variant, b * h, n, m, d)
     lib = _build.load_library()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_lse else None
@@ -166,11 +292,45 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
     err = lib.stcd_cross_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if want_lse else None, b * h, n, m, d, _DTYPE_CODE[q.dtype],
+        VARIANTS.index(variant), plan["rows_per_block"], plan["row_tiles"],
+        plan["smem_bytes"],
         float(scale), use_dropout, seed, seed_ptr, threshold, keep_scale, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "stcd_cross_attention_fwd")
+    _build.check(lib, err, f"stcd_cross_attention_fwd ({variant})")
     cross_attention_kernel.kernel_launches += 1
+    cross_attention_kernel.forward_variants[variant] += 1
     return out, lse
+
+
+def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed):
+    """One launch of the backward kernel (and of the sum over its partials) on
+    the forward's inputs, its output ``out`` and log-sum-exp ``lse``, and the
+    contiguous incoming gradient ``g`` in q's dtype: ``(dq, dk, dv)``."""
+    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
+        raise ValueError(f"the gradient must be contiguous, of q's shape and dtype, got "
+                         f"{g.dtype} {tuple(g.shape)} for q {q.dtype} {tuple(q.shape)}")
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    variant = select_variant(q.dtype, m)
+    plan = backward_plan(variant, b * h, n, m, d)
+    lib = _build.load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # each block's share of dk and dv, summed in index order by a second launch
+    dk_part = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    use_dropout, value, seed_ptr, threshold, keep_scale = _dropout_args(dropout_rate,
+                                                                        dropout_seed)
+    err = lib.stcd_cross_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), plan["parts"], b * h, n, m, d,
+        _DTYPE_CODE[q.dtype], VARIANTS.index(variant), plan["rows_per_split"],
+        plan["smem_bytes"], float(scale), use_dropout, value, seed_ptr, threshold,
+        keep_scale, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, f"stcd_cross_attention_bwd ({variant})")
+    cross_attention_kernel.backward_launches += 1
+    cross_attention_kernel.backward_variants[variant] += 1
+    return dq, dk, dv
 
 
 class _CrossAttentionFunction(torch.autograd.Function):
@@ -194,26 +354,8 @@ class _CrossAttentionFunction(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse, seed_tensor = ctx.saved_tensors
         seed = seed_tensor if seed_tensor is not None else ctx.int_seed
-        g = g.to(q.dtype).contiguous()
-        b, h, n, d = q.shape
-        m = k.shape[2]
-        tiles = (n + BWD_BLOCK_N - 1) // BWD_BLOCK_N
-        lib = _build.load_library()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # each block's share of dk and dv, summed in tile order by a second launch
-        dk_part = torch.empty((b * h, tiles, m, d), dtype=torch.float32, device=q.device)
-        dv_part = torch.empty_like(dk_part)
-        use_dropout, value, seed_ptr, threshold, keep_scale = _dropout_args(
-            ctx.dropout_rate, seed)
-        err = lib.stcd_cross_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dk_part.data_ptr(), dv_part.data_ptr(), tiles, b * h, n, m, d,
-            _DTYPE_CODE[q.dtype],
-            float(ctx.scale), use_dropout, value, seed_ptr, threshold, keep_scale,
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(lib, err, "stcd_cross_attention_bwd")
-        cross_attention_kernel.backward_launches += 1
+        dq, dk, dv = launch_backward(q, k, v, out, lse, g.to(q.dtype).contiguous(),
+                                     ctx.scale, ctx.dropout_rate, seed)
         return dq, dk, dv, None, None, None, None
 
 
@@ -226,7 +368,8 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
     one int64 on q's device, which the kernel reads there. Where autograd
     records the call, the gradient is ``csrc/cross_attention_bwd.cu``.
     ``kernel_launches`` counts the forward launches and ``backward_launches``
-    the backward ones."""
+    the backward ones; ``forward_variants`` and ``backward_variants`` count
+    them by the variant that ``select_variant`` picked."""
     _check_kernel_args(q, k, v, dropout_rate, dropout_seed)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -240,6 +383,8 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
 
 cross_attention_kernel.kernel_launches = 0
 cross_attention_kernel.backward_launches = 0
+cross_attention_kernel.forward_variants = collections.Counter()
+cross_attention_kernel.backward_variants = collections.Counter()
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

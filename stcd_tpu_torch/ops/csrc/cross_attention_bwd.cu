@@ -6,32 +6,69 @@
 // keeps dk and dv resident in VMEM between them. Blocks on the GPU run in no
 // order and share nothing, so the accumulation over Q tiles is laid out anew:
 //
+// Three variants, picked by the wrapper from (dtype, M) alone, as in the forward:
+//
+// mma_bf16 (bf16, M > 8). What bounds it: 10 N M D operations a head at the
+//   tensor-core rate; the bytes (q, k, v, g, o read, dq, dk, dv written once)
+//   are a fraction of that at M = 256, so the products must run on the tensor
+//   cores and nothing else may be written to device memory. The design:
+//   - A block owns a head's range of query rows (one of `splits` ranges) and
+//     walks it in tiles of 128 rows. K and V of the head (up to 256 keys a
+//     pass) are staged once as bf16, rows padded by 16 bytes for ldmatrix.
+//   - Phase 1, warps split the KEYS (32 a warp; with fewer than 8 key groups
+//     the spare warps split the tile's rows): a warp forms the TRANSPOSED
+//     scores s^T = k q^T and dp^T = v g^T for its keys, 16 rows at a time, as
+//     mma.sync.m16n8k16 accumulators, rebuilds p = exp(s scale - lse) and
+//     ds = p (dp md - delta) in registers, and uses those C fragments, rounded
+//     to bf16, as the A fragments of dv += (p md)^T g and dk += ds^T q. So its
+//     dk and dv sums stay in ITS REGISTERS across every tile of the range: no
+//     shared-memory accumulator (which would not fit at D = 80) and one partial
+//     per warp row group and block in the scratch (bh, parts, M, D).
+//   - Phase 2, warps split the ROWS: ds^T of the tile, written to shared memory
+//     as bf16 by phase 1, is read back transposed by ldmatrix.trans and
+//     dq = scale ds k is formed for 16 rows a warp, staged through the Q buffer
+//     and stored 16 bytes a lane.
+//   - delta = sum_d g_d o_d and the saved log-sum-exp of the tile's rows are
+//     put in shared memory while the cp.async copies of Q and g are in flight.
+//   - M > 256 (128 at D > 80): further passes over the range, one per key
+//     block; dq is then summed in its own dtype across passes by the thread
+//     that owns the element. D > 80 holds 16 keys a warp (registers).
+//   - mma.sync, not wgmma: the accumulators that must persist (dk, dv) have the
+//     keys as their rows, 32 a warp, and wgmma's 64-row tile would need them in
+//     one warpgroup's registers together with both score fragments.
+//
+// small_m (M <= 8, f32 or bf16). Bound by bytes (q, g read, dq written once).
+//   A group of 8 or 16 lanes owns a query row, 8 columns a lane in 16-byte
+//   pieces; K and V sit in shared memory as f32; s and dp are reduced over the
+//   group by shuffles; delta = sum_j p_j md_j dp_j is formed from them (all M
+//   keys are at hand), so the saved output is not read at all; dk and dv are M x D sums over the block's rows
+//   held in registers (8 columns x M keys a lane), reduced over the warp by
+//   shuffles and over the warps through shared memory in warp order: one
+//   partial per block.
+//
+// f32_cuda (f32, M > 8): the CUDA-core kernel below, one partial per tile of
+//   64 rows.
 // - One block per (bh, tile of kBlockN = 64 query rows); 8 warps, 8 rows each.
 //   The Q and the g tile are staged once in shared memory as f32; K and V go
 //   through in chunks of kChunk = 32 keys, lane j of a warp owning key j.
+// - Per chunk: dp = g v^T; ds = p (dp md - delta); dq += ds k (registers, lane
+//   holds columns lane + 32 c); ds and p md of the tile go to shared memory,
+//   and the block then forms this tile's share of dk = scale ds^T q and
+//   dv = (p md)^T g for the chunk's 32 keys.
+// - About one shared-memory read per multiply-add holds it to a fraction of
+//   the f32 rate; register tiling is its later work.
+//
+// All variants:
 // - The softmax is rebuilt in one pass from the forward's per-row log-sum-exp:
 //   p = exp(s * scale - lse). The row term sum_j p_j md_j dp_j of the softmax
 //   transpose equals sum_d g_d o_d with o the forward output (dropout
 //   included), so it is taken from the saved o and needs no second pass over
 //   the keys. The keep mask is the same keep_element hash on (seed, bh, global
 //   row, col) as the forward.
-// - Per chunk: dp = g v^T; ds = p (dp md - delta); dq += ds k (registers, lane
-//   holds columns lane + 32 c); ds and p md of the tile go to shared memory,
-//   and the block then forms this tile's share of dk = scale ds^T q and
-//   dv = (p md)^T g for the chunk's 32 keys.
-// - Deterministic accumulation: each block writes its share to an f32 scratch
-//   buffer (bh, tiles, M, D); a second launch sums the tiles in index order and
-//   casts to k's and v's dtype. No float atomics: two runs agree bit for bit.
-// - Inputs f32 or bf16, math in f32, dq in q's dtype. Any N and M (the ragged
-//   last Q tile and KV chunk are masked); D <= 128.
-//
-// What bounds it: 10 N M D operations per head against q, k, v, g, o read and
-// dq, dk, dv written once. At the ChangeFormerV6 training shapes (M = 256) that
-// is bound by operations at the f32 rate. The products run on the CUDA cores
-// from shared memory, about one shared-memory read per multiply-add, so the
-// kernel sits well under that bound; the scratch traffic (2 M D floats per 64
-// rows) comes on top. wgmma tiles, several Q tiles per block (less scratch) and
-// a path for tiny M (at M = 4 only 4 of 32 lanes own a key) are later work.
+// - Deterministic accumulation: the partials go to an f32 scratch buffer
+//   (bh, parts, M, D); a second launch sums them in index order and casts to
+//   k's and v's dtype. No float atomics: two runs agree bit for bit.
+// - f32 accumulation, dq in q's dtype. Any N and M; D <= 128.
 
 #include "attention_common.cuh"
 
@@ -304,31 +341,610 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
   }
 }
 
+cudaError_t reduce_parts(int dtype, const float* dk_part, const float* dv_part, void* dk,
+                         void* dv, int parts, int bh, int m, int d, cudaStream_t stream) {
+  const size_t md = (size_t)m * d;
+  const size_t total = (size_t)bh * md;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  if (dtype == 0) {
+    reduce_tiles_kernel<float><<<blocks, 256, 0, stream>>>(
+        dk_part, dv_part, static_cast<float*>(dk), static_cast<float*>(dv), parts, md, total);
+  } else {
+    reduce_tiles_kernel<bf16><<<blocks, 256, 0, stream>>>(
+        dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), parts, md, total);
+  }
+  return cudaGetLastError();
+}
+
+// ---- mma_bf16 ---------------------------------------------------------------
+
+constexpr int kBwdRows = 128;  // query rows per tile: 16 a warp in phase 2
+
+// Key groups of a pass: the least power of two that covers kvr keys at kw a warp.
+inline int key_groups(int kvr, int kw) {
+  int kg = 1;
+  while (kg * kw < kvr) kg <<= 1;
+  return kg;
+}
+
+// KSTEPS = ceil(D / 16). KM: 16-key tiles a warp owns in phase 1.
+template <int KSTEPS, int KM>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ g_out, const float* __restrict__ lse,
+                         bf16* __restrict__ dq, float* __restrict__ dk_part,
+                         float* __restrict__ dv_part, int n, int m, int d, int rows_per_split,
+                         int kvr_alloc, int kg_count, float scale, int use_dropout,
+                         uint32_t seed_value, const long long* __restrict__ seed_ptr,
+                         uint32_t threshold, float keep_scale, int vec_flag) {
+  constexpr int DPAD = KSTEPS * 16;
+  constexpr int LD = DPAD + kMmaPad;
+  constexpr int NT = DPAD / 8;
+  constexpr int R = kBwdRows;
+  constexpr int LDS = R + kMmaPad;  // row stride of ds^T
+  constexpr int KW = 16 * KM;       // keys a warp owns
+  constexpr int PASS = kMmaWarps * KW;
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int NB2 = KSTEPS <= 4 ? KSTEPS : (KSTEPS == 5 ? 3 : 4);  // 16-column pairs at once
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kvr_alloc][LD]
+  bf16* vs = ks + (size_t)kvr_alloc * LD;        // [kvr_alloc][LD]
+  bf16* qs = vs + (size_t)kvr_alloc * LD;        // [R][LD]; phase 2 stages dq here
+  bf16* gs = qs + R * LD;                        // [R][LD]
+  bf16* dst = gs + R * LD;                       // [kvr_alloc][LDS]: ds^T of the tile
+  float* lse_s = reinterpret_cast<float*>(dst + (size_t)kvr_alloc * LDS);  // [R]
+  float* delta_s = lse_s + R;                                              // [R]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const int range0 = split * rows_per_split;
+  const int range1 = min(n, range0 + rows_per_split);
+  const int rg_count = kMmaWarps / kg_count;
+  const int kg = warp % kg_count;  // the warp's key group
+  const int rg = warp / kg_count;  // and its share of a tile's 16-row chunks
+  const size_t parts = (size_t)gridDim.y * rg_count;
+  const size_t part = (size_t)split * rg_count + rg;
+  const bool vec = vec_flag != 0;
+  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
+  const float c2 = scale * kLog2e;
+  const bf16* qb = q + (size_t)bh * n * d;
+  const bf16* gb = g_out + (size_t)bh * n * d;
+  const bf16* ob = o + (size_t)bh * n * d;
+  const bf16* kb = k + (size_t)bh * m * d;
+  const bf16* vb = v + (size_t)bh * m * d;
+  bf16* dqb = dq + (size_t)bh * n * d;
+
+  for (int kp = 0; kp < m; kp += PASS) {
+    const int kv_n = min(PASS, m - kp);
+    const int kvr = (kv_n + KW - 1) / KW * KW;  // staged keys; zero past m
+    __syncthreads();                            // the previous pass is done with K and V
+    stage_rows<DPAD>(ks, kb, kp, kvr, m, d, vec, tid, blockDim.x);
+    stage_rows<DPAD>(vs, vb, kp, kvr, m, d, vec, tid, blockDim.x);
+    const bool has_keys = kg * KW < kv_n;
+    // the hash's terms in seed, bh and the first of this lane's keys
+    const uint32_t key_hash =
+        seed + (uint32_t)bh * kHashBh + (uint32_t)(kp + kg * KW + gq) * kHashCol;
+
+    float dk_acc[KM][NT][4], dv_acc[KM][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < KM; ++mt) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk_acc[mt][i][e] = 0.f;
+          dv_acc[mt][i][e] = 0.f;
+        }
+      }
+    }
+
+    for (int row0 = range0; row0 < range1; row0 += R) {
+      __syncthreads();  // the previous tile's phase 2 is done with qs and dst
+      stage_rows<DPAD>(qs, qb, row0, R, n, d, vec, tid, blockDim.x);
+      stage_rows<DPAD>(gs, gb, row0, R, n, d, vec, tid, blockDim.x);
+      cp_async_commit();
+      {  // delta = sum_d g_d o_d and the log-sum-exp of the tile's rows: two threads a row
+        const int r = tid >> 1;
+        const int sub = tid & 1;
+        const int gr = row0 + r;
+        float part_sum = 0.f;
+        if (gr < n) {
+          const bf16* grow = gb + (size_t)gr * d;
+          const bf16* orow = ob + (size_t)gr * d;
+          if (vec) {
+            for (int c = sub * 8; c < d; c += 16) {
+              const uint4 a = *reinterpret_cast<const uint4*>(grow + c);
+              const uint4 b = *reinterpret_cast<const uint4*>(orow + c);
+              const __nv_bfloat162* ah = reinterpret_cast<const __nv_bfloat162*>(&a);
+              const __nv_bfloat162* bhh = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 x = __bfloat1622float2(ah[e]);
+                const float2 y = __bfloat1622float2(bhh[e]);
+                part_sum = fmaf(x.x, y.x, part_sum);
+                part_sum = fmaf(x.y, y.y, part_sum);
+              }
+            }
+          } else {
+            for (int c = sub; c < d; c += 2) {
+              part_sum = fmaf(__bfloat162float(grow[c]), __bfloat162float(orow[c]), part_sum);
+            }
+          }
+        }
+        part_sum += __shfl_xor_sync(kFull, part_sum, 1);
+        if (sub == 0) {
+          delta_s[r] = part_sum;
+          lse_s[r] = gr < n ? lse[(size_t)bh * n + gr] * kLog2e : 0.f;  // in units of log 2
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // phase 1: the warp's keys against 16 rows at a time, everything transposed
+      if (has_keys) {
+        for (int rc = rg; rc < R / 16; rc += rg_count) {
+          float st[KM][2][4], dpt[KM][2][4];
+#pragma unroll
+          for (int mt = 0; mt < KM; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                st[mt][nt][e] = 0.f;
+                dpt[mt][nt][e] = 0.f;
+              }
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            uint32_t bq[4], bg[4];
+            const int boff = (rc * 16 + (lane & 7) + 8 * (lane >> 4)) * LD + kk * 16 +
+                             8 * ((lane >> 3) & 1);
+            ldmatrix_x4(bq, qs + boff);
+            ldmatrix_x4(bg, gs + boff);
+#pragma unroll
+            for (int mt = 0; mt < KM; ++mt) {
+              uint32_t a[4];
+              const int aoff = (kg * KW + mt * 16 + (lane & 15)) * LD + kk * 16 + 8 * (lane >> 4);
+              ldmatrix_x4(a, ks + aoff);
+              mma_bf16(st[mt][0], a, bq[0], bq[1]);
+              mma_bf16(st[mt][1], a, bq[2], bq[3]);
+              ldmatrix_x4(a, vs + aoff);
+              mma_bf16(dpt[mt][0], a, bg[0], bg[1]);
+              mma_bf16(dpt[mt][1], a, bg[2], bg[3]);
+            }
+          }
+          uint32_t pa[KM][4], da[KM][4];  // (p md)^T and ds^T as A fragments
+          const uint32_t row_hash = (uint32_t)(row0 + rc * 16 + 2 * t) * kHashRow;
+#pragma unroll
+          for (int mt = 0; mt < KM; ++mt) {
+            float pm[2][4], ds[2][4], mdv[2][4];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) mdv[nt][e] = 1.f;
+            }
+            if (use_dropout) {
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const uint32_t h = key_hash + (uint32_t)(mt * 16 + 8 * (e >> 1)) * kHashCol +
+                                     row_hash + (uint32_t)(nt * 8 + (e & 1)) * kHashRow;
+                  mdv[nt][e] = keep_from_sum(h, (uint32_t)bh, threshold) ? keep_scale : 0.f;
+                }
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key_l = kg * KW + mt * 16 + gq + 8 * (e >> 1);
+                const int rl = rc * 16 + nt * 8 + 2 * t + (e & 1);
+                // keys past m hold zeros and score 0: their p must not count
+                const float p = key_l < kv_n ? fast_exp2(fmaf(st[mt][nt][e], c2, -lse_s[rl]))
+                                             : 0.f;
+                const float md = mdv[nt][e];
+                pm[nt][e] = p * md;
+                ds[nt][e] = p * (dpt[mt][nt][e] * md - delta_s[rl]);
+              }
+            }
+            pa[mt][0] = pack_bf16(pm[0][0], pm[0][1]);
+            pa[mt][1] = pack_bf16(pm[0][2], pm[0][3]);
+            pa[mt][2] = pack_bf16(pm[1][0], pm[1][1]);
+            pa[mt][3] = pack_bf16(pm[1][2], pm[1][3]);
+            da[mt][0] = pack_bf16(ds[0][0], ds[0][1]);
+            da[mt][1] = pack_bf16(ds[0][2], ds[0][3]);
+            da[mt][2] = pack_bf16(ds[1][0], ds[1][1]);
+            da[mt][3] = pack_bf16(ds[1][2], ds[1][3]);
+            bf16* drow = dst + (size_t)(kg * KW + mt * 16 + gq) * LDS + rc * 16 + 2 * t;
+            *reinterpret_cast<uint32_t*>(drow) = da[mt][0];
+            *reinterpret_cast<uint32_t*>(drow + 8 * LDS) = da[mt][1];
+            *reinterpret_cast<uint32_t*>(drow + 8) = da[mt][2];
+            *reinterpret_cast<uint32_t*>(drow + 8 * LDS + 8) = da[mt][3];
+          }
+#pragma unroll
+          for (int dp = 0; dp < NT / 2; ++dp) {
+            uint32_t b[4];
+            const int boff = (rc * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + dp * 16 +
+                             8 * (lane >> 4);
+            ldmatrix_x4_trans(b, gs + boff);
+#pragma unroll
+            for (int mt = 0; mt < KM; ++mt) {
+              mma_bf16(dv_acc[mt][2 * dp], pa[mt], b[0], b[1]);
+              mma_bf16(dv_acc[mt][2 * dp + 1], pa[mt], b[2], b[3]);
+            }
+            ldmatrix_x4_trans(b, qs + boff);
+#pragma unroll
+            for (int mt = 0; mt < KM; ++mt) {
+              mma_bf16(dk_acc[mt][2 * dp], da[mt], b[0], b[1]);
+              mma_bf16(dk_acc[mt][2 * dp + 1], da[mt], b[2], b[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // ds^T of the tile is complete; Q is no longer needed
+
+      // phase 2: dq = scale ds k for the warp's 16 rows, NB2 column pairs at a time
+      bf16* qw = qs + warp * 16 * LD;
+#pragma unroll
+      for (int p0 = 0; p0 < NT / 2; p0 += NB2) {
+        float acc[2 * NB2][4];
+#pragma unroll
+        for (int i = 0; i < 2 * NB2; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        }
+        for (int kk = 0; kk < kvr / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, dst + (size_t)(kk * 16 + (lane & 7) + 8 * (lane >> 4)) * LDS +
+                                   warp * 16 + 8 * ((lane >> 3) & 1));
+#pragma unroll
+          for (int pp = 0; pp < NB2; ++pp) {
+            if (p0 + pp < NT / 2) {
+              uint32_t b[4];
+              ldmatrix_x4_trans(b, ks + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                                       (p0 + pp) * 16 + 8 * (lane >> 4));
+              mma_bf16(acc[2 * pp], a, b[0], b[1]);
+              mma_bf16(acc[2 * pp + 1], a, b[2], b[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2 * NB2; ++i) {
+          if (2 * p0 + i < NT) {
+            const int col = (2 * p0 + i) * 8 + 2 * t;
+            *reinterpret_cast<uint32_t*>(qw + gq * LD + col) =
+                pack_bf16(acc[i][0] * scale, acc[i][1] * scale);
+            *reinterpret_cast<uint32_t*>(qw + (gq + 8) * LD + col) =
+                pack_bf16(acc[i][2] * scale, acc[i][3] * scale);
+          }
+        }
+      }
+      __syncwarp();  // rows warp * 16 .. + 15 of qs are this warp's alone
+      {
+        const int wrow0 = row0 + warp * 16;
+        const bool add = kp > 0;  // a later key pass adds to what the earlier wrote
+        if (vec && !add) {
+          const int cpr = d / 8;
+          for (int i = lane; i < 16 * cpr; i += 32) {
+            const int r = i / cpr;
+            const int c = (i - r * cpr) * 8;
+            if (wrow0 + r < n) {
+              *reinterpret_cast<uint4*>(dqb + (size_t)(wrow0 + r) * d + c) =
+                  *reinterpret_cast<const uint4*>(qw + r * LD + c);
+            }
+          }
+        } else {
+          for (int i = lane; i < 16 * d; i += 32) {
+            const int r = i / d;
+            const int c = i - r * d;
+            if (wrow0 + r < n) {
+              bf16* dst_e = dqb + (size_t)(wrow0 + r) * d + c;
+              const float x = __bfloat162float(qw[r * LD + c]);
+              *dst_e = __float2bfloat16(add ? x + __bfloat162float(*dst_e) : x);
+            }
+          }
+        }
+      }
+    }
+
+    // this block's share of dk and dv for the pass's keys: one partial per row group
+    if (has_keys) {
+#pragma unroll
+      for (int mt = 0; mt < KM; ++mt) {
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kp + kg * KW + mt * 16 + gq + 8 * (e >> 1);
+            const int col = i * 8 + 2 * t + (e & 1);
+            if (key < m && col < d) {
+              const size_t at = (((size_t)bh * parts + part) * m + key) * d + col;
+              dk_part[at] = dk_acc[mt][i][e] * scale;
+              dv_part[at] = dv_acc[mt][i][e];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int KSTEPS, int KM>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o,
+                       const void* g, const float* lse, void* dq, void* dk, void* dv,
+                       float* dk_part, float* dv_part, int parts, int bh, int n, int m, int d,
+                       int rows_per_split, int smem_bytes, float scale, int use_dropout,
+                       uint32_t seed, const long long* seed_ptr, uint32_t threshold,
+                       float keep_scale, cudaStream_t stream) {
+  constexpr int DPAD = KSTEPS * 16;
+  constexpr int KW = 16 * KM;
+  constexpr int PASS = kMmaWarps * KW;
+  if (rows_per_split < 1 || rows_per_split % kBwdRows != 0) return cudaErrorInvalidValue;
+  const int kvr_alloc = ((m < PASS ? m : PASS) + KW - 1) / KW * KW;
+  const int kg_count = key_groups(kvr_alloc, KW);
+  const int splits = (n + rows_per_split - 1) / rows_per_split;
+  const int smem = (2 * kvr_alloc * (DPAD + kMmaPad) + 2 * kBwdRows * (DPAD + kMmaPad) +
+                    kvr_alloc * (kBwdRows + kMmaPad)) * 2 + 2 * kBwdRows * 4;
+  if (smem != smem_bytes || parts != splits * (kMmaWarps / kg_count) || splits > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = attention_bwd_mma_kernel<KSTEPS, KM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
+                  aligned16(g) && aligned16(dq);
+  kernel<<<dim3(bh, splits), kMmaWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(g), lse, static_cast<bf16*>(dq),
+      dk_part, dv_part, n, m, d, rows_per_split, kvr_alloc, kg_count, scale, use_dropout, seed,
+      seed_ptr, threshold, keep_scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(1, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
+}
+
+// ---- small_m ------------------------------------------------------------------
+
+// MM: keys the register accumulators hold (4 or 8, m <= MM).
+template <typename T, int G, int MM>
+__global__ void __launch_bounds__(kSmallThreads)
+attention_bwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ g_out,
+                             const float* __restrict__ lse,
+                             T* __restrict__ dq, float* __restrict__ dk_part,
+                             float* __restrict__ dv_part, int n, int m, int d,
+                             int rows_per_split, float scale, int use_dropout,
+                             uint32_t seed_value, const long long* __restrict__ seed_ptr,
+                             uint32_t threshold, float keep_scale, int vec_flag) {
+  constexpr int DS = 8 * G;
+  constexpr int RPP = kSmallThreads / G;
+  constexpr int WARPS = kSmallThreads / 32;
+  __shared__ __align__(16) float ks[MM * DS];
+  __shared__ __align__(16) float vs[MM * DS];
+  __shared__ __align__(16) float red[WARPS * MM * DS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j = tid % G;
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const int range0 = split * rows_per_split;
+  const int range1 = min(n, range0 + rows_per_split);
+  const bool vec = vec_flag != 0;
+  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
+  stage_small_kv<T, DS>(ks, vs, k + (size_t)bh * m * d, v + (size_t)bh * m * d, m, d, tid);
+  __syncthreads();
+
+  float ak[MM][8], av[MM][8];
+#pragma unroll
+  for (int jk = 0; jk < MM; ++jk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ak[jk][i] = 0.f;
+      av[jk][i] = 0.f;
+    }
+  }
+
+  for (int base = range0; base < range1; base += RPP) {
+    const int row = base + tid / G;
+    const bool valid = row < range1;
+    const size_t off = ((size_t)bh * n + row) * d;
+    float qx[8], gx[8];
+    load_row8<G>(qx, q + off, j, d, valid, vec);
+    load_row8<G>(gx, g_out + off, j, d, valid, vec);
+    const float lse_r = valid ? lse[(size_t)bh * n + row] : 0.f;
+    float ds[MM], pm[MM], pr[MM];
+    // delta = sum_j p_j md_j dp_j: with every key at hand the row term of the softmax
+    // transpose is formed exactly, and the saved output is not read
+    float delta = 0.f;
+#pragma unroll
+    for (int jk = 0; jk < MM; ++jk) {
+      ds[jk] = 0.f;  // holds dp md until delta is known
+      pm[jk] = 0.f;
+      pr[jk] = 0.f;
+      if (jk < m) {
+        float sp = 0.f, dpp = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = jk * DS + small_col<T, G>(j, i);
+          sp = fmaf(qx[i], ks[c], sp);
+          dpp = fmaf(gx[i], vs[c], dpp);
+        }
+        const float s = group_sum<G>(sp);
+        const float dp = group_sum<G>(dpp);
+        pr[jk] = valid ? expf(s * scale - lse_r) : 0.f;
+        float md = 1.f;
+        if (use_dropout) {
+          md = keep_element(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)jk, threshold)
+                   ? keep_scale
+                   : 0.f;
+        }
+        pm[jk] = pr[jk] * md;
+        ds[jk] = dp * md;
+        delta = fmaf(pm[jk], dp, delta);
+      }
+    }
+#pragma unroll
+    for (int jk = 0; jk < MM; ++jk) ds[jk] = pr[jk] * (ds[jk] - delta);
+    float dqx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dqx[i] = 0.f;
+#pragma unroll
+    for (int jk = 0; jk < MM; ++jk) {
+      if (jk < m) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          dqx[i] = fmaf(ds[jk], ks[jk * DS + small_col<T, G>(j, i)], dqx[i]);
+          ak[jk][i] = fmaf(ds[jk], qx[i], ak[jk][i]);
+          av[jk][i] = fmaf(pm[jk], gx[i], av[jk][i]);
+        }
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dqx[i] *= scale;
+      store_row8<G>(dq + off, dqx, j, d, vec);
+    }
+  }
+
+  // the block's share of dk, then of dv: over the warp's row groups by shuffles,
+  // over the warps through shared memory in warp order
+  const size_t part_base = ((size_t)bh * gridDim.y + split) * m * d;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int jk = 0; jk < MM; ++jk) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float x = which == 0 ? ak[jk][i] : av[jk][i];
+#pragma unroll
+        for (int o2 = G; o2 < 32; o2 <<= 1) x += __shfl_xor_sync(kFull, x, o2);
+        if (lane < G) red[(warp * MM + jk) * DS + small_col<T, G>(j, i)] = x;
+      }
+    }
+    __syncthreads();
+    float* part = which == 0 ? dk_part : dv_part;
+    const float mult = which == 0 ? scale : 1.f;
+    for (int idx = tid; idx < m * DS; idx += kSmallThreads) {
+      const int jk = idx / DS;
+      const int c = idx - jk * DS;
+      if (c < d) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) sum += red[(w * MM + jk) * DS + c];
+        part[part_base + (size_t)jk * d + c] = sum * mult;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int G, int MM>
+cudaError_t launch_small_m(int dtype, const void* q, const void* k, const void* v,
+                           const void* o, const void* g, const float* lse, void* dq, void* dk,
+                           void* dv, float* dk_part, float* dv_part, int parts, int bh, int n,
+                           int m, int d, int rows_per_split, float scale, int use_dropout,
+                           uint32_t seed, const long long* seed_ptr, uint32_t threshold,
+                           float keep_scale, cudaStream_t stream) {
+  if (rows_per_split < 1 || rows_per_split % (kSmallThreads / 8) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int splits = (n + rows_per_split - 1) / rows_per_split;
+  if (parts != splits || splits > 65535) return cudaErrorInvalidValue;
+  const int vec = d % (16 / (int)sizeof(T)) == 0 && aligned16(q) && aligned16(g) &&
+                  aligned16(dq);
+  attention_bwd_small_m_kernel<T, G, MM><<<dim3(bh, splits), kSmallThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, static_cast<T*>(dq), dk_part, dv_part, n, m, d,
+      rows_per_split, scale, use_dropout, seed, seed_ptr, threshold,
+      keep_scale, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(dtype, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_small_m(int dtype, const void* q, const void* k, const void* v,
+                             const void* o, const void* g, const float* lse, void* dq,
+                             void* dk, void* dv, float* dk_part, float* dv_part, int parts,
+                             int bh, int n, int m, int d, int rows_per_split, float scale,
+                             int use_dropout, uint32_t seed, const long long* seed_ptr,
+                             uint32_t threshold, float keep_scale, cudaStream_t stream) {
+#define STCD_SMALL(G, MM)                                                                   \
+  launch_small_m<T, G, MM>(dtype, q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, parts, \
+                           bh, n, m, d, rows_per_split, scale, use_dropout, seed, seed_ptr, \
+                           threshold, keep_scale, stream)
+  if (d <= 64) return m <= 4 ? STCD_SMALL(8, 4) : STCD_SMALL(8, 8);
+  return m <= 4 ? STCD_SMALL(16, 4) : STCD_SMALL(16, 8);
+#undef STCD_SMALL
+}
+
 }  // namespace
 
 // q, o, g, dq: (bh, n, d); k, v, dk, dv: (bh, m, d); lse: float32 (bh, n) as the
-// forward wrote it; dk_part, dv_part: float32 scratch of (bh, tiles, m, d), where
-// tiles must be the Q tiles of the launch, ceil(n / kBlockN), or the call is refused.
-// All contiguous on `device`. dtype: 0 = float32, 1 = bfloat16 (every tensor but
-// lse and the scratch). seed_ptr: a device int64 whose low 32 bits are the
-// dropout seed, or null to take `seed`. Returns a cudaError_t.
+// forward wrote it; dk_part, dv_part: float32 scratch of (bh, parts, m, d). All
+// contiguous on `device`. dtype: 0 = float32, 1 = bfloat16 (every tensor but lse
+// and the scratch). variant: kVariantF32 (float32 only), kVariantMma (bfloat16 only) or
+// kVariantSmallM (m <= 8). rows_per_split: the query rows a block owns; parts:
+// the partials a head leaves in the scratch; smem_bytes: the block's dynamic
+// shared memory; all three as the wrapper sized them, and the call is refused
+// when they are not the kernel's own. seed_ptr: a device int64 whose low 32 bits
+// are the dropout seed, or null to take `seed`. Returns a cudaError_t.
 extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* g, const float* lse,
                                         void* dq, void* dk, void* dv, float* dk_part,
-                                        float* dv_part, int tiles, int bh, int n, int m,
-                                        int d, int dtype, float scale, int use_dropout,
+                                        float* dv_part, int parts, int bh, int n, int m,
+                                        int d, int dtype, int variant, int rows_per_split,
+                                        int smem_bytes, float scale, int use_dropout,
                                         unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
                                         int device, void* stream) {
-  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
-      tiles != (n + kBlockN - 1) / kBlockN || tiles > 65535) {
+  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0
-            ? dispatch_d<float>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s)
-            : dispatch_d<__nv_bfloat16>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s);
+#define STCD_BWD_ARGS q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part
+#define STCD_BWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s
+  if (variant == kVariantF32) {
+    const size_t smem = (size_t)(2 * kBlockN * d + 2 * kChunk * (d + 1) +
+                                 2 * kBlockN * kPStride) * sizeof(float);
+    if (dtype != 0 || rows_per_split != kBlockN || parts != (n + kBlockN - 1) / kBlockN ||
+        parts > 65535 ||
+        (size_t)smem_bytes != smem) {
+      return (int)cudaErrorInvalidValue;
+    }
+    err = dispatch_d<float>(STCD_BWD_ARGS, bh, n, m, d, STCD_BWD_TAIL);
+  } else if (variant == kVariantMma) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+#define STCD_MMA(KSTEPS, KM)                                                            \
+  launch_mma<KSTEPS, KM>(STCD_BWD_ARGS, parts, bh, n, m, d, rows_per_split, smem_bytes, \
+                         STCD_BWD_TAIL)
+    if (d <= 32) err = STCD_MMA(2, 2);
+    else if (d <= 64) err = STCD_MMA(4, 2);
+    else if (d <= 80) err = STCD_MMA(5, 2);
+    else err = STCD_MMA(8, 1);
+#undef STCD_MMA
+  } else if (variant == kVariantSmallM) {
+    if (m > kSmallM || smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    err = dtype == 0 ? dispatch_small_m<float>(dtype, STCD_BWD_ARGS, parts, bh, n, m, d,
+                                               rows_per_split, STCD_BWD_TAIL)
+                     : dispatch_small_m<bf16>(dtype, STCD_BWD_ARGS, parts, bh, n, m, d,
+                                              rows_per_split, STCD_BWD_TAIL);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef STCD_BWD_ARGS
+#undef STCD_BWD_TAIL
   return (int)err;
 }

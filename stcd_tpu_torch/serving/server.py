@@ -37,23 +37,25 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from stcd_tpu_torch.cli.predict import resolve_device
 from stcd_tpu_torch.data.tiled_inference import extract_tiles, stitch_tiles
 
 
 class BatchingEngine:
     """Batches (tile_a, tile_b) pairs from many callers into fixed-size
     device steps over ``predict_fn(a, b) -> probs``: NHWC tensors on
-    ``device`` in, (B, t, t, C) probabilities out."""
+    ``device`` in, (B, t, t, C) probabilities out. ``device`` defaults to the
+    card; without one the constructor raises (pass ``"cpu"`` to run there)."""
 
     def __init__(self, predict_fn: Callable, tile: int = 256,
                  stride: Optional[int] = None, batch: int = 8,
                  max_wait_ms: float = 5.0, timeout_s: float = 120.0,
-                 device="cpu"):
+                 device="cuda"):
         self.predict_fn = predict_fn
         self.tile = tile
         self.stride = stride or tile
         self.batch = batch
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_wait_s = max_wait_ms / 1e3
         self.timeout_s = timeout_s
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()

@@ -159,8 +159,10 @@ def profile_steps(step, n: int = 3, top: int = 15, groups=None):
 TRAIN_PRECISIONS = (("bf16", True, 64), ("fp32", False, 8))  # name, autocast, batch
 TRAIN_GROUPS = {
     "augment_kernel": ("gray_mean_partials", "pointwise_chain", "blur_normalize"),
-    "attention_fwd": ("cross_attention_fwd_kernel",),
-    "attention_bwd": ("cross_attention_bwd_kernel", "reduce_tiles_kernel"),
+    "attention_fwd": ("cross_attention_fwd_kernel", "attention_fwd_mma_kernel",
+                      "attention_fwd_small_m_kernel"),
+    "attention_bwd": ("cross_attention_bwd_kernel", "attention_bwd_mma_kernel",
+                      "attention_bwd_small_m_kernel", "reduce_tiles_kernel"),
     "optimizer": ("multi_tensor_apply", "adam"),
 }
 # The full-size trainer steps: TrainerConfig keywords beyond the defaults.

@@ -156,3 +156,183 @@ def test_bf16_plain_upcasts_and_returns_q_dtype():
     assert got.dtype == torch.bfloat16
     # one bf16 rounding of the output (8 mantissa bits)
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=1e-2)
+
+
+# --- the kernel variants: what can be held on a host without a card -----------
+
+import importlib.util
+import os
+
+from stcd_tpu_torch.ops import attention as port_attention
+from stcd_tpu_torch.ops.attention import (MAX_SMEM_BYTES, MIN_BLOCKS, backward_plan,
+                                          forward_plan, select_variant)
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _chip_smoke()
+V6_SHAPES = SMOKE.sra_shapes() + SMOKE.sra_shapes(SMOKE.V6_TRAIN["batch"],
+                                                  SMOKE.V6_TRAIN["size"])
+MAIN_PATH = ([(s, torch.float32) for s in SMOKE.sra_shapes()]
+             + [(s, torch.bfloat16) for s in V6_SHAPES]
+             + [(SMOKE.BIT_SHAPE, torch.float32), (SMOKE.BIT_SHAPE, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("shape", V6_SHAPES)
+def test_select_variant_bf16_v6_shapes_take_the_tensor_cores(shape):
+    assert select_variant(torch.bfloat16, shape[3]) == "mma_bf16"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, SMOKE.BIT_SHAPE[3], 8])
+def test_select_variant_small_m_in_both_dtypes(m, dtype):
+    assert select_variant(dtype, m) == "small_m"
+
+
+@pytest.mark.parametrize("m", [9, 37, 64, 256, 257])
+def test_select_variant_f32_above_eight_keys_keeps_the_f32_kernel(m):
+    assert select_variant(torch.float32, m) == "f32_cuda"
+    assert select_variant(torch.bfloat16, m) == "mma_bf16"
+
+
+@pytest.mark.parametrize("shape,dtype", MAIN_PATH)
+def test_plans_fit_the_card_at_every_main_path_shape(shape, dtype):
+    """Shared memory within a block's limit; at least MIN_BLOCKS blocks, or one
+    tile a block (the tensor-core backward, whose block fills an SM: at least
+    128 blocks, one wave over 97 % of the SMs); the blocks' rows cover N
+    exactly; the scratch holds one partial for every part."""
+    b, h, n, m, d = shape
+    variant = select_variant(dtype, m)
+    fwd = forward_plan(variant, b * h, n, m, d)
+    bwd = backward_plan(variant, b * h, n, m, d)
+    granule = {"f32_cuda": (64, 64), "mma_bf16": (128 * fwd["row_tiles"], 128),
+               "small_m": (32, 32)}[variant]
+    bwd_min = 128 if variant == "mma_bf16" else MIN_BLOCKS
+    for plan, rows, tile, least in ((fwd, fwd["rows_per_block"], granule[0], MIN_BLOCKS),
+                                    (bwd, bwd["rows_per_split"], granule[1], bwd_min)):
+        assert 0 <= plan["smem_bytes"] <= MAX_SMEM_BYTES == 232448
+        assert rows % tile == 0 and rows >= tile
+        assert MIN_BLOCKS == 264 and port_attention.SMS == 132
+        assert plan["blocks"] >= least or rows == tile
+        assert plan["blocks"] == b * h * -(-n // rows)
+    assert (bwd["splits"] - 1) * bwd["rows_per_split"] < n <= bwd["splits"] * bwd["rows_per_split"]
+    assert bwd["scratch_shape"] == (b * h, bwd["parts"], m, d)
+    assert bwd["parts"] % bwd["splits"] == 0 and 1 <= bwd["parts"] // bwd["splits"] <= 8
+    if variant == "mma_bf16" and m == 256:  # every warp owns keys: one partial a block
+        assert bwd["parts"] == bwd["splits"]
+        if n == 16384:  # V6 training shape 1: not one partial for each tile of 64 rows
+            assert bwd["splits"] == 8
+
+
+@pytest.mark.parametrize("n", [1, 31, 127, 129, 1000, 4097, 16385])
+@pytest.mark.parametrize("variant,m,d", [("f32_cuda", 37, 80), ("mma_bf16", 255, 40),
+                                         ("mma_bf16", 300, 128), ("small_m", 4, 64)])
+def test_backward_splits_cover_ragged_n_exactly(variant, m, d, n):
+    for bh in (1, 7, 256):
+        plan = backward_plan(variant, bh, n, m, d)
+        rows, splits = plan["rows_per_split"], plan["splits"]
+        assert (splits - 1) * rows < n <= splits * rows
+        assert plan["smem_bytes"] <= MAX_SMEM_BYTES
+        fwd = forward_plan(variant, bh, n, m, d)
+        assert fwd["smem_bytes"] <= MAX_SMEM_BYTES and fwd["blocks"] * fwd["rows_per_block"] >= bh * n
+
+
+def test_forward_plan_keeps_k_and_v_resident_at_the_main_path_shapes():
+    """2 * M rows of K and V plus the warps' Q tiles, in padded bf16 rows."""
+    for b, h, n, m, d in V6_SHAPES:
+        plan = forward_plan("mma_bf16", b * h, n, m, d)
+        row_bytes = ({64: 64, 80: 80}[d] + 8) * 2
+        assert plan["smem_bytes"] == (2 * m + 8 * 2 * 16 * plan["row_tiles"]) * row_bytes
+    with pytest.raises(ValueError, match="variant"):
+        forward_plan("wgmma", 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="variant"):
+        backward_plan("wgmma", 1, 1, 1, 1)
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_mma_bf16(q, k, v, g, scale, rate, seed, round_p=True):
+    """The arithmetic of the bf16 tensor-core variant in plain torch: bf16
+    operands, f32 sums, and (``round_p``) p md and ds rounded to bf16 before
+    their second products. Returns o, dq, dk, dv as the kernels store them."""
+    rnd = _bf16_round if round_p else (lambda x: x)
+    q, k, v, g = (_bf16_round(t) for t in (q, k, v, g))
+    b, h, n, _ = q.shape
+    m = k.shape[2]
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    mx = s.max(-1, keepdim=True).values
+    e = torch.exp(s - mx)
+    l = e.sum(-1, keepdim=True)
+    md = torch.ones_like(s)
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, torch.arange(b * h).reshape(b, h, 1, 1),
+                                 torch.arange(n).reshape(1, 1, n, 1),
+                                 torch.arange(m).reshape(1, 1, 1, m), rate)
+        md = keep.float() / (1.0 - rate)
+    o = _bf16_round(torch.einsum("bhnm,bhmd->bhnd", rnd(e * md), v) / l)
+    lse = mx + torch.log(l)
+    p = torch.exp(s - lse)
+    delta = (g * o).sum(-1, keepdim=True)
+    dp = torch.einsum("bhnd,bhmd->bhnm", g, v)
+    ds = rnd(p * (dp * md - delta))
+    dv = torch.einsum("bhnm,bhnd->bhmd", rnd(p * md), g)
+    dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
+    dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
+    return o, _bf16_round(dq), _bf16_round(dk), _bf16_round(dv)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,m,d", [(96, 64, 64), (64, 256, 64), (64, 256, 80), (100, 37, 80),
+                                   (48, 64, 80), (40, 37, 64)])
+def test_bf16_rounding_of_the_tensor_core_variant_stays_in_tolerance(n, m, d, rate):
+    """p md and ds rounded to bf16 before the second products (what the
+    mma_bf16 kernels do) against the JAX einsum path in f32 on the same
+    bf16-valued inputs: the output within BF16_ATOL and dq, dk, dv within
+    BWD_BF16_ATOL, times max(1, max |reference|), the gates of the card run."""
+    q, k, v = (_bf16_round(torch.from_numpy(a)).numpy() for a in _qkv(n, m, d, seed=n + m + d))
+    g = _bf16_round(torch.from_numpy(
+        np.random.default_rng(11).standard_normal(q.shape).astype(np.float32))).numpy()
+    scale = d ** -0.5
+    seed = SEED if rate else None
+    jseed = None if seed is None else jnp.uint32(seed)
+    got = _emulate_mma_bf16(*(torch.from_numpy(a) for a in (q, k, v, g)), scale, rate, seed)
+
+    def loss(q, k, v):
+        return jnp.sum(_einsum_attention(q, k, v, scale, rate, jseed) * g)
+
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = (_einsum_attention(*args, scale, rate, jseed),
+            *jax.grad(loss, argnums=(0, 1, 2))(*args))
+    for name, a, w, atol in zip(("o", "dq", "dk", "dv"), got, want,
+                                (SMOKE.BF16_ATOL,) + (SMOKE.BWD_BF16_ATOL,) * 3):
+        w = np.asarray(w)
+        err = np.abs(a.numpy() - w).max()
+        assert err <= atol * max(1.0, np.abs(w).max()), (name, err)
+    # the emulation without the extra rounding is the plain version's arithmetic
+    exact = _emulate_mma_bf16(*(torch.from_numpy(a) for a in (q, k, v, g)), scale, rate, seed,
+                              round_p=False)
+    np.testing.assert_allclose(exact[0].numpy(), _bf16_round(torch.from_numpy(
+        np.array(want[0]))).numpy(), atol=SMOKE.BF16_ATOL)
+
+
+def test_variant_counters_and_scale_check_without_a_card():
+    """The wrapper's counters exist and stay at zero on a CPU-only host."""
+    kernel = port_attention.cross_attention_kernel
+    assert dict(kernel.forward_variants) == {} and dict(kernel.backward_variants) == {}
+    assert port_attention.VARIANTS == ("f32_cuda", "mma_bf16", "small_m")
+    q, k, v = (torch.from_numpy(a) for a in _qkv(16, 4, 8))
+    lse = torch.zeros(q.shape[:3])
+    with pytest.raises(ValueError, match="gradient"):  # refused before any launch
+        port_attention.launch_backward(q, k, v, q, lse, q[:, :, :8], 1.0, 0.0, None)
+    with pytest.raises(ValueError, match="gradient"):
+        port_attention.launch_backward(q, k, v, q, lse, q.double(), 1.0, 0.0, None)
+    assert kernel.backward_launches == 0

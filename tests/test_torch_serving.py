@@ -166,7 +166,7 @@ def _get(url):
 
 
 def test_http_server_endpoints():
-    engine = BatchingEngine(_toy_fn, tile=32, batch=4, max_wait_ms=5.0)
+    engine = BatchingEngine(_toy_fn, tile=32, batch=4, max_wait_ms=5.0, device="cpu")
     httpd = serve(engine, "127.0.0.1", 0)  # ephemeral port
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -275,3 +275,34 @@ def test_device_cuda_without_card_raises_and_other_models_wait(monkeypatch):
         cli_predict.resolve_device("cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         define_G("SNUNet")
+
+
+def test_every_entry_point_defaults_to_the_card(monkeypatch):
+    """Every entry point's ``device`` default is "cuda", and on a host with
+    no card the default raises instead of carrying on on the CPU."""
+    import inspect
+
+    from stcd_tpu_torch.cli import serve as cli_serve
+    from stcd_tpu_torch.data.tiled_inference import predict_scene
+    from stcd_tpu_torch.tools import bench_bnstats_diag, bench_conv_bn_epilogue
+    from stcd_tpu_torch.tools.profile_step import stage_setup
+    from stcd_tpu_torch.train.state import create_train_state
+    from stcd_tpu_torch.train.trainer import CDTrainer
+
+    for fn in (BatchingEngine.__init__, predict_scene, create_train_state,
+               CDTrainer.init_state, stage_setup):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for add_args in (cli_predict.add_model_args, bench_conv_bn_epilogue.add_args):
+        parser = argparse.ArgumentParser()
+        add_args(parser)
+        assert parser.get_default("device") == "cuda", add_args
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchingEngine(_toy_fn)
+    a, b = _scene(2, 64, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_scene(_toy_fn, a, b, tile=32, stride=32)
+    for main in (cli_serve.main, bench_conv_bn_epilogue.main, bench_bnstats_diag.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--init_seed", "0"] if main is cli_serve.main else [])
