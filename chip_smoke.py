@@ -32,7 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    decomposition; with the sums formed on the tensor cores) against their plain
    version and a float64 sum of its f32 accumulator, bf16, at the five
    ResNet-50 bottleneck shapes of their tools and two ragged shapes, two runs
-   bit-identical, with torch.matmul as the yardstick.
+   bit-identical, with torch.matmul as the yardstick; the product alone on
+   the route matmul_plan picks (wgmma with TMA everywhere but at the odd
+   ragged shape, which takes the wmma tile), timed as CUDA-graph replays.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -70,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the scalar log exist, and restore_last gives back the step, the weights
    and the Adam moments.
 12. the tools: bench_conv_bn_epilogue and bench_bnstats_diag, the entry points
-   of the four matmul kernels, through their main(); their rows are printed.
+   of the four matmul kernels, through their main(); their rows are printed,
+   and every matmul_bf16 launch of bench_bnstats_diag took the wgmma route.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -615,7 +618,7 @@ def phase_matmul_stats(torch):
                "matmul_stats_mma": (ops.matmul_stats_mma, bench_bnstats_diag.SHAPES)}
     res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
-                  "bound_by": set()} for name in kernels}
+                  "bound_by": set(), "routes_checked": {}} for name in kernels}
     cases = [(shape, True) for shape in bench_conv_bn_epilogue.SHAPES]
     cases += [(MM_RAGGED, False), (MM_RAGGED_ODD, False)]
     for (m, k, n), on_path in cases:
@@ -627,12 +630,22 @@ def phase_matmul_stats(torch):
         mean = want[0] / m
         var = (want[1] / m - mean ** 2).clamp_min(1e-6)
         y_scale = max(1.0, y_plain.float().abs().max().item())
-        t_lib = time_ms(lambda: torch.matmul(x, w)) if on_path else None
+        t_lib = time_ms(lambda: torch.matmul(x, w), graph=True) if on_path else None
         for name, (fn, shapes) in kernels.items():
             stats = name != "matmul_bf16"
             timed = on_path and (m, k, n) in shapes
+            routes = dict(ops.matmul_bf16_kernel.routes)
             got, again = fn(x, w, impl="kernel"), fn(x, w, impl="kernel")
             torch.cuda.synchronize()
+            r = res[name]
+            if not stats:  # both launches on the route that matmul_plan picks for the shape
+                route = ops.matmul_plan(m, k, n, aligned=True)["route"]
+                took = {key: count - routes.get(key, 0)
+                        for key, count in ops.matmul_bf16_kernel.routes.items()
+                        if count != routes.get(key, 0)}
+                require(took == {route: 2}, f"matmul_bf16 {(m, k, n)}: routes {took}, "
+                        f"expected {route}")
+                r["routes_checked"][route] = r["routes_checked"].get(route, 0) + 1
             y = got[0] if stats else got
             require(y.dtype == torch.bfloat16 and y.shape == (m, n),
                     f"{name} output {y.dtype} {tuple(y.shape)}")
@@ -651,15 +664,15 @@ def phase_matmul_stats(torch):
                              ((g_var - var).abs() / var).max().item())
                 require(bn_err <= MM_BN_TOL, f"{name} {(m, k, n)}: BN-scaled sums are off by "
                         f"{bn_err} > {MM_BN_TOL}")
-            r = res[name]
             r["max_abs_err"] = max(r["max_abs_err"], y_err)
             r["max_bn_scaled_err"] = max(r["max_bn_scaled_err"], bn_err)
-            line = (f"{name} (M,K,N)={(m, k, n)}: max|dy|={y_err:.3e} (atol {MM_Y_ATOL} x "
-                    f"{y_scale:.1f}), BN-scaled sums {bn_err:.3e} (tol {MM_BN_TOL}), two runs "
-                    f"identical")
-            if timed:
-                t_kernel = time_ms(lambda: fn(x, w, impl="kernel"))
-                t_plain = time_ms(lambda: fn(x, w, impl="plain"), runs=5)
+            line = (f"{name} (M,K,N)={(m, k, n)}"
+                    f"{' [' + route + ']' if not stats else ''}: max|dy|={y_err:.3e} (atol "
+                    f"{MM_Y_ATOL} x {y_scale:.1f}), BN-scaled sums {bn_err:.3e} (tol "
+                    f"{MM_BN_TOL}), two runs identical")
+            if timed:  # CUDA-graph replays: the wrapper's host time is not timed
+                t_kernel = time_ms(lambda: fn(x, w, impl="kernel"), graph=True)
+                t_plain = time_ms(lambda: fn(x, w, impl="plain"), runs=5, graph=True)
                 bound, by = matmul_bound_ms(m, k, n, stats)
                 line += (f"; kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms torch.matmul "
                          f"{t_lib:.4f} ms bound {bound:.4f} ms ({by})")
@@ -1048,10 +1061,14 @@ def phase_tools(torch):
                 "matmul_stats_mma": ops.matmul_stats_mma_kernel}
     for wrapper in wrappers.values():
         wrapper.kernel_launches = 0
+    ops.matmul_bf16_kernel.routes.clear()
     rows = {"bench_conv_bn_epilogue": bench_conv_bn_epilogue.main([]),
             "bench_bnstats_diag": bench_bnstats_diag.main([])}
     torch.cuda.synchronize()
     launches = {name: wrapper.kernel_launches for name, wrapper in wrappers.items()}
+    routes = dict(ops.matmul_bf16_kernel.routes)
+    require(routes == {"wgmma_tma": launches["matmul_bf16"]} and launches["matmul_bf16"] > 0,
+            f"bench_bnstats_diag's matmul_bf16 launches took the routes {routes}")
     require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3,
             "the tools did not return a row for each shape")
     for row in rows["bench_conv_bn_epilogue"]:
@@ -1062,8 +1079,8 @@ def phase_tools(torch):
                 and row["cross_variant_err"] == row["cross_variant_err"],
                 f"bench_bnstats_diag row: {row}")
     print("tools rows json: " + json.dumps(rows), flush=True)
-    print(f"tools: kernel launches {launches}", flush=True)
-    return launches
+    print(f"tools: kernel launches {launches}; matmul_bf16 by route {routes}", flush=True)
+    return launches, routes
 
 
 def phase_segcd_serving(torch, np):
@@ -1156,7 +1173,8 @@ def main() -> int:
     aug["launches"] = sum(aug_by_path.values())
 
     # phase 12: the two feasibility benchmarks, the matmul kernels' entry points
-    for name, launches in phase_tools(torch).items():
+    tool_launches, mm["matmul_bf16"]["launches_by_route"] = phase_tools(torch)
+    for name, launches in tool_launches.items():
         require(launches > 0, f"the tools never launched {name}")
         mm[name]["launches"] = launches
 
@@ -1194,9 +1212,13 @@ def main() -> int:
          "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},
          "path": "standalone"},
         *[{"name": name, "route": "cuda",
-           "source": "stcd_tpu_torch/ops/csrc/matmul_stats.cu", "replaces": replaces,
-           **{k: mm[name][k] for k in keys},
-           "max_bn_scaled_err": mm[name]["max_bn_scaled_err"]}
+           "source": "stcd_tpu_torch/ops/csrc/" + ("matmul_hopper.cu" if name == "matmul_bf16"
+                                                   else "matmul_stats.cu"),
+           "replaces": replaces, **{k: mm[name][k] for k in keys},
+           "max_bn_scaled_err": mm[name]["max_bn_scaled_err"],
+           **({"launches_by_route": mm[name]["launches_by_route"],
+               "shapes_by_route_checked": mm[name]["routes_checked"]}
+              if name == "matmul_bf16" else {})}
           for name, replaces in (("matmul_stats", "benchmarks/bench_conv_bn_epilogue.py:30"),
                                  ("matmul_bf16", "benchmarks/bench_bnstats_diag.py:24"),
                                  ("matmul_stats_rows", "benchmarks/bench_bnstats_diag.py:46"),

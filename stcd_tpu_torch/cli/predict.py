@@ -3,15 +3,19 @@
 
 Usage:
   python -m stcd_tpu_torch.cli.predict --image_a t1.png --image_b t2.png \\
-      --out change.png (--weights segcd.pt | --init_seed 0) \\
+      --out change.png (--load_path runs/STCD | --weights segcd.pt | --init_seed 0) \\
       [--encoder resnet50 --decoder_channels 256,128,64,32,16] \\
       [--net_G ChangeFormerV6] \\
       [--tile 256 --stride 128 --threshold 0.5 --prob_out probs.npy --bf16]
 
 The model is SegCD with ``--encoder`` and ``--decoder_channels`` unless
 ``--net_G`` names a bespoke-zoo model, as in scripts/predict.py.
-``--weights`` is a state_dict saved with ``torch.save`` under the original
-reference's names; ``--init_seed N`` builds seeded random weights instead.
+``--load_path`` is a run directory of the port's training (``run_training``,
+``CheckpointManager``), resolved as scripts/predict.py resolves it: the
+``*_best_model``, then ``best_ckpt``, then ``last_ckpt``; or one checkpoint
+file. ``--weights`` is a bare state_dict saved with ``torch.save`` under the
+original reference's names; ``--init_seed N`` builds seeded random weights
+instead (by the model family's rules, as ``CDTrainer.init_state`` does).
 The change probability is the sigmoid of a 1-channel change logit (SegCD's
 third output), or for a multi-class head the final scale's P(changed) = sum
 of the softmax classes 1..C-1.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -35,6 +40,24 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def resolve_checkpoint(load_path: str) -> str:
+    """The checkpoint file that ``--load_path`` names (scripts/predict.py's
+    order): in a run directory the ``*_best_model``, then ``best_ckpt``,
+    then ``last_ckpt``; else ``load_path`` itself."""
+    if os.path.isdir(load_path):
+        from stcd_tpu_torch.train.checkpoint import CheckpointManager
+        best = CheckpointManager(load_path).best_path()
+        if best is not None:
+            return best
+        for name in ("best_ckpt", "last_ckpt"):
+            if os.path.isfile(os.path.join(load_path, name)):
+                return os.path.join(load_path, name)
+        raise SystemExit(f"no *_best_model, best_ckpt or last_ckpt under {load_path}")
+    if not os.path.isfile(load_path):
+        raise SystemExit(f"--load_path {load_path}: no such run directory or file")
+    return load_path
+
+
 def build_model(args) -> torch.nn.Module:
     """The eval-mode model on ``args.device`` with its weights (counterpart
     of build_model_and_state: the module holds its own state).
@@ -47,8 +70,7 @@ def build_model(args) -> torch.nn.Module:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.net_G:
-        from stcd_tpu_torch.models.changeformer import init_weights
-        from stcd_tpu_torch.models.factory import define_G
+        from stcd_tpu_torch.models.factory import define_G, init_weights
         model = define_G(args.net_G, n_class=args.n_class, embed_dim=args.embed_dim,
                          device=device)
     else:
@@ -56,7 +78,16 @@ def build_model(args) -> torch.nn.Module:
         dec = tuple(int(c) for c in args.decoder_channels.split(","))
         model = SegCD(encoder_name=args.encoder, classes=1, decoder_channels=dec,
                       device=device)
-    if args.weights:
+    if getattr(args, "load_path", None):  # a Namespace built by hand may not have it
+        path = resolve_checkpoint(args.load_path)
+        # every artifact of train/checkpoint.py holds the weights under "model"
+        payload = torch.load(path, map_location=device, weights_only=True)
+        if not isinstance(payload, dict) or not isinstance(payload.get("model"), dict):
+            raise SystemExit(f"{path} is not a checkpoint of the port's training (no "
+                             "'model' entry); a bare state_dict goes to --weights")
+        model.load_state_dict(payload["model"])
+        print(f"loaded {path}")
+    elif args.weights:
         sd = torch.load(args.weights, map_location=device, weights_only=True)
         model.load_state_dict(sd)
         print(f"loaded {args.weights}")
@@ -64,7 +95,8 @@ def build_model(args) -> torch.nn.Module:
         init_weights(model, args.init_seed)
         print(f"random weights from --init_seed {args.init_seed}")
     else:
-        raise SystemExit("give --weights <state_dict.pt> or --init_seed N")
+        raise SystemExit("give --load_path <run dir>, --weights <state_dict.pt> or "
+                         "--init_seed N")
     return model.eval()
 
 
@@ -98,11 +130,15 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder", default="resnet50")
     p.add_argument("--decoder_channels", default="256,128,64,32,16")
     p.add_argument("--net_G", default=None,
-                   help="bespoke-zoo model key (models.factory.define_G; only "
-                        "ChangeFormerV6 is ported); overrides the SegCD default, "
+                   help="bespoke-zoo model key (models.factory.define_G; ported: "
+                        "ChangeFormerV6, base_resnet18 and the BIT "
+                        "base_transformer_pos_s4* keys); overrides the SegCD default, "
                         "--encoder and --decoder_channels are then ignored")
+    p.add_argument("--load_path", default=None,
+                   help="run directory of the port's training (its *_best_model, "
+                        "then best_ckpt, then last_ckpt) or one checkpoint file")
     p.add_argument("--weights", default=None,
-                   help="state_dict .pt under the reference's names")
+                   help="bare state_dict .pt under the reference's names")
     p.add_argument("--init_seed", type=int, default=None,
                    help="seeded random weights instead of --weights")
     p.add_argument("--n_class", type=int, default=2, help="zoo head classes (with --net_G)")

@@ -7,7 +7,7 @@ micro-batching.
 
 Usage:
   python -m stcd_tpu_torch.cli.serve --init_seed 0 --port 8475 \\
-      [--weights segcd.pt] [--net_G ChangeFormerV6] \\
+      [--load_path runs/STCD | --weights segcd.pt] [--net_G ChangeFormerV6] \\
       [--batch 16 --tile 256 --max_wait_ms 5 --bf16]
   curl -s localhost:8475/healthz
 """

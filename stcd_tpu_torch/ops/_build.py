@@ -107,7 +107,7 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_bn_stats_fwd.restype = i
     lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.stcd_augment_fwd.restype = i
-    lib.stcd_matmul_bf16.argtypes = [p, p, p, ll, i, i, i, p]
+    lib.stcd_matmul_bf16.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
     lib.stcd_matmul_bf16.restype = i
     for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_rows,
                   lib.stcd_matmul_stats_mma):

@@ -119,9 +119,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("f32_cuda", "mma_bf16", "small_m")
 SMALL_M = 8                # kSmallM: keys the small_m variant holds
 MAX_SMEM_BYTES = 232448    # dynamic shared memory a block may ask for on sm_90
+_SM_SMEM_BYTES = 233472    # shared memory of an SM; each resident block also takes 1 KB
 SMS = 132                  # streaming multiprocessors of an H100
 MIN_BLOCKS = 2 * SMS       # a grid covers the card at least twice where N allows
-_F32_BLOCK_N, _F32_CHUNK = 64, 32   # kBlockN, kChunk
+_F32_BLOCK_N, _F32_CHUNK = 64, 32   # kBlockN, kChunk: the f32 backward's tiles
+_F32_ROWS, _F32_KEYS = 64, 64       # kF32Rows, kF32Keys: the f32 forward's tile and step
+_F32_BLOCKS_PER_SM = 2              # its __launch_bounds__ (256 threads, 2 blocks)
+_F32_MIN_BLOCKS = 128               # of the f32 forward: see forward_plan
 _MMA_WARPS, _MMA_ROWS, _MMA_PAD, _MMA_KEY_CHUNK = 8, 16, 8, 64
 _MMA_BWD_ROWS = 128        # kBwdRows
 _MMA_BWD_MIN_BLOCKS = 128  # of the tensor-core backward: see backward_plan
@@ -165,13 +169,31 @@ def _mma_dpad(d: int) -> int:
     return next(p for p in (32, 64, 80, 128) if d <= p)
 
 
+def _f32_dpad(d: int) -> int:
+    """D as the f32 forward pads it in shared memory (its template instances)."""
+    return next(p for p in (32, 48, 64, 80, 128) if d <= p)
+
+
 def forward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
     """Launch geometry of the forward kernel: ``rows_per_block`` query rows
-    for each of ``blocks`` blocks, and its dynamic shared memory."""
+    for each of ``blocks`` blocks, and its dynamic shared memory.
+    ``kv_rows`` keys of K and V are in shared memory at a time: all of them
+    (``kv_resident``) where M fits."""
     row_tiles = 1
     if variant == "f32_cuda":
-        rows = _F32_BLOCK_N
-        smem = (_F32_BLOCK_N * d + 2 * _F32_CHUNK * (d + 1)) * 4
+        ld = _f32_dpad(d) + 4  # f32 row stride: an odd number of 16-byte pieces
+        # two Q tiles (the next one's copy in flight) and the p tile
+        tiles_bytes = (2 * _F32_ROWS * ld + _F32_ROWS * (_F32_KEYS + 4)) * 4
+        cap = (MAX_SMEM_BYTES - tiles_bytes) // (2 * ld * 4) // _F32_KEYS * _F32_KEYS
+        kv_rows = min(_ceil_to(m, _F32_KEYS), cap)
+        smem = tiles_bytes + 2 * kv_rows * ld * 4
+        per_sm = max(1, min(_F32_BLOCKS_PER_SM, _SM_SMEM_BYTES // (smem + 1024)))
+        # Each block stages all of K and V, so blocks that walk more tiles pay for it
+        # less often: one wave of at least 128 blocks (97 % of the SMs) instead of two
+        # measured as fast or faster on an H100 at the four serving and the four V6
+        # training shapes (2 to 13 % faster where the choice changed).
+        rows = _rows_per_block(bh, n, _F32_ROWS, SMS * per_sm, 0.5, max_tiles=16,
+                               min_blocks=_F32_MIN_BLOCKS)
     elif variant == "mma_bf16":
         dpad = _mma_dpad(d)
         row_bytes = (dpad + _MMA_PAD) * 2
@@ -191,10 +213,11 @@ def forward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
     elif variant == "small_m":
         rows = _rows_per_block(bh, n, _SMALL_ROWS, 8 * SMS, 0.5, max_tiles=8)
         smem = 0  # K and V as f32 in static shared memory
+        kv_rows = m
     else:
         raise ValueError(f"unknown variant {variant!r}")
     return {"rows_per_block": rows, "row_tiles": row_tiles, "blocks": bh * -(-n // rows),
-            "smem_bytes": smem}
+            "smem_bytes": smem, "kv_rows": kv_rows, "kv_resident": kv_rows >= m}
 
 
 def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:

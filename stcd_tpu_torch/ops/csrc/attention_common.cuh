@@ -14,6 +14,7 @@
 
 namespace stcd {
 
+// the tiles of the f32 backward
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;
 constexpr int kBlockN = kWarps * kRowsPerWarp;  // query rows per block
@@ -58,12 +59,6 @@ __device__ __forceinline__ uint32_t resolve_seed(uint32_t seed, const long long*
   return seed_ptr != nullptr ? (uint32_t)(*seed_ptr) : seed;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -71,7 +66,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---- the variants; the wrapper picks one from (dtype, M) and passes its code
-constexpr int kVariantF32 = 0;     // f32 at M > 8: CUDA cores, one lane per key
+constexpr int kVariantF32 = 0;     // f32 at M > 8: CUDA cores
 constexpr int kVariantMma = 1;     // bf16 at M > 8: tensor cores
 constexpr int kVariantSmallM = 2;  // M <= 8, either dtype: a lane group per query row
 constexpr int kSmallM = 8;

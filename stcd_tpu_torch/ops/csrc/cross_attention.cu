@@ -50,13 +50,24 @@
 //   reduced over the group by shuffles and the softmax over M is in registers.
 //   Math is f32 on the CUDA cores.
 //
-// f32_cuda (f32, M > 8): the CUDA-core kernel below.
-// - One block per (bh, tile of kBlockN = 64 query rows); 8 warps, 8 rows each.
-// - K and V of that bh are staged through shared memory in chunks of
-//   kChunk = 32 keys, converted to f32; the Q tile is staged once.
-// - The dot products run in f32 out of shared memory, about one shared-memory
-//   read per multiply-add, which holds it to a fraction of the f32 rate;
-//   register tiling of the score product is its later work.
+// f32_cuda (f32, M > 8; served fp32, where TF32 stays off). What bounds it:
+//   the f32 rate of the CUDA cores, 67 TFLOP/s, against 4 N M D + 5 N M
+//   operations a head; q, k, v and o once at the memory rate take from two
+//   thirds of that time (N = 4096) to as much (N = 64) at the serving shapes.
+//   So the design cuts the shared-memory and shuffle traffic per multiply-add
+//   and moves each byte once:
+//   - K and V of the head are staged once per block by cp.async as f32 rows
+//     padded to an odd number of 16-byte pieces, and stay resident while the
+//     block walks `rows_per_block` query rows in tiles of 64, the next tile's
+//     copy in flight during the current one's math (if M is too large for
+//     shared memory, K and V go through in blocks of kv_rows keys).
+//   - Both products are register micro-tiles: a thread owns 4 rows x 4 keys of
+//     q k^T, read as float4 along D (one shared-memory read per eight
+//     multiply-adds), and 4 rows x 4-8 output columns of p v. p goes through
+//     shared memory once per step of 64 keys; there is no shuffle per (key,
+//     row) pair: a row's max takes four shuffles over a half warp per step, its
+//     sum four at the end.
+//   - The row max is of the scaled scores, so any sign of scale is taken.
 //
 // All variants:
 // - Softmax is online over the chunks: a running max, a denominator and an
@@ -83,166 +94,295 @@ namespace {
 
 using namespace stcd;
 
-// DPL = ceil(D / 32): output columns held per lane.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-cross_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int n, int m, int d, float scale,
-                           int use_dropout, uint32_t seed_value,
-                           const long long* __restrict__ seed_ptr, uint32_t threshold,
-                           float keep_scale) {
-  extern __shared__ float smem[];
-  const int ks = d + 1;              // padded stride: lane j reads row j conflict-free
-  float* qs = smem;                  // [kBlockN][d]
-  float* kc = qs + kBlockN * d;      // [kChunk][ks]
-  float* vc = kc + kChunk * ks;      // [kChunk][ks]
+// ---- f32_cuda -----------------------------------------------------------------
 
-  const int bh = blockIdx.x;
-  const int row0 = blockIdx.y * kBlockN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
-  const T* qb = q + (size_t)bh * n * d;
-  const T* kb = k + (size_t)bh * m * d;
-  const T* vb = v + (size_t)bh * m * d;
+constexpr int kF32Rows = 64;     // query rows of a tile
+constexpr int kF32Keys = 64;     // keys of an online-softmax step
+constexpr int kF32Threads = 256;
+constexpr int kF32PLd = kF32Keys + 4;  // padded row of the p tile
 
-  // Q rows past n are zero: they give finite scores and are never stored.
-  for (int i = tid; i < kBlockN * d; i += blockDim.x) {
-    const int r = i / d;
+// D as this variant pads it in shared memory (its template instances).
+inline int f32_dpad(int d) { return d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80 : 128; }
+
+// Bytes of the two Q tiles (the current one and the next one's copy in flight)
+// and the p tile.
+inline int f32_tile_bytes(int dpad) { return (2 * kF32Rows * (dpad + 4) + kF32Rows * kF32PLd) * 4; }
+
+// Keys that fit beside the Q and p tiles, in whole steps.
+inline int f32_kv_rows(int m, int dpad) {
+  const int ld = dpad + 4;
+  const int cap = (kMaxSmem - f32_tile_bytes(dpad)) / (2 * ld * 4) / kF32Keys * kF32Keys;
+  const int want = (m + kF32Keys - 1) / kF32Keys * kF32Keys;
+  return want < cap ? want : cap;
+}
+
+// Rows [row0, row0 + nrows) of a contiguous (total, d) f32 matrix into
+// dst[r][0 .. DP) with a row stride of DP + 4 floats (an odd number of 16-byte
+// pieces: eight neighbouring rows read as float4 hit eight distinct bank
+// groups); zero past `total` and past d. `vec`: d % 4 == 0 and src 16-byte
+// aligned; whole pieces then go by cp.async (the caller commits and waits), the
+// rest by plain stores.
+template <int DP>
+__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src, int row0,
+                                          int nrows, int total, int d, bool vec, int tid) {
+  constexpr int LD = DP + 4;
+  constexpr int Q4 = DP / 4;
+  for (int i = tid; i < nrows * Q4; i += kF32Threads) {
+    const int r = i / Q4;
+    const int c = (i - r * Q4) * 4;
     const int gr = row0 + r;
-    qs[i] = gr < n ? to_f32(qb[(size_t)row0 * d + i]) : 0.f;
-  }
-
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  }
-
-  const float* qw = qs + warp * kRowsPerWarp * d;
-  const int wrow0 = row0 + warp * kRowsPerWarp;
-
-  for (int c0 = 0; c0 < m; c0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed (and the Q tile staged)
-    for (int i = tid; i < kChunk * d; i += blockDim.x) {
-      const int r = i / d;
-      const int c = i - r * d;
-      const int gr = c0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (gr < m) {
-        kx = to_f32(kb[(size_t)gr * d + c]);
-        vx = to_f32(vb[(size_t)gr * d + c]);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < total && c < d) {
+      const float* p = src + (size_t)gr * d + c;
+      if (vec) {
+        cp_async16(dst + r * LD + c, p);
+        continue;
+      } else {
+        x.x = p[0];
+        if (c + 1 < d) x.y = p[1];
+        if (c + 2 < d) x.z = p[2];
+        if (c + 3 < d) x.w = p[3];
       }
-      kc[r * ks + c] = kx;
-      vc[r * ks + c] = vx;
     }
-    __syncthreads();
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+  }
+}
 
-    // scores: lane j owns key c0 + j, for the warp's 8 rows at once
-    const int col = c0 + lane;
-    const bool valid = col < m;
-    float s[kRowsPerWarp];
+__device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* krow = kc + lane * ks;
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// DP: D padded (32, 48, 64, 80 or 128). A block of 256 threads walks tiles of
+// 64 query rows; thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 r
+// (r < 4). In q k^T it owns keys tx + 16 i (i < 4) of each step of 64: a 4 x 4
+// micro-tile from float4 reads of q and k along D, one shared-memory read per
+// eight multiply-adds. In p v it owns the output columns 4 tx + 64 g (a float4
+// for g < G4) and 64 G4 + tx + 16 u (one column for u < G1): a 4 x (4 G4 + G1)
+// micro-tile from a float4 of p (four keys of a row) and the owned columns of
+// v. p goes through shared memory once a step; the row max is reduced over
+// the 16 lanes of a half warp by shuffles, the row sums at the end only.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int n, int m, int d, int rows_per_block,
+                         int kv_rows, float scale, int use_dropout, uint32_t seed_value,
+                         const long long* __restrict__ seed_ptr, uint32_t threshold,
+                         float keep_scale, int vec_flag) {
+  constexpr int LD = DP + 4;
+  constexpr int G4 = DP / 64, G1 = (DP % 64) / 16, C = 4 * G4 + G1;
+  constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                   // [kv_rows][LD]
+  float* vs = ks + kv_rows * LD;     // [kv_rows][LD]
+  float* qbuf = vs + kv_rows * LD;   // [2][64][LD]: this tile's Q and the next one's
+  float* ps = qbuf + 2 * kF32Rows * LD;  // [64][kF32PLd]: this step's numerator weights
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int block_row0 = blockIdx.y * rows_per_block;
+  const int row_end = min(n, block_row0 + rows_per_block);
+  const bool vec = vec_flag != 0;
+  const bool resident = m <= kv_rows;  // K and V stay in shared memory for the whole block
+  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
+  const float c2 = scale * kLog2e;  // scores in units of log 2: exp(scale s) = 2^(c2 s)
+  const float* qb = q + (size_t)bh * n * d;
+  const float* kb = k + (size_t)bh * m * d;
+  const float* vb = v + (size_t)bh * m * d;
+  float* ob = o + (size_t)bh * n * d;
+  const int steps_rows = (m + kF32Keys - 1) / kF32Keys * kF32Keys;
+
+  if (resident) {  // rows past m up to the step's end are zero
+    stage_f32<DP>(ks, kb, 0, steps_rows, m, d, vec, tid);
+    stage_f32<DP>(vs, vb, 0, steps_rows, m, d, vec, tid);
+  }
+  stage_f32<DP>(qbuf, qb, block_row0, kF32Rows, n, d, vec, tid);  // rows past n: zero
+  cp_async_commit();
+  for (int row0 = block_row0, it = 0; row0 < row_end; row0 += kF32Rows, ++it) {
+    // the next tile's copy is in flight during this tile's math (the previous
+    // tile's last barrier freed its buffer)
+    const float* qs = qbuf + (it & 1) * kF32Rows * LD;
+    if (row0 + kF32Rows < row_end) {
+      stage_f32<DP>(qbuf + ((it + 1) & 1) * kF32Rows * LD, qb, row0 + kF32Rows, kF32Rows, n, d,
+                    vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this tile (and K, V) have landed
+    float m_run[4], l_run[4], acc[4][C];  // l_run: this thread's share of the row sums
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      m_run[r] = -INFINITY;
+      l_run[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+    }
+    for (int sc = 0; sc < m; sc += kv_rows) {
+      const int kv_n = min(kv_rows, m - sc);
+      if (!resident) {
+        __syncthreads();  // every thread is done with the previous keys
+        const int rows = (kv_n + kF32Keys - 1) / kF32Keys * kF32Keys;
+        stage_f32<DP>(ks, kb, sc, rows, m, d, vec, tid);
+        stage_f32<DP>(vs, vb, sc, rows, m, d, vec, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // Q (and K, V) are staged
+      for (int c0 = 0; c0 < kv_n; c0 += kF32Keys) {
+        const float* kst = ks + c0 * LD;  // keys sc + c0 on: the block staged from sc
+        float s[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+        }
 #pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      const float kx = krow[c];
+        for (int c = 0; c < DP; c += 4) {
+          float4 qv[4], kv[4];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(qw[r * d + c], kx, s[r]);
-    }
-
-    // online softmax update; w = numerator weight of this lane's key
-    float w[kRowsPerWarp];
+          for (int r = 0; r < 4; ++r) {
+            qv[r] = *reinterpret_cast<const float4*>(qs + (ty + 16 * r) * LD + c);
+          }
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sr = valid ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(sr));
-      const float alpha = expf(m_run[r] - m_new);  // 0 on the first chunk
-      const float e = valid ? expf(sr - m_new) : 0.f;
-      l_run[r] = l_run[r] * alpha + warp_sum(e);
-      m_run[r] = m_new;
+          for (int i = 0; i < 4; ++i) {
+            kv[i] = *reinterpret_cast<const float4*>(kst + (tx + 16 * i) * LD + c);
+          }
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= alpha;
-      float wr = e;
-      if (use_dropout) {
-        wr = (valid && keep_element(seed, (uint32_t)bh, (uint32_t)(wrow0 + r),
-                                    (uint32_t)col, threshold))
-                 ? e * keep_scale
-                 : 0.f;
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              s[r][i] = fmaf(qv[r].x, kv[i].x, s[r][i]);
+              s[r][i] = fmaf(qv[r].y, kv[i].y, s[r][i]);
+              s[r][i] = fmaf(qv[r].z, kv[i].z, s[r][i]);
+              s[r][i] = fmaf(qv[r].w, kv[i].w, s[r][i]);
+            }
+          }
+        }
+        // online softmax over this step's keys; keys past m are masked
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[r][i] = c0 + tx + 16 * i < kv_n ? s[r][i] * c2 : -INFINITY;
+            mx = fmaxf(mx, s[r][i]);
+          }
+          const float m_new = fmaxf(m_run[r], half_warp_max(mx));
+          const float alpha = fast_exp2(m_run[r] - m_new);  // 0 on the first step
+          m_run[r] = m_new;
+          l_run[r] *= alpha;
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[r][c] *= alpha;
+          const int row = ty + 16 * r;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float e = fast_exp2(s[r][i] - m_new);  // 0 for a masked key
+            l_run[r] += e;
+            float w = e;  // the numerator takes the keep mask, the denominator does not
+            if (use_dropout &&
+                !keep_element(seed, (uint32_t)bh, (uint32_t)(row0 + row),
+                              (uint32_t)(sc + c0 + tx + 16 * i), threshold)) {
+              w = 0.f;
+            }
+            ps[row * kF32PLd + tx + 16 * i] = w;
+          }
+        }
+        __syncthreads();  // the p tile is complete
+        // acc += p v over the step's keys (p = 0 and v = 0 past m)
+        const float* vst = vs + c0 * LD;
+        const int keys = min(kF32Keys, (kv_n - c0 + 3) / 4 * 4);
+        for (int j = 0; j < keys; j += 4) {
+          float4 pv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pv[r] = *reinterpret_cast<const float4*>(ps + (ty + 16 * r) * kF32PLd + j);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* vrow = vst + (j + jj) * LD;
+            float vv[C];
+#pragma unroll
+            for (int g = 0; g < G4; ++g) {
+              const float4 t = *reinterpret_cast<const float4*>(vrow + 4 * tx + 64 * g);
+              vv[4 * g] = t.x;
+              vv[4 * g + 1] = t.y;
+              vv[4 * g + 2] = t.z;
+              vv[4 * g + 3] = t.w;
+            }
+#pragma unroll
+            for (int u = 0; u < G1; ++u) vv[4 * G4 + u] = vrow[64 * G4 + tx + 16 * u];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y : jj == 2 ? pv[r].z : pv[r].w;
+#pragma unroll
+              for (int c = 0; c < C; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+            }
+          }
+        }
+        __syncthreads();  // the p tile is free for the next step
       }
-      w[r] = wr;
     }
-
-    // acc[r][:] += sum_j w_j v_j: lane holds columns lane + 32 * c
-    const int nvalid = min(kChunk, m - c0);
-    for (int j = 0; j < nvalid; ++j) {
-      float vx[DPL];
+    // normalise and store; each row's log-sum-exp of the scaled scores
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int col_d = lane + 32 * c;
-        vx[c] = col_d < d ? vc[j * ks + col_d] : 0.f;
+    for (int r = 0; r < 4; ++r) {
+      const float l = half_warp_sum(l_run[r]);
+      const int row = row0 + ty + 16 * r;
+      if (row >= n) continue;
+      const float inv = keep_scale / l;  // keep_scale is 1 without dropout
+      float* orow = ob + (size_t)row * d;
+#pragma unroll
+      for (int g = 0; g < G4; ++g) {
+        const int col = 4 * tx + 64 * g;
+        if (vec && col + 4 <= d) {
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv,
+                          acc[r][4 * g + 2] * inv, acc[r][4 * g + 3] * inv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (col + e < d) orow[col + e] = acc[r][4 * g + e] * inv;
+          }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float wj = __shfl_sync(kFull, w[r], j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(wj, vx[c], acc[r][c]);
+      for (int u = 0; u < G1; ++u) {
+        const int col = 64 * G4 + tx + 16 * u;
+        if (col < d) orow[col] = acc[r][4 * G4 + u] * inv;
       }
+      if (lse != nullptr && tx == 0) lse[(size_t)bh * n + row] = m_run[r] * kLn2 + logf(l);
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int gr = wrow0 + r;
-    if (gr >= n) continue;
-    T* orow = o + ((size_t)bh * n + gr) * d;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int col_d = lane + 32 * c;
-      if (col_d < d) store_as(orow + col_d, acc[r][c] / l_run[r]);
-    }
-    // the row's log-sum-exp of the scaled scores, for the backward kernel
-    if (lse != nullptr && lane == 0) lse[(size_t)bh * n + gr] = m_run[r] + logf(l_run[r]);
   }
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int bh, int n, int m, int d, float scale, int use_dropout,
-                   uint32_t seed, const long long* seed_ptr, uint32_t threshold,
-                   float keep_scale, cudaStream_t stream) {
-  auto kernel = cross_attention_fwd_kernel<T, DPL>;
-  const size_t smem = (size_t)(kBlockN * d + 2 * kChunk * (d + 1)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(bh, (n + kBlockN - 1) / kBlockN);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, n, m, d, scale, use_dropout, seed, seed_ptr, threshold,
-      keep_scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int n, int m, int d, float scale,
+template <int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                       int n, int m, int d, int rows_per_block, int smem_bytes, float scale,
                        int use_dropout, uint32_t seed, const long long* seed_ptr,
                        uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  switch ((d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    default: return launch<T, 4>(q, k, v, o, lse, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
+  constexpr int LD = DP + 4;
+  const int kv_rows = f32_kv_rows(m, DP);
+  const int smem = 2 * kv_rows * LD * 4 + f32_tile_bytes(DP);
+  if (smem != smem_bytes || rows_per_block < 1 || rows_per_block % kF32Rows != 0) {
+    return cudaErrorInvalidValue;
   }
+  const int blocks_y = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks_y > 65535) return cudaErrorInvalidValue;
+  auto kernel = attention_fwd_f32_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  kernel<<<dim3(bh, blocks_y), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, n, m, d, rows_per_block, kv_rows, scale, use_dropout, seed,
+      seed_ptr, threshold, keep_scale, vec);
+  return cudaGetLastError();
 }
 
 // ---- mma_bf16 ---------------------------------------------------------------
@@ -669,13 +809,16 @@ extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void
 #define STCD_FWD_ARGS q, k, v, o, lse, bh, n, m, d
 #define STCD_FWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s
   if (variant == kVariantF32) {
-    const size_t smem = (size_t)(kBlockN * d + 2 * kChunk * (d + 1)) * sizeof(float);
-    if (dtype != 0 || rows_per_block != kBlockN || row_tiles != 1 ||
-        (size_t)smem_bytes != smem ||
-        (n + kBlockN - 1) / kBlockN > 65535) {
-      return (int)cudaErrorInvalidValue;
+    if (dtype != 0 || row_tiles != 1) return (int)cudaErrorInvalidValue;
+#define STCD_F32(DP) launch_f32<DP>(STCD_FWD_ARGS, rows_per_block, smem_bytes, STCD_FWD_TAIL)
+    switch (f32_dpad(d)) {
+      case 32: err = STCD_F32(32); break;
+      case 48: err = STCD_F32(48); break;
+      case 64: err = STCD_F32(64); break;
+      case 80: err = STCD_F32(80); break;
+      default: err = STCD_F32(128); break;
     }
-    err = dispatch_d<float>(STCD_FWD_ARGS, STCD_FWD_TAIL);
+#undef STCD_F32
   } else if (variant == kVariantMma) {
     if (dtype != 1 || row_tiles < 1 || row_tiles > 2 || (row_tiles == 2 && d > 80)) {
       return (int)cudaErrorInvalidValue;

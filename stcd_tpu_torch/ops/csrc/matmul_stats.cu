@@ -7,8 +7,10 @@
 //
 // Replaces four Pallas TPU kernels of the JAX repo's feasibility benchmarks:
 //
-//   stcd_matmul_bf16        benchmarks/bench_bnstats_diag.py::_mm_kernel
-//                           (pallas_mm): the product alone
+//   stcd_matmul_bf16_tiles  benchmarks/bench_bnstats_diag.py::_mm_kernel
+//                           (pallas_mm): the product alone, for the shapes
+//                           that the wgmma route of matmul_hopper.cu
+//                           (stcd_matmul_bf16) cannot take
 //   stcd_matmul_stats       benchmarks/bench_conv_bn_epilogue.py::_kernel
 //                           (pallas_fused): a 2-D decomposition, one block for
 //                           each (M tile, N tile)
@@ -343,8 +345,10 @@ int run(const void* x, const void* w, void* y, float* part_sum, float* part_sq,
 // f32 scratch of (m_tiles, n) with m_tiles = ceil(m / 128) (any other count is
 // refused), and write out_sum and out_sq, f32[n].
 
-extern "C" int stcd_matmul_bf16(const void* x, const void* w, void* y, long long m, int k,
-                                int n, int device, void* stream) {
+// The product alone on the wmma tile: the route of stcd_matmul_bf16
+// (matmul_hopper.cu) for the shapes that TMA cannot describe.
+extern "C" int stcd_matmul_bf16_tiles(const void* x, const void* w, void* y, long long m, int k,
+                                      int n, int device, void* stream) {
   return run<kNone>(x, w, y, nullptr, nullptr, nullptr, nullptr, m, k, n, (m + BM - 1) / BM,
                     true, device, stream);
 }

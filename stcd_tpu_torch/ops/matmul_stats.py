@@ -19,8 +19,13 @@ x and w are bfloat16, the accumulation is float32, y is the accumulator
 rounded to bfloat16 once, and the sums, float32[N], are those of the float32
 accumulator before it is rounded. Each dispatches on the tensors' device:
 
-- CUDA tensors go to the hand-written kernels of ``csrc/matmul_stats.cu``
-  (``*_kernel``), or the call raises: there is no fallback;
+- CUDA tensors go to the hand-written kernels (``*_kernel``), or the call
+  raises: there is no fallback. ``matmul_bf16`` takes one of two routes,
+  chosen from the shapes and pointers by ``matmul_plan``: ``wgmma_tma``
+  (``csrc/matmul_hopper.cu``: persistent blocks, w resident in shared memory,
+  x streamed once by TMA into a ring, ``wgmma`` products) wherever TMA can
+  describe x and y, else ``wmma`` (the tile of ``csrc/matmul_stats.cu``, which the
+  three functions with sums use at every shape);
 - CPU tensors go to the plain PyTorch versions (``*_plain``).
 
 The JAX functions' ``bm``, ``bn`` and ``pipeline`` are TPU tile arguments and
@@ -31,6 +36,7 @@ have no gradient: they raise on inputs that require grad.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -43,8 +49,71 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # refuses a scratch whose tile count is not its own.
 TILE_ROWS, TILE_COLS, TILE_DEPTH = 128, 64, 64
 GEOMETRY = (f"{TILE_ROWS} x {TILE_COLS} output tiles, K in chunks of {TILE_DEPTH}, 8 warps of "
-            f"32 x 32 (wmma m16n16k16 bf16), partial sums per {TILE_ROWS}-row tile")
+            f"32 x 32 (wmma m16n16k16 bf16), partial sums per {TILE_ROWS}-row tile; "
+            f"matmul_bf16 by wgmma with TMA where matmul_plan allows")
 _MAX_BLOCKS = 2 ** 31 - 1
+
+# The wgmma route of matmul_hopper.cu, mirrored by its plan_for: the C entry
+# refuses a plan that is not its own.
+ROUTES = ("wgmma_tma", "wmma")  # their codes in the C entry are their indices
+SMS = 132                       # streaming multiprocessors of an H100
+MAX_SMEM_BYTES = 232448         # dynamic shared memory a block may ask for on sm_90
+_X_ROWS, _X_DEPTH = 128, 64     # an x chunk: 128 rows of 64 bf16 (128 bytes, the swizzle)
+_STAGE_BYTES = _X_ROWS * _X_DEPTH * 2
+_MAX_STAGES = 8
+_INT_MAX = 2 ** 31 - 1
+
+
+def _overhead_bytes(bn: int) -> int:
+    """Shared memory besides w and the ring: alignment slack, the ring's
+    mbarriers, and for each of the two consumer warpgroups one or two y
+    boxes of 64 x 64 (one filled while the TMA stores the other)."""
+    return 1024 + 2 * _MAX_STAGES * 8 + 2 * min(bn // 64, 2) * 64 * 64 * 2
+
+
+def matmul_plan(m: int, k: int, n: int, aligned: bool) -> dict:
+    """The route and launch geometry of ``matmul_bf16`` for x (m, k) . w (k,
+    n); ``aligned``: x, w and y start on 16-byte boundaries.
+
+    ``wgmma_tma`` wherever TMA can describe x and y: aligned, rows of whole 16
+    bytes (K and N multiples of 8), and the boxes inside the tensors (M >= 128,
+    K >= 64, N >= 64). Its ``pass_cols`` (64, 128 or 256) are the output
+    columns of one ``wgmma`` pass; the ``passes_per_group`` passes of a group
+    keep their w (K padded to 64) in shared memory beside a ring of
+    ``stages`` x chunks of 16 KB; ``groups`` > 1 only where all of w does not
+    fit, and then x is read once for each group. ``blocks_x`` persistent
+    blocks a group, at most 132 blocks in all. Else ``wmma``: one block for
+    each 128-row tile."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"matmul_plan takes m, k, n >= 1, got {(m, k, n)}")
+    m_tiles = -(-m // _X_ROWS)
+    wmma = {"route": "wmma", "pass_cols": 0, "passes_per_group": 0, "groups": 1, "stages": 0,
+            "blocks_x": min(m_tiles, _INT_MAX), "smem_bytes": 0, "w_resident": False}
+    if (not aligned or k % 8 or n % 8 or k < _X_DEPTH or n < 64 or m < _X_ROWS
+            or m > _INT_MAX):
+        return wmma
+    chunks = -(-k // _X_DEPTH)
+    bn = 64 if n <= 64 else 128 if n <= 128 else 256
+    while bn >= 64:
+        passes = -(-n // bn)
+        pass_bytes = bn * chunks * _X_DEPTH * 2
+        for npg in range(passes, 0, -1):
+            # several passes share a tile's chunks, so the ring must hold all of them
+            min_stages = max(2, chunks) if npg > 1 else 2
+            room = MAX_SMEM_BYTES - _overhead_bytes(bn) - npg * pass_bytes
+            if room < min_stages * _STAGE_BYTES:
+                continue
+            groups = -(-passes // npg)
+            if groups > SMS:
+                return wmma
+            stages = min(_MAX_STAGES, room // _STAGE_BYTES)
+            smem = _overhead_bytes(bn) + npg * pass_bytes + stages * _STAGE_BYTES
+            return {"route": "wgmma_tma", "pass_cols": bn, "passes_per_group": npg,
+                    "groups": groups, "stages": stages,
+                    "blocks_x": min(m_tiles, SMS // groups), "smem_bytes": smem,
+                    "w_resident": groups == 1}
+        bn //= 2
+    return wmma
 
 
 def _check_args(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -98,8 +167,13 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: 
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if not stats:
-        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, *tail)
-        _build.check(lib, err, entry)
+        plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)))
+        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n,
+                                  ROUTES.index(plan["route"]), plan["pass_cols"],
+                                  plan["passes_per_group"], plan["stages"], plan["blocks_x"],
+                                  plan["smem_bytes"], *tail)
+        _build.check(lib, err, f"{entry} ({plan['route']})")
+        matmul_bf16_kernel.routes[plan["route"]] += 1
         return y
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
     part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
@@ -111,9 +185,10 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: 
 
 
 def matmul_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the product alone on x's device and current stream. Takes
-    contiguous bfloat16 CUDA tensors; raises on anything else.
-    ``kernel_launches`` counts the calls."""
+    """Launch the product alone on x's device and current stream, on the
+    route ``matmul_plan`` picks. Takes contiguous bfloat16 CUDA tensors;
+    raises on anything else. ``kernel_launches`` counts the calls and
+    ``routes`` counts them by route."""
     y = _launch("stcd_matmul_bf16", x, w, stats=False, grid_2d=False)
     matmul_bf16_kernel.kernel_launches += 1
     return y
@@ -143,6 +218,7 @@ def matmul_stats_mma_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
 for _kernel in (matmul_bf16_kernel, matmul_stats_kernel, matmul_stats_rows_kernel,
                 matmul_stats_mma_kernel):
     _kernel.kernel_launches = 0
+matmul_bf16_kernel.routes = collections.Counter()
 
 
 def _dispatch(kernel, plain, x, w, impl):

@@ -1,0 +1,199 @@
+"""Times ``matmul_bf16`` and the float32 attention kernels of a checkout on
+one CUDA card, beside one PyTorch call for the same function and the bound,
+so that two checkouts can be compared in one run on one card.
+
+Usage, on a machine with a CUDA card:
+
+    python stcd_tpu_torch/tools/bench_kernels.py [--root DIR] [--label NAME] [--out FILE]
+
+``--root`` is the checkout whose ``stcd_tpu_torch`` is imported and timed
+(default: the one this file lies in); another checkout (an unpacked ``git
+archive`` of an earlier commit, say) builds its own kernels under its own
+``build/``. Run it as a file, not with ``-m``, so that the package is taken
+from ``--root`` alone. To compare two checkouts, run old, new, new, old.
+
+What it times, every kernel as the median of 20 replays of a CUDA graph of
+one call (a kernel of tens of microseconds is then not timed by the host's
+pace of launching it), an autograd backward as profiler device time:
+
+- ``matmul_bf16`` at the three shapes of ``tools/bench_bnstats_diag.py``,
+  beside ``torch.matmul``; bound: x, w read and y written once at 3.35 TB/s,
+  or 2 M K N operations at 989 TFLOP/s;
+- the float32 attention forward at the four SRA shapes of a serving batch
+  (16 tile pairs of 256x256) and of the ChangeFormerV6 train step (8 pairs of
+  512x512), beside ``F.scaled_dot_product_attention`` in float32 (TF32 off);
+  bound: q, k, v read and o written once, or 4 N M D + 5 N M operations a
+  head at 67 TFLOP/s;
+- the float32 attention backward at the train shapes, beside the backward of
+  ``F.scaled_dot_product_attention``; bound: q, k, v, g read and dq, dk, dv
+  written once, or 10 N M D + 8 N M operations a head.
+
+Each kernel's output is also held against its plain version (the largest
+difference is printed). The result is one JSON line on stdout, and in
+``--out`` if given. Without a card it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+SERVING_SHAPES = ((32, 1, 4096, 64, 64), (32, 2, 1024, 64, 64), (32, 4, 256, 64, 80),
+                  (32, 8, 64, 64, 64))
+TRAIN_SHAPES = ((16, 1, 16384, 256, 64), (16, 2, 4096, 256, 64), (16, 4, 1024, 256, 80),
+                (16, 8, 256, 256, 64))
+SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls a ChangeFormerV6 encoder makes at each stage
+
+
+def graph_ms(torch, fn, runs: int = 20) -> float:
+    """Median of ``runs`` replays of a CUDA graph of one call, by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profiled_ms(torch, fn, runs: int = 10) -> float:
+    """Device time of one call from torch.profiler, summed over its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler saw no device time")
+    return total_us / runs / 1e3
+
+
+def attention_bound_ms(shape, backward: bool) -> float:
+    b, h, n, m, d = shape
+    rows, products, softmax = (3 * n + 4 * m, 10, 8) if backward else (2 * n + 2 * m, 4, 5)
+    by_bytes = b * h * rows * d * 4 / HBM_BYTES_PER_S
+    by_ops = b * h * n * m * (products * d + softmax) / F32_FLOPS
+    return max(by_bytes, by_ops) * 1e3
+
+
+def bench_matmul(torch, ops, shapes):
+    rows = []
+    for m, k, n in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        got, want = ops.matmul_bf16(x, w), ops.matmul_bf16(x, w, impl="plain")
+        err = (got.float() - want.float()).abs().max().item()
+        nbytes = 2 * (m * k + k * n + m * n)
+        rows.append({"shape": [m, k, n], "max_abs_err": err,
+                     "ms": graph_ms(torch, lambda: ops.matmul_bf16(x, w)),
+                     "library_ms": graph_ms(torch, lambda: torch.matmul(x, w)),
+                     "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                     2 * m * k * n / BF16_FLOPS) * 1e3})
+        print(f"matmul_bf16 {(m, k, n)}: {rows[-1]}", flush=True)
+        del x, w, got, want
+    return rows
+
+
+def bench_attention(torch, attention, shapes, backward: bool):
+    import torch.nn.functional as F
+    rows = []
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    for shape in shapes:
+        b, h, n, m, d = shape
+        q, k, v, g = (torch.randn(b, h, rows_, d, generator=gen).to("cuda")
+                      for rows_ in (n, m, m, n))
+        scale = d ** -0.5
+        out, lse = attention.launch_forward(q, k, v, scale, 0.0, None, True)
+        plain = attention.attention_plain(q, k, v, scale)
+        row = {"shape": list(shape),
+               "max_abs_err": (out - plain).abs().max().item(),
+               "ms": graph_ms(torch, lambda: attention.cross_attention(q, k, v, scale)),
+               "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, scale=scale)),
+               "bound_ms": attention_bound_ms(shape, False)}
+        del plain
+        if backward:
+            row["bwd_ms"] = graph_ms(torch, lambda: attention.launch_backward(
+                q, k, v, out, lse, g, scale, 0.0, None), runs=10)
+            leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+            row["bwd_library_ms"] = profiled_ms(torch, lambda: torch.autograd.grad(
+                sdpa, leaves, g, retain_graph=True))
+            row["bwd_bound_ms"] = attention_bound_ms(shape, True)
+            del leaves, sdpa
+        print(f"attention f32 {shape}: {row}", flush=True)
+        rows.append(row)
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                   help="the checkout whose stcd_tpu_torch is timed")
+    p.add_argument("--label", default=None, help="a name for this run in the JSON line")
+    p.add_argument("--out", default=None, help="also write the JSON line to this file")
+    args = p.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_kernels: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    from stcd_tpu_torch.ops import attention
+    from stcd_tpu_torch.ops import matmul_stats as ops
+    from stcd_tpu_torch.tools.bench_bnstats_diag import SHAPES
+    if not Path(attention.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"stcd_tpu_torch came from {attention.__file__}, not {root}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"bench_kernels: {root} on {card}; torch {torch.__version__}", flush=True)
+    matmul = bench_matmul(torch, ops, SHAPES)
+    serving = bench_attention(torch, attention, SERVING_SHAPES, backward=False)
+    train = bench_attention(torch, attention, TRAIN_SHAPES, backward=True)
+    result = {"label": args.label or root.name, "root": str(root), "card": card,
+              "matmul_bf16": matmul, "matmul_bf16_ms": sum(r["ms"] for r in matmul),
+              "matmul_bf16_library_ms": sum(r["library_ms"] for r in matmul),
+              "attention_serving": serving,
+              "attention_serving_batch_ms": sum(depth * r["ms"]
+                                                for depth, r in zip(SRA_DEPTHS, serving)),
+              "attention_serving_batch_library_ms": sum(
+                  depth * r["library_ms"] for depth, r in zip(SRA_DEPTHS, serving)),
+              "attention_train": train}
+    line = json.dumps(result)
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

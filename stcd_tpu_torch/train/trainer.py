@@ -4,9 +4,10 @@ stcd_tpu/train/trainer.py, ``CDTrainer._build_steps`` and what it calls).
 Ported: ``TrainerConfig``, the optimizer choice sgd / adam / adamw, the loss
 dispatch ce / bce / cd_loss / fl / miou / mmiou with multi-scale training, multi-scale inference,
 and ``train_step`` / ``eval_step`` with on-device normalisation, augmentation,
-bf16 autocast and confusion counts. Not ported yet: the epoch loop
-(``train_models``, ``_run_epoch``), ``CDEvaluator``, checkpoints and logging
-(ROADMAP.md Queue 1 #6), and pipeline and tensor parallelism (Queue 1 #11).
+bf16 autocast and confusion counts. Not ported yet: the trainer's epoch loop
+(``train_models``, ``_run_epoch``) and ``CDEvaluator``, which would write
+through the ported ``train/checkpoint.py`` and ``utils/logging.py`` (ROADMAP.md
+Queue 1 #7), and pipeline and tensor parallelism (Queue 1 #11).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX

@@ -205,9 +205,10 @@ def test_select_variant_f32_above_eight_keys_keeps_the_f32_kernel(m):
 @pytest.mark.parametrize("shape,dtype", MAIN_PATH)
 def test_plans_fit_the_card_at_every_main_path_shape(shape, dtype):
     """Shared memory within a block's limit; at least MIN_BLOCKS blocks, or one
-    tile a block (the tensor-core backward, whose block fills an SM: at least
-    128 blocks, one wave over 97 % of the SMs); the blocks' rows cover N
-    exactly; the scratch holds one partial for every part."""
+    tile a block (the tensor-core backward, whose block fills an SM, and the
+    f32 forward, whose blocks each stage all of K and V: at least 128 blocks,
+    one wave over 97 % of the SMs); the blocks' rows cover N exactly; the
+    scratch holds one partial for every part."""
     b, h, n, m, d = shape
     variant = select_variant(dtype, m)
     fwd = forward_plan(variant, b * h, n, m, d)
@@ -215,7 +216,8 @@ def test_plans_fit_the_card_at_every_main_path_shape(shape, dtype):
     granule = {"f32_cuda": (64, 64), "mma_bf16": (128 * fwd["row_tiles"], 128),
                "small_m": (32, 32)}[variant]
     bwd_min = 128 if variant == "mma_bf16" else MIN_BLOCKS
-    for plan, rows, tile, least in ((fwd, fwd["rows_per_block"], granule[0], MIN_BLOCKS),
+    fwd_min = 128 if variant == "f32_cuda" else MIN_BLOCKS
+    for plan, rows, tile, least in ((fwd, fwd["rows_per_block"], granule[0], fwd_min),
                                     (bwd, bwd["rows_per_split"], granule[1], bwd_min)):
         assert 0 <= plan["smem_bytes"] <= MAX_SMEM_BYTES == 232448
         assert rows % tile == 0 and rows >= tile
@@ -336,3 +338,54 @@ def test_variant_counters_and_scale_check_without_a_card():
     with pytest.raises(ValueError, match="gradient"):
         port_attention.launch_backward(q, k, v, q, lse, q.double(), 1.0, 0.0, None)
     assert kernel.backward_launches == 0
+
+
+# --- the f32 forward (f32_cuda): K and V resident, 64-row tiles, register micro-tiles ---
+
+F32_PLAN_SHAPES = SMOKE.sra_shapes() + SMOKE.sra_shapes(SMOKE.V6_TRAIN["batch"],
+                                                        SMOKE.V6_TRAIN["size"])
+
+
+@pytest.mark.parametrize("shape", F32_PLAN_SHAPES)
+def test_f32_forward_plan_keeps_k_and_v_resident(shape):
+    """At the four serving shapes and the four V6 train shapes in f32: all M
+    keys of K and V in shared memory as f32 rows of D padded to 64 or 80 plus
+    4, beside two 64-row Q tiles and the 64 x 68 p tile; two blocks an SM
+    where shared memory allows; whole 64-row tiles a block, one wave of at least
+    128 blocks."""
+    b, h, n, m, d = shape
+    plan = forward_plan("f32_cuda", b * h, n, m, d)
+    ld = {64: 68, 80: 84}[d]
+    assert plan["kv_resident"] and plan["kv_rows"] == -(-m // 64) * 64
+    assert plan["smem_bytes"] == (2 * plan["kv_rows"] * ld + 2 * 64 * ld + 64 * 68) * 4
+    assert plan["smem_bytes"] <= MAX_SMEM_BYTES
+    assert plan["rows_per_block"] % 64 == 0 and plan["row_tiles"] == 1
+    assert plan["blocks"] >= 128 or plan["rows_per_block"] == 64  # one wave over 97 % of the SMs
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 77, 300, 1000, 4097])
+@pytest.mark.parametrize("m,d", [(9, 36), (37, 80), (255, 40), (257, 72), (300, 128), (64, 64)])
+def test_f32_forward_plan_covers_every_row_once(m, d, n):
+    """Any N, M > 8, D <= 128: the blocks' row ranges tile [0, N) of each head
+    exactly once, the last block ragged; K and V go through in blocks of
+    kv_rows keys (a whole number of 64-key steps) where M does not fit."""
+    for bh in (1, 7, 64):
+        plan = forward_plan("f32_cuda", bh, n, m, d)
+        rows = plan["rows_per_block"]
+        per_head = plan["blocks"] // bh
+        assert plan["blocks"] == bh * per_head
+        assert (per_head - 1) * rows < n <= per_head * rows
+        assert plan["smem_bytes"] <= MAX_SMEM_BYTES and plan["kv_rows"] % 64 == 0
+        assert plan["kv_resident"] == (plan["kv_rows"] >= m)
+        assert plan["kv_resident"] or d > 64  # only M = 257 at D = 72 and M = 300 at 128 stream
+
+
+def test_f32_backward_plan_is_the_earlier_one():
+    """The f32 backward is unchanged: one block for each 64 query rows, K and V
+    through shared memory 32 keys at a time, one partial per block."""
+    for bh, n, m, d in ((32, 4096, 64, 64), (64, 1000, 37, 80), (1, 77, 9, 36)):
+        plan = backward_plan("f32_cuda", bh, n, m, d)
+        splits = -(-n // 64)
+        assert plan["rows_per_split"] == 64 and plan["splits"] == plan["parts"] == splits
+        assert plan["smem_bytes"] == (2 * 64 * d + 2 * 32 * (d + 1) + 2 * 64 * 33) * 4
+        assert plan["scratch_shape"] == (bh, splits, m, d)

@@ -271,3 +271,57 @@ def test_best_artifact_keeps_only_the_current_best(tmp_path):
     last = torch.load(ckpt.save_last(state, 3, 0.5, 2), weights_only=True)
     assert set(last) == {"epoch_id", "best_val_acc", "best_epoch_id", "model", "optimizer",
                          "step"}
+
+
+def test_predict_cli_loads_what_run_training_wrote(tmp_path):
+    """Two epochs of run_training write a run directory; cli.predict and
+    cli.serve's model flags take it with --load_path as scripts/predict.py
+    resolves one (*_best_model, then best_ckpt, then last_ckpt, or a file)
+    and unwrap the checkpoint's "model" entry. The loaded model is the
+    trained one, tensor for tensor, and predicts a scene."""
+    import argparse
+
+    from PIL import Image
+
+    from stcd_tpu_torch.cli import predict as cli_predict
+
+    train_step, eval_step = make_cd_steps(augment=True)
+    state = _state()
+    run = tmp_path / "run"
+    loops.run_training(train_step, eval_step, state, _cd_loader(1), _cd_loader(2, batches=2),
+                       n_epochs=2, save_dir=str(run), rng=torch.Generator().manual_seed(3),
+                       logger=ScalarLogger(str(run / "logs"), use_tensorboard=False))
+    best = CheckpointManager(str(run)).best_path()
+    assert best is not None and cli_predict.resolve_checkpoint(str(run)) == best
+    parser = argparse.ArgumentParser()
+    cli_predict.add_model_args(parser)
+    flags = ["--device", "cpu", "--encoder", "resnet18", "--decoder_channels", "32,24,16,12,8",
+             "--tile", str(HW)]
+    for load_path, want in ((run, torch.load(best, weights_only=True)["model"]),
+                            (run / "last_ckpt", state.model.state_dict())):
+        model = cli_predict.build_model(parser.parse_args(flags + ["--load_path",
+                                                                   str(load_path)]))
+        got = model.state_dict()
+        assert set(got) == set(want) and not model.training
+        for name, tensor in want.items():
+            assert torch.equal(got[name], tensor), name
+    os.remove(best)  # a run directory without its best model falls back to last_ckpt
+    assert cli_predict.resolve_checkpoint(str(run)) == str(run / "last_ckpt")
+    os.makedirs(tmp_path / "empty_run")
+    with pytest.raises(SystemExit, match="no \\*_best_model"):
+        cli_predict.resolve_checkpoint(str(tmp_path / "empty_run"))
+    torch.save(state.model.state_dict(), tmp_path / "bare.pt")
+    with pytest.raises(SystemExit, match="--weights"):
+        cli_predict.build_model(parser.parse_args(flags + ["--load_path",
+                                                           str(tmp_path / "bare.pt")]))
+
+    rng = np.random.default_rng(4)
+    for name in ("a.png", "b.png"):
+        Image.fromarray(rng.integers(0, 256, (48, 40, 3), dtype=np.uint8)).save(tmp_path / name)
+    cli_predict.main(flags + ["--image_a", str(tmp_path / "a.png"), "--image_b",
+                              str(tmp_path / "b.png"), "--batch", "2", "--stride", "16",
+                              "--load_path", str(run), "--out", str(tmp_path / "mask.png"),
+                              "--prob_out", str(tmp_path / "p.npy")])
+    probs = np.load(tmp_path / "p.npy")
+    assert probs.shape == (48, 40, 1) and np.isfinite(probs).all()
+    assert probs.min() >= 0 and probs.max() <= 1

@@ -191,3 +191,90 @@ def test_bounds_are_bytes_at_every_shape():
         by_bytes = 2 * (m * k + k * n + m * n) / 3.35e12 * 1e3
         assert bench_conv_bn_epilogue.bound_ms(m, k, n) == pytest.approx(by_bytes)
         assert 2 * m * k * n / 989e12 * 1e3 < by_bytes
+
+
+# --- matmul_plan: the route and geometry of matmul_bf16 (the kernels run only on a card) ---
+
+MM_RAGGED = (1000, 72, 200)  # chip_smoke.MM_RAGGED: no dimension a multiple of its tile
+TMA_SHAPES = bench_bnstats_diag.SHAPES + bench_conv_bn_epilogue.SHAPES + [MM_RAGGED]
+
+
+def _tile_bytes(plan, k):
+    """w (K padded to 64) of the block's passes, the ring of 128 x 64 chunks and
+    the two warpgroups' one or two 64 x 64 y boxes, besides 1 KB of alignment
+    and the barriers."""
+    chunks = -(-k // 64)
+    return (plan["passes_per_group"] * plan["pass_cols"] * chunks * 64 * 2
+            + plan["stages"] * 128 * 64 * 2 + 2 * min(plan["pass_cols"] // 64, 2) * 64 * 64 * 2)
+
+
+@pytest.mark.parametrize("shape", TMA_SHAPES)
+def test_matmul_plan_takes_wgmma_with_tma_where_tma_can_describe_the_operands(shape):
+    """The tools' shapes and the ragged one: wgmma_tma; shared memory within a
+    block's limit; at most 132 persistent blocks; every pass of N in one
+    group; w resident exactly when all of it fits beside a ring of two
+    stages (or of a tile's chunks, where several passes share them); x read
+    once for each group; the ring deep enough for the passes."""
+    m, k, n = shape
+    plan = ops.matmul_plan(m, k, n, aligned=True)
+    assert plan["route"] == "wgmma_tma" and ops.ROUTES.index("wgmma_tma") == 0
+    assert plan["pass_cols"] in (64, 128, 256)
+    assert plan["pass_cols"] == (64 if n <= 64 else 128 if n <= 128 else 256) or not \
+        plan["w_resident"]
+    assert 0 < plan["smem_bytes"] <= ops.MAX_SMEM_BYTES == 232448
+    assert plan["smem_bytes"] == 1024 + 2 * 8 * 8 + _tile_bytes(plan, k)
+    assert plan["blocks_x"] * plan["groups"] <= ops.SMS == 132
+    assert plan["blocks_x"] == min(-(-m // 128), 132 // plan["groups"])
+    passes = -(-n // plan["pass_cols"])
+    assert (plan["groups"] - 1) * plan["passes_per_group"] < passes <= (
+        plan["groups"] * plan["passes_per_group"])
+    chunks = -(-k // 64)
+    assert 2 <= plan["stages"] <= 8
+    if plan["passes_per_group"] > 1:
+        assert plan["stages"] >= chunks
+    w_all = -(-n // plan["pass_cols"]) * plan["pass_cols"] * chunks * 64 * 2
+    fits = 1024 + 2 * 8 * 8 + 2 * min(plan["pass_cols"] // 64, 2) * 8192 + w_all + max(
+        2, chunks if passes > 1 else 2) * 128 * 64 * 2 <= ops.MAX_SMEM_BYTES
+    assert plan["w_resident"] == (plan["groups"] == 1) == fits
+
+
+def test_matmul_plan_at_the_tool_shapes():
+    """bench_bnstats_diag's three shapes keep all of w in shared memory; the
+    (32768, 1024, 256) shape of bench_conv_bn_epilogue (512 KB of w) splits N
+    into four groups of 64 columns, 33 blocks each."""
+    plans = [ops.matmul_plan(*s, aligned=True) for s in bench_bnstats_diag.SHAPES]
+    assert [(p["pass_cols"], p["passes_per_group"], p["groups"]) for p in plans] == [
+        (256, 1, 1), (128, 1, 1), (256, 2, 1)]
+    big = ops.matmul_plan(32768, 1024, 256, aligned=True)
+    assert (big["pass_cols"], big["groups"], big["blocks_x"], big["w_resident"]) == (
+        64, 4, 33, False)
+
+
+@pytest.mark.parametrize("shape,aligned", [(RAGGED, True), ((1000, 72, 200), False),
+                                           ((1000, 36, 200), True), ((1000, 72, 100), True),
+                                           ((100, 72, 200), True), ((1000, 32, 200), True),
+                                           ((1000, 72, 56), True)])
+def test_matmul_plan_takes_the_wmma_tile_where_tma_cannot(shape, aligned):
+    """Nothing a multiple of 8 (chip_smoke.MM_RAGGED_ODD), an unaligned
+    pointer, K or N not a multiple of 8, or a box that would not fit inside
+    the tensor (M < 128, K < 64, N < 64): the wmma tile of matmul_stats.cu,
+    one block for each 128 rows, no shared memory asked for."""
+    m, k, n = shape
+    plan = ops.matmul_plan(m, k, n, aligned)
+    assert plan == {"route": "wmma", "pass_cols": 0, "passes_per_group": 0, "groups": 1,
+                    "stages": 0, "blocks_x": -(-m // 128), "smem_bytes": 0,
+                    "w_resident": False}
+
+
+@pytest.mark.parametrize("shape", [(0, 64, 64), (128, 0, 64), (128, 64, 0), (-1, 64, 64)])
+def test_matmul_plan_refuses_empty_shapes(shape):
+    with pytest.raises(ValueError, match="m, k, n >= 1"):
+        ops.matmul_plan(*shape, aligned=True)
+
+
+def test_matmul_bf16_route_counter_exists_and_stays_at_zero_on_the_cpu():
+    x, w = _torch_bf16(*_operands((256, 64, 64)))
+    assert torch.equal(ops.matmul_bf16(x, w), ops.matmul_bf16_plain(x, w))
+    assert ops.matmul_bf16_kernel.kernel_launches == 0
+    assert dict(ops.matmul_bf16_kernel.routes) == {}
+    assert ops.ROUTES == ("wgmma_tma", "wmma")

@@ -306,3 +306,28 @@ def test_every_entry_point_defaults_to_the_card(monkeypatch):
     for main in (cli_serve.main, bench_conv_bn_epilogue.main, bench_bnstats_diag.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--init_seed", "0"] if main is cli_serve.main else [])
+
+
+@pytest.mark.parametrize("net_G", ["base_transformer_pos_s4_dd8", "ChangeFormerV6"])
+def test_predict_cli_init_seed_gives_the_trainers_weights(net_G):
+    """--init_seed initialises by the model family's rules
+    (models.factory.init_weights), so one seed gives the CLI the weights that
+    CDTrainer.init_state gives the trainer: for BIT fan-in normal convs and
+    normal(0, 1) position embeddings, not ChangeFormer's rules. V6 at a
+    decoder width of 32 to stay small."""
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    parser = argparse.ArgumentParser()
+    cli_predict.add_model_args(parser)
+    model = cli_predict.build_model(parser.parse_args(
+        ["--net_G", net_G, "--init_seed", "3", "--device", "cpu", "--embed_dim", "32"]))
+    trainer = CDTrainer(TrainerConfig(net_G=net_G, embed_dim=32))
+    want = trainer.init_state("cpu", init_seed=3).model.state_dict()
+    got = model.state_dict()
+    assert set(got) == set(want) and len(want) > 50
+    for name, tensor in want.items():
+        assert torch.equal(got[name], tensor), name
+    other = cli_predict.build_model(parser.parse_args(
+        ["--net_G", net_G, "--init_seed", "4", "--device", "cpu", "--embed_dim", "32"]))
+    assert not all(torch.equal(a, b) for a, b in zip(other.state_dict().values(),
+                                                       got.values()))

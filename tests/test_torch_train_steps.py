@@ -8,6 +8,8 @@ Adam moves a parameter with a near-zero gradient by +-lr whatever the
 gradient's size, so float32 noise shows after the first update: the first
 loss is held tightly and the later ones loosely."""
 
+import contextlib
+
 import numpy as np
 import optax
 import pytest
@@ -360,25 +362,64 @@ def seg_init():
     return model, variables
 
 
-def _hold_parameters(state, jstate, variables):
-    """Parameters after a few SGD updates: every tensor moved, and the port's
-    movement is the JAX one to 1e-2 of the tensor's largest movement plus 4
-    float32 ulps of its weights (three roundings of the update). The tensors
-    of encoder.layer4 get 0.2: at 32x32 its BatchNorm layers normalise over 4
-    values, which amplifies float32 noise in their gradients (the running
-    statistics of those layers are held loosely for the same reason)."""
+@contextlib.contextmanager
+def _float64_through_the_losses():
+    """The port's losses and BatchNorm take their sums in float32 (``.float()``
+    on their inputs); inside this context that cast leaves float64 tensors as
+    they are, so that a float64 run of the port is float64 end to end."""
+    to_float32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *args, **kwargs: (
+        self if self.dtype == torch.float64 else to_float32(self, *args, **kwargs))
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float32
+
+
+def _measure_moves(state, jstate, variables, state64):
+    """For each parameter tensor: (name, the float64 run's largest move from
+    the init, max |port float32 - float64|, max |JAX - float64|, max |weight|)."""
     want = unetseg_from_flax(jstate.params, jstate.batch_stats)
     start = unetseg_from_flax(variables["params"], variables["batch_stats"])
-    got = state.model.state_dict()
-    names = [k for k in want if "running" not in k and "num_batches" not in k]
-    assert len(names) >= 60
-    for name in names:
-        moved = (want[name] - start[name]).abs().max().item()
+    got, exact = state.model.state_dict(), state64.model.state_dict()
+    out = []
+    for name in (k for k in want if "running" not in k and "num_batches" not in k):
+        ref = exact[name].double()
+        out.append((name, (ref - start[name].double()).abs().max().item(),
+                    (got[name].double() - ref).abs().max().item(),
+                    (want[name].double() - ref).abs().max().item(),
+                    ref.abs().max().item()))
+    return out
+
+
+# Parameters after three SGD updates: both float32 runs against a float64 run of the
+# port from the same init on the same batches (the pattern of test_torch_bit.py's
+# gradient test), within a share of the float64 run's largest move in the tensor plus
+# 4 float32 ulps of the weights (three roundings of the update). Measured on a CPU
+# host, as the largest share beyond the ulps over all tensors:
+# - stage 1: both float32 runs within the ulps alone;
+# - stage 3: the port's float32 1.9e-2 (decoder.blocks.2.conv2.0.weight: 1.7e-6 of a
+#   6.3e-5 move), JAX's 3.1e-3 (decoder.blocks.3.conv1.0.weight). Three updates move
+#   the decoder's weights by only 1e-4 while the three loss terms sum gradients that
+#   partly cancel, so float32 rounding is a visible share of the move; the port and
+#   JAX round in different places, and held against each other (at 1e-2, as before)
+#   the two noises added up to 1.4 times that bound on some hosts.
+# The bounds are about twice the port's and three times JAX's measured noise. The
+# BatchNorm layers of encoder.layer4, which normalise over 4 values at 32x32 and
+# amplify float32 noise, need no bound of their own against float64.
+PORT_SHARE, JAX_SHARE = 4e-2, 1e-2
+
+
+def _hold_parameters(state, jstate, variables, state64):
+    moves = _measure_moves(state, jstate, variables, state64)
+    assert len(moves) >= 60
+    for name, moved, port_err, jax_err, scale in moves:
         assert moved > 0, f"{name} did not move"
-        share = 0.2 if name.startswith("encoder.layer4") else 1e-2
-        atol = share * moved + 5e-7 * max(1.0, want[name].abs().max().item())
-        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=atol,
-                                   err_msg=name)
+        ulps = 5e-7 * max(1.0, scale)
+        assert port_err <= PORT_SHARE * moved + ulps, (
+            name, "port float32 against float64", port_err, moved)
+        assert jax_err <= JAX_SHARE * moved + ulps, (
+            name, "JAX float32 against the port's float64", jax_err, moved)
 
 
 STAGES = {
@@ -387,17 +428,18 @@ STAGES = {
 }
 
 
-def _states(stage, init, seg_init, sgd=False):
+def _states(stage, init, seg_init, sgd=False, dtype=torch.float32):
     """(JAX model, variables, JAX state, port state) of a stage, with Adam as in
-    the stage-2 tests or with SGD (momentum 0.9, no decay) at the same schedule."""
+    the stage-2 tests or with SGD (momentum 0.9, no decay) at the same schedule;
+    the port's weights in ``dtype``."""
     model, variables = seg_init if stage == 1 else init
     schedule = jax_poly_schedule(*SCHEDULE)
     jstate = JaxTrainState.create_with_stats(
         apply_fn=model.apply, params=variables["params"], batch_stats=variables["batch_stats"],
         tx=optax.sgd(schedule, momentum=0.9) if sgd else optax.adam(schedule))
     port = (UnetSeg if stage == 1 else SegCD)("resnet18", decoder_channels=DEC, classes=1)
-    port.load_state_dict(unetseg_from_flax(variables["params"], variables["batch_stats"]),
-                         strict=True)
+    port.to(dtype).load_state_dict(
+        unetseg_from_flax(variables["params"], variables["batch_stats"]), strict=True)
     tx = (SGDConfig(poly_schedule(*SCHEDULE), momentum=0.9, weight_decay=0.0) if sgd
           else AdamConfig(poly_schedule(*SCHEDULE)))
     return model, variables, jstate, create_train_state(port, tx, device="cpu")
@@ -409,12 +451,15 @@ def test_three_steps_of_stages_1_and_3_without_augmentation(stage, init, seg_ini
     # SGD, so that the parameters can be held after the updates: Adam moves a parameter
     # whose gradient is float32 noise around 0 by +-lr a step (the stage-2 test holds Adam)
     model, variables, jstate, state = _states(stage, init, seg_init, sgd=True)
+    state64 = _states(stage, init, seg_init, sgd=True, dtype=torch.float64)[3]
     jtrain, _ = jmake(model, augment=False)
     train_step, _ = make(augment=False)
     terms = ("loss", "seg_loss", "cd_loss", "ct_loss") if stage == 3 else ("loss",)
     for i, batch in enumerate(batches_of(8, 3)):
         jstate, want = jtrain(jstate, _to_jax(batch), jax.random.PRNGKey(i))
         got = train_step(state, _to_torch(batch))
+        with _float64_through_the_losses():
+            train_step(state64, {k: v.double() for k, v in _to_torch(batch).items()})
         assert set(got) == set(want) == {*terms, "cm"}
         for term in terms:
             np.testing.assert_allclose(got[term].item(), float(want[term]), atol=1e-5, rtol=0,
@@ -424,8 +469,9 @@ def test_three_steps_of_stages_1_and_3_without_augmentation(stage, init, seg_ini
         if i == 0:
             _hold_counts(got["cm"], want["cm"])
             _hold_running_stats(state, jstate.batch_stats, variables, atol=2e-4)
-    assert state.step == 3 and int(jstate.step) == 3
-    _hold_parameters(state, jstate, variables)
+    assert state.step == 3 and int(jstate.step) == 3 and state64.step == 3
+    assert all(p.dtype == torch.float64 for p in state64.model.parameters())
+    _hold_parameters(state, jstate, variables, state64)
 
 
 def _pair_draws(key, n, jitter_p):
