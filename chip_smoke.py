@@ -24,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16, dropout 0 and 0.1, two runs bit-identical, with the backward of
    F.scaled_dot_product_attention as the yardstick; the forward kernel is
    held against the plain version at these shapes too (output and the rows'
-   log-sum-exp) and timed. Then the bn_stats kernel against its plain
+   log-sum-exp) and timed; every on-path kernel, f32 and bf16, must read at or
+   above its bound. Then the bn_stats kernel against its plain
    version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
    f32, two runs bit-identical, its VJP against autograd, with
    torch.batch_norm_stats as the yardstick. Then the four matmul kernels
@@ -34,7 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ResNet-50 bottleneck shapes of their tools and two ragged shapes, two runs
    bit-identical, with torch.matmul as the yardstick; the product alone on
    the route matmul_plan picks (wgmma with TMA everywhere but at the odd
-   ragged shape, which takes the wmma tile), timed as CUDA-graph replays.
+   ragged shape, which takes the wmma tile), and so the product with the sums
+   on the tensor cores, whose y is matmul_bf16's bit for bit on the wgmma
+   route; timed as CUDA-graph replays.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -56,7 +59,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    falling loss and 13 forward and 13 backward attention launches a step, all
    of the tensor-core variant; then
    one fp32 step with the kernels and one with the plain attention from one
-   seed: the same loss.
+   seed: the same loss. Then the fp32 step (TF32 off, the trainer's default
+   precision) at full width and batch 8: 2 warm and 5 timed steps with the
+   kernels (13 + 13 launches a step, all f32_cuda) and the same with the plain
+   attention; step ms, pairs/s and peak memory of both.
 8. BIT training: base_transformer_pos_s4_dd8 with the TrainerConfig defaults
    (sgd, lr 0.01), 256x256 pairs, batch 32, fp32: the same checks with 16
    forward and 16 backward launches a step, all of the M <= 8 variant.
@@ -73,7 +79,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the Adam moments.
 12. the tools: bench_conv_bn_epilogue and bench_bnstats_diag, the entry points
    of the four matmul kernels, through their main(); their rows are printed,
-   and every matmul_bf16 launch of bench_bnstats_diag took the wgmma route.
+   and every matmul_bf16 and matmul_stats_mma launch of bench_bnstats_diag
+   took the wgmma route.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -116,6 +123,7 @@ BWD_BF16_ATOL = 2e-2  # bf16 roundings of g, of the saved output and of the resu
 LSE_ATOL = 2e-5  # rows' log-sum-exp (about 6, f32 whatever the inputs) against torch.logsumexp
 BN_REL_TOL = 1e-5  # bn_stats against a float64 sum, relative to max(1, |sum|)
 V6_TRAIN = dict(batch=8, size=512, warm=2, steps=10, launches=13, variant="mma_bf16")
+V6_FP32_TRAIN = dict(batch=8, size=512, warm=2, steps=5, launches=13)
 BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16, variant="small_m")
 ATTN_STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernels against plain attention
 BIT_SHAPE = (32, 8, 4096, 4, 64)  # (B, H, N, M, D) of one decoder block at batch 32
@@ -478,9 +486,10 @@ def phase_attention_backward(torch, attention):
                     fbound, fby = attention_bound_ms((b, h, n, m, d), dtype)
                     row.update(bound_ms=bound, bound_by=by, fwd_bound_ms=fbound,
                                fwd_plain_ms=t_plain_fwd, fwd_library_ms=t_sdpa_fwd)
-                    require(dtype != torch.bfloat16 or (row["ms"] >= bound and t_fwd >= fbound),
-                            f"a bf16 kernel reads above its bound at {(b, h, n, m, d)}: backward "
-                            f"{row['ms']} ms against {bound}, forward {t_fwd} against {fbound}")
+                    require(row["ms"] >= bound and t_fwd >= fbound,
+                            f"a {name} kernel reads above its bound at {(b, h, n, m, d)}: "
+                            f"backward {row['ms']} ms against {bound}, forward {t_fwd} against "
+                            f"{fbound}")
                     print(f"attention backward (B,H,N,M,D)={(b, h, n, m, d)} {name}: "
                           f"backward of F.scaled_dot_product_attention "
                           f"{row['library_ms']:.4f} ms; bound {bound:.4f} ms ({by}); "
@@ -491,9 +500,10 @@ def phase_attention_backward(torch, attention):
             del q, k, v, g
             torch.cuda.empty_cache()
 
-    # one V6 train step is 3/3/4/3 backward launches in bf16 with dropout 0.1
-    def per_step(key, rate):
-        return sum(depth * table[(s, "bfloat16", rate)][key]
+    # one V6 train step is 3/3/4/3 backward launches with dropout 0.1, in bf16 under
+    # autocast or in f32 (the trainer's default precision)
+    def per_step(key, rate, dtype="bfloat16"):
+        return sum(depth * table[(s, dtype, rate)][key]
                    for depth, s in zip(SRA_DEPTHS, v6))
 
     kinds = {table[(s, "bfloat16", 0.0)]["bound_by"] for s in v6}
@@ -506,9 +516,14 @@ def phase_attention_backward(torch, attention):
            "bound_by": kinds.pop() if len(kinds) == 1 else "operations",
            # a step's launches at their shapes: V6 in bf16 with dropout 0.1, BIT in f32
            "ms_by_path": {"bf16_v6_train_step": per_step("ms", 0.1),
+                          "fp32_v6_train_step": per_step("ms", 0.1, "float32"),
                           "bit_step": bit_calls * bit["ms"]},
            "fwd_ms_by_path": {"bf16_v6_train_step": per_step("fwd_ms", 0.1),
-                              "bit_step": bit_calls * bit["fwd_ms"]}}
+                              "fp32_v6_train_step": per_step("fwd_ms", 0.1, "float32"),
+                              "bit_step": bit_calls * bit["fwd_ms"]},
+           "f32_v6_shapes": [{"shape": list(s), **{k: table[(s, "float32", 0.0)][k] for k in
+                                                   ("ms", "plain_ms", "library_ms", "bound_ms")}}
+                             for s in v6]}
     print(f"attention backward per V6 train step (13 launches, bf16, dropout 0.1): kernel "
           f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, backward of "
           f"F.scaled_dot_product_attention (dropout 0) {res['library_ms']:.4f} ms, bound "
@@ -517,6 +532,12 @@ def phase_attention_backward(torch, attention):
           f"{per_step('fwd_plain_ms', 0.0):.4f} ms, F.scaled_dot_product_attention "
           f"{per_step('fwd_library_ms', 0.0):.4f} ms, bound {per_step('fwd_bound_ms', 0.0):.4f} "
           f"ms)", flush=True)
+    print(f"attention backward per fp32 V6 train step (13 launches, f32_cuda, dropout 0.1): "
+          f"kernel {per_step('ms', 0.1, 'float32'):.4f} ms, plain "
+          f"{per_step('plain_ms', 0.1, 'float32'):.4f} ms; dropout 0: kernel "
+          f"{per_step('ms', 0.0, 'float32'):.4f} ms, backward of "
+          f"F.scaled_dot_product_attention {per_step('library_ms', 0.0, 'float32'):.4f} ms, "
+          f"bound {per_step('bound_ms', 0.0, 'float32'):.4f} ms", flush=True)
     print(f"attention per BIT train step ({bit_calls} + {bit_calls} launches, f32, M = 4): "
           f"forward kernel {bit_calls * bit['fwd_ms']:.4f} ms (plain "
           f"{bit_calls * bit['fwd_plain_ms']:.4f}, bound "
@@ -616,6 +637,9 @@ def phase_matmul_stats(torch):
                "matmul_bf16": (ops.matmul_bf16, bench_bnstats_diag.SHAPES),
                "matmul_stats_rows": (ops.matmul_stats_rows, bench_bnstats_diag.SHAPES),
                "matmul_stats_mma": (ops.matmul_stats_mma, bench_bnstats_diag.SHAPES)}
+    # the two functions with routes: their wrapper's counter and whether the plan has sums
+    routed = {"matmul_bf16": (ops.matmul_bf16_kernel, False),
+              "matmul_stats_mma": (ops.matmul_stats_mma_kernel, True)}
     res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
                   "bound_by": set(), "routes_checked": {}} for name in kernels}
@@ -631,22 +655,28 @@ def phase_matmul_stats(torch):
         var = (want[1] / m - mean ** 2).clamp_min(1e-6)
         y_scale = max(1.0, y_plain.float().abs().max().item())
         t_lib = time_ms(lambda: torch.matmul(x, w), graph=True) if on_path else None
+        y_product = ops.matmul_bf16(x, w, impl="kernel")
         for name, (fn, shapes) in kernels.items():
             stats = name != "matmul_bf16"
             timed = on_path and (m, k, n) in shapes
-            routes = dict(ops.matmul_bf16_kernel.routes)
+            route = None
+            if name in routed:
+                wrapper, with_sums = routed[name]
+                routes = dict(wrapper.routes)
+                route = ops.matmul_plan(m, k, n, aligned=True, stats=with_sums)["route"]
             got, again = fn(x, w, impl="kernel"), fn(x, w, impl="kernel")
             torch.cuda.synchronize()
             r = res[name]
-            if not stats:  # both launches on the route that matmul_plan picks for the shape
-                route = ops.matmul_plan(m, k, n, aligned=True)["route"]
-                took = {key: count - routes.get(key, 0)
-                        for key, count in ops.matmul_bf16_kernel.routes.items()
+            if route is not None:  # both launches on the route that matmul_plan picks
+                took = {key: count - routes.get(key, 0) for key, count in wrapper.routes.items()
                         if count != routes.get(key, 0)}
-                require(took == {route: 2}, f"matmul_bf16 {(m, k, n)}: routes {took}, "
+                require(took == {route: 2}, f"{name} {(m, k, n)}: routes {took}, "
                         f"expected {route}")
                 r["routes_checked"][route] = r["routes_checked"].get(route, 0) + 1
             y = got[0] if stats else got
+            if route == "wgmma_tma":  # one kernel: the sums do not touch y
+                require(bool(torch.equal(y, y_product)), f"{name} {(m, k, n)}: y is not "
+                        f"matmul_bf16's")
             require(y.dtype == torch.bfloat16 and y.shape == (m, n),
                     f"{name} output {y.dtype} {tuple(y.shape)}")
             for a, c in zip(got if stats else (got,), again if stats else (again,)):
@@ -667,7 +697,7 @@ def phase_matmul_stats(torch):
             r["max_abs_err"] = max(r["max_abs_err"], y_err)
             r["max_bn_scaled_err"] = max(r["max_bn_scaled_err"], bn_err)
             line = (f"{name} (M,K,N)={(m, k, n)}"
-                    f"{' [' + route + ']' if not stats else ''}: max|dy|={y_err:.3e} (atol "
+                    f"{' [' + route + ']' if route else ''}: max|dy|={y_err:.3e} (atol "
                     f"{MM_Y_ATOL} x {y_scale:.1f}), BN-scaled sums {bn_err:.3e} (tol "
                     f"{MM_BN_TOL}), two runs identical")
             if timed:  # CUDA-graph replays: the wrapper's host time is not timed
@@ -683,7 +713,7 @@ def phase_matmul_stats(torch):
                 if not stats:
                     r["library_ms"] += t_lib
             print(line, flush=True)
-        del x, w, y_plain, want
+        del x, w, y_plain, want, y_product
         torch.cuda.empty_cache()
     for name, r in res.items():
         kinds = r.pop("bound_by")
@@ -779,6 +809,69 @@ def phase_trainer(torch, attention, gpu_label, net_G, plan, fp32_batch):
     require(d_loss <= ATTN_STEP_LOSS_ATOL, f"{net_G}: step losses differ by {d_loss}")
     require(d_cm <= STEP_CM_PIXELS, f"{net_G}: confusion counts differ in {d_cm} pixels")
     return fwd, bwd
+
+
+def phase_v6_fp32_step(torch, attention, gpu_label):
+    """The ChangeFormerV6 train step at the trainer's default precision (fp32,
+    TF32 off), at full width and batch 8: warm and timed steps with the
+    kernels (every launch f32_cuda) and then with the plain attention, from
+    the same weights and batch. Returns {impl: result}; the kernels' result
+    holds the launches of its run."""
+    from stcd_tpu_torch.tools.profile_step import plain_attention, trainer_setup
+
+    kernel = attention.cross_attention_kernel
+    plan = V6_FP32_TRAIN
+    n_steps = plan["warm"] + plan["steps"]
+    res = {}
+    for impl in ("kernel", "plain"):
+        trainer, state, batch = trainer_setup("ChangeFormerV6", dtype=torch.float32)
+        cfg = trainer.cfg
+        require(cfg.batch_size == plan["batch"] and cfg.img_size == plan["size"]
+                and not state.bf16, f"fp32 V6 setup is {cfg.batch_size} x {cfg.img_size}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.kernel_launches = kernel.backward_launches = 0
+        kernel.forward_variants.clear()
+        kernel.backward_variants.clear()
+        losses, events = [], []
+        with plain_attention() if impl == "plain" else contextlib.nullcontext():
+            for _ in range(n_steps):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                loss, _ = trainer.train_step(state, *batch)
+                e1.record()
+                losses.append(loss)
+                events.append((e0, e1))
+            torch.cuda.synchronize()
+        fwd, bwd = kernel.kernel_launches, kernel.backward_launches
+        variants = (dict(kernel.forward_variants), dict(kernel.backward_variants))
+        losses = [float(x) for x in losses]
+        require(all(x == x and abs(x) != float("inf") for x in losses),
+                f"fp32 V6 ({impl} attention): non-finite loss: {losses}")
+        want = plan["launches"] * n_steps if impl == "kernel" else 0
+        require(fwd == bwd == want, f"fp32 V6 ({impl} attention): {fwd} forward and {bwd} "
+                f"backward launches in {n_steps} steps, expected {want} each")
+        if impl == "kernel":
+            require(variants == ({"f32_cuda": fwd}, {"f32_cuda": bwd}),
+                    f"fp32 V6: attention variants {variants}, expected only f32_cuda")
+        times = sorted(e0.elapsed_time(e1) for e0, e1 in events[plan["warm"]:])
+        step_ms = times[len(times) // 2]
+        res[impl] = {"step_ms": step_ms, "pairs_per_s": cfg.batch_size / step_ms * 1e3,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "forward_launches": fwd, "backward_launches": bwd,
+                     "loss_first_last": (losses[0], losses[-1])}
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    for impl, r in res.items():
+        print(f"training ChangeFormerV6 fp32 (TF32 off; the trainer's default precision), "
+              f"batch {plan['batch']}, {plan['size']}x{plan['size']}, {impl} attention, on "
+              f"{gpu_label} (median of {plan['steps']} steps by CUDA events after "
+              f"{plan['warm']}): step {r['step_ms']:.3f} ms; {r['pairs_per_s']:.2f} pairs/s; peak "
+              f"device memory {r['peak_gib']:.2f} GiB; loss {r['loss_first_last'][0]:.4f} -> "
+              f"{r['loss_first_last'][1]:.4f}; attention launches {r['forward_launches']} + "
+              f"{r['backward_launches']}", flush=True)
+    print("fp32 V6 step json: " + json.dumps(res), flush=True)
+    return res
 
 
 def drive(engine, scenes):
@@ -1062,13 +1155,16 @@ def phase_tools(torch):
     for wrapper in wrappers.values():
         wrapper.kernel_launches = 0
     ops.matmul_bf16_kernel.routes.clear()
+    ops.matmul_stats_mma_kernel.routes.clear()
     rows = {"bench_conv_bn_epilogue": bench_conv_bn_epilogue.main([]),
             "bench_bnstats_diag": bench_bnstats_diag.main([])}
     torch.cuda.synchronize()
     launches = {name: wrapper.kernel_launches for name, wrapper in wrappers.items()}
-    routes = dict(ops.matmul_bf16_kernel.routes)
-    require(routes == {"wgmma_tma": launches["matmul_bf16"]} and launches["matmul_bf16"] > 0,
-            f"bench_bnstats_diag's matmul_bf16 launches took the routes {routes}")
+    routes = {"matmul_bf16": dict(ops.matmul_bf16_kernel.routes),
+              "matmul_stats_mma": dict(ops.matmul_stats_mma_kernel.routes)}
+    for name, took in routes.items():
+        require(took == {"wgmma_tma": launches[name]} and launches[name] > 0,
+                f"bench_bnstats_diag's {name} launches took the routes {took}")
     require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3,
             "the tools did not return a row for each shape")
     for row in rows["bench_conv_bn_epilogue"]:
@@ -1079,7 +1175,7 @@ def phase_tools(torch):
                 and row["cross_variant_err"] == row["cross_variant_err"],
                 f"bench_bnstats_diag row: {row}")
     print("tools rows json: " + json.dumps(rows), flush=True)
-    print(f"tools: kernel launches {launches}; matmul_bf16 by route {routes}", flush=True)
+    print(f"tools: kernel launches {launches}; by route {routes}", flush=True)
     return launches, routes
 
 
@@ -1163,6 +1259,8 @@ def main() -> int:
     # phases 7 and 8: the trainer's step for ChangeFormerV6 and for BIT
     v6_fwd, v6_bwd = phase_trainer(torch, attention, gpu_label, "ChangeFormerV6",
                                    V6_TRAIN, fp32_batch=2)
+    v6_fp32 = phase_v6_fp32_step(torch, attention, gpu_label)["kernel"]
+    v6_fp32_fwd, v6_fp32_bwd = v6_fp32["forward_launches"], v6_fp32["backward_launches"]
     bit_fwd, bit_bwd = phase_trainer(torch, attention, gpu_label,
                                      "base_transformer_pos_s4_dd8", BIT_TRAIN, fp32_batch=8)
     # phases 9 to 11: the stage-1 and stage-3 steps and the epoch loop
@@ -1173,21 +1271,25 @@ def main() -> int:
     aug["launches"] = sum(aug_by_path.values())
 
     # phase 12: the two feasibility benchmarks, the matmul kernels' entry points
-    tool_launches, mm["matmul_bf16"]["launches_by_route"] = phase_tools(torch)
+    tool_launches, tool_routes = phase_tools(torch)
+    for name, took in tool_routes.items():
+        mm[name]["launches_by_route"] = took
     for name, launches in tool_launches.items():
         require(launches > 0, f"the tools never launched {name}")
         mm[name]["launches"] = launches
 
     # every path's count was taken from 0 just before it and read just after
-    attn["launches"] = serving_launches + v6_fwd + bit_fwd
+    attn["launches"] = serving_launches + v6_fwd + v6_fp32_fwd + bit_fwd
     attn["launches_by_path"] = {"v6_serving": serving_launches, "v6_training": v6_fwd,
-                                "bit_training": bit_fwd}
-    attn_bwd["launches"] = v6_bwd + bit_bwd
-    attn_bwd["launches_by_path"] = {"v6_training": v6_bwd, "bit_training": bit_bwd}
+                                "v6_fp32_training": v6_fp32_fwd, "bit_training": bit_fwd}
+    attn_bwd["launches"] = v6_bwd + v6_fp32_bwd + bit_bwd
+    attn_bwd["launches_by_path"] = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
+                                    "bit_training": bit_bwd}
     # the variant each path launched (each path's run required that it launched no other)
-    attn["variants"] = {"f32_cuda": serving_launches, V6_TRAIN["variant"]: v6_fwd,
-                        BIT_TRAIN["variant"]: bit_fwd}
-    attn_bwd["variants"] = {V6_TRAIN["variant"]: v6_bwd, BIT_TRAIN["variant"]: bit_bwd}
+    attn["variants"] = {"f32_cuda": serving_launches + v6_fp32_fwd,
+                        V6_TRAIN["variant"]: v6_fwd, BIT_TRAIN["variant"]: bit_fwd}
+    attn_bwd["variants"] = {"f32_cuda": v6_fp32_bwd, V6_TRAIN["variant"]: v6_bwd,
+                            BIT_TRAIN["variant"]: bit_bwd}
     attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1212,13 +1314,13 @@ def main() -> int:
          "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},
          "path": "standalone"},
         *[{"name": name, "route": "cuda",
-           "source": "stcd_tpu_torch/ops/csrc/" + ("matmul_hopper.cu" if name == "matmul_bf16"
-                                                   else "matmul_stats.cu"),
+           "source": "stcd_tpu_torch/ops/csrc/" + ("matmul_hopper.cu" if "launches_by_route"
+                                                   in mm[name] else "matmul_stats.cu"),
            "replaces": replaces, **{k: mm[name][k] for k in keys},
            "max_bn_scaled_err": mm[name]["max_bn_scaled_err"],
            **({"launches_by_route": mm[name]["launches_by_route"],
                "shapes_by_route_checked": mm[name]["routes_checked"]}
-              if name == "matmul_bf16" else {})}
+              if "launches_by_route" in mm[name] else {})}
           for name, replaces in (("matmul_stats", "benchmarks/bench_conv_bn_epilogue.py:30"),
                                  ("matmul_bf16", "benchmarks/bench_bnstats_diag.py:24"),
                                  ("matmul_stats_rows", "benchmarks/bench_bnstats_diag.py:46"),

@@ -109,10 +109,12 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_augment_fwd.restype = i
     lib.stcd_matmul_bf16.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
     lib.stcd_matmul_bf16.restype = i
-    for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_rows,
-                  lib.stcd_matmul_stats_mma):
+    for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_rows):
         entry.argtypes = [p, p, p, p, p, p, p, ll, i, i, ll, i, p]
         entry.restype = i
+    lib.stcd_matmul_stats_mma.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, ll,
+                                          i, p]
+    lib.stcd_matmul_stats_mma.restype = i
     lib.stcd_cuda_error_string.argtypes = [i]
     lib.stcd_cuda_error_string.restype = ctypes.c_char_p
     return lib

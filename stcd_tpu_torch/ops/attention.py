@@ -122,10 +122,11 @@ MAX_SMEM_BYTES = 232448    # dynamic shared memory a block may ask for on sm_90
 _SM_SMEM_BYTES = 233472    # shared memory of an SM; each resident block also takes 1 KB
 SMS = 132                  # streaming multiprocessors of an H100
 MIN_BLOCKS = 2 * SMS       # a grid covers the card at least twice where N allows
-_F32_BLOCK_N, _F32_CHUNK = 64, 32   # kBlockN, kChunk: the f32 backward's tiles
 _F32_ROWS, _F32_KEYS = 64, 64       # kF32Rows, kF32Keys: the f32 forward's tile and step
 _F32_BLOCKS_PER_SM = 2              # its __launch_bounds__ (256 threads, 2 blocks)
 _F32_MIN_BLOCKS = 128               # of the f32 forward: see forward_plan
+_F32_BWD_ROWS = 64                  # kBwdF32Rows: the f32 backward's tile
+_F32_BWD_MAX_RANGE = 2048           # kBwdF32MaxRange: the most rows one of its blocks owns
 _MMA_WARPS, _MMA_ROWS, _MMA_PAD, _MMA_KEY_CHUNK = 8, 16, 8, 64
 _MMA_BWD_ROWS = 128        # kBwdRows
 _MMA_BWD_MIN_BLOCKS = 128  # of the tensor-core backward: see backward_plan
@@ -172,6 +173,27 @@ def _mma_dpad(d: int) -> int:
 def _f32_dpad(d: int) -> int:
     """D as the f32 forward pads it in shared memory (its template instances)."""
     return next(p for p in (32, 48, 64, 80, 128) if d <= p)
+
+
+def _f32_bwd_keys(dpad: int) -> int:
+    """f32_bwd_keys: keys of a pass of the f32 backward, whose dk and dv sums
+    are registers (2 KP C / 16 a thread, C = the thread's 4 to 8 columns)."""
+    return 128 if dpad <= 80 else 64
+
+
+def _f32_bwd_bytes(dpad: int, buffers: int) -> int:
+    """f32_bwd_bytes: K and V of a pass, ``buffers`` Q and g tiles each, and
+    the tile's ds and p md, as f32 rows padded by 4; the log-sum-exp and
+    delta of each row a block may own."""
+    kp = _f32_bwd_keys(dpad)
+    return (2 * kp * (dpad + 4) + buffers * 2 * _F32_BWD_ROWS * (dpad + 4)
+            + 2 * _F32_BWD_ROWS * (kp + 4) + 2 * _F32_BWD_MAX_RANGE) * 4
+
+
+def _f32_bwd_buffers(dpad: int) -> int:
+    """f32_bwd_buffers: two Q and g tiles each (the next one's copy in flight)
+    where they fit, else one."""
+    return 2 if _f32_bwd_bytes(dpad, 2) <= MAX_SMEM_BYTES else 1
 
 
 def forward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
@@ -224,12 +246,20 @@ def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
     """Launch geometry of the backward kernel: each of ``splits`` blocks a head
     owns ``rows_per_split`` query rows and leaves its dk and dv sums as
     partials in the scratch ``(bh, parts, m, d)``; a second launch sums the
-    partials in index order."""
+    partials in index order. ``f32_cuda`` walks the range once for each of
+    ``passes`` passes of ``keys_per_pass`` keys and leaves one partial a
+    block and pass (the pass's rows of its partial)."""
+    keys_per_pass = m
     if variant == "f32_cuda":
-        rows = _F32_BLOCK_N
+        dpad = _f32_dpad(d)
+        keys_per_pass = _f32_bwd_keys(dpad)
+        # Its blocks hold an SM each (shared memory, registers): one wave of at least
+        # 128 blocks, as the f32 forward; each block leaves one partial a pass.
+        rows = _rows_per_block(bh, n, _F32_BWD_ROWS, SMS, 0.5,
+                               max_tiles=_F32_BWD_MAX_RANGE // _F32_BWD_ROWS,
+                               min_blocks=_F32_MIN_BLOCKS)
         splits = parts = -(-n // rows)
-        smem = (2 * _F32_BLOCK_N * d + 2 * _F32_CHUNK * (d + 1)
-                + 2 * _F32_BLOCK_N * (_F32_CHUNK + 1)) * 4
+        smem = _f32_bwd_bytes(dpad, _f32_bwd_buffers(dpad))
     elif variant == "mma_bf16":
         dpad = _mma_dpad(d)
         keys_per_warp = 32 if dpad <= 80 else 16  # the dk, dv accumulators are registers
@@ -245,6 +275,7 @@ def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
                                min_blocks=_MMA_BWD_MIN_BLOCKS)
         splits = -(-n // rows)
         parts = splits * (_MMA_WARPS // key_groups)  # spare warps split a tile's rows
+        keys_per_pass = _MMA_WARPS * keys_per_warp
         smem = ((2 * kvr + 2 * _MMA_BWD_ROWS) * (dpad + _MMA_PAD)
                 + kvr * (_MMA_BWD_ROWS + _MMA_PAD)) * 2 + 2 * _MMA_BWD_ROWS * 4
     elif variant == "small_m":
@@ -254,7 +285,8 @@ def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
     else:
         raise ValueError(f"unknown variant {variant!r}")
     return {"rows_per_split": rows, "splits": splits, "parts": parts,
-            "blocks": bh * splits, "scratch_shape": (bh, parts, m, d), "smem_bytes": smem}
+            "blocks": bh * splits, "scratch_shape": (bh, parts, m, d), "smem_bytes": smem,
+            "keys_per_pass": keys_per_pass, "passes": -(-m // keys_per_pass)}
 
 
 def _check_kernel_args(q, k, v, dropout_rate, dropout_seed):

@@ -14,11 +14,6 @@
 
 namespace stcd {
 
-// the tiles of the f32 backward
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockN = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kChunk = 32;                      // keys per chunk: one per lane
 constexpr int kMaxD = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -271,6 +266,77 @@ __device__ __forceinline__ void stage_small_kv(float* ks, float* vs, const T* kb
     ks[i] = c < d ? to_f32(kb[(size_t)r * d + c]) : 0.f;
     vs[i] = c < d ? to_f32(vb[(size_t)r * d + c]) : 0.f;
   }
+}
+
+// ---- the f32 variants (f32_cuda): rows of D padded to an odd number of float4s
+constexpr int kF32Threads = 256;
+
+// D as the f32 kernels pad it in shared memory (their template instances).
+inline int f32_dpad(int d) { return d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80 : 128; }
+
+// Rows [row0, row0 + nrows) of a contiguous (total, d) f32 matrix into
+// dst[r][0 .. DP) with a row stride of DP + 4 floats (an odd number of 16-byte
+// pieces: eight neighbouring rows read as float4 hit eight distinct bank
+// groups); zero past `total` and past d. `vec`: d % 4 == 0 and src 16-byte
+// aligned; whole pieces then go by cp.async (the caller commits and waits), the
+// rest by plain stores.
+template <int DP>
+__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src, int row0,
+                                          int nrows, int total, int d, bool vec, int tid) {
+  constexpr int LD = DP + 4;
+  constexpr int Q4 = DP / 4;
+  for (int i = tid; i < nrows * Q4; i += kF32Threads) {
+    const int r = i / Q4;
+    const int c = (i - r * Q4) * 4;
+    const int gr = row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < total && c < d) {
+      const float* p = src + (size_t)gr * d + c;
+      if (vec) {
+        cp_async16(dst + r * LD + c, p);
+        continue;
+      } else {
+        x.x = p[0];
+        if (c + 1 < d) x.y = p[1];
+        if (c + 2 < d) x.z = p[2];
+        if (c + 3 < d) x.w = p[3];
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The f32 kernels' columns of thread tx (of 16 along a row of DP): C = 4 G4 + G1 of
+// them, 4 tx + 64 g (a float4, g < G4) and 64 G4 + tx + 16 u (one column, u < G1).
+template <int DP>
+__device__ __forceinline__ void load_cols(float (&x)[4 * (DP / 64) + (DP % 64) / 16],
+                                          const float* row, int tx) {
+  constexpr int G4 = DP / 64, G1 = (DP % 64) / 16;
+#pragma unroll
+  for (int g = 0; g < G4; ++g) {
+    const float4 t = *reinterpret_cast<const float4*>(row + 4 * tx + 64 * g);
+    x[4 * g] = t.x;
+    x[4 * g + 1] = t.y;
+    x[4 * g + 2] = t.z;
+    x[4 * g + 3] = t.w;
+  }
+#pragma unroll
+  for (int u = 0; u < G1; ++u) x[4 * G4 + u] = row[64 * G4 + tx + 16 * u];
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -98,11 +98,7 @@ using namespace stcd;
 
 constexpr int kF32Rows = 64;     // query rows of a tile
 constexpr int kF32Keys = 64;     // keys of an online-softmax step
-constexpr int kF32Threads = 256;
 constexpr int kF32PLd = kF32Keys + 4;  // padded row of the p tile
-
-// D as this variant pads it in shared memory (its template instances).
-inline int f32_dpad(int d) { return d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80 : 128; }
 
 // Bytes of the two Q tiles (the current one and the next one's copy in flight)
 // and the p tile.
@@ -114,49 +110,6 @@ inline int f32_kv_rows(int m, int dpad) {
   const int cap = (kMaxSmem - f32_tile_bytes(dpad)) / (2 * ld * 4) / kF32Keys * kF32Keys;
   const int want = (m + kF32Keys - 1) / kF32Keys * kF32Keys;
   return want < cap ? want : cap;
-}
-
-// Rows [row0, row0 + nrows) of a contiguous (total, d) f32 matrix into
-// dst[r][0 .. DP) with a row stride of DP + 4 floats (an odd number of 16-byte
-// pieces: eight neighbouring rows read as float4 hit eight distinct bank
-// groups); zero past `total` and past d. `vec`: d % 4 == 0 and src 16-byte
-// aligned; whole pieces then go by cp.async (the caller commits and waits), the
-// rest by plain stores.
-template <int DP>
-__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src, int row0,
-                                          int nrows, int total, int d, bool vec, int tid) {
-  constexpr int LD = DP + 4;
-  constexpr int Q4 = DP / 4;
-  for (int i = tid; i < nrows * Q4; i += kF32Threads) {
-    const int r = i / Q4;
-    const int c = (i - r * Q4) * 4;
-    const int gr = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < total && c < d) {
-      const float* p = src + (size_t)gr * d + c;
-      if (vec) {
-        cp_async16(dst + r * LD + c, p);
-        continue;
-      } else {
-        x.x = p[0];
-        if (c + 1 < d) x.y = p[1];
-        if (c + 2 < d) x.z = p[2];
-        if (c + 3 < d) x.w = p[3];
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
 }
 
 // DP: D padded (32, 48, 64, 80 or 128). A block of 256 threads walks tiles of
@@ -307,19 +260,10 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           for (int jj = 0; jj < 4; ++jj) {
             const float* vrow = vst + (j + jj) * LD;
             float vv[C];
-#pragma unroll
-            for (int g = 0; g < G4; ++g) {
-              const float4 t = *reinterpret_cast<const float4*>(vrow + 4 * tx + 64 * g);
-              vv[4 * g] = t.x;
-              vv[4 * g + 1] = t.y;
-              vv[4 * g + 2] = t.z;
-              vv[4 * g + 3] = t.w;
-            }
-#pragma unroll
-            for (int u = 0; u < G1; ++u) vv[4 * G4 + u] = vrow[64 * G4 + tx + 16 * u];
+            load_cols<DP>(vv, vrow, tx);
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y : jj == 2 ? pv[r].z : pv[r].w;
+              const float p = lane_of(pv[r], jj);
 #pragma unroll
               for (int c = 0; c < C; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
             }

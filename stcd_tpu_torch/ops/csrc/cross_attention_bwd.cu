@@ -46,17 +46,33 @@
 //   shuffles and over the warps through shared memory in warp order: one
 //   partial per block.
 //
-// f32_cuda (f32, M > 8): the CUDA-core kernel below, one partial per tile of
-//   64 rows.
-// - One block per (bh, tile of kBlockN = 64 query rows); 8 warps, 8 rows each.
-//   The Q and the g tile are staged once in shared memory as f32; K and V go
-//   through in chunks of kChunk = 32 keys, lane j of a warp owning key j.
-// - Per chunk: dp = g v^T; ds = p (dp md - delta); dq += ds k (registers, lane
-//   holds columns lane + 32 c); ds and p md of the tile go to shared memory,
-//   and the block then forms this tile's share of dk = scale ds^T q and
-//   dv = (p md)^T g for the chunk's 32 keys.
-// - About one shared-memory read per multiply-add holds it to a fraction of
-//   the f32 rate; register tiling is its later work.
+// f32_cuda (f32, M > 8; the trainer's default precision, TF32 off). What bounds
+//   it: the f32 rate of the CUDA cores, 67 TFLOP/s, against 10 N M D + 8 N M
+//   operations a head; q, g, o read and dq written once take a fifth to a third
+//   of that time at the ChangeFormerV6 training shapes. The earlier kernel took a
+//   block and one partial for every 64 rows (537 MB of scratch at N = 16384),
+//   staged K and V again for each of them by scalar loads and read shared memory
+//   once per multiply-add. The design, after the f32 forward's:
+//   - A block owns a range of query rows of one head (rows_per_split, whole tiles
+//     of 64; the wrapper sizes the grid as one wave of at least 128 blocks) and
+//     walks it once for each pass of KP keys (128 at D <= 80, 64 at D = 128: the
+//     dk and dv sums of a pass are 2 KP C / 16 registers a thread). K and V of the
+//     pass are staged once by cp.async as f32 rows of D padded to an odd number of
+//     float4s; the Q and g tiles of 64 rows come by cp.async, the next one's copy
+//     in flight during the current one's math where shared memory holds two.
+//   - s = q k^T and dp = g v^T are 4 rows x KP / 16 keys a thread, read by float4
+//     along D; p = 2^(s scale log2 e - lse log2 e) and ds = p (dp md - delta) go
+//     through shared memory once a tile; dq = scale ds k, dk += ds^T q and dv +=
+//     (p md)^T g are register micro-tiles of 4 rows or 4-8 keys x the thread's 4-8
+//     columns, read by float4 (one shared-memory read per eight to eleven
+//     multiply-adds).
+//   - dk and dv of a pass persist over the whole range: one partial per block and
+//     pass, a scratch of (bh, splits, M, D) (17 MB at N = 16384, splits = 8). dq of
+//     a tile is stored by the first pass and added to by the later ones, by the
+//     thread that owns the element, in pass order.
+//   - delta = sum_d g_d o_d from the saved o, and the saved log-sum-exp, of every
+//     row of the range go to shared memory once, while the first copies are in
+//     flight, for all the passes.
 //
 // All variants:
 // - The softmax is rebuilt in one pass from the forward's per-row log-sum-exp:
@@ -75,205 +91,6 @@
 namespace {
 
 using namespace stcd;
-
-constexpr int kPStride = kChunk + 1;          // padded row of the ds / p md tiles
-constexpr int kKeysPerWarp = kChunk / kWarps;  // keys a warp owns in the dk/dv stage
-
-// DPL = ceil(D / 32): columns held per lane.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-cross_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ o,
-                           const T* __restrict__ g, const float* __restrict__ lse,
-                           T* __restrict__ dq, float* __restrict__ dk_part,
-                           float* __restrict__ dv_part, int n, int m, int d, float scale,
-                           int use_dropout, uint32_t seed_value,
-                           const long long* __restrict__ seed_ptr, uint32_t threshold,
-                           float keep_scale) {
-  extern __shared__ float smem[];
-  const int ks = d + 1;                  // padded stride: lane j reads row j conflict-free
-  float* qs = smem;                      // [kBlockN][d]
-  float* gs = qs + kBlockN * d;          // [kBlockN][d]
-  float* kc = gs + kBlockN * d;          // [kChunk][ks]
-  float* vc = kc + kChunk * ks;          // [kChunk][ks]
-  float* dss = vc + kChunk * ks;         // [kBlockN][kPStride]: ds of this chunk
-  float* pds = dss + kBlockN * kPStride;  // [kBlockN][kPStride]: p md of this chunk
-
-  const int bh = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int row0 = tile * kBlockN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
-  const T* qb = q + (size_t)bh * n * d;
-  const T* gb = g + (size_t)bh * n * d;
-  const T* ob = o + (size_t)bh * n * d;
-  const T* kb = k + (size_t)bh * m * d;
-  const T* vb = v + (size_t)bh * m * d;
-
-  // Rows past n are zero in q and g: they add nothing to dk and dv.
-  for (int i = tid; i < kBlockN * d; i += blockDim.x) {
-    const bool in = row0 + i / d < n;
-    qs[i] = in ? to_f32(qb[(size_t)row0 * d + i]) : 0.f;
-    gs[i] = in ? to_f32(gb[(size_t)row0 * d + i]) : 0.f;
-  }
-  __syncthreads();
-
-  const float* qw = qs + warp * kRowsPerWarp * d;
-  const float* gw = gs + warp * kRowsPerWarp * d;
-  const int wrow0 = row0 + warp * kRowsPerWarp;
-
-  // per row: the log-sum-exp and delta = sum_d g_d o_d
-  float lse_r[kRowsPerWarp], delta[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int gr = wrow0 + r;
-    float part = 0.f;
-    if (gr < n) {
-      for (int c = lane; c < d; c += 32) part += gw[r * d + c] * to_f32(ob[(size_t)gr * d + c]);
-    }
-    delta[r] = warp_sum(part);
-    lse_r[r] = gr < n ? lse[(size_t)bh * n + gr] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  }
-
-  const size_t part_base = ((size_t)bh * gridDim.y + tile) * m * d;
-
-  for (int c0 = 0; c0 < m; c0 += kChunk) {
-    __syncthreads();  // the previous chunk's dk/dv stage is done with dss, pds, kc, vc
-    for (int i = tid; i < kChunk * d; i += blockDim.x) {
-      const int r = i / d;
-      const int c = i - r * d;
-      const int gr = c0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (gr < m) {
-        kx = to_f32(kb[(size_t)gr * d + c]);
-        vx = to_f32(vb[(size_t)gr * d + c]);
-      }
-      kc[r * ks + c] = kx;
-      vc[r * ks + c] = vx;
-    }
-    __syncthreads();
-
-    // lane j owns key c0 + j: s = q k^T and dp = g v^T for the warp's 8 rows
-    const int col = c0 + lane;
-    const bool valid = col < m;
-    float s[kRowsPerWarp], dp[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      s[r] = 0.f;
-      dp[r] = 0.f;
-    }
-    const float* krow = kc + lane * ks;
-    const float* vrow = vc + lane * ks;
-#pragma unroll 2
-    for (int c = 0; c < d; ++c) {
-      const float kx = krow[c];
-      const float vx = vrow[c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        s[r] = fmaf(qw[r * d + c], kx, s[r]);
-        dp[r] = fmaf(gw[r * d + c], vx, dp[r]);
-      }
-    }
-
-    float ds[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int gr = wrow0 + r;
-      const float p = (valid && gr < n) ? expf(s[r] * scale - lse_r[r]) : 0.f;
-      float md = 1.f;
-      if (use_dropout) {
-        md = keep_element(seed, (uint32_t)bh, (uint32_t)gr, (uint32_t)col, threshold)
-                 ? keep_scale
-                 : 0.f;
-      }
-      ds[r] = p * (dp[r] * md - delta[r]);
-      const int row = warp * kRowsPerWarp + r;
-      dss[row * kPStride + lane] = ds[r];
-      pds[row * kPStride + lane] = p * md;
-    }
-
-    // dq[r][:] += sum_j ds_j k_j: lane holds columns lane + 32 * c
-    const int nvalid = min(kChunk, m - c0);
-    for (int j = 0; j < nvalid; ++j) {
-      float kx[DPL];
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int col_d = lane + 32 * c;
-        kx[c] = col_d < d ? kc[j * ks + col_d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float dsj = __shfl_sync(kFull, ds[r], j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(dsj, kx[c], acc[r][c]);
-      }
-    }
-    __syncthreads();  // the tile's ds and p md are in shared memory
-
-    // this tile's share of dk and dv for the chunk: the warp owns keys
-    // warp + 8 * i, the lane columns lane + 32 * c, summed over the 64 rows
-    float ak[kKeysPerWarp][DPL], av[kKeysPerWarp][DPL];
-#pragma unroll
-    for (int i = 0; i < kKeysPerWarp; ++i) {
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        ak[i][c] = 0.f;
-        av[i][c] = 0.f;
-      }
-    }
-    if (warp < nvalid) {  // a warp whose first key is past m owns none
-#pragma unroll 2
-      for (int r = 0; r < kBlockN; ++r) {
-        float qx[DPL], gx[DPL];
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int col_d = lane + 32 * c;
-          qx[c] = col_d < d ? qs[r * d + col_d] : 0.f;
-          gx[c] = col_d < d ? gs[r * d + col_d] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kKeysPerWarp; ++i) {
-          const float dsv = dss[r * kPStride + warp + kWarps * i];
-          const float pdv = pds[r * kPStride + warp + kWarps * i];
-#pragma unroll
-          for (int c = 0; c < DPL; ++c) {
-            ak[i][c] = fmaf(dsv, qx[c], ak[i][c]);
-            av[i][c] = fmaf(pdv, gx[c], av[i][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kKeysPerWarp; ++i) {
-        const int key = c0 + warp + kWarps * i;
-        if (key >= m) continue;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int col_d = lane + 32 * c;
-          if (col_d < d) {
-            dk_part[part_base + (size_t)key * d + col_d] = ak[i][c] * scale;
-            dv_part[part_base + (size_t)key * d + col_d] = av[i][c];
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int gr = wrow0 + r;
-    if (gr >= n) continue;
-    T* dqrow = dq + ((size_t)bh * n + gr) * d;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int col_d = lane + 32 * c;
-      if (col_d < d) store_as(dqrow + col_d, acc[r][c] * scale);
-    }
-  }
-}
 
 // dk[b][e] = sum over tiles t, in index order, of part[b][t][e]; e runs over M * D.
 template <typename T>
@@ -296,51 +113,6 @@ reduce_tiles_kernel(const float* __restrict__ dk_part, const float* __restrict__
   store_as(dv + idx, sv);
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* g, const float* lse, void* dq, void* dk, void* dv,
-                   float* dk_part, float* dv_part, int bh, int n, int m, int d,
-                   float scale, int use_dropout, uint32_t seed, const long long* seed_ptr,
-                   uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  auto kernel = cross_attention_bwd_kernel<T, DPL>;
-  const size_t smem = (size_t)(2 * kBlockN * d + 2 * kChunk * (d + 1) +
-                               2 * kBlockN * kPStride) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int tiles = (n + kBlockN - 1) / kBlockN;
-  const dim3 grid(bh, tiles);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(g), lse, static_cast<T*>(dq),
-      dk_part, dv_part, n, m, d, scale, use_dropout, seed, seed_ptr, threshold,
-      keep_scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t md = (size_t)m * d;
-  const size_t total = (size_t)bh * md;
-  reduce_tiles_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), tiles, md, total);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
-                       const void* g, const float* lse, void* dq, void* dk, void* dv,
-                       float* dk_part, float* dv_part, int bh, int n, int m, int d,
-                       float scale, int use_dropout, uint32_t seed,
-                       const long long* seed_ptr, uint32_t threshold, float keep_scale,
-                       cudaStream_t stream) {
-  switch ((d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-    default: return launch<T, 4>(q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, bh, n, m, d, scale, use_dropout, seed, seed_ptr, threshold, keep_scale, stream);
-  }
-}
-
 cudaError_t reduce_parts(int dtype, const float* dk_part, const float* dv_part, void* dk,
                          void* dv, int parts, int bh, int m, int d, cudaStream_t stream) {
   const size_t md = (size_t)m * d;
@@ -354,6 +126,357 @@ cudaError_t reduce_parts(int dtype, const float* dk_part, const float* dv_part, 
         dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), parts, md, total);
   }
   return cudaGetLastError();
+}
+
+// ---- f32_cuda -----------------------------------------------------------------
+
+constexpr int kBwdF32Rows = 64;         // query rows of a tile
+constexpr int kBwdF32MaxRange = 2048;   // query rows a block may own
+
+// Keys of a pass: their dk and dv sums are registers, 2 C KP / 16 a thread.
+__host__ __device__ constexpr int f32_bwd_keys(int dp) { return dp <= 80 ? 128 : 64; }
+
+// K and V of a pass, `qbuf` Q and g tiles each, the tile's ds and p md, and the
+// log-sum-exp and delta of each row of the block's range.
+__host__ __device__ constexpr int f32_bwd_bytes(int dp, int qbuf) {
+  return (2 * f32_bwd_keys(dp) * (dp + 4) + qbuf * 2 * kBwdF32Rows * (dp + 4) +
+          2 * kBwdF32Rows * (f32_bwd_keys(dp) + 4) + 2 * kBwdF32MaxRange) * 4;
+}
+
+// Two Q and g tiles each (the next tile's copy in flight) where they fit, else one.
+__host__ __device__ constexpr int f32_bwd_buffers(int dp) {
+  return f32_bwd_bytes(dp, 2) <= kMaxSmem ? 2 : 1;
+}
+
+inline int f32_bwd_smem(int dp) { return f32_bwd_bytes(dp, f32_bwd_buffers(dp)); }
+
+// row[cols] = x * mult (+ row[cols] where `add`), columns past d left alone.
+template <int DP>
+__device__ __forceinline__ void store_cols(float* row,
+                                           const float (&x)[4 * (DP / 64) + (DP % 64) / 16],
+                                           float mult, int tx, int d, bool vec, bool add) {
+  constexpr int G4 = DP / 64, G1 = (DP % 64) / 16;
+#pragma unroll
+  for (int g = 0; g < G4; ++g) {
+    const int col = 4 * tx + 64 * g;
+    if (vec && col < d) {  // d % 4 == 0: the piece is whole
+      float4 t = make_float4(x[4 * g] * mult, x[4 * g + 1] * mult, x[4 * g + 2] * mult,
+                             x[4 * g + 3] * mult);
+      if (add) {
+        const float4 old = *reinterpret_cast<const float4*>(row + col);
+        t.x += old.x;
+        t.y += old.y;
+        t.z += old.z;
+        t.w += old.w;
+      }
+      *reinterpret_cast<float4*>(row + col) = t;
+    } else if (!vec) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < d) row[col + e] = x[4 * g + e] * mult + (add ? row[col + e] : 0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < G1; ++u) {
+    const int col = 64 * G4 + tx + 16 * u;
+    if (col < d) row[col] = x[4 * G4 + u] * mult + (add ? row[col] : 0.f);
+  }
+}
+
+// DP: D padded (32, 48, 64, 80 or 128); KP = f32_bwd_keys(DP) keys a pass. A
+// block of 256 threads owns rows [split * rows_per_split, ...) of one head and
+// walks them once for each pass of KP keys, in tiles of 64 rows. Thread (ty, tx)
+// = (tid / 16, tid % 16):
+// - s = q k^T and dp = g v^T: rows ty + 16 r (r < 4) x keys tx + 16 i (i < KP / 16),
+//   register micro-tiles from float4 reads along D; p = 2^(s c2 - lse2) and
+//   ds = p (dp md - delta) go to shared memory once;
+// - dq = scale ds k: rows ty + 16 r x the thread's C columns, over the pass's keys,
+//   stored by the first pass and added to by the later ones (the same thread owns
+//   the same elements in every pass);
+// - dk += ds^T q and dv += (p md)^T g: keys 4 ty + 64 h + e (h < KP / 64, e < 4) x
+//   the thread's C columns, registers that persist over the block's whole range
+//   and leave as the block's one partial of the pass's keys.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ g_out, const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ dk_part,
+                         float* __restrict__ dv_part, int n, int m, int d, int rows_per_split,
+                         float scale, int use_dropout, uint32_t seed_value,
+                         const long long* __restrict__ seed_ptr, uint32_t threshold,
+                         float keep_scale, int vec_flag) {
+  constexpr int KP = f32_bwd_keys(DP);
+  constexpr int QB = f32_bwd_buffers(DP);
+  constexpr int R = kBwdF32Rows;
+  constexpr int LD = DP + 4;  // an odd number of float4s: neighbouring rows, distinct banks
+  constexpr int PLD = KP + 4;
+  constexpr int KT = KP / 16;  // keys a thread owns in s and dp
+  constexpr int KG = KP / 64;  // groups of four keys a thread owns in dk and dv
+  constexpr int G4 = DP / 64, G1 = (DP % 64) / 16, C = 4 * G4 + G1;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                   // [KP][LD]: K of the pass
+  float* vs = ks + KP * LD;          // [KP][LD]: V of the pass
+  float* qbuf = vs + KP * LD;        // [QB][R][LD]
+  float* gbuf = qbuf + QB * R * LD;  // [QB][R][LD]
+  float* dss = gbuf + QB * R * LD;   // [R][PLD]: ds of the tile
+  float* pms = dss + R * PLD;        // [R][PLD]: p md of the tile
+  float* rowl = pms + R * PLD;       // [kBwdF32MaxRange]: lse of the range's rows, log 2 units
+  float* rowd = rowl + kBwdF32MaxRange;  // [kBwdF32MaxRange]: their delta
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int range0 = blockIdx.y * rows_per_split;
+  const int range1 = min(n, range0 + rows_per_split);
+  const int tiles = (range1 - range0 + R - 1) / R;
+  const int total = (m + KP - 1) / KP * tiles;
+  const bool vec = vec_flag != 0;
+  const uint32_t seed = use_dropout ? resolve_seed(seed_value, seed_ptr) : 0u;
+  const float c2 = scale * kLog2e;  // scores in units of log 2
+  const float* qb = q + (size_t)bh * n * d;
+  const float* gb = g_out + (size_t)bh * n * d;
+  const float* ob = o + (size_t)bh * n * d;
+  const float* kb = k + (size_t)bh * m * d;
+  const float* vb = v + (size_t)bh * m * d;
+  const float* lb = lse + (size_t)bh * n;
+  float* dqb = dq + (size_t)bh * n * d;
+  const size_t part_base = ((size_t)bh * gridDim.y + blockIdx.y) * m * d;
+
+  float ak[4 * KG][C], av[4 * KG][C];  // the pass's dk and dv sums over the range
+  stage_f32<DP>(ks, kb, 0, KP, m, d, vec, tid);  // the first pass's keys; zero past m
+  stage_f32<DP>(vs, vb, 0, KP, m, d, vec, tid);
+  stage_f32<DP>(qbuf, qb, range0, R, n, d, vec, tid);  // rows past n: zero
+  stage_f32<DP>(gbuf, gb, range0, R, n, d, vec, tid);
+  cp_async_commit();
+  // Meanwhile each row of the range: its log-sum-exp in units of log 2, and delta =
+  // sum_d g_d o_d from the saved output, a half warp a row, once for every pass.
+#pragma unroll 4
+  for (int base = 0; base < range1 - range0; base += kF32Threads / 16) {
+    const int lr = base + ty;  // whole warps go round together: the sum shuffles
+    const float* grow = gb + (size_t)(range0 + lr) * d;
+    const float* orow = ob + (size_t)(range0 + lr) * d;
+    const bool in = lr < range1 - range0;
+    float part = 0.f;
+    if (in && vec) {
+      for (int c = 4 * tx; c < d; c += 64) {
+        const float4 gv = __ldg(reinterpret_cast<const float4*>(grow + c));
+        const float4 ov = __ldg(reinterpret_cast<const float4*>(orow + c));
+        part = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, fmaf(gv.z, ov.z, fmaf(gv.w, ov.w, part))));
+      }
+    } else if (in) {
+      for (int c = tx; c < d; c += 16) part = fmaf(__ldg(grow + c), __ldg(orow + c), part);
+    }
+    part = half_warp_sum(part);
+    if (tx == 0 && in) {
+      rowd[lr] = part;
+      rowl[lr] = lb[range0 + lr] * kLog2e;
+    }
+  }
+  for (int it = 0; it < total; ++it) {
+    const int pass = it / tiles;
+    const int tile = it - pass * tiles;
+    const int kp = pass * KP;
+    const int row0 = range0 + tile * R;
+    const float* qs = qbuf + (QB == 2 ? (it & 1) : 0) * R * LD;
+    const float* gs = gbuf + (QB == 2 ? (it & 1) : 0) * R * LD;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's Q and g have landed; every thread is done with the last
+    if (tile == 0) {  // a new pass: fresh dk, dv sums, and after the first its K and V
+      if (pass > 0) {
+        stage_f32<DP>(ks, kb, kp, KP, m, d, vec, tid);
+        stage_f32<DP>(vs, vb, kp, KP, m, d, vec, tid);
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * KG; ++i) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          ak[i][c] = 0.f;
+          av[i][c] = 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+    if (QB == 2 && it + 1 < total) {  // the next tile's copy, in flight during this one
+      const int nt = (it + 1) % tiles;
+      stage_f32<DP>(qbuf + ((it + 1) & 1) * R * LD, qb, range0 + nt * R, R, n, d, vec, tid);
+      stage_f32<DP>(gbuf + ((it + 1) & 1) * R * LD, gb, range0 + nt * R, R, n, d, vec, tid);
+    }
+    cp_async_commit();
+    if (tile == 0 && pass > 0) {
+      cp_async_wait<1>();  // K and V have landed (the next tile's copy may not have)
+      __syncthreads();
+    }
+
+    // s = q k^T and dp = g v^T for the thread's 4 rows x KT keys
+    {
+      float s[4][KT], dp[4][KT];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+          s[r][i] = 0.f;
+          dp[r][i] = 0.f;
+        }
+      }
+#pragma unroll 2
+      for (int c = 0; c < DP; c += 4) {
+        float4 qv[4], gv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          qv[r] = *reinterpret_cast<const float4*>(qs + (ty + 16 * r) * LD + c);
+          gv[r] = *reinterpret_cast<const float4*>(gs + (ty + 16 * r) * LD + c);
+        }
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * LD + c);
+          const float4 vv = *reinterpret_cast<const float4*>(vs + (tx + 16 * i) * LD + c);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            s[r][i] = fmaf(qv[r].x, kv.x, fmaf(qv[r].y, kv.y,
+                      fmaf(qv[r].z, kv.z, fmaf(qv[r].w, kv.w, s[r][i]))));
+            dp[r][i] = fmaf(gv[r].x, vv.x, fmaf(gv[r].y, vv.y,
+                       fmaf(gv[r].z, vv.z, fmaf(gv[r].w, vv.w, dp[r][i]))));
+          }
+        }
+      }
+      // p from the forward's log-sum-exp; keys past m and rows past n take p = 0
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int lrow = ty + 16 * r;
+        const int row = row0 + lrow;
+        const float lse2 = row < n ? rowl[row - range0] : 0.f;
+        const float delta = row < n ? rowd[row - range0] : 0.f;
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+          const int key_l = tx + 16 * i;
+          const int key = kp + key_l;
+          const bool valid = row < n && key < m;
+          const float p = valid ? fast_exp2(fmaf(s[r][i], c2, -lse2)) : 0.f;
+          float md = 1.f;
+          if (use_dropout) {
+            md = keep_element(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)key, threshold)
+                     ? keep_scale
+                     : 0.f;
+          }
+          dss[lrow * PLD + key_l] = p * (dp[r][i] * md - delta);
+          pms[lrow * PLD + key_l] = p * md;
+        }
+      }
+    }
+    __syncthreads();  // the tile's ds and p md are in shared memory
+
+    // dq = scale ds k over the pass's keys (ds = 0 and k = 0 past m)
+    {
+      float acc[4][C];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+      }
+      const int keys = min(KP, (m - kp + 3) / 4 * 4);
+      for (int j = 0; j < keys; j += 4) {
+        float4 pv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pv[r] = *reinterpret_cast<const float4*>(dss + (ty + 16 * r) * PLD + j);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float kx[C];
+          load_cols<DP>(kx, ks + (j + jj) * LD, tx);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float p = lane_of(pv[r], jj);
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[r][c] = fmaf(p, kx[c], acc[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = row0 + ty + 16 * r;
+        if (row < n) store_cols<DP>(dqb + (size_t)row * d, acc[r], scale, tx, d, vec, pass > 0);
+      }
+    }
+
+    // dk += ds^T q and dv += (p md)^T g over the tile's rows
+    const int rows = min(R, n - row0);
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      float qx[C], gx[C];
+      load_cols<DP>(qx, qs + r * LD, tx);
+      load_cols<DP>(gx, gs + r * LD, tx);
+#pragma unroll
+      for (int h = 0; h < KG; ++h) {
+        const float4 dsv = *reinterpret_cast<const float4*>(dss + r * PLD + 4 * ty + 64 * h);
+        const float4 pmv = *reinterpret_cast<const float4*>(pms + r * PLD + 4 * ty + 64 * h);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a = lane_of(dsv, e), b = lane_of(pmv, e);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            ak[4 * h + e][c] = fmaf(a, qx[c], ak[4 * h + e][c]);
+            av[4 * h + e][c] = fmaf(b, gx[c], av[4 * h + e][c]);
+          }
+        }
+      }
+    }
+
+    if (tile == tiles - 1) {  // the range is done: the block's partial of the pass's keys
+#pragma unroll
+      for (int h = 0; h < KG; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kp + 4 * ty + 64 * h + e;
+          if (key < m) {
+            store_cols<DP>(dk_part + part_base + (size_t)key * d, ak[4 * h + e], scale, tx, d,
+                           vec, false);
+            store_cols<DP>(dv_part + part_base + (size_t)key * d, av[4 * h + e], 1.f, tx, d,
+                           vec, false);
+          }
+        }
+      }
+    }
+    if (QB == 1 && it + 1 < total) {  // one buffer: the next tile's copy waits for this one
+      const int nt = (it + 1) % tiles;
+      __syncthreads();
+      stage_f32<DP>(qbuf, qb, range0 + nt * R, R, n, d, vec, tid);
+      stage_f32<DP>(gbuf, gb, range0 + nt * R, R, n, d, vec, tid);
+      cp_async_commit();
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* o,
+                       const void* g, const float* lse, void* dq, void* dk, void* dv,
+                       float* dk_part, float* dv_part, int parts, int bh, int n, int m, int d,
+                       int rows_per_split, int smem_bytes, float scale, int use_dropout,
+                       uint32_t seed, const long long* seed_ptr, uint32_t threshold,
+                       float keep_scale, cudaStream_t stream) {
+  if (rows_per_split < 1 || rows_per_split % kBwdF32Rows != 0 ||
+      rows_per_split > kBwdF32MaxRange) {
+    return cudaErrorInvalidValue;
+  }
+  const int splits = (n + rows_per_split - 1) / rows_per_split;
+  const int smem = f32_bwd_smem(DP);
+  if (smem != smem_bytes || parts != splits || splits > 65535) return cudaErrorInvalidValue;
+  auto kernel = attention_bwd_f32_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
+                  aligned16(g) && aligned16(dq) && aligned16(dk_part) && aligned16(dv_part);
+  kernel<<<dim3(bh, splits), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(g), lse, static_cast<float*>(dq),
+      dk_part, dv_part, n, m, d, rows_per_split, scale, use_dropout, seed, seed_ptr, threshold,
+      keep_scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(0, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
 }
 
 // ---- mma_bf16 ---------------------------------------------------------------
@@ -917,14 +1040,17 @@ extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void
 #define STCD_BWD_ARGS q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part
 #define STCD_BWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s
   if (variant == kVariantF32) {
-    const size_t smem = (size_t)(2 * kBlockN * d + 2 * kChunk * (d + 1) +
-                                 2 * kBlockN * kPStride) * sizeof(float);
-    if (dtype != 0 || rows_per_split != kBlockN || parts != (n + kBlockN - 1) / kBlockN ||
-        parts > 65535 ||
-        (size_t)smem_bytes != smem) {
-      return (int)cudaErrorInvalidValue;
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define STCD_F32(DP)                                                                        \
+  launch_f32<DP>(STCD_BWD_ARGS, parts, bh, n, m, d, rows_per_split, smem_bytes, STCD_BWD_TAIL)
+    switch (f32_dpad(d)) {
+      case 32: err = STCD_F32(32); break;
+      case 48: err = STCD_F32(48); break;
+      case 64: err = STCD_F32(64); break;
+      case 80: err = STCD_F32(80); break;
+      default: err = STCD_F32(128); break;
     }
-    err = dispatch_d<float>(STCD_BWD_ARGS, bh, n, m, d, STCD_BWD_TAIL);
+#undef STCD_F32
   } else if (variant == kVariantMma) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
 #define STCD_MMA(KSTEPS, KM)                                                            \

@@ -43,9 +43,16 @@
 #include <limits.h>
 #include <stdint.h>
 
-// the wmma route, matmul_stats.cu
+// the wmma routes and the fixed-order sum of the partials, matmul_stats.cu
 extern "C" int stcd_matmul_bf16_tiles(const void* x, const void* w, void* y, long long m, int k,
                                       int n, int device, void* stream);
+extern "C" int stcd_matmul_stats_mma_tiles(const void* x, const void* w, void* y,
+                                           float* part_sum, float* part_sq, float* out_sum,
+                                           float* out_sq, long long m, int k, int n,
+                                           long long m_tiles, int device, void* stream);
+extern "C" int stcd_matmul_stats_sum_parts(const float* part_sum, const float* part_sq,
+                                           float* out_sum, float* out_sq, long long rows, int n,
+                                           void* stream);
 
 namespace {
 
@@ -57,6 +64,14 @@ constexpr int kDepth = 64;        // columns of x in a chunk: 128 bytes, the swi
 constexpr int kStageBytes = kRows * kDepth * 2;
 constexpr int kMaxStages = 8;
 constexpr int kThreads = 288;  // warps 0-7: two consumer warpgroups; warp 8: the producer
+// With the sums the producer is a warpgroup of its own (warps 8-11, one thread
+// issues the loads), so that setmaxnreg can move its registers to the consumers:
+// 384 threads launch at 168 registers; the producer drops to 40 and each consumer
+// rises to 232, which holds the accumulator, the sums and their transposes.
+constexpr int kStatsThreads = 384;
+__host__ __device__ constexpr int block_threads(bool stats) {
+  return stats ? kStatsThreads : kThreads;
+}
 constexpr int kBoxBytes = 64 * 64 * 2;  // a y box: 64 rows x 64 columns (128 bytes)
 
 // y boxes a consumer warpgroup cycles through: one is filled while the TMA
@@ -75,7 +90,11 @@ struct Plan {
   int route, pass_cols, passes_per_group, groups, stages, blocks_x, smem;
 };
 
-Plan plan_for(long long m, int k, int n, bool aligned) {
+// The stats epilogue keeps the column sums of at most this many passes in registers.
+constexpr int kStatsPasses = 2;
+
+// max_npg: the most passes a group may hold (kStatsPasses with the sums, else no cap).
+Plan plan_for(long long m, int k, int n, bool aligned, int max_npg) {
   const long long m_tiles = (m + kRows - 1) / kRows;
   const Plan wmma = {kRouteWmma, 0, 0, 1, 0, (int)(m_tiles < INT_MAX ? m_tiles : INT_MAX), 0};
   // TMA: 16-byte aligned bases, row strides of whole 16 bytes, a box inside the tensor
@@ -87,7 +106,7 @@ Plan plan_for(long long m, int k, int n, bool aligned) {
   for (int bn = n <= 64 ? 64 : n <= 128 ? 128 : 256; bn >= 64; bn /= 2) {
     const int passes = (n + bn - 1) / bn;
     const long long pass_bytes = (long long)bn * chunks * kDepth * 2;  // w^T of one pass
-    for (int npg = passes; npg >= 1; --npg) {
+    for (int npg = passes < max_npg ? passes : max_npg; npg >= 1; --npg) {
       // several passes share a tile's chunks, so the ring must hold all of them
       const int min_stages = npg > 1 ? (chunks > 2 ? chunks : 2) : 2;
       const long long room = kMaxSmem - overhead_bytes(bn) - npg * pass_bytes;
@@ -279,6 +298,69 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
+// The tf32 part of an f32: its top 19 bits (sign, exponent and 10 of the 23
+// mantissa bits), by one integer instruction where cvt.rna.tf32.f32 takes the
+// conversion unit.
+__device__ __forceinline__ uint32_t tf32_bits(float x) { return __float_as_uint(x) & 0xffffe000u; }
+
+// d (16 x 8 f32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col). With g = lane >> 2
+// and q = lane & 3: a0 = (g, q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4);
+// b0 = (q, g), b1 = (q + 4, g); d0, d1 = (g, 2q), (g, 2q + 1); d2, d3 = (g + 8, ...).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%8}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b));
+}
+
+// The column sums of one 64-column slice of a warp's 16 x BN accumulator (lane (g,
+// q) holds columns 8 j + 2 q, + 1 of rows g and g + 8) and of its square, formed on
+// the tensor cores: t (16 x 8) += A_j . B_j for the slice's blocks j of 8 columns.
+// A_j is the block transposed: rows 0-7 its eight columns, rows 8-15 their squares,
+// k its rows. Two shuffles a row half move it there: lane (g, q) reads column g of
+// rows q + 4 (g & 1) and q + 4 (~g & 1) from lanes (q + 4 (g & 1), g / 2) and (q + 4
+// (~g & 1), g / 2), each of which sends element g >> 2, resp. its complement, of its
+// pair: every lane sends one value a shuffle and every value is read once. B_j
+// selects output column j (ones in column j, zeros elsewhere), so the eight blocks
+// of the slice land in the eight columns of t: lane (g, q) ends with the sums of
+// slice columns 16 q + g and 16 q + 8 + g (t[.][0], t[.][1]) over the warp's 16
+// rows, and of their squares (t[.][2], t[.][3]). Each value goes in as three tf32 parts, hi = tf32(v), mid =
+// tf32(v - hi), lo = v - hi - mid (tf32: truncated to 11 significant bits), whose
+// sum is v exactly (v - hi has at most 13 significant bits, lo at most 2): the
+// products are exact and only the additions round. Each part has its own fragment
+// t[part], so that three chains of products are in flight, not one.
+template <int BN>
+__device__ __forceinline__ void slice_sums(float (&t)[3][4], const float (&acc)[BN / 2], int sl,
+                                           int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int src0 = 4 * (q + 4 * (g & 1)) + (g >> 1);
+  const int src1 = 4 * (q + 4 * ((g & 1) ^ 1)) + (g >> 1);
+  const bool odd = (g >> 2) != 0;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = sl * 8 + jj;
+    const uint32_t b = g == jj ? 0x3f800000u : 0u;  // 1.0 or 0.0, exact in tf32
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float x0 = acc[4 * j + 2 * half], x1 = acc[4 * j + 2 * half + 1];
+      const float v0 = __shfl_sync(0xffffffffu, odd ? x1 : x0, src0);
+      const float v1 = __shfl_sync(0xffffffffu, odd ? x0 : x1, src1);
+      float r[4] = {v0, v0 * v0, v1, v1 * v1};
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        uint32_t a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = part < 2 ? tf32_bits(r[e]) : __float_as_uint(r[e]);  // lo is a tf32 value
+          if (part < 2) r[e] -= __uint_as_float(a[e]);
+        }
+        mma_tf32(t[part], a, b);
+      }
+    }
+  }
+}
+
 // The barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
@@ -286,12 +368,19 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 
 // BN: output columns of a pass (64, 128 or 256). Grid: (blocks_x, groups); the
 // block of group g owns passes [g * passes_per_group, ...) of N and walks M
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... STATS: the epilogue also sums
+// the f32 accumulator and its square over the rows: each warp over its 16 rows on
+// the tensor cores (slice_sums), the four warps of a warpgroup in warp order
+// through its y boxes, the tiles into registers in tile order (at most
+// kStatsPasses passes a group), and at the end the two warpgroups; the block
+// leaves its sums as row blockIdx.x of part_sum and part_sq (blocks_x, n). y is
+// the same with and without them, bit for bit.
+template <int BN, bool STATS>
+__global__ void __launch_bounds__(block_threads(STATS), 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap y_map, const bf16* __restrict__ w,
-                    long long m, int k, int n, int passes_per_group, int stages) {
+                    long long m, int k, int n, int passes_per_group, int stages,
+                    float* __restrict__ part_sum, float* __restrict__ part_sq) {
   constexpr int kTile = BN * kDepth * 2;  // bytes of w^T for one pass and one chunk
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on such a boundary
@@ -321,8 +410,9 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer: one thread keeps the ring full from the start
-    if (lane == 0) {
+  if (warp >= 8) {  // the producer: one thread keeps the ring full from the start
+    if constexpr (STATS) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
       int slot = 0;
       uint32_t phase = 0;
       for (long long t = blockIdx.x; t < m_tiles; t += gridDim.x) {
@@ -340,6 +430,8 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
     return;
   }
+
+  if constexpr (STATS) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
   // Meanwhile the consumers stage w^T of the block's passes, K-major: row nn of
   // the tile (pass, chunk) holds w[chunk * 64 .. + 64][(pass0 + pass) * BN + nn],
@@ -393,6 +485,16 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // With the sums: thread i of a warpgroup keeps, for each pass and 64-column slice,
+  // the warpgroup's running sum of value i of the slice (i < 64: column i; i >= 64:
+  // the square of column i - 64) over the tiles it walks.
+  constexpr int kSumPasses = STATS ? kStatsPasses : 1;
+  float sums[kSumPasses][BN / 64];
+#pragma unroll
+  for (int pp = 0; pp < kSumPasses; ++pp) {
+#pragma unroll
+    for (int sl = 0; sl < BN / 64; ++sl) sums[pp][sl] = 0.f;
+  }
   int slot = 0;
   uint32_t phase = 0;
   for (long long t = blockIdx.x; t < m_tiles; t += gridDim.x) {
@@ -465,9 +567,63 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
+      if constexpr (STATS) {
+        // The warps' sums of their 16 rows go through the warpgroup's y boxes, which the
+        // TMA has done reading (the next tile's epilogue waits at its barrier for the
+        // reads below): [slice][warp of the warpgroup][128 values], 2 KB a slice.
+        float* sc = reinterpret_cast<float*>(boxes);
+        if (signals) bulk_wait_read<0>();
+        warpgroup_sync(wg);
+#pragma unroll
+        for (int sl = 0; sl < BN / 64; ++sl) {
+          float t[3][4] = {};
+          slice_sums<BN>(t, acc, sl, lane);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[(sl * 4 + (warp & 3)) * 128 + (e >> 1) * 64 + 16 * q + 8 * (e & 1) + g] =
+                (t[0][e] + t[1][e]) + t[2][e];
+          }
+        }
+        warpgroup_sync(wg);
+        const int i = tid & 127;
+#pragma unroll
+        for (int sl = 0; sl < BN / 64; ++sl) {
+          const float* v = sc + sl * 4 * 128 + i;
+          const float tile_sum = ((v[0] + v[128]) + v[256]) + v[384];  // in warp order
+#pragma unroll
+          for (int pp = 0; pp < kSumPasses; ++pp) {  // the pass by static indices: registers
+            if (pp == p) sums[pp][sl] += tile_sum;
+          }
+        }
+      }
     }
   }
   if (signals) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if constexpr (STATS) {
+    // The block's sums: the two warpgroups' go to shared memory over the ring (no
+    // load is left in flight once both are past their last tile), [warpgroup][sum,
+    // square][cols], at most 8 KB, and each column is added over the two in order.
+    const int cols = npass * BN;
+    float* red = reinterpret_cast<float*>(xs);
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    const int i = tid & 127;
+#pragma unroll
+    for (int pp = 0; pp < kSumPasses; ++pp) {
+      if (pp < npass) {
+#pragma unroll
+        for (int sl = 0; sl < BN / 64; ++sl) {
+          red[(2 * wg + (i >> 6)) * cols + pp * BN + sl * 64 + (i & 63)] = sums[pp][sl];
+        }
+      }
+    }
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    for (int col = tid; col < cols; col += 256) {
+      const int gc = pass0 * BN + col;
+      if (gc >= n) continue;
+      part_sum[(size_t)blockIdx.x * n + gc] = red[col] + red[2 * cols + col];
+      part_sq[(size_t)blockIdx.x * n + gc] = red[cols + col] + red[3 * cols + col];
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -489,9 +645,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int BN>
+template <int BN, bool STATS>
 cudaError_t launch_wgmma(const Plan& plan, const void* x, const void* w, void* y, long long m,
-                         int k, int n, cudaStream_t stream) {
+                         int k, int n, float* part_sum, float* part_sq, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   // x in boxes of 128 rows x 64 columns, y in boxes of 64 x 64; both in the 128-byte
@@ -514,17 +670,37 @@ cudaError_t launch_wgmma(const Plan& plan, const void* x, const void* w, void* y
           CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = matmul_wgmma_kernel<BN>;
+  auto kernel = matmul_wgmma_kernel<BN, STATS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(plan.blocks_x, plan.groups), kThreads, plan.smem, stream>>>(
+  kernel<<<dim3(plan.blocks_x, plan.groups), block_threads(STATS), plan.smem, stream>>>(
       x_map, y_map, static_cast<const bf16*>(w), m, k, n,
-      plan.passes_per_group, plan.stages);
+      plan.passes_per_group, plan.stages, part_sum, part_sq);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Checks a plan from the wrapper against plan_for's for these shapes and pointers.
+bool same_plan(const Plan& plan, int route, int pass_cols, int passes_per_group, int stages,
+               int blocks_x, int smem_bytes) {
+  return route == plan.route && pass_cols == plan.pass_cols &&
+         passes_per_group == plan.passes_per_group && stages == plan.stages &&
+         blocks_x == plan.blocks_x && smem_bytes == plan.smem;
+}
+
+template <bool STATS>
+cudaError_t run_wgmma(const Plan& plan, const void* x, const void* w, void* y, long long m, int k,
+                      int n, float* part_sum, float* part_sq, int device, cudaStream_t s) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (plan.pass_cols) {
+    case 64: return launch_wgmma<64, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+    case 128: return launch_wgmma<128, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+    default: return launch_wgmma<256, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+  }
+}
 
 }  // namespace
 
@@ -538,19 +714,40 @@ extern "C" int stcd_matmul_bf16(const void* x, const void* w, void* y, long long
                                 int stages, int blocks_x, int smem_bytes, int device,
                                 void* stream) {
   if (m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const Plan plan = plan_for(m, k, n, aligned16(x) && aligned16(w) && aligned16(y));
-  if (route != plan.route || pass_cols != plan.pass_cols ||
-      passes_per_group != plan.passes_per_group || stages != plan.stages ||
-      blocks_x != plan.blocks_x || smem_bytes != plan.smem) {
+  const Plan plan = plan_for(m, k, n, aligned16(x) && aligned16(w) && aligned16(y), INT_MAX);
+  if (!same_plan(plan, route, pass_cols, passes_per_group, stages, blocks_x, smem_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   if (plan.route == kRouteWmma) return stcd_matmul_bf16_tiles(x, w, y, m, k, n, device, stream);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (plan.pass_cols) {
-    case 64: return (int)launch_wgmma<64>(plan, x, w, y, m, k, n, s);
-    case 128: return (int)launch_wgmma<128>(plan, x, w, y, m, k, n, s);
-    default: return (int)launch_wgmma<256>(plan, x, w, y, m, k, n, s);
+  return (int)run_wgmma<false>(plan, x, w, y, m, k, n, nullptr, nullptr, device,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The product with the column sums of its f32 accumulator and of its square,
+// formed on the tensor cores: out_sum, out_sq f32[n]. The plan is matmul_plan's
+// with stats=True (at most kStatsPasses passes a group). part_sum, part_sq: f32
+// scratch of (part_rows, n), part_rows = blocks_x on the wgmma route (one partial
+// per persistent block), ceil(m / 128) on the wmma route (one per M tile); a
+// second launch adds them in index order. Returns a cudaError_t.
+extern "C" int stcd_matmul_stats_mma(const void* x, const void* w, void* y, float* part_sum,
+                                     float* part_sq, float* out_sum, float* out_sq, long long m,
+                                     int k, int n, int route, int pass_cols,
+                                     int passes_per_group, int stages, int blocks_x,
+                                     int smem_bytes, long long part_rows, int device,
+                                     void* stream) {
+  if (m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const Plan plan =
+      plan_for(m, k, n, aligned16(x) && aligned16(w) && aligned16(y), kStatsPasses);
+  if (!same_plan(plan, route, pass_cols, passes_per_group, stages, blocks_x, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (plan.route == kRouteWmma) {
+    return stcd_matmul_stats_mma_tiles(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n,
+                                       part_rows, device, stream);
+  }
+  if (part_rows != plan.blocks_x) return (int)cudaErrorInvalidValue;
+  cudaError_t err = run_wgmma<true>(plan, x, w, y, m, k, n, part_sum, part_sq, device,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return stcd_matmul_stats_sum_parts(part_sum, part_sq, out_sum, out_sq, part_rows, n, stream);
 }

@@ -16,9 +16,11 @@
 //                           each (M tile, N tile)
 //   stcd_matmul_stats_rows  benchmarks/bench_bnstats_diag.py::_fused1d_kernel
 //                           (pallas_1d): a block owns 128 rows across all N
-//   stcd_matmul_stats_mma   benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
+//   stcd_matmul_stats_mma_tiles  benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
 //                           (pallas_mxu_stats): as _rows, the two column sums
-//                           formed on the tensor cores (ones . acc, ones . acc^2)
+//                           formed on the tensor cores (ones . acc, ones . acc^2),
+//                           for the shapes that the wgmma route of
+//                           matmul_hopper.cu (stcd_matmul_stats_mma) cannot take
 //
 // One device function, tile_product, serves all four: it computes a 128 x 64
 // output tile with nvcuda::wmma on bf16 fragments (8 warps, 32 x 32 each, K in
@@ -368,10 +370,24 @@ extern "C" int stcd_matmul_stats_rows(const void* x, const void* w, void* y, flo
                          device, stream);
 }
 
-extern "C" int stcd_matmul_stats_mma(const void* x, const void* w, void* y, float* part_sum,
-                                     float* part_sq, float* out_sum, float* out_sq, long long m,
-                                     int k, int n, long long m_tiles, int device,
-                                     void* stream) {
+// The sums on the tensor cores on this tile: the route of stcd_matmul_stats_mma
+// (matmul_hopper.cu) for the shapes that TMA cannot describe.
+extern "C" int stcd_matmul_stats_mma_tiles(const void* x, const void* w, void* y,
+                                           float* part_sum, float* part_sq, float* out_sum,
+                                           float* out_sq, long long m, int k, int n,
+                                           long long m_tiles, int device, void* stream) {
   return run<kTensorCores>(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n, m_tiles, true,
                            device, stream);
+}
+
+// out_sum[c] = sum of part_sum[r][c] over r = 0 .. rows - 1 in index order (and
+// out_sq of part_sq): the second launch of stcd_matmul_stats_mma's wgmma route.
+extern "C" int stcd_matmul_stats_sum_parts(const float* part_sum, const float* part_sq,
+                                           float* out_sum, float* out_sq, long long rows, int n,
+                                           void* stream) {
+  const int warps_per_block = kThreads / 32;
+  matmul_stats_final_kernel<<<(n + warps_per_block - 1) / warps_per_block, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(part_sum, part_sq, out_sum,
+                                                                   out_sq, rows, n);
+  return (int)cudaGetLastError();
 }

@@ -24,8 +24,10 @@ accumulator before it is rounded. Each dispatches on the tensors' device:
   chosen from the shapes and pointers by ``matmul_plan``: ``wgmma_tma``
   (``csrc/matmul_hopper.cu``: persistent blocks, w resident in shared memory,
   x streamed once by TMA into a ring, ``wgmma`` products) wherever TMA can
-  describe x and y, else ``wmma`` (the tile of ``csrc/matmul_stats.cu``, which the
-  three functions with sums use at every shape);
+  describe x and y, else ``wmma`` (the tile of ``csrc/matmul_stats.cu``, which
+  ``matmul_stats`` and ``matmul_stats_rows`` use at every shape);
+  ``matmul_stats_mma`` takes the same two routes, its ``wgmma_tma`` the same
+  kernel with the column sums formed on the tensor cores in its epilogue;
 - CPU tensors go to the plain PyTorch versions (``*_plain``).
 
 The JAX functions' ``bm``, ``bn`` and ``pipeline`` are TPU tile arguments and
@@ -62,6 +64,7 @@ _X_ROWS, _X_DEPTH = 128, 64     # an x chunk: 128 rows of 64 bf16 (128 bytes, th
 _STAGE_BYTES = _X_ROWS * _X_DEPTH * 2
 _MAX_STAGES = 8
 _INT_MAX = 2 ** 31 - 1
+STATS_PASSES = 2                # kStatsPasses: passes a group holds with the sums
 
 
 def _overhead_bytes(bn: int) -> int:
@@ -71,9 +74,13 @@ def _overhead_bytes(bn: int) -> int:
     return 1024 + 2 * _MAX_STAGES * 8 + 2 * min(bn // 64, 2) * 64 * 64 * 2
 
 
-def matmul_plan(m: int, k: int, n: int, aligned: bool) -> dict:
-    """The route and launch geometry of ``matmul_bf16`` for x (m, k) . w (k,
-    n); ``aligned``: x, w and y start on 16-byte boundaries.
+def matmul_plan(m: int, k: int, n: int, aligned: bool, stats: bool = False) -> dict:
+    """The route and launch geometry of ``matmul_bf16`` (``stats=False``) or
+    ``matmul_stats_mma`` (``stats=True``) for x (m, k) . w (k, n);
+    ``aligned``: x, w and y start on 16-byte boundaries. The two share the
+    kernel and its rules; with the sums a group holds at most
+    ``STATS_PASSES`` passes (their sums are registers), and the block's sums
+    go through the ring's shared memory at the end, so they ask for no more.
 
     ``wgmma_tma`` wherever TMA can describe x and y: aligned, rows of whole 16
     bytes (K and N multiples of 8), and the boxes inside the tensors (M >= 128,
@@ -82,8 +89,9 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool) -> dict:
     keep their w (K padded to 64) in shared memory beside a ring of
     ``stages`` x chunks of 16 KB; ``groups`` > 1 only where all of w does not
     fit, and then x is read once for each group. ``blocks_x`` persistent
-    blocks a group, at most 132 blocks in all. Else ``wmma``: one block for
-    each 128-row tile."""
+    blocks a group, at most 132 blocks in all; with the sums each block
+    leaves one partial, row ``blockIdx.x`` of a (blocks_x, n) scratch. Else
+    ``wmma``: one block for each 128-row tile (and one partial each)."""
     if min(m, k, n) < 1:
         raise ValueError(f"matmul_plan takes m, k, n >= 1, got {(m, k, n)}")
     m_tiles = -(-m // _X_ROWS)
@@ -97,7 +105,7 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool) -> dict:
     while bn >= 64:
         passes = -(-n // bn)
         pass_bytes = bn * chunks * _X_DEPTH * 2
-        for npg in range(passes, 0, -1):
+        for npg in range(min(passes, STATS_PASSES) if stats else passes, 0, -1):
             # several passes share a tile's chunks, so the ring must hold all of them
             min_stages = max(2, chunks) if npg > 1 else 2
             room = MAX_SMEM_BYTES - _overhead_bytes(bn) - npg * pass_bytes
@@ -176,6 +184,18 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: 
         matmul_bf16_kernel.routes[plan["route"]] += 1
         return y
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    if entry == "stcd_matmul_stats_mma":
+        plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)), stats=True)
+        rows = plan["blocks_x"] if plan["route"] == "wgmma_tma" else m_tiles
+        part = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
+        err = lib.stcd_matmul_stats_mma(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), m, k, n, ROUTES.index(plan["route"]),
+            plan["pass_cols"], plan["passes_per_group"], plan["stages"], plan["blocks_x"],
+            plan["smem_bytes"], rows, *tail)
+        _build.check(lib, err, f"{entry} ({plan['route']})")
+        matmul_stats_mma_kernel.routes[plan["route"]] += 1
+        return y, out[0], out[1]
     part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
     err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
                               part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
@@ -209,7 +229,11 @@ def matmul_stats_rows_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
 
 
 def matmul_stats_mma_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
-    """Launch the product with the sums formed on the tensor cores."""
+    """Launch the product with the sums formed on the tensor cores, on the
+    route ``matmul_plan(..., stats=True)`` picks: ``wgmma_tma`` runs
+    ``matmul_bf16``'s kernel with the sums in its epilogue (y bit-equal to
+    ``matmul_bf16``'s there), ``wmma`` the tile of ``matmul_stats.cu``.
+    ``kernel_launches`` counts the calls and ``routes`` counts them by route."""
     out = _launch("stcd_matmul_stats_mma", x, w, stats=True, grid_2d=False)
     matmul_stats_mma_kernel.kernel_launches += 1
     return out
@@ -219,6 +243,7 @@ for _kernel in (matmul_bf16_kernel, matmul_stats_kernel, matmul_stats_rows_kerne
                 matmul_stats_mma_kernel):
     _kernel.kernel_launches = 0
 matmul_bf16_kernel.routes = collections.Counter()
+matmul_stats_mma_kernel.routes = collections.Counter()
 
 
 def _dispatch(kernel, plain, x, w, impl):

@@ -1,6 +1,7 @@
-"""Times ``matmul_bf16`` and the float32 attention kernels of a checkout on
-one CUDA card, beside one PyTorch call for the same function and the bound,
-so that two checkouts can be compared in one run on one card.
+"""Times ``matmul_bf16``, ``matmul_stats_mma`` and the float32 attention
+kernels of a checkout on one CUDA card, beside one PyTorch call for the same
+function and the bound, so that two checkouts can be compared in one run on
+one card.
 
 Usage, on a machine with a CUDA card:
 
@@ -16,9 +17,11 @@ What it times, every kernel as the median of 20 replays of a CUDA graph of
 one call (a kernel of tens of microseconds is then not timed by the host's
 pace of launching it), an autograd backward as profiler device time:
 
-- ``matmul_bf16`` at the three shapes of ``tools/bench_bnstats_diag.py``,
-  beside ``torch.matmul``; bound: x, w read and y written once at 3.35 TB/s,
-  or 2 M K N operations at 989 TFLOP/s;
+- ``matmul_bf16`` and ``matmul_stats_mma`` (the product with the column sums
+  of its f32 accumulator and of its square) at the three shapes of
+  ``tools/bench_bnstats_diag.py``, beside ``torch.matmul``; bound: x, w read
+  and y (and the two f32[N] sums) written once at 3.35 TB/s, or 2 M K N
+  operations at 989 TFLOP/s;
 - the float32 attention forward at the four SRA shapes of a serving batch
   (16 tile pairs of 256x256) and of the ChangeFormerV6 train step (8 pairs of
   512x512), beside ``F.scaled_dot_product_attention`` in float32 (TF32 off);
@@ -104,14 +107,25 @@ def bench_matmul(torch, ops, shapes):
         w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
         got, want = ops.matmul_bf16(x, w), ops.matmul_bf16(x, w, impl="plain")
         err = (got.float() - want.float()).abs().max().item()
+        y, s1, s2 = ops.matmul_stats_mma(x, w)
+        acc = (x.float() @ w.float()).double()  # the sums against float64, on BatchNorm's scale
+        mean = acc.sum(0) / m
+        var = ((acc * acc).sum(0) / m - mean ** 2).clamp_min(1e-6)
+        stats_err = max(((s1.double() / m - mean).abs() / var.sqrt()).max().item(),
+                        ((s2.double() / m - (s1.double() / m) ** 2 - var).abs() / var).max().item())
         nbytes = 2 * (m * k + k * n + m * n)
         rows.append({"shape": [m, k, n], "max_abs_err": err,
                      "ms": graph_ms(torch, lambda: ops.matmul_bf16(x, w)),
+                     "stats_mma_ms": graph_ms(torch, lambda: ops.matmul_stats_mma(x, w)),
+                     "stats_mma_y_equal": bool(torch.equal(y, got)),
+                     "stats_mma_bn_scaled_err": stats_err,
                      "library_ms": graph_ms(torch, lambda: torch.matmul(x, w)),
                      "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                     2 * m * k * n / BF16_FLOPS) * 1e3})
-        print(f"matmul_bf16 {(m, k, n)}: {rows[-1]}", flush=True)
-        del x, w, got, want
+                                     2 * m * k * n / BF16_FLOPS) * 1e3,
+                     "stats_bound_ms": max((nbytes + 8 * n) / HBM_BYTES_PER_S,
+                                           2 * m * k * n / BF16_FLOPS) * 1e3})
+        print(f"matmul {(m, k, n)}: {rows[-1]}", flush=True)
+        del x, w, got, want, y, s1, s2, acc
     return rows
 
 
@@ -180,13 +194,16 @@ def main(argv=None) -> int:
     train = bench_attention(torch, attention, TRAIN_SHAPES, backward=True)
     result = {"label": args.label or root.name, "root": str(root), "card": card,
               "matmul_bf16": matmul, "matmul_bf16_ms": sum(r["ms"] for r in matmul),
+              "matmul_stats_mma_ms": sum(r["stats_mma_ms"] for r in matmul),
               "matmul_bf16_library_ms": sum(r["library_ms"] for r in matmul),
               "attention_serving": serving,
               "attention_serving_batch_ms": sum(depth * r["ms"]
                                                 for depth, r in zip(SRA_DEPTHS, serving)),
               "attention_serving_batch_library_ms": sum(
                   depth * r["library_ms"] for depth, r in zip(SRA_DEPTHS, serving)),
-              "attention_train": train}
+              "attention_train": train,
+              "attention_train_bwd_ms": sum(r["bwd_ms"] for r in train),
+              "attention_train_bwd_library_ms": sum(r["bwd_library_ms"] for r in train)}
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

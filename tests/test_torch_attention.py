@@ -205,17 +205,17 @@ def test_select_variant_f32_above_eight_keys_keeps_the_f32_kernel(m):
 @pytest.mark.parametrize("shape,dtype", MAIN_PATH)
 def test_plans_fit_the_card_at_every_main_path_shape(shape, dtype):
     """Shared memory within a block's limit; at least MIN_BLOCKS blocks, or one
-    tile a block (the tensor-core backward, whose block fills an SM, and the
-    f32 forward, whose blocks each stage all of K and V: at least 128 blocks,
-    one wave over 97 % of the SMs); the blocks' rows cover N exactly; the
-    scratch holds one partial for every part."""
+    tile a block (the tensor-core and the f32 backward, whose blocks fill an
+    SM, and the f32 forward, whose blocks each stage all of K and V: at least
+    128 blocks, one wave over 97 % of the SMs); the blocks' rows cover N
+    exactly; the scratch holds one partial for every part."""
     b, h, n, m, d = shape
     variant = select_variant(dtype, m)
     fwd = forward_plan(variant, b * h, n, m, d)
     bwd = backward_plan(variant, b * h, n, m, d)
     granule = {"f32_cuda": (64, 64), "mma_bf16": (128 * fwd["row_tiles"], 128),
                "small_m": (32, 32)}[variant]
-    bwd_min = 128 if variant == "mma_bf16" else MIN_BLOCKS
+    bwd_min = 128 if variant in ("mma_bf16", "f32_cuda") else MIN_BLOCKS
     fwd_min = 128 if variant == "f32_cuda" else MIN_BLOCKS
     for plan, rows, tile, least in ((fwd, fwd["rows_per_block"], granule[0], fwd_min),
                                     (bwd, bwd["rows_per_split"], granule[1], bwd_min)):
@@ -380,12 +380,125 @@ def test_f32_forward_plan_covers_every_row_once(m, d, n):
         assert plan["kv_resident"] or d > 64  # only M = 257 at D = 72 and M = 300 at 128 stream
 
 
-def test_f32_backward_plan_is_the_earlier_one():
-    """The f32 backward is unchanged: one block for each 64 query rows, K and V
-    through shared memory 32 keys at a time, one partial per block."""
-    for bh, n, m, d in ((32, 4096, 64, 64), (64, 1000, 37, 80), (1, 77, 9, 36)):
+# --- the f32 backward (f32_cuda): a block owns a range of rows, one partial a block and pass ---
+
+V6_TRAIN_SHAPES = SMOKE.sra_shapes(SMOKE.V6_TRAIN["batch"], SMOKE.V6_TRAIN["size"])
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300, 1000, 4097, 16385])
+@pytest.mark.parametrize("m,d", [(9, 36), (37, 80), (128, 64), (129, 64), (255, 40),
+                                 (257, 72), (300, 128)])
+def test_f32_backward_plan_covers_every_row_and_key_once(m, d, n):
+    """Any N, M > 8, D <= 128: the blocks' ranges of whole 64-row tiles cover
+    [0, N) of each head once, the last ragged; the passes of 128 keys (D <=
+    80) or 64 (D > 80) cover [0, M) once; the scratch holds one partial a
+    block, (bh, splits, M, D); shared memory as the kernel sizes it (K and V
+    of a pass, two Q and g tiles each where they fit, else one, the ds and
+    p md tiles, the log-sum-exp and delta of up to 2048 rows a block owns),
+    within a block's limit."""
+    dpad = next(p for p in (32, 48, 64, 80, 128) if d <= p)
+    kp = 128 if dpad <= 80 else 64
+
+    def smem(buffers):
+        return (2 * kp * (dpad + 4) + buffers * 2 * 64 * (dpad + 4) + 2 * 64 * (kp + 4)
+                + 2 * 2048) * 4
+
+    buffers = 2 if smem(2) <= MAX_SMEM_BYTES else 1
+    assert buffers == (1 if dpad >= 80 else 2)
+    for bh in (1, 7, 64):
         plan = backward_plan("f32_cuda", bh, n, m, d)
-        splits = -(-n // 64)
-        assert plan["rows_per_split"] == 64 and plan["splits"] == plan["parts"] == splits
-        assert plan["smem_bytes"] == (2 * 64 * d + 2 * 32 * (d + 1) + 2 * 64 * 33) * 4
+        rows, splits = plan["rows_per_split"], plan["splits"]
+        assert rows % 64 == 0 and (splits - 1) * rows < n <= splits * rows
+        assert rows <= 2048 and plan["keys_per_pass"] == kp
+        assert (plan["passes"] - 1) * kp < m <= plan["passes"] * kp
+        assert plan["parts"] == splits and plan["blocks"] == bh * splits
         assert plan["scratch_shape"] == (bh, splits, m, d)
+        assert plan["smem_bytes"] == smem(buffers) <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("shape", V6_TRAIN_SHAPES)
+def test_f32_backward_plan_at_the_v6_train_shapes_is_one_wave(shape):
+    """At the four ChangeFormerV6 train shapes: 128 blocks, one wave over 97 %
+    of the 132 SMs, or a block for the whole of N where the heads alone reach
+    128; one partial a block and pass, so the scratch at N = 16384 is 16.8 MB
+    where the earlier kernel's partial for every 64 rows took 537 MB."""
+    b, h, n, m, d = shape
+    plan = backward_plan("f32_cuda", b * h, n, m, d)
+    assert 128 <= plan["blocks"] <= port_attention.SMS or plan["rows_per_split"] >= n
+    assert plan["passes"] == 2
+    scratch = 2 * 4 * int(np.prod(plan["scratch_shape"]))
+    assert scratch <= 21e6
+    if n == 16384:
+        assert plan["splits"] == 8 and scratch == 2 * 4 * 16 * 8 * 256 * 64 <= 20e6
+
+
+def _f32_backward_by_partition(q, k, v, g, scale, rate, seed):
+    """The f32_cuda backward's partition in plain torch: for each block (a
+    range of rows) and pass of keys its partial of dk and dv, summed over the
+    blocks in index order as the second launch does; dq of a row summed over
+    the passes in order. p is rebuilt from the rows' log-sum-exp and delta
+    from the saved output, as the kernel does."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    plan = backward_plan("f32_cuda", b * h, n, m, d)
+    rows, kp = plan["rows_per_split"], plan["keys_per_pass"]
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    o = cross_attention(q, k, v, scale=scale, dropout_rate=rate, dropout_seed=seed)
+    delta = (g * o).sum(-1, keepdim=True)
+    md = torch.ones_like(s)
+    if rate > 0.0:
+        md = dropout_keep_mask(seed, torch.arange(b * h).reshape(b, h, 1, 1),
+                               torch.arange(n).reshape(1, 1, n, 1),
+                               torch.arange(m).reshape(1, 1, 1, m), rate).float() / (1 - rate)
+    p = torch.exp(s - lse)
+    dp = torch.einsum("bhnd,bhmd->bhnm", g, v)
+    ds = p * (dp * md - delta)
+    dq = torch.zeros_like(q)
+    parts_k = torch.zeros((b, h, plan["splits"], m, d))
+    parts_v = torch.zeros_like(parts_k)
+    for split in range(plan["splits"]):
+        r = slice(split * rows, min(n, (split + 1) * rows))
+        for key0 in range(0, m, kp):
+            c = slice(key0, min(m, key0 + kp))
+            parts_k[:, :, split, c] = torch.einsum("bhnm,bhnd->bhmd", ds[:, :, r, c],
+                                                   q[:, :, r]) * scale
+            parts_v[:, :, split, c] = torch.einsum("bhnm,bhnd->bhmd", (p * md)[:, :, r, c],
+                                                   g[:, :, r])
+            dq[:, :, r] += torch.einsum("bhnm,bhmd->bhnd", ds[:, :, r, c], k[:, :, c]) * scale
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for split in range(plan["splits"]):
+        dk += parts_k[:, :, split]
+        dv += parts_v[:, :, split]
+    return dq, dk, dv, plan
+
+
+@pytest.mark.parametrize("n,m,d,rate", [(130, 37, 80, 0.1), (64, 256, 64, 0.0),
+                                        (200, 255, 40, 0.1), (77, 9, 36, 0.0)])
+def test_f32_backward_partition_matches_the_pallas_backward(n, m, d, rate):
+    """The sums of the f32_cuda backward's partials (blocks of rows, passes of
+    keys, dq over the passes) equal the plain version's gradients and JAX's
+    _bwd through the Pallas backward kernel in interpret mode, at the
+    tolerance of test_plain_gradients_match_jax (atol 1e-5 for a cotangent ~
+    N(0, 1 / n))."""
+    q, k, v = _qkv(n, m, d, seed=n + m + d, b=1)
+    cot = (np.random.default_rng(7).standard_normal(q.shape) * n ** -0.5).astype(np.float32)
+    scale = d ** -0.5
+    seed = SEED if rate else None
+    with torch.no_grad():
+        *got, plan = _f32_backward_by_partition(*(torch.from_numpy(a) for a in (q, k, v, cot)),
+                                                scale, rate, seed)
+    assert plan["splits"] * plan["passes"] > 1  # partials are summed
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = cross_attention(tq, tk, tv, scale=scale, dropout_rate=rate, dropout_seed=seed)
+    plain = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(cot))
+    jseed = None if seed is None else jnp.uint32(seed)
+
+    def loss(q, k, v):
+        return jnp.sum(cross_attention_interpret(q, k, v, scale, block_n=32, dropout_rate=rate,
+                                                 dropout_seed=jseed) * cot)
+
+    wants = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, a, ref, w in zip("qkv", got, plain, wants):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5, err_msg=f"d{name}")
+        np.testing.assert_allclose(a.numpy(), ref.numpy(), atol=1e-5, err_msg=f"d{name} plain")

@@ -278,3 +278,36 @@ def test_matmul_bf16_route_counter_exists_and_stays_at_zero_on_the_cpu():
     assert ops.matmul_bf16_kernel.kernel_launches == 0
     assert dict(ops.matmul_bf16_kernel.routes) == {}
     assert ops.ROUTES == ("wgmma_tma", "wmma")
+
+
+# --- matmul_stats_mma: matmul_bf16's kernel with the sums in its epilogue ---
+
+@pytest.mark.parametrize("shape", TMA_SHAPES)
+def test_stats_plan_is_the_product_plan_where_tma_can_describe_the_operands(shape):
+    """At the tools' shapes and the ragged one the sums take the wgmma_tma
+    route with matmul_bf16's geometry (one kernel: y bit-equal there), at most
+    two passes a group (their sums are registers); a partial for each of the
+    blocks_x persistent blocks, at most 132 x N."""
+    m, k, n = shape
+    plan = ops.matmul_plan(m, k, n, aligned=True, stats=True)
+    assert plan["route"] == "wgmma_tma" and plan["passes_per_group"] <= ops.STATS_PASSES == 2
+    assert plan["blocks_x"] * plan["groups"] <= ops.SMS
+    product = ops.matmul_plan(m, k, n, aligned=True)
+    assert plan == product or product["passes_per_group"] > ops.STATS_PASSES
+    assert plan == product or shape not in bench_bnstats_diag.SHAPES
+    # the block's sums go through the ring at the end: 2 x 8 warps x its columns in f32
+    assert 2 * 8 * plan["passes_per_group"] * plan["pass_cols"] * 4 <= plan["stages"] * 128 * 64 * 2
+
+
+@pytest.mark.parametrize("shape,aligned", [(RAGGED, True), ((1000, 72, 200), False),
+                                           ((1000, 36, 200), True), ((100, 72, 200), True)])
+def test_stats_plan_takes_the_wmma_tile_where_tma_cannot(shape, aligned):
+    assert ops.matmul_plan(*shape, aligned, stats=True)["route"] == "wmma"
+
+
+def test_stats_mma_route_counter_exists_and_stays_at_zero_on_the_cpu():
+    x, w = _torch_bf16(*_operands((256, 64, 64)))
+    y, s1, s2 = ops.matmul_stats_mma(x, w)
+    assert torch.equal(y, ops.matmul_bf16_plain(x, w))
+    assert ops.matmul_stats_mma_kernel.kernel_launches == 0
+    assert dict(ops.matmul_stats_mma_kernel.routes) == {}
