@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    F.scaled_dot_product_attention is timed beside it as a yardstick. Then the
    augmentation kernel against its plain version at the train step's shape
    (128 images of 256x256, uint8 and float32), with every gate on, every
-   gate off, a ragged size, and the contrast op first, in the middle and last.
+   gate off, a ragged size, and the contrast op first, in the middle and last;
+   two runs bit-identical, the device activities of one call counted by
+   torch.profiler (the two launches of augment_plan, no conversion kernel),
+   timed as CUDA-graph replays and as events around one eager call.
    Then the attention backward kernel against autograd through the plain
    version at the four SRA shapes of the V6 train step (batch 8 at 512x512,
    M = 256), at BIT's decoder shape (M = 4) and at the ragged shapes, f32 and
@@ -29,15 +32,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
    f32, two runs bit-identical, its VJP against autograd, with
    torch.batch_norm_stats as the yardstick. Then the four matmul kernels
-   (the product alone; with the BatchNorm sums in a 2-D and in a row
-   decomposition; with the sums formed on the tensor cores) against their plain
-   version and a float64 sum of its f32 accumulator, bf16, at the five
-   ResNet-50 bottleneck shapes of their tools and two ragged shapes, two runs
-   bit-identical, with torch.matmul as the yardstick; the product alone on
-   the route matmul_plan picks (wgmma with TMA everywhere but at the odd
-   ragged shape, which takes the wmma tile), and so the product with the sums
-   on the tensor cores, whose y is matmul_bf16's bit for bit on the wgmma
-   route; timed as CUDA-graph replays.
+   (the product alone; with the BatchNorm sums on the CUDA cores; in a row
+   decomposition; on the tensor cores) against their plain version and a
+   float64 sum of its f32 accumulator, bf16, at the five ResNet-50 bottleneck
+   shapes of their tools, three ragged shapes and one of four 256-column
+   passes, two runs bit-identical, with torch.matmul as the yardstick; the
+   product alone, with the CUDA-core sums and with the tensor-core sums each
+   on the route matmul_plan picks (wgmma with TMA wherever TMA can describe
+   the operands; the wmma tiles at (333, 37, 91) and N < 64), y bit-equal to
+   matmul_bf16's on the wgmma route; timed as CUDA-graph replays.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -79,8 +82,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the Adam moments.
 12. the tools: bench_conv_bn_epilogue and bench_bnstats_diag, the entry points
    of the four matmul kernels, through their main(); their rows are printed,
-   and every matmul_bf16 and matmul_stats_mma launch of bench_bnstats_diag
-   took the wgmma route.
+   and every matmul_stats launch of bench_conv_bn_epilogue and every
+   matmul_bf16 and matmul_stats_mma launch of bench_bnstats_diag took the
+   wgmma route.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -144,6 +148,8 @@ MM_Y_ATOL = 1e-2  # times max(1, max |plain|)
 MM_BN_TOL = 1e-4
 MM_RAGGED = (1000, 72, 200)  # no dimension a multiple of its tile; K, N multiples of 8
 MM_RAGGED_ODD = (333, 37, 91)  # nothing a multiple of 8: the element-wise loads and stores
+MM_NARROW = (1000, 72, 56)  # N < 64: the wmma tiles with 16-byte loads and stores
+MM_WIDE = (4096, 64, 1024)  # four 256-column passes a group with the CUDA-core sums
 BN_SHAPES = ((128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512),
              (128, 16, 16, 1024), (128, 256, 256, 16), (128, 128, 128, 32))
 
@@ -210,6 +216,20 @@ def profiled_ms(fn, runs: int = 10) -> float:
     total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
     require(total_us > 0, "torch.profiler saw no device time")
     return total_us / runs / 1e3
+
+
+def device_launches(fn) -> list:
+    """The names of the device activities (kernels, copies, fills) that one call
+    of ``fn`` starts, from torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def _attention_bound(shape, dtype, rows_moved, products, softmax_ops) -> tuple:
@@ -293,34 +313,14 @@ def phase_kernels(torch, attention):
 
 AUG_ATOL = 2e-5  # the JAX kernel's own tolerance against its reference
 AUG_BATCH = 128  # A||B of the bs-64 train step
-# f32 operations per pixel of each stage of the augmentation (counted from
-# data/augment.py: multiplies, adds, divides, compares and selects)
-AUG_OPS = {"to_float": 3, "jitter": 9 + 17 + 22 + 75, "gray": 5, "blur": 2 * 11 * 2 * 3,
-           "normalize": 6}
-
-
-def augment_bound_ms(imgs, params) -> tuple:
-    """(bound_ms, bound_by) of one augmentation call on these inputs: each
-    input read once and the output written once over the memory rate,
-    against the operations these flags ask for over the f32 rate."""
-    n, h, w, _ = imgs.shape
-    nbytes = imgs.numel() * imgs.element_size() + imgs.numel() * 4
-    nbytes += sum(v.numel() * v.element_size() for v in params.values())
-    per_image = AUG_OPS["normalize"] + (AUG_OPS["to_float"] if imgs.dtype.itemsize == 1
-                                        else 0)
-    ops = h * w * (n * per_image
-                   + int(params["jitter_apply"].sum()) * AUG_OPS["jitter"]
-                   + int(params["gray_apply"].sum()) * AUG_OPS["gray"]
-                   + int(params["blur_apply"].sum()) * AUG_OPS["blur"])
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def phase_augment_kernel(torch):
     """The augmentation kernel against its plain version on the card."""
     from stcd_tpu_torch.data.augment import (eval_preprocess, params_to,
                                              sample_augment_params)
-    from stcd_tpu_torch.ops.augment import apply_augment_batch
+    from stcd_tpu_torch.ops.augment import apply_augment_batch, augment_plan
+    from stcd_tpu_torch.tools.bench_kernels import augment_bound_ms
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -362,19 +362,28 @@ def phase_augment_kernel(torch):
                 f"augment kernel output {got.dtype} {tuple(got.shape)}")
         require(bool(torch.equal(got, again)), f"augment {name}: two runs differ")
         err = (got - want).abs().max().item()
-        t_kernel = time_ms(lambda: apply_augment_batch(imgs, params, impl="kernel"))
+        # the device activities of one call: the wrapper's conversions would show here
+        names = device_launches(lambda: apply_augment_batch(imgs, params, impl="kernel"))
+        require(len(names) == augment_plan(*imgs.shape[:3])["launches"],
+                f"augment {name}: one call started {len(names)} device activities {names}")
+        # CUDA-graph replays, and events around one eager call (the wrapper's host time
+        # included), the way the parent's time was taken
+        t_kernel = time_ms(lambda: apply_augment_batch(imgs, params, impl="kernel"), graph=True)
+        t_eager = time_ms(lambda: apply_augment_batch(imgs, params, impl="kernel"))
         t_plain = time_ms(lambda: apply_augment_batch(imgs, params, impl="plain"))
         bound, by = augment_bound_ms(imgs, params)
         print(f"augment {name} {tuple(imgs.shape)}: max|err|={err:.3e} (atol {AUG_ATOL}) "
-              f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound {bound:.4f} ms "
-              f"({by})", flush=True)
+              f"kernel {t_kernel:.4f} ms (graph replay; eager, event-timed {t_eager:.4f} ms) "
+              f"plain {t_plain:.4f} ms bound {bound:.4f} ms ({by}); CUDA launches per call "
+              f"{len(names)}: {names}", flush=True)
         require(err <= AUG_ATOL, f"augment kernel disagrees with plain by {err} ({name})")
         if name == "every gate off":
             off_err = (got - eval_preprocess(imgs)).abs().max().item()
             require(off_err <= 2e-6, f"gates off is not normalize only: {off_err}")
         max_err = max(max_err, err)
         if main is None:
-            main = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound, "bound_by": by}
+            main = {"ms": t_kernel, "eager_ms": t_eager, "plain_ms": t_plain, "bound_ms": bound,
+                    "bound_by": by, "cuda_launches_per_call": len(names)}
     return {**main, "max_abs_err": max_err}
 
 
@@ -628,7 +637,7 @@ def matmul_bound_ms(m: int, k: int, n: int, stats: bool) -> tuple:
 
 def phase_matmul_stats(torch):
     """The four matmul kernels against their plain version and a float64 sum
-    of the plain f32 accumulator, at the shapes their tools run and two ragged
+    of the plain f32 accumulator, at the shapes their tools run and four other
     ones. Returns {function name: result}."""
     from stcd_tpu_torch.ops import matmul_stats as ops
     from stcd_tpu_torch.tools import bench_bnstats_diag, bench_conv_bn_epilogue
@@ -637,14 +646,15 @@ def phase_matmul_stats(torch):
                "matmul_bf16": (ops.matmul_bf16, bench_bnstats_diag.SHAPES),
                "matmul_stats_rows": (ops.matmul_stats_rows, bench_bnstats_diag.SHAPES),
                "matmul_stats_mma": (ops.matmul_stats_mma, bench_bnstats_diag.SHAPES)}
-    # the two functions with routes: their wrapper's counter and whether the plan has sums
-    routed = {"matmul_bf16": (ops.matmul_bf16_kernel, False),
-              "matmul_stats_mma": (ops.matmul_stats_mma_kernel, True)}
+    # the three functions with routes: their wrapper's counter and the plan's epilogue
+    routed = {"matmul_stats": (ops.matmul_stats_kernel, "cuda_cores"),
+              "matmul_bf16": (ops.matmul_bf16_kernel, "none"),
+              "matmul_stats_mma": (ops.matmul_stats_mma_kernel, "tensor_cores")}
     res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
                   "bound_by": set(), "routes_checked": {}} for name in kernels}
     cases = [(shape, True) for shape in bench_conv_bn_epilogue.SHAPES]
-    cases += [(MM_RAGGED, False), (MM_RAGGED_ODD, False)]
+    cases += [(MM_RAGGED, False), (MM_RAGGED_ODD, False), (MM_NARROW, False), (MM_WIDE, False)]
     for (m, k, n), on_path in cases:
         x, w = bench_conv_bn_epilogue.operands(m, k, n, torch.device("cuda"), seed=7)
         y_plain, _, _ = ops.matmul_stats(x, w, impl="plain")
@@ -661,9 +671,9 @@ def phase_matmul_stats(torch):
             timed = on_path and (m, k, n) in shapes
             route = None
             if name in routed:
-                wrapper, with_sums = routed[name]
+                wrapper, epilogue = routed[name]
                 routes = dict(wrapper.routes)
-                route = ops.matmul_plan(m, k, n, aligned=True, stats=with_sums)["route"]
+                route = ops.matmul_plan(m, k, n, aligned=True, epilogue=epilogue)["route"]
             got, again = fn(x, w, impl="kernel"), fn(x, w, impl="kernel")
             torch.cuda.synchronize()
             r = res[name]
@@ -1154,17 +1164,17 @@ def phase_tools(torch):
                 "matmul_stats_mma": ops.matmul_stats_mma_kernel}
     for wrapper in wrappers.values():
         wrapper.kernel_launches = 0
-    ops.matmul_bf16_kernel.routes.clear()
-    ops.matmul_stats_mma_kernel.routes.clear()
+    routed = ("matmul_stats", "matmul_bf16", "matmul_stats_mma")
+    for name in routed:
+        wrappers[name].routes.clear()
     rows = {"bench_conv_bn_epilogue": bench_conv_bn_epilogue.main([]),
             "bench_bnstats_diag": bench_bnstats_diag.main([])}
     torch.cuda.synchronize()
     launches = {name: wrapper.kernel_launches for name, wrapper in wrappers.items()}
-    routes = {"matmul_bf16": dict(ops.matmul_bf16_kernel.routes),
-              "matmul_stats_mma": dict(ops.matmul_stats_mma_kernel.routes)}
+    routes = {name: dict(wrappers[name].routes) for name in routed}
     for name, took in routes.items():
         require(took == {"wgmma_tma": launches[name]} and launches[name] > 0,
-                f"bench_bnstats_diag's {name} launches took the routes {took}")
+                f"the tools' {name} launches took the routes {took}")
     require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3,
             "the tools did not return a row for each shape")
     for row in rows["bench_conv_bn_epilogue"]:
@@ -1308,7 +1318,8 @@ def main() -> int:
         {"name": "augment", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/augment.cu",
          "replaces": "stcd_tpu/ops/augment_kernel.py:44", **{k: aug[k] for k in keys},
-         "launches_by_path": aug_by_path},
+         "launches_by_path": aug_by_path, "eager_ms": aug["eager_ms"],
+         "cuda_launches_per_call": aug["cuda_launches_per_call"]},
         {"name": "bn_stats", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},

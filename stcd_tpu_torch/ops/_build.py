@@ -105,16 +105,15 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_cross_attention_bwd.restype = i
     lib.stcd_bn_stats_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
     lib.stcd_bn_stats_fwd.restype = i
-    lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.stcd_augment_fwd.restype = i
     lib.stcd_matmul_bf16.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
     lib.stcd_matmul_bf16.restype = i
-    for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_rows):
-        entry.argtypes = [p, p, p, p, p, p, p, ll, i, i, ll, i, p]
+    lib.stcd_matmul_stats_rows.argtypes = [p, p, p, p, p, p, p, ll, i, i, ll, i, p]
+    lib.stcd_matmul_stats_rows.restype = i
+    for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_mma):
+        entry.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, ll, i, p]
         entry.restype = i
-    lib.stcd_matmul_stats_mma.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, ll,
-                                          i, p]
-    lib.stcd_matmul_stats_mma.restype = i
     lib.stcd_cuda_error_string.argtypes = [i]
     lib.stcd_cuda_error_string.restype = ctypes.c_char_p
     return lib

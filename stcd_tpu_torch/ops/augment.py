@@ -26,7 +26,38 @@ import torch
 from stcd_tpu_torch.data.augment import BLUR_RADIUS, Params, apply_augment_reference
 from stcd_tpu_torch.ops import _build
 
-REDUCE_BLOCKS = 64  # partial sums per image; must match kReduceBlocks in augment.cu
+REDUCE_BLOCKS = 16  # partial sums per image; must match kReduceBlocks in augment.cu
+# The tile a block of augment.cu's second launch owns, and the blur's halo
+# (kTileH, kTileW, kRadius); the staged tile and halo, one f32 plane a channel,
+# rows of kStageStride floats
+TILE_H, TILE_W, HALO = 32, 64, 5
+STAGE_STRIDE = 76
+THREADS = 256
+STORE_BYTES = THREADS * 3 * 16  # each warp's 96 16-byte words through which it stores
+MAX_GRID_Y = 65535
+MAX_PIXELS = 2 ** 24
+
+
+def augment_plan(n: int, h: int, w: int) -> dict:
+    """The launch geometry of ``csrc/augment.cu`` for n images of h x w, which
+    its C entry recomputes and checks: launch (a) ``gray_mean_partials`` on
+    (REDUCE_BLOCKS, n) blocks, launch (b) ``augment_tiles`` on (tiles_x,
+    tiles_y, n) blocks, each owning the TILE_H x TILE_W tile at (TILE_W bx,
+    TILE_H by) and, for a blurred image, staging it with its HALO-pixel halo
+    ((TILE_H + 2 HALO) x (TILE_W + 2 HALO) pixels, indices clamped to the
+    image) in shared memory, beside the words through which each warp stores
+    whole rows: ``smem_bytes`` in all."""
+    if min(n, h, w) < 1:
+        raise ValueError(f"augment_plan takes n, h, w >= 1, got {(n, h, w)}")
+    tiles_x, tiles_y = -(-w // TILE_W), -(-h // TILE_H)
+    if n > MAX_GRID_Y or tiles_y > MAX_GRID_Y or h * w > MAX_PIXELS:
+        raise ValueError(f"batch {(n, h, w)} is beyond the kernel's grid")
+    stage_rows = TILE_H + 2 * HALO
+    return {"tile_h": TILE_H, "tile_w": TILE_W, "halo": HALO, "tiles_x": tiles_x,
+            "tiles_y": tiles_y, "blocks": tiles_x * tiles_y * n,
+            "reduce_blocks": REDUCE_BLOCKS, "stage_rows": stage_rows,
+            "stage_cols": TILE_W + 2 * HALO, "stage_stride": STAGE_STRIDE,
+            "smem_bytes": 3 * stage_rows * STAGE_STRIDE * 4 + STORE_BYTES, "launches": 2}
 
 
 def _check_args(imgs: torch.Tensor, params: Params) -> None:
@@ -49,8 +80,10 @@ def apply_augment_kernel(imgs: torch.Tensor, params: Params) -> torch.Tensor:
     """Launch ``csrc/augment.cu`` on the images' device and current stream.
 
     Takes a contiguous CUDA batch and parameters on the same device; raises
-    on anything else. ``kernel_launches`` counts the calls (one per call,
-    whatever number of CUDA launches it makes).
+    on anything else. ``kernel_launches`` counts the calls (one per call; a
+    call makes the two CUDA launches of ``augment_plan``). The draws are read
+    as the sampler makes them (perm int64, the three gates bool): a draw of
+    another type is converted first.
 
     The kernel is forward only: it refuses an input that requires grad."""
     _check_args(imgs, params)
@@ -67,22 +100,21 @@ def apply_augment_kernel(imgs: torch.Tensor, params: Params) -> torch.Tensor:
     n, h, w, _ = imgs.shape
     if n == 0 or h == 0 or w == 0:
         raise ValueError(f"empty batch {tuple(imgs.shape)}")
-    if n > 65535 or h * w > 2 ** 24:
-        raise ValueError(f"batch {tuple(imgs.shape)} is beyond the kernel's grid")
-    perm = params["perm"].to(torch.int32).contiguous()
+    plan = augment_plan(n, h, w)
+    # no-ops (no kernel) for the sampler's draws
+    perm = params["perm"].to(torch.int64).contiguous()
     factors = params["factors"].to(torch.float32).contiguous()
-    flags = torch.stack([params["jitter_apply"], params["gray_apply"],
-                         params["blur_apply"]], dim=1).to(torch.int32).contiguous()
+    gates = [params[key].to(torch.bool).contiguous()
+             for key in ("jitter_apply", "gray_apply", "blur_apply")]
     kern = params["blur_kern"].to(torch.float32).contiguous()
     lib = _build.load_library()
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=imgs.device)
-    scratch = torch.empty_like(out)  # the pre-blur image of the blurred images
     partials = torch.empty((n, REDUCE_BLOCKS), dtype=torch.float32, device=imgs.device)
     err = lib.stcd_augment_fwd(
         imgs.data_ptr(), int(imgs.dtype == torch.uint8), perm.data_ptr(),
-        factors.data_ptr(), flags.data_ptr(), kern.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), partials.data_ptr(), n, h, w, imgs.device.index,
-        torch.cuda.current_stream(imgs.device).cuda_stream)
+        factors.data_ptr(), *(g.data_ptr() for g in gates), kern.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), n, h, w, plan["tiles_x"], plan["tiles_y"], plan["smem_bytes"],
+        imgs.device.index, torch.cuda.current_stream(imgs.device).cuda_stream)
     _build.check(lib, err, "stcd_augment_fwd")
     apply_augment_kernel.kernel_launches += 1
     return out

@@ -1,13 +1,17 @@
-// y = x . w in bf16 with f32 accumulation for Hopper (sm_90a): the route of
-// stcd_matmul_bf16 for every shape that the Tensor Memory Accelerator (TMA)
-// can describe. Replaces the Pallas TPU kernel
-// benchmarks/bench_bnstats_diag.py::_mm_kernel (pallas_mm); the shapes TMA
-// cannot take go to the wmma tile of matmul_stats.cu (the route is chosen from
-// the shapes by matmul_plan, ops/matmul_stats.py, mirrored by plan_for below).
+// y = x . w in bf16 with f32 accumulation for Hopper (sm_90a), alone or with
+// the two BatchNorm sums of its f32 accumulator: the route of stcd_matmul_bf16,
+// stcd_matmul_stats and stcd_matmul_stats_mma for every shape that the Tensor
+// Memory Accelerator (TMA) can describe. Replaces three Pallas TPU kernels:
+// benchmarks/bench_bnstats_diag.py::_mm_kernel (pallas_mm, no epilogue),
+// benchmarks/bench_conv_bn_epilogue.py::_kernel (pallas_fused, the sums on the
+// CUDA cores) and benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
+// (pallas_mxu_stats, the sums on the tensor cores). The shapes TMA cannot take
+// go to the wmma tile of matmul_stats.cu (the route is chosen from the shapes
+// by matmul_plan, ops/matmul_stats.py, mirrored by plan_for below).
 //
-// What bounds it: bytes. At the ResNet-50 bottleneck shapes of its tool (K, N
-// <= 512, M >= 131072) the 2 M K N operations need about 50 per byte moved,
-// where the card needs 295 before its tensor cores are the limit. So the
+// What bounds it: bytes. At the ResNet-50 bottleneck shapes of its tools (K, N
+// <= 1024, M >= 32768) the 2 M K N operations need at most about 100 per byte
+// moved, where the card needs 295 before its tensor cores are the limit. So the
 // design moves each byte once and keeps loads in flight:
 //
 // - Persistent blocks, at most one per SM. A block stages w once, transposed
@@ -15,7 +19,8 @@
 //   and keeps it in shared memory while it walks its M tiles of 128 rows. When
 //   all of w does not fit beside the ring, the grid's y dimension splits N
 //   into groups whose w does fit, and x is read once for each group: the only
-//   re-read.
+//   re-read. The TPU kernels' sequential (gn, gm) grid, which keeps the sums in
+//   VMEM, becomes this walk: a block's sums stay in its registers.
 // - A ring of x chunks (128 rows x 64 columns, 16 KB) in shared memory. One
 //   producer thread loads them by TMA (cp.async.bulk.tensor, 128-byte swizzle,
 //   zero fill past the edges) and each stage completes on an mbarrier.
@@ -30,6 +35,15 @@
 //   memory in the 128-byte swizzle (no bank conflicts), and one thread stores
 //   it by TMA while the next box is filled (two boxes a warpgroup). There is
 //   no f32 round trip through shared memory, and y leaves in whole lines.
+// - The sums, where asked for (the epilogue kind, a template argument; y is the
+//   same bit for bit with every kind): kEpiCudaCores adds each lane's two rows
+//   and their squares in f32 and reduces over the warp's eight row groups by a
+//   transposing butterfly of shuffles (warp_sums_cuda); kEpiTensorCores forms
+//   them by mma.sync on three exact tf32 parts of each value (slice_sums).
+//   Either way the four warps of a warpgroup are added in warp order through
+//   its y boxes, the tiles in registers in tile order, and the two warpgroups
+//   at the end: one f32 partial per block, which stcd_matmul_stats_sum_parts
+//   adds in index order.
 // - No split over K and no atomics: two runs agree bit for bit.
 //
 // The TMA descriptor is built in the C entry, on the host, by
@@ -46,6 +60,9 @@
 // the wmma routes and the fixed-order sum of the partials, matmul_stats.cu
 extern "C" int stcd_matmul_bf16_tiles(const void* x, const void* w, void* y, long long m, int k,
                                       int n, int device, void* stream);
+extern "C" int stcd_matmul_stats_tiles(const void* x, const void* w, void* y, float* part_sum,
+                                       float* part_sq, float* out_sum, float* out_sq, long long m,
+                                       int k, int n, long long m_tiles, int device, void* stream);
 extern "C" int stcd_matmul_stats_mma_tiles(const void* x, const void* w, void* y,
                                            float* part_sum, float* part_sq, float* out_sum,
                                            float* out_sq, long long m, int k, int n,
@@ -63,14 +80,17 @@ constexpr int kRows = 128;        // rows of an M tile: two consumer warpgroups 
 constexpr int kDepth = 64;        // columns of x in a chunk: 128 bytes, the swizzle's span
 constexpr int kStageBytes = kRows * kDepth * 2;
 constexpr int kMaxStages = 8;
+// The epilogue kinds: y alone, or y and the column sums formed on the CUDA cores
+// or on the tensor cores (ops/matmul_stats.py EPILOGUES, in this order).
+constexpr int kEpiNone = 0, kEpiCudaCores = 1, kEpiTensorCores = 2;
 constexpr int kThreads = 288;  // warps 0-7: two consumer warpgroups; warp 8: the producer
 // With the sums the producer is a warpgroup of its own (warps 8-11, one thread
 // issues the loads), so that setmaxnreg can move its registers to the consumers:
 // 384 threads launch at 168 registers; the producer drops to 40 and each consumer
-// rises to 232, which holds the accumulator, the sums and their transposes.
+// rises to 232, which holds the accumulator, the sums and their temporaries.
 constexpr int kStatsThreads = 384;
-__host__ __device__ constexpr int block_threads(bool stats) {
-  return stats ? kStatsThreads : kThreads;
+__host__ __device__ constexpr int block_threads(int epi) {
+  return epi != kEpiNone ? kStatsThreads : kThreads;
 }
 constexpr int kBoxBytes = 64 * 64 * 2;  // a y box: 64 rows x 64 columns (128 bytes)
 
@@ -90,10 +110,18 @@ struct Plan {
   int route, pass_cols, passes_per_group, groups, stages, blocks_x, smem;
 };
 
-// The stats epilogue keeps the column sums of at most this many passes in registers.
-constexpr int kStatsPasses = 2;
+// The sums epilogues keep the column sums of at most this many passes a group in
+// registers: sum_passes(epi) x BN / 64 floats a consumer thread. The tensor-core
+// epilogue stops at 2 (8 floats at BN 256; its transposes and tf32 parts take the
+// rest). The CUDA-core one needs 32 temporaries a 64-column slice beside the 128
+// of the accumulator at BN 256, so 4 passes (16 floats) keep a thread under the
+// 232 registers that setmaxnreg gives it (ops/matmul_stats.py SUM_PASSES).
+constexpr int kStatsPasses = 2, kCudaSumPasses = 4;
+__host__ __device__ constexpr int sum_passes(int epi) {
+  return epi == kEpiTensorCores ? kStatsPasses : epi == kEpiCudaCores ? kCudaSumPasses : 1;
+}
 
-// max_npg: the most passes a group may hold (kStatsPasses with the sums, else no cap).
+// max_npg: the most passes a group may hold (sum_passes with the sums, else no cap).
 Plan plan_for(long long m, int k, int n, bool aligned, int max_npg) {
   const long long m_tiles = (m + kRows - 1) / kRows;
   const Plan wmma = {kRouteWmma, 0, 0, 1, 0, (int)(m_tiles < INT_MAX ? m_tiles : INT_MAX), 0};
@@ -361,6 +389,48 @@ __device__ __forceinline__ void slice_sums(float (&t)[3][4], const float (&acc)[
   }
 }
 
+// One step of warp_sums_cuda's butterfly: v[i] and v[i + H] (blocks jj and jj + H /
+// 4) go to the lanes whose bit H is clear and set; H is a template argument so that
+// every index is static and v stays in registers.
+template <int H>
+__device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
+  const bool upper = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// The column sums of one 64-column slice of a warp's 16 x BN accumulator and of its
+// square, formed on the CUDA cores. Lane (g, q) holds columns 8 j + 2 q, + 1 of rows g
+// and g + 8; it adds its two rows (and their squares, by fmaf) in f32 into v[4 jj + e],
+// jj the slice's block of 8 columns, e = 0, 1: the sums of columns 2 q, 2 q + 1, e = 2,
+// 3: of their squares. A transposing butterfly then adds the eight lanes that share q:
+// at each step (lane masks 16, 8, 4: bits 2, 1, 0 of g) a lane keeps the half of its
+// values whose block has that bit equal to its own, sends the other half to its
+// partner and adds what it receives, so the steps take 16 + 8 + 4 shuffles and leave
+// lane (g, q) with v[0..3]: the whole sums over the warp's 16 rows of slice columns
+// 8 g + 2 q, + 1 and of their squares, in a fixed order (no copies of other lanes'
+// sums, so four registers hold the result).
+template <int BN>
+__device__ __forceinline__ void warp_sums_cuda(float (&v)[32], const float (&acc)[BN / 2], int sl,
+                                               int lane) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = sl * 8 + jj;
+    const float a0 = acc[4 * j], a1 = acc[4 * j + 1], a2 = acc[4 * j + 2], a3 = acc[4 * j + 3];
+    v[4 * jj] = a0 + a2;
+    v[4 * jj + 1] = a1 + a3;
+    v[4 * jj + 2] = fmaf(a0, a0, a2 * a2);
+    v[4 * jj + 3] = fmaf(a1, a1, a3 * a3);
+  }
+  butterfly_step<16>(v, lane);
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+}
+
 // The barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
@@ -368,15 +438,15 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 
 // BN: output columns of a pass (64, 128 or 256). Grid: (blocks_x, groups); the
 // block of group g owns passes [g * passes_per_group, ...) of N and walks M
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ... STATS: the epilogue also sums
-// the f32 accumulator and its square over the rows: each warp over its 16 rows on
-// the tensor cores (slice_sums), the four warps of a warpgroup in warp order
-// through its y boxes, the tiles into registers in tile order (at most
-// kStatsPasses passes a group), and at the end the two warpgroups; the block
-// leaves its sums as row blockIdx.x of part_sum and part_sq (blocks_x, n). y is
-// the same with and without them, bit for bit.
-template <int BN, bool STATS>
-__global__ void __launch_bounds__(block_threads(STATS), 1)
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... EPI other than kEpiNone: the
+// epilogue also sums the f32 accumulator and its square over the rows: each warp
+// over its 16 rows (warp_sums_cuda on the CUDA cores, slice_sums on the tensor
+// cores), the four warps of a warpgroup in warp order through its y boxes, the
+// tiles into registers in tile order (at most sum_passes(EPI) passes a group),
+// and at the end the two warpgroups; the block leaves its sums as row blockIdx.x
+// of part_sum and part_sq (blocks_x, n). y is the same with every EPI, bit for bit.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(block_threads(EPI), 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap y_map, const bf16* __restrict__ w,
                     long long m, int k, int n, int passes_per_group, int stages,
@@ -411,7 +481,7 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   __syncthreads();
 
   if (warp >= 8) {  // the producer: one thread keeps the ring full from the start
-    if constexpr (STATS) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if constexpr (EPI != kEpiNone) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp == 8 && lane == 0) {
       int slot = 0;
       uint32_t phase = 0;
@@ -431,7 +501,9 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     return;
   }
 
-  if constexpr (STATS) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  if constexpr (EPI != kEpiNone) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  }
 
   // Meanwhile the consumers stage w^T of the block's passes, K-major: row nn of
   // the tile (pass, chunk) holds w[chunk * 64 .. + 64][(pass0 + pass) * BN + nn],
@@ -488,7 +560,7 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // With the sums: thread i of a warpgroup keeps, for each pass and 64-column slice,
   // the warpgroup's running sum of value i of the slice (i < 64: column i; i >= 64:
   // the square of column i - 64) over the tiles it walks.
-  constexpr int kSumPasses = STATS ? kStatsPasses : 1;
+  constexpr int kSumPasses = sum_passes(EPI);
   float sums[kSumPasses][BN / 64];
 #pragma unroll
   for (int pp = 0; pp < kSumPasses; ++pp) {
@@ -567,21 +639,30 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
-      if constexpr (STATS) {
+      if constexpr (EPI != kEpiNone) {
         // The warps' sums of their 16 rows go through the warpgroup's y boxes, which the
         // TMA has done reading (the next tile's epilogue waits at its barrier for the
-        // reads below): [slice][warp of the warpgroup][128 values], 2 KB a slice.
+        // reads below): [slice][warp of the warpgroup][128 values: the 64 columns' sums,
+        // then their squares'], 2 KB a slice.
         float* sc = reinterpret_cast<float*>(boxes);
         if (signals) bulk_wait_read<0>();
         warpgroup_sync(wg);
 #pragma unroll
         for (int sl = 0; sl < BN / 64; ++sl) {
-          float t[3][4] = {};
-          slice_sums<BN>(t, acc, sl, lane);
+          float* dst = sc + (sl * 4 + (warp & 3)) * 128;
+          if constexpr (EPI == kEpiCudaCores) {
+            float v[32];
+            warp_sums_cuda<BN>(v, acc, sl, lane);
+            // columns 8 g + 2 q, + 1: 8-byte stores, 256 consecutive bytes a warp
+            *reinterpret_cast<float2*>(dst + 8 * g + 2 * q) = make_float2(v[0], v[1]);
+            *reinterpret_cast<float2*>(dst + 64 + 8 * g + 2 * q) = make_float2(v[2], v[3]);
+          } else {
+            float t[3][4] = {};
+            slice_sums<BN>(t, acc, sl, lane);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            sc[(sl * 4 + (warp & 3)) * 128 + (e >> 1) * 64 + 16 * q + 8 * (e & 1) + g] =
-                (t[0][e] + t[1][e]) + t[2][e];
+            for (int e = 0; e < 4; ++e) {
+              dst[(e >> 1) * 64 + 16 * q + 8 * (e & 1) + g] = (t[0][e] + t[1][e]) + t[2][e];
+            }
           }
         }
         warpgroup_sync(wg);
@@ -599,10 +680,10 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
   }
   if (signals) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  if constexpr (STATS) {
+  if constexpr (EPI != kEpiNone) {
     // The block's sums: the two warpgroups' go to shared memory over the ring (no
     // load is left in flight once both are past their last tile), [warpgroup][sum,
-    // square][cols], at most 8 KB, and each column is added over the two in order.
+    // square][cols], at most 16 KB, and each column is added over the two in order.
     const int cols = npass * BN;
     float* red = reinterpret_cast<float*>(xs);
     asm volatile("bar.sync 3, 256;\n" ::: "memory");
@@ -645,7 +726,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int BN, bool STATS>
+template <int BN, int EPI>
 cudaError_t launch_wgmma(const Plan& plan, const void* x, const void* w, void* y, long long m,
                          int k, int n, float* part_sum, float* part_sq, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
@@ -670,11 +751,11 @@ cudaError_t launch_wgmma(const Plan& plan, const void* x, const void* w, void* y
           CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = matmul_wgmma_kernel<BN, STATS>;
+  auto kernel = matmul_wgmma_kernel<BN, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(plan.blocks_x, plan.groups), block_threads(STATS), plan.smem, stream>>>(
+  kernel<<<dim3(plan.blocks_x, plan.groups), block_threads(EPI), plan.smem, stream>>>(
       x_map, y_map, static_cast<const bf16*>(w), m, k, n,
       plan.passes_per_group, plan.stages, part_sum, part_sq);
   return cudaGetLastError();
@@ -690,16 +771,45 @@ bool same_plan(const Plan& plan, int route, int pass_cols, int passes_per_group,
          blocks_x == plan.blocks_x && smem_bytes == plan.smem;
 }
 
-template <bool STATS>
+template <int EPI>
 cudaError_t run_wgmma(const Plan& plan, const void* x, const void* w, void* y, long long m, int k,
                       int n, float* part_sum, float* part_sq, int device, cudaStream_t s) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (plan.pass_cols) {
-    case 64: return launch_wgmma<64, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
-    case 128: return launch_wgmma<128, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
-    default: return launch_wgmma<256, STATS>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+    case 64: return launch_wgmma<64, EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+    case 128: return launch_wgmma<128, EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
+    default: return launch_wgmma<256, EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
   }
+}
+
+// The product with the column sums of its f32 accumulator and of its square,
+// out_sum, out_sq f32[n], with the epilogue EPI on the wgmma route. The plan is
+// matmul_plan's for that epilogue (at most sum_passes(EPI) passes a group).
+// part_sum, part_sq: f32 scratch of (part_rows, n), part_rows = blocks_x on the
+// wgmma route (one partial per persistent block), ceil(m / 128) on the wmma
+// route (one per M tile, where `tiles` runs); a second launch adds them in
+// index order.
+template <int EPI, typename Tiles>
+int run_stats(Tiles tiles, const void* x, const void* w, void* y, float* part_sum,
+              float* part_sq, float* out_sum, float* out_sq, long long m, int k, int n,
+              int route, int pass_cols, int passes_per_group, int stages, int blocks_x,
+              int smem_bytes, long long part_rows, int device, void* stream) {
+  if (m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const Plan plan =
+      plan_for(m, k, n, aligned16(x) && aligned16(w) && aligned16(y), sum_passes(EPI));
+  if (!same_plan(plan, route, pass_cols, passes_per_group, stages, blocks_x, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (plan.route == kRouteWmma) {
+    return tiles(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n, part_rows, device,
+                 stream);
+  }
+  if (part_rows != plan.blocks_x) return (int)cudaErrorInvalidValue;
+  cudaError_t err = run_wgmma<EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, device,
+                                   static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return stcd_matmul_stats_sum_parts(part_sum, part_sq, out_sum, out_sq, part_rows, n, stream);
 }
 
 }  // namespace
@@ -719,35 +829,34 @@ extern "C" int stcd_matmul_bf16(const void* x, const void* w, void* y, long long
     return (int)cudaErrorInvalidValue;
   }
   if (plan.route == kRouteWmma) return stcd_matmul_bf16_tiles(x, w, y, m, k, n, device, stream);
-  return (int)run_wgmma<false>(plan, x, w, y, m, k, n, nullptr, nullptr, device,
-                               static_cast<cudaStream_t>(stream));
+  return (int)run_wgmma<kEpiNone>(plan, x, w, y, m, k, n, nullptr, nullptr, device,
+                                  static_cast<cudaStream_t>(stream));
 }
 
-// The product with the column sums of its f32 accumulator and of its square,
-// formed on the tensor cores: out_sum, out_sq f32[n]. The plan is matmul_plan's
-// with stats=True (at most kStatsPasses passes a group). part_sum, part_sq: f32
-// scratch of (part_rows, n), part_rows = blocks_x on the wgmma route (one partial
-// per persistent block), ceil(m / 128) on the wmma route (one per M tile); a
-// second launch adds them in index order. Returns a cudaError_t.
+// The product with its sums formed on the CUDA cores (run_stats above); where TMA
+// cannot describe the operands, the 2-D wmma tile of matmul_stats.cu. Returns a
+// cudaError_t.
+extern "C" int stcd_matmul_stats(const void* x, const void* w, void* y, float* part_sum,
+                                 float* part_sq, float* out_sum, float* out_sq, long long m,
+                                 int k, int n, int route, int pass_cols, int passes_per_group,
+                                 int stages, int blocks_x, int smem_bytes, long long part_rows,
+                                 int device, void* stream) {
+  return run_stats<kEpiCudaCores>(stcd_matmul_stats_tiles, x, w, y, part_sum, part_sq, out_sum,
+                                  out_sq, m, k, n, route, pass_cols, passes_per_group, stages,
+                                  blocks_x, smem_bytes, part_rows, device, stream);
+}
+
+// The product with its sums formed on the tensor cores (run_stats above); where TMA
+// cannot describe the operands, the wmma tile of matmul_stats.cu with its
+// tensor-core sums. Returns a cudaError_t.
 extern "C" int stcd_matmul_stats_mma(const void* x, const void* w, void* y, float* part_sum,
                                      float* part_sq, float* out_sum, float* out_sq, long long m,
                                      int k, int n, int route, int pass_cols,
                                      int passes_per_group, int stages, int blocks_x,
                                      int smem_bytes, long long part_rows, int device,
                                      void* stream) {
-  if (m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const Plan plan =
-      plan_for(m, k, n, aligned16(x) && aligned16(w) && aligned16(y), kStatsPasses);
-  if (!same_plan(plan, route, pass_cols, passes_per_group, stages, blocks_x, smem_bytes)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (plan.route == kRouteWmma) {
-    return stcd_matmul_stats_mma_tiles(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n,
-                                       part_rows, device, stream);
-  }
-  if (part_rows != plan.blocks_x) return (int)cudaErrorInvalidValue;
-  cudaError_t err = run_wgmma<true>(plan, x, w, y, m, k, n, part_sum, part_sq, device,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return stcd_matmul_stats_sum_parts(part_sum, part_sq, out_sum, out_sq, part_rows, n, stream);
+  return run_stats<kEpiTensorCores>(stcd_matmul_stats_mma_tiles, x, w, y, part_sum, part_sq,
+                                    out_sum, out_sq, m, k, n, route, pass_cols,
+                                    passes_per_group, stages, blocks_x, smem_bytes, part_rows,
+                                    device, stream);
 }

@@ -11,9 +11,11 @@
 //                           (pallas_mm): the product alone, for the shapes
 //                           that the wgmma route of matmul_hopper.cu
 //                           (stcd_matmul_bf16) cannot take
-//   stcd_matmul_stats       benchmarks/bench_conv_bn_epilogue.py::_kernel
+//   stcd_matmul_stats_tiles benchmarks/bench_conv_bn_epilogue.py::_kernel
 //                           (pallas_fused): a 2-D decomposition, one block for
-//                           each (M tile, N tile)
+//                           each (M tile, N tile), the sums on the CUDA cores,
+//                           for the shapes that the wgmma route of
+//                           matmul_hopper.cu (stcd_matmul_stats) cannot take
 //   stcd_matmul_stats_rows  benchmarks/bench_bnstats_diag.py::_fused1d_kernel
 //                           (pallas_1d): a block owns 128 rows across all N
 //   stcd_matmul_stats_mma_tiles  benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
@@ -21,6 +23,10 @@
 //                           formed on the tensor cores (ones . acc, ones . acc^2),
 //                           for the shapes that the wgmma route of
 //                           matmul_hopper.cu (stcd_matmul_stats_mma) cannot take
+//
+// stcd_matmul_stats_rows runs here at every shape; the other three entries run
+// only where matmul_plan (ops/matmul_stats.py) picks the route `wmma`, e.g. at
+// (333, 37, 91), where TMA cannot describe x and y.
 //
 // One device function, tile_product, serves all four: it computes a 128 x 64
 // output tile with nvcuda::wmma on bf16 fragments (8 warps, 32 x 32 each, K in
@@ -355,9 +361,12 @@ extern "C" int stcd_matmul_bf16_tiles(const void* x, const void* w, void* y, lon
                     true, device, stream);
 }
 
-extern "C" int stcd_matmul_stats(const void* x, const void* w, void* y, float* part_sum,
-                                 float* part_sq, float* out_sum, float* out_sq, long long m,
-                                 int k, int n, long long m_tiles, int device, void* stream) {
+// The sums on the CUDA cores, one block for each (M tile, N tile): the route of
+// stcd_matmul_stats (matmul_hopper.cu) for the shapes that TMA cannot describe.
+extern "C" int stcd_matmul_stats_tiles(const void* x, const void* w, void* y, float* part_sum,
+                                       float* part_sq, float* out_sum, float* out_sq,
+                                       long long m, int k, int n, long long m_tiles, int device,
+                                       void* stream) {
   return run<kCudaCores>(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n, m_tiles, false,
                          device, stream);
 }
@@ -381,7 +390,8 @@ extern "C" int stcd_matmul_stats_mma_tiles(const void* x, const void* w, void* y
 }
 
 // out_sum[c] = sum of part_sum[r][c] over r = 0 .. rows - 1 in index order (and
-// out_sq of part_sq): the second launch of stcd_matmul_stats_mma's wgmma route.
+// out_sq of part_sq): the second launch of the wgmma routes of stcd_matmul_stats
+// and stcd_matmul_stats_mma.
 extern "C" int stcd_matmul_stats_sum_parts(const float* part_sum, const float* part_sq,
                                            float* out_sum, float* out_sq, long long rows, int n,
                                            void* stream) {

@@ -9,7 +9,7 @@ its rows while the output tile is still on chip:
 
 - ``matmul_bf16(x, w) -> y``                          (``pallas_mm``)
 - ``matmul_stats(x, w) -> (y, sum, sumsq)``            (``pallas_fused``):
-  one block for each (M tile, N tile);
+  the two sums formed on the CUDA cores;
 - ``matmul_stats_rows(x, w) -> (y, sum, sumsq)``       (``pallas_1d``): a
   block owns its rows across all N;
 - ``matmul_stats_mma(x, w) -> (y, sum, sumsq)``        (``pallas_mxu_stats``):
@@ -20,14 +20,14 @@ rounded to bfloat16 once, and the sums, float32[N], are those of the float32
 accumulator before it is rounded. Each dispatches on the tensors' device:
 
 - CUDA tensors go to the hand-written kernels (``*_kernel``), or the call
-  raises: there is no fallback. ``matmul_bf16`` takes one of two routes,
-  chosen from the shapes and pointers by ``matmul_plan``: ``wgmma_tma``
-  (``csrc/matmul_hopper.cu``: persistent blocks, w resident in shared memory,
-  x streamed once by TMA into a ring, ``wgmma`` products) wherever TMA can
-  describe x and y, else ``wmma`` (the tile of ``csrc/matmul_stats.cu``, which
-  ``matmul_stats`` and ``matmul_stats_rows`` use at every shape);
-  ``matmul_stats_mma`` takes the same two routes, its ``wgmma_tma`` the same
-  kernel with the column sums formed on the tensor cores in its epilogue;
+  raises: there is no fallback. ``matmul_bf16``, ``matmul_stats`` and
+  ``matmul_stats_mma`` take one of two routes, chosen from the shapes and
+  pointers by ``matmul_plan``: ``wgmma_tma`` (``csrc/matmul_hopper.cu``:
+  persistent blocks, w resident in shared memory, x streamed once by TMA into
+  a ring, ``wgmma`` products; the epilogue stores y and, for the two with
+  sums, forms the column sums on the CUDA cores or on the tensor cores)
+  wherever TMA can describe x and y, else ``wmma`` (the tiles of
+  ``csrc/matmul_stats.cu``, which ``matmul_stats_rows`` uses at every shape);
 - CPU tensors go to the plain PyTorch versions (``*_plain``).
 
 The JAX functions' ``bm``, ``bn`` and ``pipeline`` are TPU tile arguments and
@@ -52,7 +52,8 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 TILE_ROWS, TILE_COLS, TILE_DEPTH = 128, 64, 64
 GEOMETRY = (f"{TILE_ROWS} x {TILE_COLS} output tiles, K in chunks of {TILE_DEPTH}, 8 warps of "
             f"32 x 32 (wmma m16n16k16 bf16), partial sums per {TILE_ROWS}-row tile; "
-            f"matmul_bf16 by wgmma with TMA where matmul_plan allows")
+            f"matmul_bf16, matmul_stats and matmul_stats_mma by wgmma with TMA where "
+            f"matmul_plan allows")
 _MAX_BLOCKS = 2 ** 31 - 1
 
 # The wgmma route of matmul_hopper.cu, mirrored by its plan_for: the C entry
@@ -64,7 +65,13 @@ _X_ROWS, _X_DEPTH = 128, 64     # an x chunk: 128 rows of 64 bf16 (128 bytes, th
 _STAGE_BYTES = _X_ROWS * _X_DEPTH * 2
 _MAX_STAGES = 8
 _INT_MAX = 2 ** 31 - 1
-STATS_PASSES = 2                # kStatsPasses: passes a group holds with the sums
+# The epilogues of the wgmma route (codes in the C entries are their indices):
+# y alone, the sums on the CUDA cores (matmul_stats), on the tensor cores
+# (matmul_stats_mma).
+EPILOGUES = ("none", "cuda_cores", "tensor_cores")
+STATS_PASSES = 2                # kStatsPasses: passes a group holds with tensor-core sums
+# passes a group holds with each epilogue's sums (kCudaSumPasses, kStatsPasses); no cap without
+SUM_PASSES = {"none": None, "cuda_cores": 4, "tensor_cores": STATS_PASSES}
 
 
 def _overhead_bytes(bn: int) -> int:
@@ -74,13 +81,15 @@ def _overhead_bytes(bn: int) -> int:
     return 1024 + 2 * _MAX_STAGES * 8 + 2 * min(bn // 64, 2) * 64 * 64 * 2
 
 
-def matmul_plan(m: int, k: int, n: int, aligned: bool, stats: bool = False) -> dict:
-    """The route and launch geometry of ``matmul_bf16`` (``stats=False``) or
-    ``matmul_stats_mma`` (``stats=True``) for x (m, k) . w (k, n);
-    ``aligned``: x, w and y start on 16-byte boundaries. The two share the
-    kernel and its rules; with the sums a group holds at most
-    ``STATS_PASSES`` passes (their sums are registers), and the block's sums
-    go through the ring's shared memory at the end, so they ask for no more.
+def matmul_plan(m: int, k: int, n: int, aligned: bool, epilogue: str = "none") -> dict:
+    """The route and launch geometry for x (m, k) . w (k, n) with the
+    ``epilogue`` of ``EPILOGUES``: ``"none"`` for ``matmul_bf16``,
+    ``"cuda_cores"`` for ``matmul_stats``, ``"tensor_cores"`` for
+    ``matmul_stats_mma``; ``aligned``: x, w and y start on 16-byte
+    boundaries. The three share the kernel and its rules; with the sums a
+    group holds at most ``SUM_PASSES[epilogue]`` passes (their sums are
+    registers), and the block's sums go through the ring's shared memory at
+    the end, so they ask for no more.
 
     ``wgmma_tma`` wherever TMA can describe x and y: aligned, rows of whole 16
     bytes (K and N multiples of 8), and the boxes inside the tensors (M >= 128,
@@ -94,6 +103,9 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool, stats: bool = False) -> d
     ``wmma``: one block for each 128-row tile (and one partial each)."""
     if min(m, k, n) < 1:
         raise ValueError(f"matmul_plan takes m, k, n >= 1, got {(m, k, n)}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"matmul_plan's epilogue is one of {EPILOGUES}, got {epilogue!r}")
+    max_npg = SUM_PASSES[epilogue]
     m_tiles = -(-m // _X_ROWS)
     wmma = {"route": "wmma", "pass_cols": 0, "passes_per_group": 0, "groups": 1, "stages": 0,
             "blocks_x": min(m_tiles, _INT_MAX), "smem_bytes": 0, "w_resident": False}
@@ -105,7 +117,7 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool, stats: bool = False) -> d
     while bn >= 64:
         passes = -(-n // bn)
         pass_bytes = bn * chunks * _X_DEPTH * 2
-        for npg in range(min(passes, STATS_PASSES) if stats else passes, 0, -1):
+        for npg in range(passes if max_npg is None else min(passes, max_npg), 0, -1):
             # several passes share a tile's chunks, so the ring must hold all of them
             min_stages = max(2, chunks) if npg > 1 else 2
             room = MAX_SMEM_BYTES - _overhead_bytes(bn) - npg * pass_bytes
@@ -157,7 +169,11 @@ def matmul_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
     return acc.bfloat16(), acc.sum(0), (acc * acc).sum(0)
 
 
-def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: bool):
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str],
+            grid_2d: bool):
+    """Launch a C entry: with ``epilogue`` (one of ``EPILOGUES``) on the route
+    that ``matmul_plan`` picks for it, without (``matmul_stats_rows``) on the
+    wmma tile."""
     _check_args(x, w)
     if not x.is_cuda:
         raise RuntimeError(f"{entry} needs CUDA tensors, got {x.device}")
@@ -174,34 +190,31 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, stats: bool, grid_2d: 
     lib = _build.load_library()
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    if not stats:
-        plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)))
-        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n,
-                                  ROUTES.index(plan["route"]), plan["pass_cols"],
-                                  plan["passes_per_group"], plan["stages"], plan["blocks_x"],
-                                  plan["smem_bytes"], *tail)
+    if epilogue is not None:
+        plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)), epilogue)
+        geometry = (ROUTES.index(plan["route"]), plan["pass_cols"], plan["passes_per_group"],
+                    plan["stages"], plan["blocks_x"], plan["smem_bytes"])
+    if epilogue == "none":
+        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, *geometry,
+                                  *tail)
         _build.check(lib, err, f"{entry} ({plan['route']})")
-        matmul_bf16_kernel.routes[plan["route"]] += 1
-        return y
+        return y, plan["route"]
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
-    if entry == "stcd_matmul_stats_mma":
-        plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)), stats=True)
-        rows = plan["blocks_x"] if plan["route"] == "wgmma_tma" else m_tiles
-        part = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
-        err = lib.stcd_matmul_stats_mma(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), m, k, n, ROUTES.index(plan["route"]),
-            plan["pass_cols"], plan["passes_per_group"], plan["stages"], plan["blocks_x"],
-            plan["smem_bytes"], rows, *tail)
-        _build.check(lib, err, f"{entry} ({plan['route']})")
-        matmul_stats_mma_kernel.routes[plan["route"]] += 1
-        return y, out[0], out[1]
-    part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
-    err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-                              part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                              m, k, n, m_tiles, *tail)
-    _build.check(lib, err, entry)
-    return y, out[0], out[1]
+    if epilogue is None:  # matmul_stats_rows: one partial for each M tile
+        part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
+        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+                                  part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                  m, k, n, m_tiles, *tail)
+        _build.check(lib, err, entry)
+        return (y, out[0], out[1]), "wmma"
+    # one partial for each persistent block on wgmma_tma, for each M tile on wmma
+    rows = plan["blocks_x"] if plan["route"] == "wgmma_tma" else m_tiles
+    part = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
+    err = getattr(lib, entry)(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), m, k, n, *geometry, rows, *tail)
+    _build.check(lib, err, f"{entry} ({plan['route']})")
+    return (y, out[0], out[1]), plan["route"]
 
 
 def matmul_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -209,41 +222,49 @@ def matmul_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     route ``matmul_plan`` picks. Takes contiguous bfloat16 CUDA tensors;
     raises on anything else. ``kernel_launches`` counts the calls and
     ``routes`` counts them by route."""
-    y = _launch("stcd_matmul_bf16", x, w, stats=False, grid_2d=False)
+    y, route = _launch("stcd_matmul_bf16", x, w, "none", grid_2d=False)
     matmul_bf16_kernel.kernel_launches += 1
+    matmul_bf16_kernel.routes[route] += 1
     return y
 
 
 def matmul_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
-    """Launch the product with sums, one block for each (M tile, N tile)."""
-    out = _launch("stcd_matmul_stats", x, w, stats=True, grid_2d=True)
+    """Launch the product with the sums formed on the CUDA cores, on the route
+    ``matmul_plan(..., epilogue="cuda_cores")`` picks: ``wgmma_tma`` runs
+    ``matmul_bf16``'s kernel with the sums in its epilogue (y bit-equal to
+    ``matmul_bf16``'s there), ``wmma`` the 2-D tile of ``matmul_stats.cu``, one
+    block for each (M tile, N tile). ``kernel_launches`` counts the calls and
+    ``routes`` counts them by route."""
+    out, route = _launch("stcd_matmul_stats", x, w, "cuda_cores", grid_2d=True)
     matmul_stats_kernel.kernel_launches += 1
+    matmul_stats_kernel.routes[route] += 1
     return out
 
 
 def matmul_stats_rows_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch the product with sums, one block for each M tile across all N."""
-    out = _launch("stcd_matmul_stats_rows", x, w, stats=True, grid_2d=False)
+    out, _ = _launch("stcd_matmul_stats_rows", x, w, None, grid_2d=False)
     matmul_stats_rows_kernel.kernel_launches += 1
     return out
 
 
 def matmul_stats_mma_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch the product with the sums formed on the tensor cores, on the
-    route ``matmul_plan(..., stats=True)`` picks: ``wgmma_tma`` runs
+    route ``matmul_plan(..., epilogue="tensor_cores")`` picks: ``wgmma_tma`` runs
     ``matmul_bf16``'s kernel with the sums in its epilogue (y bit-equal to
     ``matmul_bf16``'s there), ``wmma`` the tile of ``matmul_stats.cu``.
     ``kernel_launches`` counts the calls and ``routes`` counts them by route."""
-    out = _launch("stcd_matmul_stats_mma", x, w, stats=True, grid_2d=False)
+    out, route = _launch("stcd_matmul_stats_mma", x, w, "tensor_cores", grid_2d=False)
     matmul_stats_mma_kernel.kernel_launches += 1
+    matmul_stats_mma_kernel.routes[route] += 1
     return out
 
 
 for _kernel in (matmul_bf16_kernel, matmul_stats_kernel, matmul_stats_rows_kernel,
                 matmul_stats_mma_kernel):
     _kernel.kernel_launches = 0
-matmul_bf16_kernel.routes = collections.Counter()
-matmul_stats_mma_kernel.routes = collections.Counter()
+for _kernel in (matmul_bf16_kernel, matmul_stats_kernel, matmul_stats_mma_kernel):
+    _kernel.routes = collections.Counter()
 
 
 def _dispatch(kernel, plain, x, w, impl):
@@ -268,7 +289,8 @@ def matmul_bf16(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None
 
 def matmul_stats(x: torch.Tensor, w: torch.Tensor, impl: Optional[str] = None) -> Stats:
     """(y, sum, sumsq): the product and the column sums of its float32
-    accumulator and of its square; 2-D decomposition. ``impl`` as above."""
+    accumulator and of its square, formed on the CUDA cores. ``impl`` as
+    above."""
     return _dispatch(matmul_stats_kernel, matmul_stats_plain, x, w, impl)
 
 

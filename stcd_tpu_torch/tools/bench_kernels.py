@@ -1,4 +1,4 @@
-"""Times ``matmul_bf16``, ``matmul_stats_mma`` and the float32 attention
+"""Times the matmul kernels, the augmentation kernel and the float32 attention
 kernels of a checkout on one CUDA card, beside one PyTorch call for the same
 function and the bound, so that two checkouts can be compared in one run on
 one card.
@@ -18,10 +18,19 @@ one call (a kernel of tens of microseconds is then not timed by the host's
 pace of launching it), an autograd backward as profiler device time:
 
 - ``matmul_bf16`` and ``matmul_stats_mma`` (the product with the column sums
-  of its f32 accumulator and of its square) at the three shapes of
-  ``tools/bench_bnstats_diag.py``, beside ``torch.matmul``; bound: x, w read
-  and y (and the two f32[N] sums) written once at 3.35 TB/s, or 2 M K N
-  operations at 989 TFLOP/s;
+  of its f32 accumulator and of its square, formed on the tensor cores) at
+  the three shapes of ``tools/bench_bnstats_diag.py``, beside
+  ``torch.matmul``; bound: x, w read and y (and the two f32[N] sums) written
+  once at 3.35 TB/s, or 2 M K N operations at 989 TFLOP/s;
+- ``matmul_stats`` (the same sums, formed on the CUDA cores) at the five
+  shapes of ``tools/bench_conv_bn_epilogue.py``, beside ``matmul_bf16``,
+  ``matmul_stats_mma`` and ``torch.matmul`` at the same shapes; the same bound;
+- the augmentation at the train step's shape (128 images of 256x256, uint8)
+  with the sampler's draws, with every gate on and with every gate off, also
+  as CUDA events around one eager call (the wrapper's host time included),
+  and the device time of each kernel one call launches (torch.profiler);
+  bound: the images read and the output written once at 3.35 TB/s, or the
+  f32 operations the gates ask for at 67 TFLOP/s;
 - the float32 attention forward at the four SRA shapes of a serving batch
   (16 tile pairs of 256x256) and of the ChangeFormerV6 train step (8 pairs of
   512x512), beside ``F.scaled_dot_product_attention`` in float32 (TF32 off);
@@ -91,6 +100,46 @@ def profiled_ms(torch, fn, runs: int = 10) -> float:
     return total_us / runs / 1e3
 
 
+def eager_ms(torch, fn, runs: int = 20) -> float:
+    """Median of ``runs`` eager calls, each between two CUDA events."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# f32 operations per pixel of each stage of the augmentation (counted from
+# data/augment.py: multiplies, adds, divides, compares and selects)
+AUG_OPS = {"to_float": 3, "jitter": 9 + 17 + 22 + 75, "gray": 5, "blur": 2 * 11 * 2 * 3,
+           "normalize": 6}
+AUG_SHAPE = (128, 256, 256, 3)  # A||B of the batch-64 train step
+
+
+def augment_bound_ms(imgs, params) -> tuple:
+    """(bound_ms, bound_by) of one augmentation call on these inputs: each
+    input read once and the output written once over the memory rate,
+    against the operations these gates ask for over the f32 rate."""
+    n, h, w, _ = imgs.shape
+    nbytes = imgs.numel() * imgs.element_size() + imgs.numel() * 4
+    nbytes += sum(v.numel() * v.element_size() for v in params.values())
+    per_image = AUG_OPS["normalize"] + (AUG_OPS["to_float"] if imgs.dtype.itemsize == 1
+                                        else 0)
+    ops = h * w * (n * per_image
+                   + int(params["jitter_apply"].sum()) * AUG_OPS["jitter"]
+                   + int(params["gray_apply"].sum()) * AUG_OPS["gray"]
+                   + int(params["blur_apply"].sum()) * AUG_OPS["blur"])
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def attention_bound_ms(shape, backward: bool) -> float:
     b, h, n, m, d = shape
     rows, products, softmax = (3 * n + 4 * m, 10, 8) if backward else (2 * n + 2 * m, 4, 5)
@@ -126,6 +175,100 @@ def bench_matmul(torch, ops, shapes):
                                            2 * m * k * n / BF16_FLOPS) * 1e3})
         print(f"matmul {(m, k, n)}: {rows[-1]}", flush=True)
         del x, w, got, want, y, s1, s2, acc
+    return rows
+
+
+def bn_scaled_err(torch, x, w, s1, s2) -> float:
+    """The sums against float64 on BatchNorm's scales: |d mean| / std, |d var| / var."""
+    m = x.shape[0]
+    acc = (x.float() @ w.float()).double()
+    mean = acc.sum(0) / m
+    var = ((acc * acc).sum(0) / m - mean ** 2).clamp_min(1e-6)
+    return max(((s1.double() / m - mean).abs() / var.sqrt()).max().item(),
+               ((s2.double() / m - (s1.double() / m) ** 2 - var).abs() / var).max().item())
+
+
+def bench_matmul_stats(torch, ops, shapes):
+    """matmul_stats beside matmul_bf16, matmul_stats_mma and torch.matmul."""
+    rows = []
+    for m, k, n in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        y, s1, s2 = ops.matmul_stats(x, w)
+        y_plain = ops.matmul_bf16(x, w, impl="plain")
+        nbytes = 2 * (m * k + k * n + m * n) + 8 * n
+        row = {"shape": [m, k, n],
+               "max_abs_err": (y.float() - y_plain.float()).abs().max().item(),
+               "bn_scaled_err": bn_scaled_err(torch, x, w, s1, s2),
+               "y_equal_matmul_bf16": bool(torch.equal(y, ops.matmul_bf16(x, w))),
+               "route": None,
+               "ms": graph_ms(torch, lambda: ops.matmul_stats(x, w)),
+               "matmul_bf16_ms": graph_ms(torch, lambda: ops.matmul_bf16(x, w)),
+               "stats_mma_ms": graph_ms(torch, lambda: ops.matmul_stats_mma(x, w)),
+               "library_ms": graph_ms(torch, lambda: torch.matmul(x, w)),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_FLOPS) * 1e3}
+        if hasattr(ops.matmul_stats_kernel, "routes"):  # a checkout whose matmul_stats has routes
+            before = dict(ops.matmul_stats_kernel.routes)
+            ops.matmul_stats(x, w)
+            row["route"] = [r for r, c in ops.matmul_stats_kernel.routes.items()
+                            if c != before.get(r, 0)][0]
+        print(f"matmul_stats {(m, k, n)}: {row}", flush=True)
+        rows.append(row)
+        del x, w, y, s1, s2, y_plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def device_kernels_ms(torch, fn, runs: int = 5) -> dict:
+    """Device time of each kernel that one call of ``fn`` launches, from
+    torch.profiler, averaged over ``runs`` calls: {kernel name: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + e.device_time_total / runs / 1e3
+    return out
+
+
+def bench_augment(torch, root_modules):
+    """The augmentation at the train step's shape: the sampler's draws, every
+    gate on, every gate off."""
+    augment, data_augment = root_modules
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    imgs = torch.randint(0, 256, AUG_SHAPE, generator=gen, dtype=torch.uint8).to("cuda")
+    n = AUG_SHAPE[0]
+    draws = data_augment.params_to(data_augment.sample_augment_params(gen, n, 0.5), "cuda")
+    gates = ("jitter_apply", "gray_apply", "blur_apply")
+    cases = {"train_step": draws,
+             "every_gate_on": {**draws, **{g: torch.ones(n, dtype=torch.bool, device="cuda")
+                                           for g in gates}},
+             "every_gate_off": {**draws, **{g: torch.zeros(n, dtype=torch.bool, device="cuda")
+                                            for g in gates}}}
+    rows = {}
+    for name, params in cases.items():
+        got = augment.apply_augment_batch(imgs, params, impl="kernel")
+        want = augment.apply_augment_batch(imgs, params, impl="plain")
+        bound, by = augment_bound_ms(imgs, params)
+        rows[name] = {"shape": list(AUG_SHAPE), "max_abs_err": (got - want).abs().max().item(),
+                      "ms": graph_ms(torch, lambda: augment.apply_augment_batch(imgs, params)),
+                      "eager_ms": eager_ms(torch, lambda: augment.apply_augment_batch(imgs,
+                                                                                      params)),
+                      "kernels_ms": device_kernels_ms(
+                          torch, lambda: augment.apply_augment_batch(imgs, params)),
+                      "bound_ms": bound, "bound_by": by,
+                      "gates": {g: int(params[g].sum()) for g in gates}}
+        print(f"augment {name}: {rows[name]}", flush=True)
+        del got, want
     return rows
 
 
@@ -178,9 +321,11 @@ def main(argv=None) -> int:
         return 2
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
-    from stcd_tpu_torch.ops import attention
+    from stcd_tpu_torch.data import augment as data_augment
+    from stcd_tpu_torch.ops import attention, augment
     from stcd_tpu_torch.ops import matmul_stats as ops
     from stcd_tpu_torch.tools.bench_bnstats_diag import SHAPES
+    from stcd_tpu_torch.tools.bench_conv_bn_epilogue import SHAPES as CONV_SHAPES
     if not Path(attention.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"stcd_tpu_torch came from {attention.__file__}, not {root}")
     torch.backends.cudnn.allow_tf32 = False
@@ -190,12 +335,17 @@ def main(argv=None) -> int:
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"bench_kernels: {root} on {card}; torch {torch.__version__}", flush=True)
     matmul = bench_matmul(torch, ops, SHAPES)
+    stats = bench_matmul_stats(torch, ops, CONV_SHAPES)
+    aug = bench_augment(torch, (augment, data_augment))
     serving = bench_attention(torch, attention, SERVING_SHAPES, backward=False)
     train = bench_attention(torch, attention, TRAIN_SHAPES, backward=True)
     result = {"label": args.label or root.name, "root": str(root), "card": card,
               "matmul_bf16": matmul, "matmul_bf16_ms": sum(r["ms"] for r in matmul),
               "matmul_stats_mma_ms": sum(r["stats_mma_ms"] for r in matmul),
               "matmul_bf16_library_ms": sum(r["library_ms"] for r in matmul),
+              "matmul_stats": stats, "matmul_stats_ms": sum(r["ms"] for r in stats),
+              "matmul_stats_bound_ms": sum(r["bound_ms"] for r in stats),
+              "augment": aug,
               "attention_serving": serving,
               "attention_serving_batch_ms": sum(depth * r["ms"]
                                                 for depth, r in zip(SRA_DEPTHS, serving)),

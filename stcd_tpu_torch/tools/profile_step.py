@@ -158,7 +158,7 @@ def profile_steps(step, n: int = 3, top: int = 15, groups=None):
 
 TRAIN_PRECISIONS = (("bf16", True, 64), ("fp32", False, 8))  # name, autocast, batch
 TRAIN_GROUPS = {
-    "augment_kernel": ("gray_mean_partials", "pointwise_chain", "blur_normalize"),
+    "augment_kernel": ("gray_mean_partials", "augment_tiles"),
     "attention_fwd": ("cross_attention_fwd_kernel", "attention_fwd_mma_kernel",
                       "attention_fwd_small_m_kernel"),
     "attention_bwd": ("cross_attention_bwd_kernel", "attention_bwd_mma_kernel",

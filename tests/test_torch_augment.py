@@ -20,7 +20,8 @@ import jax.numpy as jnp
 from stcd_tpu.data import augment as jaug
 from stcd_tpu.ops.augment_kernel import apply_augment_batch as jax_kernel_batch
 from stcd_tpu_torch.data import augment as taug
-from stcd_tpu_torch.ops.augment import apply_augment_batch, apply_augment_kernel
+from stcd_tpu_torch.ops.augment import (REDUCE_BLOCKS, apply_augment_batch, apply_augment_kernel,
+                                        augment_plan)
 
 ATOL = 2e-5
 
@@ -170,3 +171,131 @@ def test_kernel_refuses_cpu_tensors_and_bad_arguments():
         apply_augment_batch(imgs, {**params, "perm": params["perm"][:1]})
     with pytest.raises(RuntimeError, match="no backward"):
         apply_augment_kernel(imgs.float().requires_grad_(), params)
+
+
+# --- augment_plan: the tiles of csrc/augment.cu's second launch (the kernel runs only
+# on a card; its geometry and its tiled blur are held here) ---
+
+PLAN_SHAPES = [(2, 256, 256), (3, 100, 75), (4, 100, 75), (1, 1, 1), (2, 33, 65), (1, 31, 130)]
+
+
+def _pre_blur(x, params):
+    """The plain version's pixels before the blur: the jitter chain and grayscale."""
+    n = x.shape[0]
+
+    def col(v):
+        return v.reshape(n, 1, 1, 1)
+
+    jittered = x
+    for k in range(4):
+        slot = params["perm"][:, k]
+        nxt = jittered
+        for j, op in enumerate(taug.JITTER_OPS):
+            nxt = torch.where(col(slot == j), op(jittered, col(params["factors"][:, j])), nxt)
+        jittered = nxt
+    x = torch.where(col(params["jitter_apply"]), jittered, x)
+    return torch.where(col(params["gray_apply"]), taug._grayscale(x).expand_as(x), x)
+
+
+def _tiled_blur(x, kern, plan):
+    """The blur as augment.cu's blocks form it: each tile staged with its halo by
+    clamped indices, blurred vertically over the staged rows, then horizontally
+    over the staged columns, taps in the same order. Returns the image and how
+    many tiles wrote each pixel."""
+    n, h, w, _ = x.shape
+    th, tw, halo = plan["tile_h"], plan["tile_w"], plan["halo"]
+    out = torch.full_like(x, float("nan"))
+    written = torch.zeros((h, w), dtype=torch.int64)
+    taps = kern.shape[1]
+    for by in range(plan["tiles_y"]):
+        for bx in range(plan["tiles_x"]):
+            y0, x0 = by * th, bx * tw
+            rows = torch.clamp(torch.arange(y0 - halo, y0 - halo + plan["stage_rows"]), 0, h - 1)
+            cols = torch.clamp(torch.arange(x0 - halo, x0 - halo + plan["stage_cols"]), 0, w - 1)
+            staged = x[:, rows][:, :, cols]
+            vert = torch.zeros((n, th, plan["stage_cols"], 3))
+            for t in range(taps):
+                vert = vert + kern[:, t].reshape(-1, 1, 1, 1) * staged[:, t:t + th]
+            horiz = torch.zeros((n, th, tw, 3))
+            for t in range(taps):
+                horiz = horiz + kern[:, t].reshape(-1, 1, 1, 1) * vert[:, :, t:t + tw]
+            ys, xs = min(th, h - y0), min(tw, w - x0)
+            out[:, y0:y0 + ys, x0:x0 + xs] = horiz[:, :ys, :xs]
+            written[y0:y0 + ys, x0:x0 + xs] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_augment_plan_covers_every_pixel_once_and_fits(shape):
+    """Every output pixel belongs to exactly one tile; the staged tile and halo,
+    three f32 planes, each warp's 96 16-byte words for its stores and the uint8
+    table fit four blocks in an SM's shared memory; a row's four 16-byte reads of the
+    horizontal pass stay inside the staged row; two launches."""
+    n, h, w = shape
+    plan = augment_plan(n, h, w)
+    assert (plan["tile_h"], plan["tile_w"], plan["halo"]) == (32, 64, taug.BLUR_RADIUS)
+    assert (plan["tiles_x"] - 1) * plan["tile_w"] < w <= plan["tiles_x"] * plan["tile_w"]
+    assert (plan["tiles_y"] - 1) * plan["tile_h"] < h <= plan["tiles_y"] * plan["tile_h"]
+    assert plan["blocks"] == plan["tiles_x"] * plan["tiles_y"] * n
+    assert plan["stage_rows"] == plan["tile_h"] + 2 * plan["halo"]
+    assert plan["stage_cols"] == plan["tile_w"] + 2 * plan["halo"] <= plan["stage_stride"]
+    assert plan["stage_stride"] % 4 == 0 and 4 * (plan["tile_w"] // 4 - 1) + 16 <= plan[
+        "stage_stride"]
+    assert plan["smem_bytes"] == 3 * plan["stage_rows"] * plan["stage_stride"] * 4 + 256 * 48
+    # besides: the uint8 table and the mean (static, 1 KB), and 1 KB of each block is the system's
+    assert 4 * (plan["smem_bytes"] + 1040 + 1024) <= 228 * 1024
+    assert plan["launches"] == 2 and plan["reduce_blocks"] == REDUCE_BLOCKS == 16
+    x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(0))
+    _, written = _tiled_blur(x, taug._gaussian_kernel_1d(torch.full((n,), 1.5)), plan)
+    assert bool((written == 1).all())
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_tiled_blur_is_the_plain_blur_bit_for_bit(shape):
+    """The halo reaches every tap of every output pixel within the image's
+    clamped edge: the tiles' blur equals the plain whole-image blur exactly."""
+    n, h, w = shape
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((n, h, w, 3), generator=gen)
+    kern = taug._gaussian_kernel_1d(0.1 + 1.9 * torch.rand(n, generator=gen))
+    got, _ = _tiled_blur(x, kern, augment_plan(n, h, w))
+    assert torch.equal(got, taug._apply_gaussian_blur(x, kern))
+
+
+@pytest.mark.parametrize("uint8", [True, False], ids=["uint8", "float"])
+def test_tiled_pipeline_matches_both_jax_paths(uint8):
+    """The kernel's structure end to end at a ragged size, emulated on the CPU:
+    the pointwise chain, the tiles' blur where an image's flag says so, then
+    normalisation, against the jnp reference and the Pallas kernel (interpret)."""
+    imgs = _images(7, (4, 100, 75, 3), uint8)
+    params = _jax_params(7, 4, jitter_apply=True)
+    params = {**params, "blur_apply": jnp.asarray([True, False, True, True])}
+    tp = _to_torch(params)
+    pre = _pre_blur(taug.to_float01(torch.from_numpy(imgs)), tp)
+    blurred, _ = _tiled_blur(pre, tp["blur_kern"], augment_plan(*imgs.shape[:3]))
+    got = taug.normalize(torch.where(tp["blur_apply"].reshape(-1, 1, 1, 1), blurred, pre))
+    plain = apply_augment_batch(torch.from_numpy(imgs), tp)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6, rtol=0)
+    ref = jax.vmap(jaug.apply_augment_reference)(jaug.to_float01(jnp.asarray(imgs)), params)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    kern = jax_kernel_batch(jnp.asarray(imgs), params, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(0, 8, 8), (1, 0, 8), (65536, 8, 8), (1, 4097, 4097)])
+def test_augment_plan_refuses_what_the_grid_cannot_take(shape):
+    with pytest.raises(ValueError):
+        augment_plan(*shape)
+
+
+def test_sampler_draws_reach_the_kernel_without_a_conversion():
+    """The kernel reads the draws as sample_augment_params makes them (perm int64,
+    the gates bool, factors and taps float32, all contiguous), so the wrapper's
+    conversions return the tensors themselves and launch nothing."""
+    params = taug.sample_augment_params(torch.Generator().manual_seed(3), 6, 0.5)
+    want = {"perm": torch.int64, "factors": torch.float32, "jitter_apply": torch.bool,
+            "gray_apply": torch.bool, "blur_apply": torch.bool, "blur_kern": torch.float32}
+    for key, dtype in want.items():
+        t = params[key]
+        assert t.dtype == dtype and t.is_contiguous()
+        assert t.to(dtype).contiguous() is t

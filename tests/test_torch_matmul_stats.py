@@ -289,7 +289,7 @@ def test_stats_plan_is_the_product_plan_where_tma_can_describe_the_operands(shap
     two passes a group (their sums are registers); a partial for each of the
     blocks_x persistent blocks, at most 132 x N."""
     m, k, n = shape
-    plan = ops.matmul_plan(m, k, n, aligned=True, stats=True)
+    plan = ops.matmul_plan(m, k, n, aligned=True, epilogue="tensor_cores")
     assert plan["route"] == "wgmma_tma" and plan["passes_per_group"] <= ops.STATS_PASSES == 2
     assert plan["blocks_x"] * plan["groups"] <= ops.SMS
     product = ops.matmul_plan(m, k, n, aligned=True)
@@ -302,7 +302,7 @@ def test_stats_plan_is_the_product_plan_where_tma_can_describe_the_operands(shap
 @pytest.mark.parametrize("shape,aligned", [(RAGGED, True), ((1000, 72, 200), False),
                                            ((1000, 36, 200), True), ((100, 72, 200), True)])
 def test_stats_plan_takes_the_wmma_tile_where_tma_cannot(shape, aligned):
-    assert ops.matmul_plan(*shape, aligned, stats=True)["route"] == "wmma"
+    assert ops.matmul_plan(*shape, aligned, epilogue="tensor_cores")["route"] == "wmma"
 
 
 def test_stats_mma_route_counter_exists_and_stays_at_zero_on_the_cpu():
@@ -311,3 +311,74 @@ def test_stats_mma_route_counter_exists_and_stays_at_zero_on_the_cpu():
     assert torch.equal(y, ops.matmul_bf16_plain(x, w))
     assert ops.matmul_stats_mma_kernel.kernel_launches == 0
     assert dict(ops.matmul_stats_mma_kernel.routes) == {}
+
+
+# --- matmul_stats: the same kernel with the sums on the CUDA cores ---
+
+CUDA_SUM_CASES = (
+    [(s, "wgmma_tma") for s in bench_conv_bn_epilogue.SHAPES + bench_bnstats_diag.SHAPES]
+    + [(MM_RAGGED, "wgmma_tma"), (RAGGED, "wmma"), ((1000, 72, 56), "wmma")])
+
+
+@pytest.mark.parametrize("shape,route", CUDA_SUM_CASES)
+def test_cuda_sums_plan_at_the_tool_and_ragged_shapes(shape, route):
+    """bench_conv_bn_epilogue's five shapes, bench_bnstats_diag's three and
+    the ragged ones: wgmma_tma wherever TMA can describe x and y (at most 132
+    persistent blocks, one partial each; shared memory within a block's limit;
+    at most SUM_PASSES["cuda_cores"] passes a group, and the block's sums of all its
+    columns, two warpgroups x (sum, square), fit in the ring at the end), the
+    2-D wmma tile where it cannot (nothing a multiple of 8; N < 64)."""
+    m, k, n = shape
+    plan = ops.matmul_plan(m, k, n, aligned=True, epilogue="cuda_cores")
+    assert plan["route"] == route
+    if route == "wmma":
+        assert plan == ops.matmul_plan(m, k, n, aligned=True) and plan["blocks_x"] == -(-m // 128)
+        return
+    assert plan["blocks_x"] == min(-(-m // 128), ops.SMS // plan["groups"])
+    assert plan["blocks_x"] * plan["groups"] <= ops.SMS
+    assert 0 < plan["smem_bytes"] <= ops.MAX_SMEM_BYTES == 232448
+    assert plan["smem_bytes"] == 1024 + 2 * 8 * 8 + _tile_bytes(plan, k)
+    assert 1 <= plan["passes_per_group"] <= ops.SUM_PASSES["cuda_cores"] == 4
+    assert 2 * 2 * plan["passes_per_group"] * plan["pass_cols"] * 4 <= plan["stages"] * 128 * 64 * 2
+    # the sums do not change the product's geometry where the cap does not bind: y is
+    # matmul_bf16's, bit for bit, from the same kernel
+    product = ops.matmul_plan(m, k, n, aligned=True)
+    assert plan == product or product["passes_per_group"] > ops.SUM_PASSES["cuda_cores"]
+
+
+def test_cuda_sums_plan_at_the_tool_shapes():
+    """The geometry bench_conv_bn_epilogue's shapes take: one pass of 256 columns,
+    one of 64, one of 128, two of 256 sharing a tile's chunks, and the
+    (32768, 1024, 256) shape in four groups of 33 blocks (512 KB of w), which reads
+    x once for each group."""
+    plans = [ops.matmul_plan(*s, aligned=True, epilogue="cuda_cores")
+             for s in bench_conv_bn_epilogue.SHAPES]
+    assert [(p["pass_cols"], p["passes_per_group"], p["groups"], p["blocks_x"])
+            for p in plans] == [(256, 1, 1, 132), (64, 1, 1, 132), (128, 1, 1, 132),
+                                (256, 2, 1, 132), (64, 1, 4, 33)]
+
+
+def test_cuda_sums_hold_more_passes_a_group_than_the_tensor_core_sums():
+    """Where w of four 256-column passes fits beside the ring, the CUDA-core sums
+    keep them in one group (x read once); the tensor-core sums stop at two passes
+    and read x twice."""
+    shape = (4096, 64, 1024)
+    cuda = ops.matmul_plan(*shape, aligned=True, epilogue="cuda_cores")
+    mma = ops.matmul_plan(*shape, aligned=True, epilogue="tensor_cores")
+    assert (cuda["passes_per_group"], cuda["groups"]) == (4, 1)
+    assert (mma["passes_per_group"], mma["groups"]) == (2, 2)
+    assert cuda == ops.matmul_plan(*shape, aligned=True)
+
+
+def test_matmul_plan_refuses_an_unknown_epilogue():
+    assert ops.EPILOGUES == ("none", "cuda_cores", "tensor_cores")
+    with pytest.raises(ValueError, match="epilogue"):
+        ops.matmul_plan(1024, 64, 64, aligned=True, epilogue="stats")
+
+
+def test_stats_route_counter_exists_and_stays_at_zero_on_the_cpu():
+    x, w = _torch_bf16(*_operands((256, 64, 64)))
+    y, s1, s2 = ops.matmul_stats(x, w)
+    assert torch.equal(y, ops.matmul_bf16_plain(x, w))
+    assert ops.matmul_stats_kernel.kernel_launches == 0
+    assert dict(ops.matmul_stats_kernel.routes) == {}
