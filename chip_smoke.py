@@ -30,8 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    log-sum-exp) and timed; every on-path kernel, f32 and bf16, must read at or
    above its bound. Then the bn_stats kernel against its plain
    version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
-   f32, two runs bit-identical, its VJP against autograd, with
-   torch.batch_norm_stats as the yardstick. Then the four matmul kernels
+   f32, and at an odd C and a pointer off a 16-byte boundary: two runs and
+   two CUDA-graph replays bit-identical, one CUDA launch a call
+   (torch.profiler), its VJP against
+   autograd, timed as graph replays with torch.batch_norm_stats as the
+   yardstick and each shape's share of its bound. Then the four matmul kernels
    (the product alone; with the BatchNorm sums on the CUDA cores; in a row
    decomposition; on the tensor cores) against their plain version and a
    float64 sum of its f32 accumulator, bf16, at the five ResNet-50 bottleneck
@@ -39,8 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    passes, two runs bit-identical, with torch.matmul as the yardstick; the
    product alone, with the CUDA-core sums and with the tensor-core sums each
    on the route matmul_plan picks (wgmma with TMA wherever TMA can describe
-   the operands; the wmma tiles at (333, 37, 91) and N < 64), y bit-equal to
-   matmul_bf16's on the wgmma route; timed as CUDA-graph replays.
+   the operands; the wmma tiles at (333, 37, 91) and N < 64), the row
+   decomposition on the route of matmul_stats_rows_plan (wgmma with TMA where
+   all of w stays resident; the wmma row tile also at (32768, 1024, 256)), y
+   bit-equal to matmul_bf16's on the wgmma route; timed as CUDA-graph replays.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -81,10 +86,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the scalar log exist, and restore_last gives back the step, the weights
    and the Adam moments.
 12. the tools: bench_conv_bn_epilogue and bench_bnstats_diag, the entry points
-   of the four matmul kernels, through their main(); their rows are printed,
-   and every matmul_stats launch of bench_conv_bn_epilogue and every
-   matmul_bf16 and matmul_stats_mma launch of bench_bnstats_diag took the
-   wgmma route.
+   of the four matmul kernels, and bench_bnstats, that of bn_stats, through
+   their main(); their rows are printed, every matmul_stats launch of
+   bench_conv_bn_epilogue and every matmul_bf16, matmul_stats_rows and
+   matmul_stats_mma launch of bench_bnstats_diag took the wgmma route, and
+   bench_bnstats' bn_stats agrees with its plain version.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -94,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -152,6 +159,8 @@ MM_NARROW = (1000, 72, 56)  # N < 64: the wmma tiles with 16-byte loads and stor
 MM_WIDE = (4096, 64, 1024)  # four 256-column passes a group with the CUDA-core sums
 BN_SHAPES = ((128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512),
              (128, 16, 16, 1024), (128, 256, 256, 16), (128, 128, 128, 32))
+# 1-channel loads: an odd C, and a C of whole 16 bytes at a pointer off a 16-byte boundary
+BN_ODD_SHAPES = ((1001, 3), (7, 13, 24))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -200,36 +209,44 @@ def time_ms(fn, runs: int = 20, graph: bool = False) -> float:
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, runs: int = 10) -> float:
-    """Device time of one call, from torch.profiler: the kernels' time summed
-    over ``runs`` calls. For a call that goes through the autograd engine, which
-    a CUDA graph cannot capture apart from its forward."""
+PROFILE_TRIES = 3  # profiler windows tried before a call counts as having no device activity
+
+
+def device_events(fn, runs: int):
+    """The device events (kernels, copies, fills) of ``runs`` calls of ``fn``,
+    from torch.profiler, after warm-up calls. The profiler there at times
+    records no device activity at all for a window; such a window is taken
+    again, at most PROFILE_TRIES times, and the call fails if none records any."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    raise RuntimeError(f"torch.profiler saw no device activity in {PROFILE_TRIES} windows")
+
+
+def profiled_ms(fn, runs: int = 10) -> float:
+    """Device time of one call, from torch.profiler: the kernels' time summed
+    over ``runs`` calls. For a call that goes through the autograd engine, which
+    a CUDA graph cannot capture apart from its forward."""
+    total_us = sum(e.device_time_total for e in device_events(fn, runs))
     require(total_us > 0, "torch.profiler saw no device time")
     return total_us / runs / 1e3
 
 
 def device_launches(fn) -> list:
     """The names of the device activities (kernels, copies, fills) that one call
-    of ``fn`` starts, from torch.profiler, after a warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    of ``fn`` starts, from torch.profiler."""
+    return [e.name for e in device_events(fn, 1)]
 
 
 def _attention_bound(shape, dtype, rows_moved, products, softmax_ops) -> tuple:
@@ -556,50 +573,91 @@ def phase_attention_backward(torch, attention):
     return res
 
 
+def bn_rel_err(got, want) -> float:
+    """The largest of |got - want| / max(1, |want|) over the two sums."""
+    return max(((g.double() - w).abs() / w.abs().clamp_min(1.0)).max().item()
+               for g, w in zip(got, want))
+
+
 def phase_bn_stats(torch):
-    """The bn_stats kernel against its plain version and a float64 sum."""
-    from stcd_tpu_torch.ops.bn_stats import bn_stats, bn_stats_kernel
+    """The bn_stats kernel against its plain version and a float64 sum, at the
+    six SegCD-r50 shapes in bf16 and f32 and at two shapes that take 1-channel
+    loads (an odd C; a pointer off a 16-byte boundary): two runs and two
+    replays of a CUDA graph bit-identical, one CUDA launch a call, timed as
+    graph replays beside the plain version and torch.batch_norm_stats; then
+    its VJP against autograd."""
+    from stcd_tpu_torch.ops.bn_stats import bn_stats, bn_stats_plan
 
     gen = torch.Generator(device="cpu").manual_seed(6)
-    bn_stats_kernel.kernel_launches = 0
     max_err = 0.0
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for shape in BN_SHAPES:
+    by_shape = []
+    f32_total = {"ms": 0.0, "bound_ms": 0.0}
+    cases = [(shape, dtype, 0) for shape in BN_SHAPES for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, dtype, 1) for shape in BN_ODD_SHAPES
+              for dtype in (torch.bfloat16, torch.float32)]
+    for shape, dtype, offset in cases:
         base = torch.randn(shape, generator=gen) * 2.0 + 0.5
-        for dtype in (torch.bfloat16, torch.float32):
-            x = base.to("cuda", dtype)
-            got, again, plain = bn_stats(x), bn_stats(x), bn_stats(x, impl="plain")
-            x64 = x.reshape(-1, shape[-1]).double()
-            want = (x64.sum(0), (x64 * x64).sum(0))
-            torch.cuda.synchronize()
-            errs = []
-            for a, c, w in zip(got, again, want):
-                require(a.dtype == torch.float32 and a.shape == (shape[-1],),
-                        f"bn_stats output {a.dtype} {tuple(a.shape)}")
-                require(bool(torch.equal(a, c)), f"bn_stats {shape}: two runs differ")
-                errs.append(((a.double() - w).abs() / w.abs().clamp_min(1.0)).max().item())
-            plain_err = max(((p.double() - w).abs() / w.abs().clamp_min(1.0)).max().item()
-                            for p, w in zip(plain, want))
-            del x64, want
-            t_kernel = time_ms(lambda: bn_stats(x))
-            t_plain = time_ms(lambda: bn_stats(x, impl="plain"))
-            # the one PyTorch call that computes BatchNorm's statistics: a yardstick
-            nchw = x.permute(0, 3, 1, 2)
-            t_lib = time_ms(lambda: torch.batch_norm_stats(nchw, 1e-5))
-            bound = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-            name = str(dtype).replace("torch.", "")
-            print(f"bn_stats {shape} {name}: rel err against float64 sum {errs[0]:.3e} "
-                  f"sumsq {errs[1]:.3e} (tol {BN_REL_TOL}; plain {plain_err:.3e}), two runs "
-                  f"identical; kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms "
-                  f"torch.batch_norm_stats {t_lib:.4f} ms bound {bound:.4f} ms (bytes)",
-                  flush=True)
-            require(max(errs) <= BN_REL_TOL, f"bn_stats is off by {max(errs)} at {shape}")
-            max_err = max(max_err, *errs)
-            if dtype == torch.bfloat16:  # what a bf16 SegCD step would hand it
-                for key, t in (("ms", t_kernel), ("plain_ms", t_plain),
-                               ("library_ms", t_lib), ("bound_ms", bound)):
-                    total[key] += t
-            del x
+        n = base.numel()
+        flat = torch.empty(n + offset, dtype=dtype, device="cuda")
+        x = flat[offset:].view(shape)  # offset 1: off a 16-byte boundary
+        x.copy_(base.to("cuda", dtype))
+        c = shape[-1]
+        plan = bn_stats_plan(n // c, c, x.element_size(), x.data_ptr() % 16 == 0)
+        require(offset == 0 or plan["vec"] == 1, f"bn_stats {shape}: vec {plan['vec']}")
+        got, again = bn_stats(x), bn_stats(x)
+        plain = bn_stats(x, impl="plain")
+        x64 = x.reshape(-1, c).double()
+        want = (x64.sum(0), (x64 * x64).sum(0))
+        del x64
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            captured = bn_stats(x)
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            replays.append([t.clone() for t in captured])
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, again)):
+            require(a.dtype == torch.float32 and a.shape == (c,),
+                    f"bn_stats output {a.dtype} {tuple(a.shape)}")
+            require(bool(torch.equal(a, b)), f"bn_stats {shape}: two runs differ")
+            require(all(torch.equal(a, r[i]) for r in replays),
+                    f"bn_stats {shape}: a graph replay differs from the eager call")
+        del graph, captured, replays
+        err, plain_err = bn_rel_err(got, want), bn_rel_err(plain, want)
+        launches = device_launches(lambda: bn_stats(x))
+        require(len(launches) == 1, f"bn_stats {shape}: one call launched {launches}")
+        t_kernel = time_ms(lambda: bn_stats(x), graph=True)
+        t_plain = time_ms(lambda: bn_stats(x, impl="plain"), graph=True)
+        # the one PyTorch call that computes BatchNorm's statistics: a yardstick
+        nchw = (x if x.dim() == 4 else x.reshape(1, 1, -1, c)).permute(0, 3, 1, 2)
+        t_lib = time_ms(lambda: torch.batch_norm_stats(nchw, 1e-5), graph=True)
+        bound = (n * x.element_size() + 8 * c) / HBM_BYTES_PER_S * 1e3
+        name = str(dtype).replace("torch.", "")
+        print(f"bn_stats {shape} {name}{' (off a 16-byte boundary)' if offset else ''}: "
+              f"{plan['scheme']} vec {plan['vec']} blocks {plan['blocks']} x "
+              f"{plan['col_tiles']}; rel err against float64 {err:.3e} (tol {BN_REL_TOL}; "
+              f"plain {plain_err:.3e}); two runs and two graph replays bit-identical; one "
+              f"launch ({launches[0][:40]}); kernel {t_kernel:.4f} ms "
+              f"({100 * bound / t_kernel:.0f} % of the bound), plain {t_plain:.4f} ms, "
+              f"torch.batch_norm_stats {t_lib:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+        require(err <= BN_REL_TOL, f"bn_stats is off by {err} at {shape}")
+        max_err = max(max_err, err)
+        by_shape.append({"shape": list(shape), "dtype": name, "aligned": not offset,
+                         "vec": plan["vec"], "blocks": plan["blocks"],
+                         "scheme": plan["scheme"], "bytes_in_flight": plan["bytes_in_flight"],
+                         "ms": t_kernel,
+                         "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bound})
+        if dtype == torch.float32 and not offset:
+            f32_total["ms"] += t_kernel
+            f32_total["bound_ms"] += bound
+        if dtype == torch.bfloat16 and not offset:  # what a bf16 SegCD step would hand it
+            for key, t in (("ms", t_kernel), ("plain_ms", t_plain), ("library_ms", t_lib),
+                           ("bound_ms", bound)):
+                total[key] += t
+        del x, flat, got, again, plain, want
         torch.cuda.empty_cache()
 
     # the VJP, dx = g_sum + 2 x g_sumsq, against autograd through the plain version
@@ -616,13 +674,16 @@ def phase_bn_stats(torch):
         print(f"bn_stats VJP {BN_SHAPES[2]} {str(dtype).replace('torch.', '')}: rel err "
               f"against autograd of the plain version {err:.3e} (tol {tol:.1e})", flush=True)
         require(dx[0].dtype == dtype and err <= tol, f"bn_stats VJP is off by {err}")
-    launches = bn_stats_kernel.kernel_launches
-    print(f"bn_stats over the six SegCD-r50 shapes in bf16: kernel {total['ms']:.4f} ms, "
+    print(f"bn_stats over the six SegCD-r50 shapes in bf16: kernel {total['ms']:.4f} ms "
+          f"({100 * total['bound_ms'] / total['ms']:.0f} % of the bound), "
           f"plain {total['plain_ms']:.4f} ms, torch.batch_norm_stats "
-          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms; {launches} "
-          f"launches in this phase (a standalone op: no model calls it)", flush=True)
-    return {**total, "max_abs_err": max_err, "bound_by": "bytes", "launches": launches,
-            "path": "standalone"}
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (graph replays); "
+          f"in f32: kernel {f32_total['ms']:.4f} ms, bound {f32_total['bound_ms']:.4f} ms",
+          flush=True)
+    return {**total, "max_abs_err": max_err, "bound_by": "bytes",
+            "scheme": ", ".join(sorted({r["scheme"] for r in by_shape})),
+            "f32_ms": f32_total["ms"], "f32_bound_ms": f32_total["bound_ms"],
+            "by_shape": by_shape}
 
 
 def matmul_bound_ms(m: int, k: int, n: int, stats: bool) -> tuple:
@@ -646,10 +707,13 @@ def phase_matmul_stats(torch):
                "matmul_bf16": (ops.matmul_bf16, bench_bnstats_diag.SHAPES),
                "matmul_stats_rows": (ops.matmul_stats_rows, bench_bnstats_diag.SHAPES),
                "matmul_stats_mma": (ops.matmul_stats_mma, bench_bnstats_diag.SHAPES)}
-    # the three functions with routes: their wrapper's counter and the plan's epilogue
-    routed = {"matmul_stats": (ops.matmul_stats_kernel, "cuda_cores"),
-              "matmul_bf16": (ops.matmul_bf16_kernel, "none"),
-              "matmul_stats_mma": (ops.matmul_stats_mma_kernel, "tensor_cores")}
+    # each function's counter of launches by route, and its plan
+    routed = {name: (wrapper, functools.partial(ops.matmul_plan, epilogue=epilogue))
+              for name, wrapper, epilogue in (
+                  ("matmul_stats", ops.matmul_stats_kernel, "cuda_cores"),
+                  ("matmul_bf16", ops.matmul_bf16_kernel, "none"),
+                  ("matmul_stats_mma", ops.matmul_stats_mma_kernel, "tensor_cores"))}
+    routed["matmul_stats_rows"] = (ops.matmul_stats_rows_kernel, ops.matmul_stats_rows_plan)
     res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
                   "bound_by": set(), "routes_checked": {}} for name in kernels}
@@ -669,20 +733,17 @@ def phase_matmul_stats(torch):
         for name, (fn, shapes) in kernels.items():
             stats = name != "matmul_bf16"
             timed = on_path and (m, k, n) in shapes
-            route = None
-            if name in routed:
-                wrapper, epilogue = routed[name]
-                routes = dict(wrapper.routes)
-                route = ops.matmul_plan(m, k, n, aligned=True, epilogue=epilogue)["route"]
+            wrapper, plan = routed[name]
+            routes = dict(wrapper.routes)
+            route = plan(m, k, n, aligned=True)["route"]
             got, again = fn(x, w, impl="kernel"), fn(x, w, impl="kernel")
             torch.cuda.synchronize()
             r = res[name]
-            if route is not None:  # both launches on the route that matmul_plan picks
-                took = {key: count - routes.get(key, 0) for key, count in wrapper.routes.items()
-                        if count != routes.get(key, 0)}
-                require(took == {route: 2}, f"{name} {(m, k, n)}: routes {took}, "
-                        f"expected {route}")
-                r["routes_checked"][route] = r["routes_checked"].get(route, 0) + 1
+            # both launches on the route that the plan picks
+            took = {key: count - routes.get(key, 0) for key, count in wrapper.routes.items()
+                    if count != routes.get(key, 0)}
+            require(took == {route: 2}, f"{name} {(m, k, n)}: routes {took}, expected {route}")
+            r["routes_checked"][route] = r["routes_checked"].get(route, 0) + 1
             y = got[0] if stats else got
             if route == "wgmma_tma":  # one kernel: the sums do not touch y
                 require(bool(torch.equal(y, y_product)), f"{name} {(m, k, n)}: y is not "
@@ -1154,29 +1215,32 @@ def phase_loop(torch, augment_kernel):
 
 
 def phase_tools(torch):
-    """The two feasibility benchmarks' entry points on the card: they are the
-    main path of the four matmul kernels. Returns each kernel's launches."""
+    """The three feasibility benchmarks' entry points on the card: they are the
+    main path of the four matmul kernels and of bn_stats. Returns each
+    kernel's launches and the matmul kernels' launches by route."""
     from stcd_tpu_torch.ops import matmul_stats as ops
-    from stcd_tpu_torch.tools import bench_bnstats_diag, bench_conv_bn_epilogue
+    from stcd_tpu_torch.ops.bn_stats import bn_stats_kernel
+    from stcd_tpu_torch.tools import bench_bnstats, bench_bnstats_diag, bench_conv_bn_epilogue
 
     wrappers = {"matmul_stats": ops.matmul_stats_kernel, "matmul_bf16": ops.matmul_bf16_kernel,
                 "matmul_stats_rows": ops.matmul_stats_rows_kernel,
                 "matmul_stats_mma": ops.matmul_stats_mma_kernel}
     for wrapper in wrappers.values():
         wrapper.kernel_launches = 0
-    routed = ("matmul_stats", "matmul_bf16", "matmul_stats_mma")
-    for name in routed:
-        wrappers[name].routes.clear()
+        wrapper.routes.clear()
+    bn_stats_kernel.kernel_launches = 0
     rows = {"bench_conv_bn_epilogue": bench_conv_bn_epilogue.main([]),
-            "bench_bnstats_diag": bench_bnstats_diag.main([])}
+            "bench_bnstats_diag": bench_bnstats_diag.main([]),
+            "bench_bnstats": bench_bnstats.main([])}
     torch.cuda.synchronize()
     launches = {name: wrapper.kernel_launches for name, wrapper in wrappers.items()}
-    routes = {name: dict(wrappers[name].routes) for name in routed}
+    launches["bn_stats"] = bn_stats_kernel.kernel_launches
+    routes = {name: dict(wrapper.routes) for name, wrapper in wrappers.items()}
     for name, took in routes.items():
         require(took == {"wgmma_tma": launches[name]} and launches[name] > 0,
                 f"the tools' {name} launches took the routes {took}")
-    require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3,
-            "the tools did not return a row for each shape")
+    require(len(rows["bench_conv_bn_epilogue"]) == 5 and len(rows["bench_bnstats_diag"]) == 3
+            and len(rows["bench_bnstats"]) == 6, "the tools did not return a row for each shape")
     for row in rows["bench_conv_bn_epilogue"]:
         require(row["impl"] == "kernel" and row["relerr"] == row["relerr"]
                 and row["matmul_stats_ms"] > 0, f"bench_conv_bn_epilogue row: {row}")
@@ -1184,6 +1248,12 @@ def phase_tools(torch):
         require(row["impl"] == "kernel" and row["y_equal"]
                 and row["cross_variant_err"] == row["cross_variant_err"],
                 f"bench_bnstats_diag row: {row}")
+    for row in rows["bench_bnstats"]:
+        # against stats_plain, relative to the sum of the terms' magnitudes (the inputs
+        # are standard normal, so the sum itself may cancel to near 0): two float32
+        # summation orders
+        require(row["impl"] == "kernel" and row["bn_stats_ms"] > 0
+                and row["bn_stats_rel_err"] <= BN_REL_TOL, f"bench_bnstats row: {row}")
     print("tools rows json: " + json.dumps(rows), flush=True)
     print(f"tools: kernel launches {launches}; by route {routes}", flush=True)
     return launches, routes
@@ -1280,13 +1350,14 @@ def main() -> int:
     aug_by_path["run_training"] = phase_loop(torch, augment.apply_augment_kernel)
     aug["launches"] = sum(aug_by_path.values())
 
-    # phase 12: the two feasibility benchmarks, the matmul kernels' entry points
+    # phase 12: the three feasibility benchmarks, the matmul kernels' and bn_stats' entry
+    # points
     tool_launches, tool_routes = phase_tools(torch)
     for name, took in tool_routes.items():
         mm[name]["launches_by_route"] = took
     for name, launches in tool_launches.items():
         require(launches > 0, f"the tools never launched {name}")
-        mm[name]["launches"] = launches
+        (bn if name == "bn_stats" else mm[name])["launches"] = launches
 
     # every path's count was taken from 0 just before it and read just after
     attn["launches"] = serving_launches + v6_fwd + v6_fp32_fwd + bit_fwd
@@ -1323,7 +1394,9 @@ def main() -> int:
         {"name": "bn_stats", "route": "cuda",
          "source": "stcd_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "stcd_tpu/ops/bn_stats.py:57", **{k: bn[k] for k in keys},
-         "path": "standalone"},
+         "launches_by_path": {"bench_bnstats": bn["launches"]}, "scheme": bn["scheme"],
+         "f32_ms": bn["f32_ms"], "f32_bound_ms": bn["f32_bound_ms"],
+         "by_shape": bn["by_shape"]},
         *[{"name": name, "route": "cuda",
            "source": "stcd_tpu_torch/ops/csrc/" + ("matmul_hopper.cu" if "launches_by_route"
                                                    in mm[name] else "matmul_stats.cu"),

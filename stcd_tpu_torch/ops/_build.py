@@ -103,7 +103,7 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_cross_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, i, i, i, i, f, i, u,
                                                         p, u, f, i, p]
     lib.stcd_cross_attention_bwd.restype = i
-    lib.stcd_bn_stats_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.stcd_bn_stats_fwd.argtypes = [p, p, p, ll, i, i, i, i, ll, i, ll, i, i, p]
     lib.stcd_bn_stats_fwd.restype = i
     lib.stcd_augment_fwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.stcd_augment_fwd.restype = i

@@ -6,7 +6,8 @@ float32, and returns ``(sum, sum of squares)`` over all leading dims, each
 ``float32[C]`` accumulated in float32. It dispatches on the tensor's device:
 
 - a CUDA tensor goes to the hand-written kernel ``csrc/bn_stats.cu``
-  (``bn_stats_kernel``), or the call raises: there is no fallback;
+  (``bn_stats_kernel``: one CUDA launch, planned by ``bn_stats_plan``), or
+  the call raises: there is no fallback;
 - a CPU tensor goes to the plain PyTorch version ``bn_stats_plain``.
 
 The gradient is the JAX package's: ``dx = g_sum + 2 x g_sumsq`` in float32,
@@ -21,18 +22,65 @@ any number of rows and any C.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from stcd_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# kThreads in bn_stats.cu. It only steers the choice of ``blocks`` here: the kernel
-# takes any blocks >= 1, launches that many and writes that many scratch rows, and
-# the C entry checks ``vec`` against c and the pointer itself.
-_THREADS = 256
-_TARGET_BLOCKS = 1056  # 8 blocks for each of an H100's 132 SMs
+# Constants of bn_stats.cu (kThreads, kSms, ...): the plan mirrors its plan_for, and
+# its C entry refuses a plan that is not its own.
+THREADS = 256           # a block's threads
+SMS = 132               # streaming multiprocessors of an H100
+BLOCKS_PER_SM = 2       # persistent blocks an SM, all resident at once
+DEPTH = 8               # 16-byte loads a thread issues before it sums any
+TICKET_SLOTS = 256      # ticket slots: one for each (device, stream) that calls
+MAX_C = 2 ** 24
+
+
+def bn_stats_plan(rows: int, c: int, itemsize: int, aligned: bool) -> dict:
+    """The launch of ``csrc/bn_stats.cu`` for a (rows, c) view of ``itemsize``
+    bytes an element (4 float32, 2 bfloat16); ``aligned``: x starts on a
+    16-byte boundary. A function of these alone, so two runs on one input add
+    in one order.
+
+    ``vec`` channels a thread loads at once (16 bytes, or 1 where c or the
+    pointer does not allow it); ``width`` channel groups and ``row_slots`` rows
+    a pass of a block of THREADS, ``col_tiles`` column tiles where c / vec >
+    THREADS; ``blocks`` persistent blocks a column tile (at most BLOCKS_PER_SM
+    x SMS in all, so all are resident at once), each owning ``rows_per_block``
+    contiguous rows, a whole number of passes; finishing groups of
+    ``group_blocks`` neighbouring blocks (``groups`` of them), the partial rows
+    and group rows of the scratch (``part_rows``). The load scheme,
+    ``"ldg"``: DEPTH 16-byte loads in flight a thread, ``bytes_in_flight`` an
+    SM at most."""
+    if rows < 1 or c < 1:
+        raise ValueError(f"bn_stats_plan takes rows, c >= 1, got {(rows, c)}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"bn_stats_plan takes 2- or 4-byte elements, got {itemsize}")
+    if c > MAX_C:
+        raise ValueError(f"C = {c} is beyond the kernel's grid")
+    vec = 16 // itemsize
+    if c % vec or not aligned:
+        vec = 1
+    groups = c // vec
+    col_tiles = -(-groups // THREADS)
+    width = min(groups, THREADS)
+    row_slots = THREADS // width
+    target = max(1, SMS * BLOCKS_PER_SM // col_tiles)
+    rows_per_block = -(-(-(-rows // target)) // row_slots) * row_slots
+    blocks = -(-rows // rows_per_block)
+    group_blocks = math.isqrt(blocks - 1) + 1  # the least g with g * g >= blocks
+    n_groups = -(-blocks // group_blocks)
+    return {"vec": vec, "width": width, "row_slots": row_slots, "col_tiles": col_tiles,
+            "blocks": blocks, "rows_per_block": rows_per_block, "group_blocks": group_blocks,
+            "groups": n_groups, "part_rows": blocks + (n_groups if n_groups > 1 else 0),
+            "scheme": "ldg",
+            "bytes_in_flight": BLOCKS_PER_SM * width * row_slots * DEPTH * vec * itemsize,
+            "launches": 1}
 
 
 def _check_args(x: torch.Tensor) -> None:
@@ -53,34 +101,40 @@ def bn_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.sum(0), (xf * xf).sum(0)
 
 
-def _geometry(rows: int, c: int, itemsize: int, aligned: bool) -> Tuple[int, int]:
-    """(channels per load, row blocks) of the launch: a function of the shape
-    and dtype alone, so two runs on one input add in one order."""
-    vec = 16 // itemsize
-    if c % vec != 0 or not aligned:
-        vec = 1
-    groups = c // vec
-    col_tiles = (groups + _THREADS - 1) // _THREADS
-    row_slots = _THREADS // min(groups, _THREADS)
-    blocks = min((rows + row_slots - 1) // row_slots, max(1, _TARGET_BLOCKS // col_tiles))
-    return vec, max(1, blocks)
+# The tickets are a static array of the loaded library, one for the process, so
+# their slots are handed out process-wide.
+_SLOTS: Dict[Tuple[int, int], int] = {}
+_SLOTS_LOCK = threading.Lock()
+
+
+def _ticket_slot(device: int, stream: int) -> int:
+    """The ticket slot of a (device, stream): its own for as long as the
+    process lives, so that calls on two streams never share a ticket."""
+    key = (device, stream)
+    with _SLOTS_LOCK:
+        if key not in _SLOTS:
+            if len(_SLOTS) >= TICKET_SLOTS:
+                raise RuntimeError(f"bn_stats_kernel serves at most {TICKET_SLOTS} "
+                                   f"(device, stream) pairs")
+            _SLOTS[key] = len(_SLOTS)
+        return _SLOTS[key]
 
 
 def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     c = x.shape[-1]
     rows = x.numel() // c
-    vec, blocks = _geometry(rows, c, x.element_size(), x.data_ptr() % 16 == 0)
+    plan = bn_stats_plan(rows, c, x.element_size(), x.data_ptr() % 16 == 0)
     lib = _build.load_library()
-    out_sum = torch.empty((c,), dtype=torch.float32, device=x.device)
-    out_sq = torch.empty_like(out_sum)
-    part = torch.empty((2, blocks, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, plan["part_rows"], c), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.stcd_bn_stats_fwd(
-        x.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), out_sum.data_ptr(),
-        out_sq.data_ptr(), rows, c, _DTYPE_CODE[x.dtype], vec, blocks, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), part.data_ptr(), out.data_ptr(), rows, c, _DTYPE_CODE[x.dtype],
+        plan["vec"], plan["blocks"], plan["rows_per_block"], plan["group_blocks"],
+        plan["part_rows"], _ticket_slot(x.device.index, stream), x.device.index, stream)
     _build.check(lib, err, "stcd_bn_stats_fwd")
     bn_stats_kernel.kernel_launches += 1
-    return out_sum, out_sq
+    return out[0], out[1]
 
 
 class _BnStatsFunction(torch.autograd.Function):
@@ -97,16 +151,19 @@ class _BnStatsFunction(torch.autograd.Function):
 
 
 def bn_stats_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/bn_stats.cu`` on x's device and current stream.
+    """Launch ``csrc/bn_stats.cu`` on x's device and current stream: one CUDA
+    launch, with the plan of ``bn_stats_plan``.
 
     Takes a contiguous CUDA tensor of float32 or bfloat16; raises on anything
-    else. ``kernel_launches`` counts the calls."""
+    else. ``kernel_launches`` counts the calls. Replays of a CUDA graph that
+    captured a call share its stream's tickets, so they must not overlap each
+    other or a call on that stream."""
     _check_args(x)
     if not x.is_cuda:
         raise RuntimeError(f"bn_stats_kernel needs a CUDA tensor, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("bn_stats_kernel needs a contiguous channels-last tensor")
-    if x.shape[-1] > 2 ** 24:
+    if x.shape[-1] > MAX_C:
         raise ValueError(f"C = {x.shape[-1]} is beyond the kernel's grid")
     if torch.is_grad_enabled() and x.requires_grad:
         return _BnStatsFunction.apply(x)

@@ -17,16 +17,20 @@
 //                           for the shapes that the wgmma route of
 //                           matmul_hopper.cu (stcd_matmul_stats) cannot take
 //   stcd_matmul_stats_rows  benchmarks/bench_bnstats_diag.py::_fused1d_kernel
-//                           (pallas_1d): a block owns 128 rows across all N
+//                           (pallas_1d): a block owns 128 rows across all N,
+//                           for the shapes where matmul_stats_rows_plan does
+//                           not take stcd_matmul_stats (matmul_hopper.cu)
+//                           with w resident
 //   stcd_matmul_stats_mma_tiles  benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
 //                           (pallas_mxu_stats): as _rows, the two column sums
 //                           formed on the tensor cores (ones . acc, ones . acc^2),
 //                           for the shapes that the wgmma route of
 //                           matmul_hopper.cu (stcd_matmul_stats_mma) cannot take
 //
-// stcd_matmul_stats_rows runs here at every shape; the other three entries run
-// only where matmul_plan (ops/matmul_stats.py) picks the route `wmma`, e.g. at
-// (333, 37, 91), where TMA cannot describe x and y.
+// Each entry runs only where matmul_plan or matmul_stats_rows_plan
+// (ops/matmul_stats.py) picks the route `wmma`: e.g. at (333, 37, 91), where
+// TMA cannot describe x and y, and for the rows also at (32768, 1024, 256),
+// where all of w does not fit in shared memory beside the ring.
 //
 // One device function, tile_product, serves all four: it computes a 128 x 64
 // output tile with nvcuda::wmma on bf16 fragments (8 warps, 32 x 32 each, K in

@@ -1,11 +1,12 @@
-"""Times the matmul kernels, the augmentation kernel and the float32 attention
-kernels of a checkout on one CUDA card, beside one PyTorch call for the same
-function and the bound, so that two checkouts can be compared in one run on
-one card.
+"""Times the matmul kernels, the BatchNorm sums, the augmentation kernel and
+the float32 attention kernels of a checkout on one CUDA card, beside one
+PyTorch call for the same function and the bound, so that two checkouts can be
+compared in one run on one card.
 
 Usage, on a machine with a CUDA card:
 
     python stcd_tpu_torch/tools/bench_kernels.py [--root DIR] [--label NAME] [--out FILE]
+        [--only SECTION,...]
 
 ``--root`` is the checkout whose ``stcd_tpu_torch`` is imported and timed
 (default: the one this file lies in); another checkout (an unpacked ``git
@@ -25,6 +26,12 @@ pace of launching it), an autograd backward as profiler device time:
 - ``matmul_stats`` (the same sums, formed on the CUDA cores) at the five
   shapes of ``tools/bench_conv_bn_epilogue.py``, beside ``matmul_bf16``,
   ``matmul_stats_mma`` and ``torch.matmul`` at the same shapes; the same bound;
+- ``matmul_stats_rows`` (section ``matmul_stats_rows``) at the three shapes of
+  ``tools/bench_bnstats_diag.py``, beside ``matmul_stats``; the same bound;
+- ``bn_stats`` (section ``bn_stats``) at the six shapes of
+  ``tools/bench_bnstats.py``, bf16 and f32, beside ``torch.batch_norm_stats``,
+  with the kernels one call launches (torch.profiler); bound: x read and the
+  sums written once at 3.35 TB/s;
 - the augmentation at the train step's shape (128 images of 256x256, uint8)
   with the sampler's draws, with every gate on and with every gate off, also
   as CUDA events around one eager call (the wrapper's host time included),
@@ -40,8 +47,12 @@ pace of launching it), an autograd backward as profiler device time:
   ``F.scaled_dot_product_attention``; bound: q, k, v, g read and dq, dk, dv
   written once, or 10 N M D + 8 N M operations a head.
 
-Each kernel's output is also held against its plain version (the largest
-difference is printed). The result is one JSON line on stdout, and in
+``--only`` picks sections (``matmul``: ``matmul_bf16`` and
+``matmul_stats_mma``; ``matmul_stats``; ``matmul_stats_rows``; ``bn_stats``;
+``augment``; ``attention``). A checkout with no ``routes`` on
+``matmul_stats_rows_kernel`` (an earlier commit) gives its rows without the
+route. Each kernel's output is also held against its plain
+version (the largest difference is printed). The result is one JSON line on stdout, and in
 ``--out`` if given. Without a card it exits 2.
 """
 
@@ -61,6 +72,7 @@ SERVING_SHAPES = ((32, 1, 4096, 64, 64), (32, 2, 1024, 64, 64), (32, 4, 256, 64,
 TRAIN_SHAPES = ((16, 1, 16384, 256, 64), (16, 2, 4096, 256, 64), (16, 4, 1024, 256, 80),
                 (16, 8, 256, 256, 64))
 SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls a ChangeFormerV6 encoder makes at each stage
+SECTIONS = ("matmul", "matmul_stats", "matmul_stats_rows", "bn_stats", "augment", "attention")
 
 
 def graph_ms(torch, fn, runs: int = 20) -> float:
@@ -220,6 +232,65 @@ def bench_matmul_stats(torch, ops, shapes):
     return rows
 
 
+BN_SHAPES = ((128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512), (128, 16, 16, 1024),
+             (128, 256, 256, 16), (128, 128, 128, 32))  # bench_bnstats.SHAPES
+
+
+def bench_bn_stats(torch, bn_ops):
+    """bn_stats at the six SegCD-r50 shapes, bf16 and f32, beside
+    torch.batch_norm_stats; bound: x read once and the sums written once at
+    3.35 TB/s. Each row lists the kernels one call launches (torch.profiler)."""
+    rows = []
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    for shape in BN_SHAPES:
+        base = torch.randn(shape, generator=gen) * 2.0 + 0.5
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = base.to("cuda", dtype)
+            got, want = bn_ops.bn_stats(x), bn_ops.bn_stats(x, impl="plain")
+            nchw = x.permute(0, 3, 1, 2)
+            row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                   "rel_err": max(((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+                                  for g, w in zip(got, want)),
+                   "ms": graph_ms(torch, lambda: bn_ops.bn_stats(x)),
+                   "kernels_ms": device_kernels_ms(torch, lambda: bn_ops.bn_stats(x)),
+                   "library_ms": graph_ms(torch, lambda: torch.batch_norm_stats(nchw, 1e-5)),
+                   "bound_ms": (x.numel() * x.element_size() + 8 * c) / HBM_BYTES_PER_S * 1e3}
+            print(f"bn_stats {shape} {row['dtype']}: {row}", flush=True)
+            rows.append(row)
+            del x, got, want, nchw
+        del base
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bench_matmul_stats_rows(torch, ops, shapes):
+    """matmul_stats_rows beside matmul_stats at the same shapes."""
+    rows = []
+    for m, k, n in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        y, s1, s2 = ops.matmul_stats_rows(x, w)
+        nbytes = 2 * (m * k + k * n + m * n) + 8 * n
+        row = {"shape": [m, k, n], "bn_scaled_err": bn_scaled_err(torch, x, w, s1, s2),
+               "y_equal_matmul_bf16": bool(torch.equal(y, ops.matmul_bf16(x, w))),
+               "route": None,
+               "ms": graph_ms(torch, lambda: ops.matmul_stats_rows(x, w)),
+               "matmul_stats_ms": graph_ms(torch, lambda: ops.matmul_stats(x, w)),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_FLOPS) * 1e3}
+        if hasattr(ops.matmul_stats_rows_kernel, "routes"):  # a checkout with rows' routes
+            before = dict(ops.matmul_stats_rows_kernel.routes)
+            ops.matmul_stats_rows(x, w)
+            row["route"] = [r for r, c in ops.matmul_stats_rows_kernel.routes.items()
+                            if c != before.get(r, 0)][0]
+        print(f"matmul_stats_rows {(m, k, n)}: {row}", flush=True)
+        rows.append(row)
+        del x, w, y, s1, s2
+        torch.cuda.empty_cache()
+    return rows
+
+
 def device_kernels_ms(torch, fn, runs: int = 5) -> dict:
     """Device time of each kernel that one call of ``fn`` launches, from
     torch.profiler, averaged over ``runs`` calls: {kernel name: ms}."""
@@ -313,7 +384,13 @@ def main(argv=None) -> int:
                    help="the checkout whose stcd_tpu_torch is timed")
     p.add_argument("--label", default=None, help="a name for this run in the JSON line")
     p.add_argument("--out", default=None, help="also write the JSON line to this file")
+    p.add_argument("--only", default=",".join(SECTIONS),
+                   help=f"comma-separated sections to time, of {', '.join(SECTIONS)} "
+                        f"(default: all)")
     args = p.parse_args(argv)
+    only = args.only.split(",")
+    if not set(only) <= set(SECTIONS):
+        p.error(f"--only takes sections of {SECTIONS}, got {args.only}")
     import torch
     if not torch.cuda.is_available():
         print("bench_kernels: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -323,6 +400,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(root))
     from stcd_tpu_torch.data import augment as data_augment
     from stcd_tpu_torch.ops import attention, augment
+    from stcd_tpu_torch.ops import bn_stats as bn_ops
     from stcd_tpu_torch.ops import matmul_stats as ops
     from stcd_tpu_torch.tools.bench_bnstats_diag import SHAPES
     from stcd_tpu_torch.tools.bench_conv_bn_epilogue import SHAPES as CONV_SHAPES
@@ -334,26 +412,43 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"bench_kernels: {root} on {card}; torch {torch.__version__}", flush=True)
-    matmul = bench_matmul(torch, ops, SHAPES)
-    stats = bench_matmul_stats(torch, ops, CONV_SHAPES)
-    aug = bench_augment(torch, (augment, data_augment))
-    serving = bench_attention(torch, attention, SERVING_SHAPES, backward=False)
-    train = bench_attention(torch, attention, TRAIN_SHAPES, backward=True)
-    result = {"label": args.label or root.name, "root": str(root), "card": card,
-              "matmul_bf16": matmul, "matmul_bf16_ms": sum(r["ms"] for r in matmul),
-              "matmul_stats_mma_ms": sum(r["stats_mma_ms"] for r in matmul),
-              "matmul_bf16_library_ms": sum(r["library_ms"] for r in matmul),
-              "matmul_stats": stats, "matmul_stats_ms": sum(r["ms"] for r in stats),
-              "matmul_stats_bound_ms": sum(r["bound_ms"] for r in stats),
-              "augment": aug,
-              "attention_serving": serving,
-              "attention_serving_batch_ms": sum(depth * r["ms"]
-                                                for depth, r in zip(SRA_DEPTHS, serving)),
-              "attention_serving_batch_library_ms": sum(
-                  depth * r["library_ms"] for depth, r in zip(SRA_DEPTHS, serving)),
-              "attention_train": train,
-              "attention_train_bwd_ms": sum(r["bwd_ms"] for r in train),
-              "attention_train_bwd_library_ms": sum(r["bwd_library_ms"] for r in train)}
+    result = {"label": args.label or root.name, "root": str(root), "card": card}
+    if "matmul" in only:
+        matmul = bench_matmul(torch, ops, SHAPES)
+        result.update({"matmul_bf16": matmul, "matmul_bf16_ms": sum(r["ms"] for r in matmul),
+                       "matmul_stats_mma_ms": sum(r["stats_mma_ms"] for r in matmul),
+                       "matmul_bf16_library_ms": sum(r["library_ms"] for r in matmul)})
+    if "matmul_stats" in only:
+        stats = bench_matmul_stats(torch, ops, CONV_SHAPES)
+        result.update({"matmul_stats": stats, "matmul_stats_ms": sum(r["ms"] for r in stats),
+                       "matmul_stats_bound_ms": sum(r["bound_ms"] for r in stats)})
+    if "matmul_stats_rows" in only:
+        stats_rows = bench_matmul_stats_rows(torch, ops, SHAPES)
+        result.update({"matmul_stats_rows": stats_rows,
+                       "matmul_stats_rows_ms": sum(r["ms"] for r in stats_rows),
+                       "matmul_stats_rows_bound_ms": sum(r["bound_ms"] for r in stats_rows)})
+    if "bn_stats" in only:
+        bn = bench_bn_stats(torch, bn_ops)
+        for dtype in ("bfloat16", "float32"):
+            picked = [r for r in bn if r["dtype"] == dtype]
+            result[f"bn_stats_{dtype}_ms"] = sum(r["ms"] for r in picked)
+            result[f"bn_stats_{dtype}_library_ms"] = sum(r["library_ms"] for r in picked)
+            result[f"bn_stats_{dtype}_bound_ms"] = sum(r["bound_ms"] for r in picked)
+        result["bn_stats"] = bn
+    if "augment" in only:
+        result["augment"] = bench_augment(torch, (augment, data_augment))
+    if "attention" in only:
+        serving = bench_attention(torch, attention, SERVING_SHAPES, backward=False)
+        train = bench_attention(torch, attention, TRAIN_SHAPES, backward=True)
+        result.update({
+            "attention_serving": serving,
+            "attention_serving_batch_ms": sum(depth * r["ms"]
+                                              for depth, r in zip(SRA_DEPTHS, serving)),
+            "attention_serving_batch_library_ms": sum(
+                depth * r["library_ms"] for depth, r in zip(SRA_DEPTHS, serving)),
+            "attention_train": train,
+            "attention_train_bwd_ms": sum(r["bwd_ms"] for r in train),
+            "attention_train_bwd_library_ms": sum(r["bwd_library_ms"] for r in train)})
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

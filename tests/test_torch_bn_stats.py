@@ -108,3 +108,120 @@ def test_cpu_tensor_dispatches_to_plain_and_kernel_raises():
         bn_stats(x.double())
     with pytest.raises(ValueError, match="channels-last"):
         bn_stats(torch.randn(5))
+
+
+# --- bn_stats_plan: the launch of the one-launch kernel (the kernel runs only on a card) ---
+
+from stcd_tpu_torch.ops import bn_stats as bn_ops  # noqa: E402
+
+BN_SHAPES = [(128, 64, 64, 256), (128, 128, 128, 64), (128, 32, 32, 512), (128, 16, 16, 1024),
+             (128, 256, 256, 16), (128, 128, 128, 32)]  # chip_smoke.BN_SHAPES
+
+
+def _rows_c(shape):
+    return int(np.prod(shape[:-1])), shape[-1]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", BN_SHAPES + OTHER_SHAPES)
+def test_plan_covers_every_row_once_with_resident_blocks(shape, itemsize):
+    """Persistent blocks, all resident at once (at most BLOCKS_PER_SM x SMS),
+    each owning whole passes of contiguous rows; together they cover every row
+    once; the finishing groups fit the ticket slot; the 16-byte loads wherever
+    C allows them (the pointer aligned)."""
+    rows, c = _rows_c(shape)
+    plan = bn_ops.bn_stats_plan(rows, c, itemsize, aligned=True)
+    full = 16 // itemsize
+    assert plan["vec"] == (full if c % full == 0 else 1)
+    assert plan["width"] == min(c // plan["vec"], bn_ops.THREADS)
+    assert plan["row_slots"] == bn_ops.THREADS // plan["width"]
+    assert plan["col_tiles"] == -(-(c // plan["vec"]) // bn_ops.THREADS)
+    assert plan["blocks"] * plan["col_tiles"] <= bn_ops.SMS * bn_ops.BLOCKS_PER_SM
+    rpb = plan["rows_per_block"]
+    assert rpb % plan["row_slots"] == 0
+    assert (plan["blocks"] - 1) * rpb < rows <= plan["blocks"] * rpb
+    assert plan["group_blocks"] ** 2 >= plan["blocks"] > (plan["group_blocks"] - 1) ** 2
+    assert plan["groups"] == -(-plan["blocks"] // plan["group_blocks"])
+    assert plan["groups"] + 1 <= 64  # kTicketsPerSlot: a group ticket each and the top one
+    assert plan["part_rows"] == plan["blocks"] + (plan["groups"] if plan["groups"] > 1 else 0)
+    assert plan["scheme"] == "ldg" and plan["launches"] == 1
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_plan_at_the_segcd_shapes(shape, itemsize):
+    """The six SegCD-r50 shapes fill the card (264 blocks, one column tile) and
+    keep a thread's own sum short: at most 512 values (about 250 at
+    (128, 256, 256, 16) in bf16, where 2 channel groups leave 128 row slots;
+    about 500 in f32 at C = 64 and 256), whose float32 rounding stays well
+    inside the 1e-5 gate that chip_smoke.py holds the sums to."""
+    rows, c = _rows_c(shape)
+    plan = bn_ops.bn_stats_plan(rows, c, itemsize, aligned=True)
+    assert plan["vec"] == 16 // itemsize and plan["col_tiles"] == 1
+    assert bn_ops.SMS * bn_ops.BLOCKS_PER_SM - 3 <= plan["blocks"] <= 264
+    assert plan["rows_per_block"] // plan["row_slots"] <= 512
+    if shape == (128, 256, 256, 16) and itemsize == 2:
+        assert (plan["width"], plan["row_slots"], plan["blocks"]) == (2, 128, 264)
+        assert plan["rows_per_block"] // plan["row_slots"] == 249
+    # eight 16-byte loads in flight for each of the 512 threads of an SM's two blocks
+    assert plan["bytes_in_flight"] == 2 * 256 * 8 * 16
+
+
+@pytest.mark.parametrize("shape,itemsize,aligned,vec", [
+    ((1001, 3), 4, True, 1), ((1001, 3), 2, True, 1),      # C no multiple of 16 bytes
+    ((7, 13, 24), 2, False, 1), ((7, 13, 24), 4, False, 1),  # a pointer off a 16-byte boundary
+    ((7, 13, 24), 2, True, 8), ((3, 7, 5, 80), 4, True, 4)])
+def test_plan_takes_one_channel_loads_where_16_bytes_are_not_allowed(shape, itemsize, aligned,
+                                                                     vec):
+    rows, c = _rows_c(shape)
+    plan = bn_ops.bn_stats_plan(rows, c, itemsize, aligned)
+    assert plan["vec"] == vec
+    assert plan["width"] == min(c // vec, bn_ops.THREADS)
+
+
+def test_plan_takes_column_tiles_for_wide_c():
+    plan = bn_ops.bn_stats_plan(13200, 4096, 2, aligned=True)  # 512 groups of 8 channels
+    assert (plan["col_tiles"], plan["width"], plan["row_slots"]) == (2, 256, 1)
+    assert plan["blocks"] == bn_ops.SMS * bn_ops.BLOCKS_PER_SM // 2
+
+
+@pytest.mark.parametrize("args,match", [((0, 16, 2, True), "rows, c >= 1"),
+                                        ((16, 0, 2, True), "rows, c >= 1"),
+                                        ((16, 16, 8, True), "2- or 4-byte"),
+                                        ((16, 2 ** 24 + 1, 4, True), "beyond the kernel's grid")])
+def test_plan_refuses_what_the_kernel_does_not_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        bn_ops.bn_stats_plan(*args)
+
+
+def test_ticket_slots_are_one_for_each_device_and_stream(monkeypatch):
+    monkeypatch.setattr(bn_ops, "_SLOTS", {})
+    a, b, a_again = (bn_ops._ticket_slot(0, 11), bn_ops._ticket_slot(0, 22),
+                     bn_ops._ticket_slot(0, 11))
+    assert a == a_again != b and bn_ops._ticket_slot(1, 11) not in (a, b)
+    monkeypatch.setattr(bn_ops, "_SLOTS", {(0, s): s for s in range(bn_ops.TICKET_SLOTS)})
+    assert bn_ops._ticket_slot(0, 5) == 5
+    with pytest.raises(RuntimeError, match="at most"):
+        bn_ops._ticket_slot(0, bn_ops.TICKET_SLOTS)
+
+
+def test_ticket_slots_from_many_threads_are_distinct(monkeypatch):
+    """Streams first seen by several threads at once (the serving engine's)
+    each get a slot of their own: a shared slot would let two streams share a
+    ticket."""
+    import sys
+    import threading
+    monkeypatch.setattr(bn_ops, "_SLOTS", {})
+    got, switch = {}, sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda s=s: got.__setitem__(
+            s, bn_ops._ticket_slot(0, s))) for s in range(64)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert sorted(got.values()) == list(range(64))

@@ -37,6 +37,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                  "data.augment", "ops.augment", "tools.profile_step", "ops.bn_stats",
                  "models.bit", "train.trainer", "layers.stochastic", "ops.matmul_stats",
                  "tools.bench_conv_bn_epilogue", "tools.bench_bnstats_diag", "train.loops",
+                 "tools.bench_bnstats",
                  "train.checkpoint", "utils.logging", "data.io"):
         assert f"stcd_tpu_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 41

@@ -382,3 +382,43 @@ def test_stats_route_counter_exists_and_stays_at_zero_on_the_cpu():
     assert torch.equal(y, ops.matmul_bf16_plain(x, w))
     assert ops.matmul_stats_kernel.kernel_launches == 0
     assert dict(ops.matmul_stats_kernel.routes) == {}
+
+
+# --- matmul_stats_rows: matmul_stats' kernel where w stays resident, the row tile elsewhere ---
+
+ROWS_CASES = ([(s, "wgmma_tma") for s in bench_bnstats_diag.SHAPES]
+              + [((4096, 64, 1024), "wgmma_tma"), (MM_RAGGED, "wgmma_tma"),
+                 ((32768, 1024, 256), "wmma"), (RAGGED, "wmma"), ((1000, 72, 56), "wmma")])
+
+
+@pytest.mark.parametrize("shape,route", ROWS_CASES)
+def test_rows_plan_at_the_tool_and_ragged_shapes(shape, route):
+    """bench_bnstats_diag's three shapes (and any shape where all of w fits
+    beside the ring) take matmul_stats' plan as it is, so every persistent
+    block streams its rows once against the whole of w; (32768, 1024, 256),
+    whose w does not fit (four groups, x read four times), and the shapes that
+    TMA cannot describe take the wmma row tile, one block for each 128 rows."""
+    m, k, n = shape
+    plan = ops.matmul_stats_rows_plan(m, k, n, aligned=True)
+    assert plan["route"] == route
+    stats = ops.matmul_plan(m, k, n, aligned=True, epilogue="cuda_cores")
+    if route == "wgmma_tma":
+        assert plan == stats and plan["w_resident"] and plan["groups"] == 1
+        # the scratch has one partial for each persistent block, not one for each M tile
+        assert plan["blocks_x"] == min(-(-m // 128), ops.SMS) <= ops.SMS
+    else:
+        assert not plan["w_resident"] and plan["blocks_x"] == -(-m // 128)
+        assert plan == ops.matmul_plan(m, k, n, aligned=False)  # the wmma tiles' plan
+
+
+def test_rows_plan_leaves_the_wgmma_route_where_w_does_not_fit():
+    assert ops.matmul_plan(32768, 1024, 256, aligned=True, epilogue="cuda_cores")["groups"] == 4
+    assert ops.matmul_stats_rows_plan(32768, 1024, 256, aligned=False)["route"] == "wmma"
+
+
+def test_rows_route_counter_exists_and_stays_at_zero_on_the_cpu():
+    x, w = _torch_bf16(*_operands((256, 64, 64)))
+    y, s1, s2 = ops.matmul_stats_rows(x, w)
+    assert torch.equal(y, ops.matmul_bf16_plain(x, w))
+    assert ops.matmul_stats_rows_kernel.kernel_launches == 0
+    assert dict(ops.matmul_stats_rows_kernel.routes) == {}

@@ -131,3 +131,68 @@ def test_profile_step_train_refuses_an_unknown_net_g():
 
     with pytest.raises(SystemExit, match="--mode train takes"):
         profile_step.main(["--mode", "train", "--net_G", "SNUNet"])
+
+
+# --- tools/bench_bnstats.py: the counterpart of benchmarks/bench_bnstats.py ---
+
+import importlib.util  # noqa: E402
+import os  # noqa: E402
+
+import ml_dtypes  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from stcd_tpu_torch.tools import bench_bnstats  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jax_bench_bnstats():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_bnstats", os.path.join(REPO, "benchmarks", "bench_bnstats.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_bench_bnstats_rows_on_the_cpu(capsys):
+    rows = bench_bnstats.main(["--device", "cpu", "--rows", "512"])
+    assert [r["shape"] for r in rows] == [[512, 1, 1, s[-1]] for s in bench_bnstats.SHAPES]
+    assert bench_bnstats.SHAPES[0] == (128, 64, 64, 256) and len(bench_bnstats.SHAPES) == 6
+    variants = ("stats_plain", "bn_stats", "stats_gram2", "stats_gramA")
+    for row in rows:
+        assert row["impl"] == "plain"
+        # a CPU run times no device: every time is None, never a host-clock number
+        assert all(row[f"{v}_ms"] is None for v in variants) and row["apply_ms"] is None
+        assert row["bound_ms"] == pytest.approx(512 * row["c"] * 2 / 3.35e12 * 1e3)
+        assert row["apply_bound_ms"] == pytest.approx(2 * row["bound_ms"])
+        # bn_stats on a CPU tensor is the plain version itself; the products sum in
+        # another order: float32 rounding of sums of 512 values
+        assert row["stats_plain_err"] == row["bn_stats_err"] == 0.0
+        assert row["stats_gram2_rel_err"] < 1e-5 and row["stats_gramA_rel_err"] < 1e-5
+    out = capsys.readouterr().out
+    assert out.count("not measured") >= 6 and "torch.Generator(cpu) seed 0" in out
+
+
+def test_bench_bnstats_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_bnstats.main([])
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 32), (2, 16, 16, 16), (3, 5, 7, 24)])
+@pytest.mark.parametrize("name,jax_name", [("stats_plain", "stats_jnp"),
+                                           ("stats_gram2", "stats_gram2"),
+                                           ("stats_gramA", "stats_gramA")])
+def test_bench_bnstats_formulations_match_jax(jax_bench_bnstats, shape, name, jax_name):
+    """The same numpy-seeded bf16 input through the JAX tool's function on the
+    CPU and the port's. Both form float32 sums of the exact float32 values of
+    bf16 inputs (the products' f32 accumulation on both sides), in different
+    orders: within 1e-5 of the largest sum."""
+    x = np.random.default_rng(3).standard_normal(shape).astype(ml_dtypes.bfloat16)
+    want = getattr(jax_bench_bnstats, jax_name)(jnp.asarray(x))
+    got = getattr(bench_bnstats, name)(torch.from_numpy(x.astype(np.float32)).bfloat16())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (shape[-1],)
+        w = np.asarray(w, np.float64)
+        np.testing.assert_allclose(g.double().numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
