@@ -32,7 +32,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    version and a float64 sum at the six SegCD-r50 activation shapes, bf16 and
    f32, and at an odd C and a pointer off a 16-byte boundary: two runs and
    two CUDA-graph replays bit-identical, one CUDA launch a call
-   (torch.profiler), its VJP against
+   (torch.profiler), two graphs replayed at once on two streams, its VJP against
    autograd, timed as graph replays with torch.batch_norm_stats as the
    yardstick and each shape's share of its bound. Then the four matmul kernels
    (the product alone; with the BatchNorm sums on the CUDA cores; in a row
@@ -43,9 +43,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    product alone, with the CUDA-core sums and with the tensor-core sums each
    on the route matmul_plan picks (wgmma with TMA wherever TMA can describe
    the operands; the wmma tiles at (333, 37, 91) and N < 64), the row
-   decomposition on the route of matmul_stats_rows_plan (wgmma with TMA where
-   all of w stays resident; the wmma row tile also at (32768, 1024, 256)), y
-   bit-equal to matmul_bf16's on the wgmma route; timed as CUDA-graph replays.
+   decomposition on matmul_stats' route, y bit-equal to matmul_bf16's on the
+   wgmma route; timed as CUDA-graph replays.
 4. serving: the full-width ChangeFormerV6 (seeded random weights) behind the
    micro-batching engine (batch 16, tile 256), driven by concurrent 512x512
    requests. Checks the outputs, that every device batch launched the
@@ -183,25 +182,20 @@ def sra_shapes(batch: int = BATCH, tile: int = TILE):
 def time_ms(fn, runs: int = 20, graph: bool = False) -> float:
     """Median over ``runs`` launches, each timed with CUDA events. With
     ``graph`` the call is captured once into a CUDA graph and the replays are
-    timed: a kernel of a few tens of microseconds is then not timed by the
-    host's pace of launching it."""
+    timed (tools/bench_kernels.py's graph_ms): a kernel of a few tens of
+    microseconds is then not timed by the host's pace of launching it."""
     import torch
+    if graph:
+        from stcd_tpu_torch.tools.bench_kernels import graph_ms
+        return graph_ms(torch, fn, runs)
     for _ in range(3):
         fn()
-    run = fn
-    if graph:
-        torch.cuda.synchronize()
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            fn()
-        run = captured.replay
-        run()
     times = []
     for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        run()
+        fn()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
@@ -231,6 +225,8 @@ def device_events(fn, runs: int):
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if events:
             return events
+        print(f"torch.profiler recorded no device activity in a window of {runs} calls; "
+              f"taking it again", flush=True)
     raise RuntimeError(f"torch.profiler saw no device activity in {PROFILE_TRIES} windows")
 
 
@@ -584,8 +580,8 @@ def phase_bn_stats(torch):
     six SegCD-r50 shapes in bf16 and f32 and at two shapes that take 1-channel
     loads (an odd C; a pointer off a 16-byte boundary): two runs and two
     replays of a CUDA graph bit-identical, one CUDA launch a call, timed as
-    graph replays beside the plain version and torch.batch_norm_stats; then
-    its VJP against autograd."""
+    graph replays beside the plain version and torch.batch_norm_stats; two
+    graphs replayed at once on two streams; then its VJP against autograd."""
     from stcd_tpu_torch.ops.bn_stats import bn_stats, bn_stats_plan
 
     gen = torch.Generator(device="cpu").manual_seed(6)
@@ -660,6 +656,31 @@ def phase_bn_stats(torch):
         del x, flat, got, again, plain, want
         torch.cuda.empty_cache()
 
+    # two graphs, both captured on the shared capture stream, replayed at once on
+    # two streams: each captured call has tickets of its own
+    xs = [torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) for shape in BN_SHAPES[2:4]]
+    eager = [bn_stats(x) for x in xs]
+    graphs, outs = [], []
+    torch.cuda.synchronize()
+    for x in xs:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append(bn_stats(x))
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    for _ in range(100):
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+    torch.cuda.synchronize()
+    overlapped = all(torch.equal(o, e) for out, want in zip(outs, eager) for o, e in zip(out, want))
+    after = all(torch.equal(o, e) for x, want in zip(xs, eager) for o, e in zip(bn_stats(x), want))
+    print(f"bn_stats: two graphs at {BN_SHAPES[2:4]} replayed 100 times at once on two streams "
+          f"give the eager sums bit for bit: {overlapped}; eager calls after them: {after}",
+          flush=True)
+    require(overlapped and after, "bn_stats: graphs replayed at once on two streams differ")
+    del xs, eager, graphs, outs
+
     # the VJP, dx = g_sum + 2 x g_sumsq, against autograd through the plain version
     for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -7)):
         x = (torch.randn(BN_SHAPES[2], generator=gen)).to("cuda", dtype)
@@ -712,8 +733,8 @@ def phase_matmul_stats(torch):
               for name, wrapper, epilogue in (
                   ("matmul_stats", ops.matmul_stats_kernel, "cuda_cores"),
                   ("matmul_bf16", ops.matmul_bf16_kernel, "none"),
+                  ("matmul_stats_rows", ops.matmul_stats_rows_kernel, "cuda_cores"),
                   ("matmul_stats_mma", ops.matmul_stats_mma_kernel, "tensor_cores"))}
-    routed["matmul_stats_rows"] = (ops.matmul_stats_rows_kernel, ops.matmul_stats_rows_plan)
     res = {name: {"max_abs_err": 0.0, "max_bn_scaled_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0 if name == "matmul_bf16" else None,
                   "bound_by": set(), "routes_checked": {}} for name in kernels}

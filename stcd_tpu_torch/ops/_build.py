@@ -109,8 +109,6 @@ def load_library() -> ctypes.CDLL:
     lib.stcd_augment_fwd.restype = i
     lib.stcd_matmul_bf16.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
     lib.stcd_matmul_bf16.restype = i
-    lib.stcd_matmul_stats_rows.argtypes = [p, p, p, p, p, p, p, ll, i, i, ll, i, p]
-    lib.stcd_matmul_stats_rows.restype = i
     for entry in (lib.stcd_matmul_stats, lib.stcd_matmul_stats_mma):
         entry.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, ll, i, p]
         entry.restype = i

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,7 +37,8 @@ THREADS = 256           # a block's threads
 SMS = 132               # streaming multiprocessors of an H100
 BLOCKS_PER_SM = 2       # persistent blocks an SM, all resident at once
 DEPTH = 8               # 16-byte loads a thread issues before it sums any
-TICKET_SLOTS = 256      # ticket slots: one for each (device, stream) that calls
+TICKET_SLOTS = 4096     # ticket slots: one for each (device, stream) and captured call
+TICKETS_PER_SLOT = 32   # a ticket for each finishing group and the top one
 MAX_C = 2 ** 24
 
 
@@ -103,21 +104,30 @@ def bn_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # The tickets are a static array of the loaded library, one for the process, so
 # their slots are handed out process-wide.
-_SLOTS: Dict[Tuple[int, int], int] = {}
+_SLOTS: Dict[Tuple[int, int], int] = {}  # (device, stream) -> slot of its eager calls
+_CAPTURED_SLOTS: List[int] = []          # a slot for each call captured into a CUDA graph
 _SLOTS_LOCK = threading.Lock()
 
 
-def _ticket_slot(device: int, stream: int) -> int:
-    """The ticket slot of a (device, stream): its own for as long as the
-    process lives, so that calls on two streams never share a ticket."""
-    key = (device, stream)
+def _ticket_slot(device: int, stream: int, capturing: bool = False) -> int:
+    """The ticket slot of a call on a (device, stream). An eager call takes its
+    stream's slot, its own for as long as the process lives, so that calls on
+    two streams never share a ticket. A call that a stream is capturing into a
+    CUDA graph takes a new slot of its own: graphs are captured on one shared
+    stream but may be replayed at once on two. Slots are never given back, so
+    a process has at most TICKET_SLOTS streams and captured calls in all."""
     with _SLOTS_LOCK:
-        if key not in _SLOTS:
-            if len(_SLOTS) >= TICKET_SLOTS:
-                raise RuntimeError(f"bn_stats_kernel serves at most {TICKET_SLOTS} "
-                                   f"(device, stream) pairs")
-            _SLOTS[key] = len(_SLOTS)
-        return _SLOTS[key]
+        if not capturing and (device, stream) in _SLOTS:
+            return _SLOTS[(device, stream)]
+        slot = len(_SLOTS) + len(_CAPTURED_SLOTS)
+        if slot >= TICKET_SLOTS:
+            raise RuntimeError(f"bn_stats_kernel serves at most {TICKET_SLOTS} (device, "
+                               f"stream) pairs and captured calls in a process")
+        if capturing:
+            _CAPTURED_SLOTS.append(slot)
+        else:
+            _SLOTS[(device, stream)] = slot
+        return slot
 
 
 def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,10 +138,13 @@ def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
     part = torch.empty((2, plan["part_rows"], c), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        capturing = torch.cuda.is_current_stream_capturing()
     err = lib.stcd_bn_stats_fwd(
         x.data_ptr(), part.data_ptr(), out.data_ptr(), rows, c, _DTYPE_CODE[x.dtype],
         plan["vec"], plan["blocks"], plan["rows_per_block"], plan["group_blocks"],
-        plan["part_rows"], _ticket_slot(x.device.index, stream), x.device.index, stream)
+        plan["part_rows"], _ticket_slot(x.device.index, stream, capturing), x.device.index,
+        stream)
     _build.check(lib, err, "stcd_bn_stats_fwd")
     bn_stats_kernel.kernel_launches += 1
     return out[0], out[1]
@@ -155,9 +168,13 @@ def bn_stats_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     launch, with the plan of ``bn_stats_plan``.
 
     Takes a contiguous CUDA tensor of float32 or bfloat16; raises on anything
-    else. ``kernel_launches`` counts the calls. Replays of a CUDA graph that
-    captured a call share its stream's tickets, so they must not overlap each
-    other or a call on that stream."""
+    else. ``kernel_launches`` counts the calls. The finish counts arrivals on
+    integer tickets: eager calls use their stream's slot of tickets, and a call
+    captured into a CUDA graph a slot of its own, so graphs may replay at once
+    on two streams, but replays of one graph must not overlap each other. A
+    process gets TICKET_SLOTS slots in all, never given back: one for each
+    (device, stream) that calls eagerly and one for each captured call; past
+    them the wrapper raises."""
     _check_args(x)
     if not x.is_cuda:
         raise RuntimeError(f"bn_stats_kernel needs a CUDA tensor, got {x.device}")

@@ -37,9 +37,10 @@
 //   on one SM. The order of every addition is fixed by the plan, so two runs
 //   agree bit for bit.
 // - The tickets live in a static device array, zero at load, in slots: the
-//   wrapper gives each (device, stream) a slot of its own, so two streams
-//   never share a ticket, and each call leaves its tickets at 0 for the next
-//   call and for every replay of a CUDA graph that captured it.
+//   wrapper gives each (device, stream) a slot of its own for its eager calls
+//   and each call captured into a CUDA graph another, so two streams never
+//   share a ticket, and each call leaves its tickets at 0 for the next call
+//   and for every replay of a CUDA graph that captured it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,8 +55,8 @@ constexpr int kSms = 132;          // ops/bn_stats.py: SMS
 constexpr int kBlocksPerSm = 2;    // BLOCKS_PER_SM
 constexpr int kDepth = 8;          // DEPTH: loads a thread has in flight
 constexpr int kAddBatch = 9;       // rows a finisher has in flight: 17 in two rounds
-constexpr int kTicketSlots = 256;  // TICKET_SLOTS
-constexpr int kTicketsPerSlot = 64;  // TICKETS_PER_SLOT: >= groups + 1
+constexpr int kTicketSlots = 4096;  // TICKET_SLOTS
+constexpr int kTicketsPerSlot = 32;  // TICKETS_PER_SLOT: >= groups + 1
 constexpr int kMaxDevices = 64;
 
 __device__ int g_tickets[kTicketSlots * kTicketsPerSlot];
@@ -328,7 +329,8 @@ cudaError_t launch(const Plan& plan, const Args& a, cudaStream_t stream) {
 // ops/bn_stats.py::bn_stats_plan's for these arguments and x's alignment; a
 // call whose numbers are not this file's is refused. part: float32 scratch of
 // (2, part_rows, c); out: float32 (2, c), sum then sumsq. slot: the caller's
-// ticket slot, one for each device and stream, in [0, 256). One launch.
+// ticket slot in [0, 4096), one for each device and stream and one for each
+// captured call. One launch.
 // Returns a cudaError_t.
 extern "C" int stcd_bn_stats_fwd(const void* x, float* part, float* out, long long rows, int c,
                                  int dtype, int vec, int blocks, long long rows_per_block,

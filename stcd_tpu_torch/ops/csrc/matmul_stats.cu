@@ -5,34 +5,30 @@
 // a ResNet bottleneck's 1x1 convolution that emits its BatchNorm statistics
 // while the output tile is still on chip.
 //
-// Replaces four Pallas TPU kernels of the JAX repo's feasibility benchmarks:
+// Replaces four Pallas TPU kernels of the JAX repo's feasibility benchmarks
+// where TMA cannot describe the operands, with three entries:
 //
 //   stcd_matmul_bf16_tiles  benchmarks/bench_bnstats_diag.py::_mm_kernel
 //                           (pallas_mm): the product alone, for the shapes
 //                           that the wgmma route of matmul_hopper.cu
 //                           (stcd_matmul_bf16) cannot take
 //   stcd_matmul_stats_tiles benchmarks/bench_conv_bn_epilogue.py::_kernel
-//                           (pallas_fused): a 2-D decomposition, one block for
+//                           (pallas_fused) and, for matmul_stats_rows,
+//                           benchmarks/bench_bnstats_diag.py::_fused1d_kernel
+//                           (pallas_1d): a 2-D decomposition, one block for
 //                           each (M tile, N tile), the sums on the CUDA cores,
 //                           for the shapes that the wgmma route of
 //                           matmul_hopper.cu (stcd_matmul_stats) cannot take
-//   stcd_matmul_stats_rows  benchmarks/bench_bnstats_diag.py::_fused1d_kernel
-//                           (pallas_1d): a block owns 128 rows across all N,
-//                           for the shapes where matmul_stats_rows_plan does
-//                           not take stcd_matmul_stats (matmul_hopper.cu)
-//                           with w resident
 //   stcd_matmul_stats_mma_tiles  benchmarks/bench_bnstats_diag.py::_mxu_stats_kernel
-//                           (pallas_mxu_stats): as _rows, the two column sums
+//                           (pallas_mxu_stats): as pallas_1d, the two column sums
 //                           formed on the tensor cores (ones . acc, ones . acc^2),
 //                           for the shapes that the wgmma route of
 //                           matmul_hopper.cu (stcd_matmul_stats_mma) cannot take
 //
-// Each entry runs only where matmul_plan or matmul_stats_rows_plan
-// (ops/matmul_stats.py) picks the route `wmma`: e.g. at (333, 37, 91), where
-// TMA cannot describe x and y, and for the rows also at (32768, 1024, 256),
-// where all of w does not fit in shared memory beside the ring.
+// Each entry runs only where matmul_plan (ops/matmul_stats.py) picks the route
+// `wmma`: e.g. at (333, 37, 91), where TMA cannot describe x and y.
 //
-// One device function, tile_product, serves all four: it computes a 128 x 64
+// One device function, tile_product, serves all three: it computes a 128 x 64
 // output tile with nvcuda::wmma on bf16 fragments (8 warps, 32 x 32 each, K in
 // chunks of 64 through shared memory), stages the f32 accumulator in shared
 // memory over the load buffers, writes y in 16-byte stores, and runs the
@@ -372,14 +368,6 @@ extern "C" int stcd_matmul_stats_tiles(const void* x, const void* w, void* y, fl
                                        long long m, int k, int n, long long m_tiles, int device,
                                        void* stream) {
   return run<kCudaCores>(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n, m_tiles, false,
-                         device, stream);
-}
-
-extern "C" int stcd_matmul_stats_rows(const void* x, const void* w, void* y, float* part_sum,
-                                      float* part_sq, float* out_sum, float* out_sq,
-                                      long long m, int k, int n, long long m_tiles, int device,
-                                      void* stream) {
-  return run<kCudaCores>(x, w, y, part_sum, part_sq, out_sum, out_sq, m, k, n, m_tiles, true,
                          device, stream);
 }
 

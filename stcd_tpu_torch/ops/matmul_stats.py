@@ -11,7 +11,9 @@ its rows while the output tile is still on chip:
 - ``matmul_stats(x, w) -> (y, sum, sumsq)``            (``pallas_fused``):
   the two sums formed on the CUDA cores;
 - ``matmul_stats_rows(x, w) -> (y, sum, sumsq)``       (``pallas_1d``): a
-  block owns its rows across all N;
+  block owns its rows across all N there; here the function, kernel and
+  plan of ``matmul_stats``, whose persistent blocks own their rows across
+  all N wherever w stays resident in shared memory;
 - ``matmul_stats_mma(x, w) -> (y, sum, sumsq)``        (``pallas_mxu_stats``):
   as ``_rows``, the two sums formed on the tensor cores.
 
@@ -21,13 +23,12 @@ accumulator before it is rounded. Each dispatches on the tensors' device:
 
 - CUDA tensors go to the hand-written kernels (``*_kernel``), or the call
   raises: there is no fallback. Each takes one of two routes, chosen from
-  the shapes and pointers by ``matmul_plan`` (``matmul_stats_rows_plan`` for
-  ``matmul_stats_rows``): ``wgmma_tma`` (``csrc/matmul_hopper.cu``:
+  the shapes and pointers by ``matmul_plan``: ``wgmma_tma`` (``csrc/matmul_hopper.cu``:
   persistent blocks, w resident in shared memory, x streamed once by TMA into
   a ring, ``wgmma`` products; the epilogue stores y and, for the three with
   sums, forms the column sums on the CUDA cores or on the tensor cores)
-  wherever TMA can describe x and y (for ``matmul_stats_rows`` only where all
-  of w stays resident), else ``wmma`` (the tiles of ``csrc/matmul_stats.cu``);
+  wherever TMA can describe x and y, else ``wmma`` (the tiles of
+  ``csrc/matmul_stats.cu``);
 - CPU tensors go to the plain PyTorch versions (``*_plain``).
 
 The JAX functions' ``bm``, ``bn`` and ``pipeline`` are TPU tile arguments and
@@ -52,7 +53,7 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 TILE_ROWS, TILE_COLS, TILE_DEPTH = 128, 64, 64
 GEOMETRY = (f"{TILE_ROWS} x {TILE_COLS} output tiles, K in chunks of {TILE_DEPTH}, 8 warps of "
             f"32 x 32 (wmma m16n16k16 bf16), partial sums per {TILE_ROWS}-row tile; "
-            f"all four by wgmma with TMA where matmul_plan (matmul_stats_rows_plan) allows")
+            f"all four by wgmma with TMA where matmul_plan allows")
 _MAX_BLOCKS = 2 ** 31 - 1
 
 # The wgmma route of matmul_hopper.cu, mirrored by its plan_for: the C entry
@@ -78,13 +79,6 @@ def _overhead_bytes(bn: int) -> int:
     mbarriers, and for each of the two consumer warpgroups one or two y
     boxes of 64 x 64 (one filled while the TMA stores the other)."""
     return 1024 + 2 * _MAX_STAGES * 8 + 2 * min(bn // 64, 2) * 64 * 64 * 2
-
-
-def _wmma_plan(m: int) -> dict:
-    """The wmma tiles of ``csrc/matmul_stats.cu``: one block (and one partial)
-    for each 128-row tile."""
-    return {"route": "wmma", "pass_cols": 0, "passes_per_group": 0, "groups": 1, "stages": 0,
-            "blocks_x": min(-(-m // _X_ROWS), _INT_MAX), "smem_bytes": 0, "w_resident": False}
 
 
 def matmul_plan(m: int, k: int, n: int, aligned: bool, epilogue: str = "none") -> dict:
@@ -113,7 +107,8 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool, epilogue: str = "none") -
         raise ValueError(f"matmul_plan's epilogue is one of {EPILOGUES}, got {epilogue!r}")
     max_npg = SUM_PASSES[epilogue]
     m_tiles = -(-m // _X_ROWS)
-    wmma = _wmma_plan(m)
+    wmma = {"route": "wmma", "pass_cols": 0, "passes_per_group": 0, "groups": 1, "stages": 0,
+            "blocks_x": min(m_tiles, _INT_MAX), "smem_bytes": 0, "w_resident": False}
     if (not aligned or k % 8 or n % 8 or k < _X_DEPTH or n < 64 or m < _X_ROWS
             or m > _INT_MAX):
         return wmma
@@ -139,19 +134,6 @@ def matmul_plan(m: int, k: int, n: int, aligned: bool, epilogue: str = "none") -
                     "w_resident": groups == 1}
         bn //= 2
     return wmma
-
-
-def matmul_stats_rows_plan(m: int, k: int, n: int, aligned: bool) -> dict:
-    """The route of ``matmul_stats_rows``, whose blocks own their rows across
-    all N so that x is read once: ``matmul_plan(..., epilogue="cuda_cores")``
-    where that is ``wgmma_tma`` with w resident in shared memory (one group:
-    every persistent block streams its rows once against the whole of w, the
-    kernel of ``matmul_stats``), else the wmma row tile of
-    ``csrc/matmul_stats.cu`` (one block for each 128-row tile, walking its N
-    tiles): where TMA cannot describe the operands, and where w does not fit,
-    so that the wgmma route would read x once for each group."""
-    plan = matmul_plan(m, k, n, aligned, epilogue="cuda_cores")
-    return plan if plan["w_resident"] else _wmma_plan(m)
 
 
 def _check_args(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -187,12 +169,9 @@ def matmul_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
     return acc.bfloat16(), acc.sum(0), (acc * acc).sum(0)
 
 
-def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, epilogue: str, grid_2d: bool,
-            rows: bool = False):
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, epilogue: str, grid_2d: bool):
     """Launch a C entry with ``epilogue`` (one of ``EPILOGUES``) on the route
-    that ``matmul_plan`` picks for it, or with ``rows`` (``matmul_stats_rows``)
-    on the route of ``matmul_stats_rows_plan``: the entry where that is
-    ``wgmma_tma``, the wmma row tile elsewhere."""
+    that ``matmul_plan`` picks for it."""
     _check_args(x, w)
     if not x.is_cuda:
         raise RuntimeError(f"{entry} needs CUDA tensors, got {x.device}")
@@ -209,9 +188,7 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, epilogue: str, grid_2d
     lib = _build.load_library()
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
-    plan = (matmul_stats_rows_plan(m, k, n, aligned) if rows
-            else matmul_plan(m, k, n, aligned, epilogue))
+    plan = matmul_plan(m, k, n, all(t.data_ptr() % 16 == 0 for t in (x, w, y)), epilogue)
     geometry = (ROUTES.index(plan["route"]), plan["pass_cols"], plan["passes_per_group"],
                 plan["stages"], plan["blocks_x"], plan["smem_bytes"])
     if epilogue == "none":
@@ -220,14 +197,6 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, epilogue: str, grid_2d
         _build.check(lib, err, f"{entry} ({plan['route']})")
         return y, plan["route"]
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
-    if rows and plan["route"] == "wmma":  # the row tile: one partial for each M tile
-        part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=x.device)
-        err = lib.stcd_matmul_stats_rows(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                         part[0].data_ptr(), part[1].data_ptr(),
-                                         out[0].data_ptr(), out[1].data_ptr(), m, k, n, m_tiles,
-                                         *tail)
-        _build.check(lib, err, "stcd_matmul_stats_rows (wmma)")
-        return (y, out[0], out[1]), "wmma"
     # one partial for each persistent block on wgmma_tma, for each M tile on wmma
     part_rows = plan["blocks_x"] if plan["route"] == "wgmma_tma" else m_tiles
     part = torch.empty((2, part_rows, n), dtype=torch.float32, device=x.device)
@@ -263,12 +232,12 @@ def matmul_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
 
 
 def matmul_stats_rows_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
-    """Launch the product with the sums formed on the CUDA cores, a block
-    owning its rows across all N, on the route ``matmul_stats_rows_plan``
-    picks: ``wgmma_tma`` runs ``matmul_stats``' kernel (y bit-equal to
-    ``matmul_bf16``'s there), ``wmma`` the row tile of ``matmul_stats.cu``.
-    ``kernel_launches`` counts the calls and ``routes`` counts them by route."""
-    out, route = _launch("stcd_matmul_stats", x, w, "cuda_cores", grid_2d=False, rows=True)
+    """``matmul_stats_kernel`` under its own counters: the same entry and
+    route (``matmul_plan(..., epilogue="cuda_cores")``). On ``wgmma_tma`` each
+    persistent block owns its rows across all N wherever w stays resident
+    (one group); ``wmma`` is the 2-D tile. ``kernel_launches`` counts the
+    calls and ``routes`` counts them by route."""
+    out, route = _launch("stcd_matmul_stats", x, w, "cuda_cores", grid_2d=True)
     matmul_stats_rows_kernel.kernel_launches += 1
     matmul_stats_rows_kernel.routes[route] += 1
     return out

@@ -46,7 +46,8 @@ import torch
 from stcd_tpu_torch.cli.predict import resolve_device
 from stcd_tpu_torch.ops import bn_stats as ops
 from stcd_tpu_torch.tools.bench_conv_bn_epilogue import (HBM_BYTES_PER_S, SEED, add_args,
-                                                         describe_device, fmt, time_ms)
+                                                         describe_device, fmt)
+from stcd_tpu_torch.tools.bench_kernels import graph_ms
 
 # 64 pairs make 128 folded images; SegCD ResNet-50 conv-output shapes
 SHAPES = [
@@ -103,6 +104,13 @@ def main(argv=None) -> List[dict]:
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
+
+    def timed(fn):
+        """Graph replays on the card; on the CPU one untimed call."""
+        if on_card:
+            return graph_ms(torch, fn)
+        fn()
+        return None
     print(f"bench_bnstats on {describe_device(device)}; torch {torch.__version__}; inputs: "
           f"torch.Generator({device.type}) seed {SEED}, standard normal, bf16", flush=True)
     rows = []
@@ -128,9 +136,9 @@ def main(argv=None) -> List[dict]:
                                      for g, w in zip(got, want)) / elts ** 0.5
             row[f"{name}_rel_err"] = max(((g - w).abs() / m.clamp_min(1.0)).max().item()
                                          for g, w, m in zip(got, want, scale))
-            row[f"{name}_ms"] = time_ms(lambda: fn(x), device, graph=True)
+            row[f"{name}_ms"] = timed(lambda: fn(x))
             del got
-        row["apply_ms"] = time_ms(lambda: apply(x), device, graph=True)
+        row["apply_ms"] = timed(lambda: apply(x))
         t_plain = row["stats_plain_ms"]
         ratios = {name: ("" if t_plain is None or row[f"{name}_ms"] is None
                          else f" ({row[f'{name}_ms'] / t_plain:.2f}x)")

@@ -71,30 +71,20 @@ def operands(m: int, k: int, n: int, device: torch.device, seed: int = SEED):
     return out
 
 
-def time_ms(fn: Callable, device: torch.device, graph: bool = False) -> Optional[float]:
+def time_ms(fn: Callable, device: torch.device) -> Optional[float]:
     """Median over RUNS launches, each timed with CUDA events; None on the
-    CPU, where there is no device to time. With ``graph`` the call is
-    captured once into a CUDA graph and its replays are timed, so that the
-    host's pace of launching does not time a kernel of tens of microseconds."""
+    CPU, where there is no device to time."""
     if device.type != "cuda":
         fn()
         return None
     for _ in range(3):
         fn()
-    run = fn
-    if graph:
-        torch.cuda.synchronize()
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            fn()
-        run = captured.replay
-        run()
     times = []
     for _ in range(RUNS):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        run()
+        fn()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))

@@ -27,7 +27,9 @@ pace of launching it), an autograd backward as profiler device time:
   shapes of ``tools/bench_conv_bn_epilogue.py``, beside ``matmul_bf16``,
   ``matmul_stats_mma`` and ``torch.matmul`` at the same shapes; the same bound;
 - ``matmul_stats_rows`` (section ``matmul_stats_rows``) at the three shapes of
-  ``tools/bench_bnstats_diag.py``, beside ``matmul_stats``; the same bound;
+  ``tools/bench_bnstats_diag.py`` (its total) and at ``ROWS_OTHER_SHAPES``,
+  one whose w does not stay resident and one that TMA cannot describe,
+  beside ``matmul_stats``; the same bound;
 - ``bn_stats`` (section ``bn_stats``) at the six shapes of
   ``tools/bench_bnstats.py``, bf16 and f32, beside ``torch.batch_norm_stats``,
   with the kernels one call launches (torch.profiler); bound: x read and the
@@ -49,7 +51,7 @@ pace of launching it), an autograd backward as profiler device time:
 
 ``--only`` picks sections (``matmul``: ``matmul_bf16`` and
 ``matmul_stats_mma``; ``matmul_stats``; ``matmul_stats_rows``; ``bn_stats``;
-``augment``; ``attention``). A checkout with no ``routes`` on
+``augment``; ``attention``), to time what a change touched. A checkout with no ``routes`` on
 ``matmul_stats_rows_kernel`` (an earlier commit) gives its rows without the
 route. Each kernel's output is also held against its plain
 version (the largest difference is printed). The result is one JSON line on stdout, and in
@@ -73,6 +75,9 @@ TRAIN_SHAPES = ((16, 1, 16384, 256, 64), (16, 2, 4096, 256, 64), (16, 4, 1024, 2
                 (16, 8, 256, 256, 64))
 SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls a ChangeFormerV6 encoder makes at each stage
 SECTIONS = ("matmul", "matmul_stats", "matmul_stats_rows", "bn_stats", "augment", "attention")
+# matmul_stats_rows besides its tool's shapes: w too wide to stay resident in
+# shared memory (bench_conv_bn_epilogue's last shape); N no multiple of 8
+ROWS_OTHER_SHAPES = ((32768, 1024, 256), (32768, 1000, 250))
 
 
 def graph_ms(torch, fn, runs: int = 20) -> float:
@@ -423,10 +428,11 @@ def main(argv=None) -> int:
         result.update({"matmul_stats": stats, "matmul_stats_ms": sum(r["ms"] for r in stats),
                        "matmul_stats_bound_ms": sum(r["bound_ms"] for r in stats)})
     if "matmul_stats_rows" in only:
-        stats_rows = bench_matmul_stats_rows(torch, ops, SHAPES)
+        stats_rows = bench_matmul_stats_rows(torch, ops, tuple(SHAPES) + ROWS_OTHER_SHAPES)
+        tool_rows = stats_rows[:len(SHAPES)]
         result.update({"matmul_stats_rows": stats_rows,
-                       "matmul_stats_rows_ms": sum(r["ms"] for r in stats_rows),
-                       "matmul_stats_rows_bound_ms": sum(r["bound_ms"] for r in stats_rows)})
+                       "matmul_stats_rows_ms": sum(r["ms"] for r in tool_rows),
+                       "matmul_stats_rows_bound_ms": sum(r["bound_ms"] for r in tool_rows)})
     if "bn_stats" in only:
         bn = bench_bn_stats(torch, bn_ops)
         for dtype in ("bfloat16", "float32"):

@@ -142,7 +142,7 @@ def test_plan_covers_every_row_once_with_resident_blocks(shape, itemsize):
     assert (plan["blocks"] - 1) * rpb < rows <= plan["blocks"] * rpb
     assert plan["group_blocks"] ** 2 >= plan["blocks"] > (plan["group_blocks"] - 1) ** 2
     assert plan["groups"] == -(-plan["blocks"] // plan["group_blocks"])
-    assert plan["groups"] + 1 <= 64  # kTicketsPerSlot: a group ticket each and the top one
+    assert plan["groups"] + 1 <= bn_ops.TICKETS_PER_SLOT  # a group ticket each and the top one
     assert plan["part_rows"] == plan["blocks"] + (plan["groups"] if plan["groups"] > 1 else 0)
     assert plan["scheme"] == "ldg" and plan["launches"] == 1
 
@@ -196,6 +196,7 @@ def test_plan_refuses_what_the_kernel_does_not_take(args, match):
 
 def test_ticket_slots_are_one_for_each_device_and_stream(monkeypatch):
     monkeypatch.setattr(bn_ops, "_SLOTS", {})
+    monkeypatch.setattr(bn_ops, "_CAPTURED_SLOTS", [])
     a, b, a_again = (bn_ops._ticket_slot(0, 11), bn_ops._ticket_slot(0, 22),
                      bn_ops._ticket_slot(0, 11))
     assert a == a_again != b and bn_ops._ticket_slot(1, 11) not in (a, b)
@@ -205,6 +206,23 @@ def test_ticket_slots_are_one_for_each_device_and_stream(monkeypatch):
         bn_ops._ticket_slot(0, bn_ops.TICKET_SLOTS)
 
 
+def test_each_captured_call_takes_a_ticket_slot_of_its_own(monkeypatch):
+    """Graphs are captured on one shared stream and may replay at once on two
+    streams, so a captured call shares its slot with no other call: not with
+    its stream's eager calls, not with another captured call. Captured calls
+    count against the process's TICKET_SLOTS."""
+    monkeypatch.setattr(bn_ops, "_SLOTS", {})
+    monkeypatch.setattr(bn_ops, "_CAPTURED_SLOTS", [])
+    eager = bn_ops._ticket_slot(0, 11)
+    captured = [bn_ops._ticket_slot(0, 11, capturing=True) for _ in range(3)]
+    assert len({eager, *captured}) == 4
+    assert bn_ops._ticket_slot(0, 11) == eager
+    assert bn_ops._ticket_slot(0, 22) not in {eager, *captured}
+    monkeypatch.setattr(bn_ops, "_CAPTURED_SLOTS", list(range(bn_ops.TICKET_SLOTS)))
+    with pytest.raises(RuntimeError, match="captured calls"):
+        bn_ops._ticket_slot(0, 11, capturing=True)
+
+
 def test_ticket_slots_from_many_threads_are_distinct(monkeypatch):
     """Streams first seen by several threads at once (the serving engine's)
     each get a slot of their own: a shared slot would let two streams share a
@@ -212,6 +230,7 @@ def test_ticket_slots_from_many_threads_are_distinct(monkeypatch):
     import sys
     import threading
     monkeypatch.setattr(bn_ops, "_SLOTS", {})
+    monkeypatch.setattr(bn_ops, "_CAPTURED_SLOTS", [])
     got, switch = {}, sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:

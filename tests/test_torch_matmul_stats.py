@@ -10,6 +10,7 @@ only, and an output within an f32 ulp of a bf16 rounding boundary is allowed:
 at most one bf16 ulp at a handful of elements); the sums rtol 1e-5 of the
 largest sum, against JAX and against float64."""
 
+import collections
 import importlib.util
 import os
 
@@ -384,36 +385,49 @@ def test_stats_route_counter_exists_and_stays_at_zero_on_the_cpu():
     assert dict(ops.matmul_stats_kernel.routes) == {}
 
 
-# --- matmul_stats_rows: matmul_stats' kernel where w stays resident, the row tile elsewhere ---
+# --- matmul_stats_rows: matmul_stats' kernel and plan at every shape ---
 
 ROWS_CASES = ([(s, "wgmma_tma") for s in bench_bnstats_diag.SHAPES]
               + [((4096, 64, 1024), "wgmma_tma"), (MM_RAGGED, "wgmma_tma"),
-                 ((32768, 1024, 256), "wmma"), (RAGGED, "wmma"), ((1000, 72, 56), "wmma")])
+                 ((32768, 1024, 256), "wgmma_tma"), (RAGGED, "wmma"), ((1000, 72, 56), "wmma")])
 
 
 @pytest.mark.parametrize("shape,route", ROWS_CASES)
 def test_rows_plan_at_the_tool_and_ragged_shapes(shape, route):
-    """bench_bnstats_diag's three shapes (and any shape where all of w fits
-    beside the ring) take matmul_stats' plan as it is, so every persistent
-    block streams its rows once against the whole of w; (32768, 1024, 256),
-    whose w does not fit (four groups, x read four times), and the shapes that
-    TMA cannot describe take the wmma row tile, one block for each 128 rows."""
+    """matmul_stats_rows runs on matmul_stats' plan: at bench_bnstats_diag's
+    three shapes all of w stays resident (one group), so every persistent
+    block streams its rows once against the whole of w, and the scratch has
+    one partial for each block; (32768, 1024, 256), whose w does not fit,
+    takes four groups on the same route; the shapes that TMA cannot describe
+    take the 2-D wmma tile."""
     m, k, n = shape
-    plan = ops.matmul_stats_rows_plan(m, k, n, aligned=True)
+    plan = ops.matmul_plan(m, k, n, aligned=True, epilogue="cuda_cores")
     assert plan["route"] == route
-    stats = ops.matmul_plan(m, k, n, aligned=True, epilogue="cuda_cores")
-    if route == "wgmma_tma":
-        assert plan == stats and plan["w_resident"] and plan["groups"] == 1
-        # the scratch has one partial for each persistent block, not one for each M tile
+    if shape in bench_bnstats_diag.SHAPES:
+        assert plan["w_resident"] and plan["groups"] == 1
         assert plan["blocks_x"] == min(-(-m // 128), ops.SMS) <= ops.SMS
-    else:
-        assert not plan["w_resident"] and plan["blocks_x"] == -(-m // 128)
-        assert plan == ops.matmul_plan(m, k, n, aligned=False)  # the wmma tiles' plan
+    if shape == (32768, 1024, 256):
+        assert plan["groups"] == 4 and not plan["w_resident"]
+    if route == "wmma":
+        assert plan["blocks_x"] == -(-m // 128)
 
 
-def test_rows_plan_leaves_the_wgmma_route_where_w_does_not_fit():
-    assert ops.matmul_plan(32768, 1024, 256, aligned=True, epilogue="cuda_cores")["groups"] == 4
-    assert ops.matmul_stats_rows_plan(32768, 1024, 256, aligned=False)["route"] == "wmma"
+def test_rows_launch_matmul_stats_entry_and_plan(monkeypatch):
+    """The rows wrapper launches matmul_stats' C entry with its epilogue and
+    its 2-D block count check, and counts the launch under its own counters."""
+    calls = []
+
+    def launch(entry, x, w, epilogue, grid_2d):
+        calls.append((entry, epilogue, grid_2d))
+        return (x, w, w), "wgmma_tma"
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    monkeypatch.setattr(ops.matmul_stats_rows_kernel, "kernel_launches", 0)
+    monkeypatch.setattr(ops.matmul_stats_rows_kernel, "routes", collections.Counter())
+    ops.matmul_stats_rows_kernel(torch.zeros(2, 2), torch.zeros(2, 2))
+    assert calls == [("stcd_matmul_stats", "cuda_cores", True)]
+    assert ops.matmul_stats_rows_kernel.kernel_launches == 1
+    assert dict(ops.matmul_stats_rows_kernel.routes) == {"wgmma_tma": 1}
 
 
 def test_rows_route_counter_exists_and_stays_at_zero_on_the_cpu():
