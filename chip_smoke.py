@@ -90,6 +90,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    bench_conv_bn_epilogue and every matmul_bf16, matmul_stats_rows and
    matmul_stats_mma launch of bench_bnstats_diag took the wgmma route, and
    bench_bnstats' bn_stats agrees with its plain version.
+13. the pipeline from the command line: cli.pipeline_demo.main, whose first step
+   (cli.make_demo_data) writes 16 train and 8 val tiles of 256x256 for WHU-AB and
+   LEVIR into a temporary directory, runs stage 1, stage 2, its --select_data and
+   --generate_label passes, stage 3 and evaluate, each through its CLI's main, on
+   the card at full width (resnet50, decoder (256, 128, 64, 32, 16), bf16, batch 8,
+   3 epochs). Requires each stage's best model, last_ckpt and three snapshots, the
+   reliable and unreliable id lists, ff_label/ for every train pair, evaluate's
+   metrics, reliabilities that are not all equal, every stage's parameters and
+   every loader batch on the card with images and labels as uint8, and one
+   augmentation kernel launch for each of the 18 train steps. Prints whether the
+   native decoder built, the files decoded by path, each step's seconds, each
+   stage's images or samples per second by epoch, and the loader's decode rate.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -1310,6 +1322,128 @@ def phase_segcd_serving(torch, np):
           flush=True)
 
 
+PIPE = dict(n=16, size=256, encoder="resnet50", decoder="256,128,64,32,16", batch=8,
+            epochs=3)  # the demo's tree and the full-width stages of phase 13
+PIPE_DECODE_PASSES = 3  # loader passes over the LEVIR train pairs for the decode rate
+
+
+def phase_pipeline_cli(torch, augment_kernel, gpu_label):
+    """The pipeline from the command line: cli.pipeline_demo.main writes the
+    demo tree (cli.make_demo_data: 16 train and 8 val tiles of 256x256 a
+    dataset) into a temporary directory and runs its six steps at full width
+    on the card (resnet50, decoder 256..16, bf16, batch 8, 3 epochs). Requires
+    every step's artifacts, reliabilities that are not all equal, the models
+    and every loader batch on the card with the images as uint8, and one
+    augmentation launch for each train step of the three stages. Returns the
+    launches."""
+    import tempfile
+
+    from stcd_tpu_torch import native
+    from stcd_tpu_torch.cli import pipeline_demo
+    from stcd_tpu_torch.data import io as data_io
+    from stcd_tpu_torch.data import loader as data_loader
+    from stcd_tpu_torch.data.datasets import CDDataset
+
+    batches = {}  # (key, device type, dtype) -> batches handed out
+    plain_iter = data_loader.DataLoader.__iter__
+
+    def recording_iter(self):
+        for batch in plain_iter(self):
+            for key, value in batch.items():
+                if torch.is_tensor(value):
+                    tag = (key, value.device.type, str(value.dtype).replace("torch.", ""))
+                    batches[tag] = batches.get(tag, 0) + 1
+            yield batch
+
+    native_built = native.available()
+    data_loader.DataLoader.__iter__ = recording_iter
+    data_io.reset_decode_counts()
+    augment_kernel.kernel_launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            results = pipeline_demo.main([
+                root, "--device", "cuda", "--n", str(PIPE["n"]), "--size", str(PIPE["size"]),
+                "--encoder", PIPE["encoder"], "--decoder_channels", PIPE["decoder"],
+                "--batch_size", str(PIPE["batch"]), "--n_epochs", str(PIPE["epochs"]),
+                "--bf16"])
+            torch.cuda.synchronize()
+            launches = augment_kernel.kernel_launches
+            decodes = data_io.decode_counts()
+            runs, train = os.path.join(root, "runs"), os.path.join(root, "data", "LEVIR", "train")
+            steps = list(results.values())
+            stages = {"stage 1": steps[1]["result"], "stage 2": steps[2]["result"],
+                      "stage 3": steps[5]["result"]}
+            for name in ("seg", "psecd", "stcd"):
+                files = os.listdir(os.path.join(runs, name))
+                require({"last_ckpt", "1.00_model", "2.00_model", "3.00_model"} <= set(files)
+                        and sum(f.endswith("_best_model") for f in files) == 1,
+                        f"run {name}: {sorted(files)}")
+            lists = {k: data_io.read_list(os.path.join(train, "list", f"{k}_ids.txt"))
+                     for k in ("reliable", "unreliable")}
+            require(len(lists["reliable"]) == len(lists["unreliable"]) == PIPE["n"] // 2,
+                    f"reliability lists {lists}")
+            reliability = [r for _, r in steps[3]["result"]["reliability"]]
+            require(len(set(reliability)) > 1, f"every reliability is {reliability[0]}")
+            ff = sorted(os.listdir(os.path.join(train, "ff_label")))
+            require(ff == sorted(os.listdir(os.path.join(train, "A"))), f"ff_label/ {ff}")
+            metrics = steps[6]["result"]
+            require(set(metrics) == {"OA", "precision", "recall", "F1", "IoU", "mIoU"}
+                    and 0.0 <= metrics["OA"] <= 1.0, f"evaluate's metrics {metrics}")
+            train_steps = 0
+            rates = {}
+            for label, (name, out) in zip(("stage 1", "stage 2", "stage 3"),
+                                         zip(("seg", "psecd", "stcd"), stages.values())):
+                state = out["state"]
+                require(all(p.is_cuda for p in state.model.parameters()),
+                        f"{label}: a parameter is off the card")
+                require(state.step == PIPE["epochs"] * (PIPE["n"] // PIPE["batch"]),
+                        f"{label}: {state.step} train steps")
+                train_steps += state.step
+                with open(os.path.join(runs, name, "logs", "scalars.jsonl")) as f:
+                    rates[label] = [round(r["value"], 2) for r in map(json.loads, f)
+                                    if r["tag"] == "train/imgs_per_sec"]
+            require(launches == train_steps == 18,
+                    f"{launches} augmentation launches for {train_steps} train steps")
+            images = {"A", "B", "image", "CA", "CB"}
+            labels = {"label", "s_label_A", "s_label_B", "c_label", "CL"}
+            require(batches and all(dev == "cuda" for _, dev, _ in batches),
+                    f"loader batches off the card: {batches}")
+            require(all(dtype == "uint8" for key, _, dtype in batches if key in images | labels),
+                    f"loader batches not uint8: {batches}")
+            require({key for key, _, _ in batches} >= images,
+                    f"loader keys {sorted(batches)}")
+
+            # the loader's decode rate on this host: the LEVIR train pairs (A, B, label)
+            data_io.reset_decode_counts()
+            loader = data_loader.DataLoader(
+                CDDataset(os.path.join(root, "data"), "LEVIR", "train"), PIPE["batch"],
+                shuffle=True, device="cuda")
+            t0 = time.monotonic()
+            for _ in range(PIPE_DECODE_PASSES):
+                for batch in loader:
+                    pass
+            torch.cuda.synchronize()
+            decode_s = time.monotonic() - t0
+            decoded = sum(data_io.decode_counts().values())
+    finally:
+        data_loader.DataLoader.__iter__ = plain_iter
+        data_io.set_uint8_transfer(False)
+    print(f"pipeline_cli: native decoder built: {native_built}; files decoded by path "
+          f"{decodes} (TIFF goes to PIL)", flush=True)
+    print("pipeline_cli: seconds by step " + json.dumps(
+        {title: round(r["seconds"], 2) for title, r in results.items()}), flush=True)
+    print(f"pipeline_cli ({gpu_label}): train images (stage 1) or samples (stages 2, 3) "
+          f"per second by epoch, host clock, batch {PIPE['batch']}: {rates}", flush=True)
+    print(f"pipeline_cli ({gpu_label}): loader decode {decoded} files in {decode_s:.3f} s = "
+          f"{decoded / decode_s:.1f} files/s ({decoded // 3} pairs of {PIPE['size']}x{PIPE['size']} "
+          f"PNG with labels, "
+          f"{PIPE_DECODE_PASSES} passes, 4 threads, copies to the card included)", flush=True)
+    print(f"pipeline_cli: reliabilities {sorted(set(round(r, 4) for r in reliability))}; "
+          f"evaluate {json.dumps(metrics)}; loader batches {len(batches)} kinds, all on the "
+          f"card; augment kernel launches {launches} for {train_steps} train steps", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1369,7 +1503,6 @@ def main() -> int:
         aug_by_path[f"stage{stage}_step"] = phase_training(
             torch, augment.apply_augment_kernel, gpu_label, stage=stage)
     aug_by_path["run_training"] = phase_loop(torch, augment.apply_augment_kernel)
-    aug["launches"] = sum(aug_by_path.values())
 
     # phase 12: the three feasibility benchmarks, the matmul kernels' and bn_stats' entry
     # points
@@ -1379,6 +1512,11 @@ def main() -> int:
     for name, launches in tool_launches.items():
         require(launches > 0, f"the tools never launched {name}")
         (bn if name == "bn_stats" else mm[name])["launches"] = launches
+
+    # phase 13: the pipeline from the command line
+    aug_by_path["pipeline_cli"] = phase_pipeline_cli(torch, augment.apply_augment_kernel,
+                                                     gpu_label)
+    aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
     attn["launches"] = serving_launches + v6_fwd + v6_fp32_fwd + bit_fwd

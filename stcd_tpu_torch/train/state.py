@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.convert.pretrained import resolve_encoder_weights
 from stcd_tpu_torch.train.schedules import Schedule, poly_schedule
 
 
@@ -108,19 +109,18 @@ def create_train_state(model: nn.Module, tx: OptimizerConfig, device="cuda",
     ``device`` is ``"cuda"`` unless the caller asks for the CPU; ``cuda``
     without a card raises. On a card the model is laid out channels_last.
     ``bf16`` runs the forward under bfloat16 autocast with float32 master
-    weights. ``encoder_weights`` is the path of a torch state_dict under
-    torchvision's names, loaded strictly into ``model.encoder``; resolving
-    ``"imagenet"`` against a directory of converted weights is not ported."""
+    weights. ``encoder_weights`` is a torch state_dict under torchvision's
+    names, loaded strictly into ``model.encoder``: its path, or ``"imagenet"``
+    for ``{encoder}.pth`` under ``$STCD_PRETRAINED_DIR``
+    (``convert.pretrained.resolve_encoder_weights``: a missing file raises,
+    nothing is downloaded)."""
     device = resolve_device(device)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    if encoder_weights is not None:
-        if encoder_weights == "imagenet":
-            raise NotImplementedError(
-                "encoder_weights='imagenet' is not ported: pass the path of a torch "
-                "state_dict (ROADMAP.md Queue 1 #6)")
-        sd = torch.load(encoder_weights, map_location=device, weights_only=True)
+    path = resolve_encoder_weights(encoder_weights, getattr(model, "encoder_name", None))
+    if path is not None:
+        sd = torch.load(path, map_location=device, weights_only=True)
         model.encoder.load_state_dict(sd, strict=True)
     generator = None
     if seed is not None:

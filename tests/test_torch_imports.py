@@ -1,7 +1,7 @@
 """stcd_tpu_torch imports torch and never JAX, flax, optax or stcd_tpu, and
 PIL only where an image file is read or written: importing
 the package and every one of its submodules, in a fresh interpreter, leaves
-none of them in sys.modules, and builds no kernel."""
+none of them in sys.modules, and builds no kernel and no native decoder."""
 
 import json
 import os
@@ -19,9 +19,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "PIL", "stcd_tpu"))
+from stcd_tpu_torch import native
 from stcd_tpu_torch.ops import _build
 print(json.dumps({"modules": names, "bad": bad,
-                  "built": _build.load_library.cache_info().currsize}))
+                  "built": _build.load_library.cache_info().currsize,
+                  "native_loaded": native._lib is not None or native._load_failed}))
 """
 
 
@@ -38,11 +40,15 @@ def test_port_never_imports_jax_or_the_jax_package():
                  "models.bit", "train.trainer", "layers.stochastic", "ops.matmul_stats",
                  "tools.bench_conv_bn_epilogue", "tools.bench_bnstats_diag", "train.loops",
                  "tools.bench_bnstats",
-                 "train.checkpoint", "utils.logging", "data.io"):
+                 "train.checkpoint", "utils.logging", "data.io", "native", "data.datasets",
+                 "data.loader", "data.tools", "train.preemption", "utils.profiling",
+                 "utils.debug", "convert.pretrained", "cli.common", "cli.train_sup",
+                 "cli.train_pse_cd", "cli.train_stcd", "cli.train_ffctl", "cli.evaluate",
+                 "cli.make_demo_data", "cli.pipeline_demo"):
         assert f"stcd_tpu_torch.{name}" in res["modules"], name
-    assert len(res["modules"]) >= 41
+    assert len(res["modules"]) >= 57
     assert res["bad"] == []
-    assert res["built"] == 0
+    assert res["built"] == 0 and not res["native_loaded"]
 
 
 def _imported_roots(path):
@@ -66,7 +72,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package_in_an_import():
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "stcd_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    assert len(sources) >= 45
+    assert len(sources) >= 60
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stcd_tpu", "benchmarks", "bench"}
     for path in sources:
         assert not _imported_roots(path) & banned, path

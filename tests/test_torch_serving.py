@@ -289,13 +289,18 @@ def test_every_entry_point_defaults_to_the_card(monkeypatch):
     from stcd_tpu_torch.train.state import create_train_state
     from stcd_tpu_torch.train.trainer import CDTrainer
 
+    from stcd_tpu_torch.cli import (common, evaluate, pipeline_demo, train_ffctl,
+                                    train_pse_cd, train_stcd, train_sup)
+    from stcd_tpu_torch.data.loader import DataLoader
+
     for fn in (BatchingEngine.__init__, predict_scene, create_train_state,
-               CDTrainer.init_state, stage_setup):
+               CDTrainer.init_state, stage_setup, DataLoader.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for add_args in (cli_predict.add_model_args, bench_conv_bn_epilogue.add_args):
         parser = argparse.ArgumentParser()
         add_args(parser)
         assert parser.get_default("device") == "cuda", add_args
+    assert common.base_parser("LEVIR", "runs/x").get_default("device") == "cuda"
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -306,6 +311,15 @@ def test_every_entry_point_defaults_to_the_card(monkeypatch):
     for main in (cli_serve.main, bench_conv_bn_epilogue.main, bench_bnstats_diag.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--init_seed", "0"] if main is cli_serve.main else [])
+    # the stage CLIs and the demo refuse before they read or write anything
+    for main in (train_sup.main, train_pse_cd.main, train_stcd.main, train_ffctl.main,
+                 evaluate.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--root_path", "no/such/dir", "--save_name", "no/such/run"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline_demo.main(["no/such/root"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataLoader([{"A": np.zeros((2, 2, 3), np.uint8)}], batch_size=1)
 
 
 @pytest.mark.parametrize("net_G", ["base_transformer_pos_s4_dd8", "ChangeFormerV6"])

@@ -280,9 +280,15 @@ def test_create_train_state_device_weights_and_bf16(init, tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="conv1.weight"):
         create_train_state(SegCD("resnet18", decoder_channels=DEC), adam_poly(), device="cpu",
                            encoder_weights=str(tmp_path / "bad.pt"))
-    with pytest.raises(NotImplementedError, match="imagenet"):
+    monkeypatch.setenv("STCD_PRETRAINED_DIR", str(tmp_path / "pretrained"))
+    with pytest.raises(FileNotFoundError, match="imagenet"):
         create_train_state(SegCD("resnet18", decoder_channels=DEC), adam_poly(), device="cpu",
                            encoder_weights="imagenet")
+    (tmp_path / "pretrained").mkdir()
+    torch.save(sd, tmp_path / "pretrained" / "resnet18.pth")
+    resolved = create_train_state(SegCD("resnet18", decoder_channels=DEC), adam_poly(),
+                                  device="cpu", encoder_weights="imagenet")
+    assert torch.equal(resolved.model.encoder.conv1.weight, sd["conv1.weight"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_train_state(SegCD("resnet18", decoder_channels=DEC), adam_poly())
