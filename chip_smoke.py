@@ -102,6 +102,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    augmentation kernel launch for each of the 18 train steps. Prints whether the
    native decoder built, the files decoded by path, each step's seconds, each
    stage's images or samples per second by epoch, and the loader's decode rate.
+14. cli.train_cd at full width: ChangeFormerV6 (embed 256), 256x256, batch 8,
+   fp32, --augment, synthetic data, 2 epochs of 2 steps; then --eval_only; then
+   a third epoch that resumes at epoch 2; then one epoch of the default
+   base_transformer_pos_s4_dd8. Requires 13 forward and 13 backward f32_cuda
+   attention launches and one augmentation launch a train step (13 forward
+   launches an eval batch; BIT: 16 small_m), a finite loss, best_ckpt,
+   last_ckpt, both curves and the masks in vis_dir.
+15. ChangeFormer V1-V5 at their published widths (V5 embed 256): one fp32 eval
+   forward of 8 pairs of 256x256 tiles each, P(changed) with the kernel against
+   the plain attention within PROBS_ATOL, 16 (V1-V3), 25 (V4) or 28 (V5) f32_cuda
+   launches a forward; one fp32 CDTrainer step each with as many backward
+   launches. The attention kernels are held to their plain versions at V4's and
+   V5's new (B, H, N, M, D) shapes in phase 3's backward check (forward and
+   backward, f32 and bf16, dropout 0 and 0.1).
+16. int8 on phase 13's SegCD-r50: cli.evaluate --int8 against the float
+   evaluation of phase 13 (F1 within INT8_F1_TOL, the JAX gate), the float and
+   int8 ms of one batch, cli.predict --int8 writing a mask, and cli.serve --int8
+   --calib_dir answering requests in a subprocess.
+17. cli.export_model: SegCD-r50 of phase 13 (the default export), ChangeFormerV6
+   at embed 256 (the serving forward) and SegCD --int8 --calib_npz, each written,
+   loaded back and held against the eager forward within EXPORT_ATOL; the loaded
+   V6 program launches the attention kernel 13 times a call.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -116,6 +138,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -430,7 +453,8 @@ def phase_attention_backward(torch, attention):
     gen = torch.Generator(device="cpu").manual_seed(5)
     v6 = sra_shapes(V6_TRAIN["batch"], V6_TRAIN["size"])
     cases = [(shape, None, True) for shape in v6] + [(BIT_SHAPE, BIT_SCALE, True)]
-    cases += [(shape, None, False) for shape in RAGGED_SHAPES + ((2, 2, 1000, 37, 80),)]
+    cases += [(shape, None, False) for shape in RAGGED_SHAPES + ((2, 2, 1000, 37, 80),)
+              + CF_NEW_SHAPES]
     max_err = fwd_max_err = 0.0
     table = {}
     for (b, h, n, m, d), scale, on_path in cases:
@@ -1009,8 +1033,8 @@ def phase_serving(torch, np, attention, gpu_label):
 
     parser = argparse.ArgumentParser()
     add_model_args(parser)
-    args = parser.parse_args(["--net_G", "ChangeFormerV6", "--init_seed", "0",
-                              "--device", "cuda", "--tile", str(TILE)])
+    args = parser.parse_args(["--net_G", "ChangeFormerV6", "--embed_dim", "256",
+                              "--init_seed", "0", "--device", "cuda", "--tile", str(TILE)])
     model = build_model(args)
     base_fn = make_base_fn(args, model)
     with torch.inference_mode():  # warm one batch shape, as cli.serve does
@@ -1076,8 +1100,9 @@ def phase_serving(torch, np, attention, gpu_label):
           f"(atol {PROBS_ATOL})", flush=True)
     require(err <= PROBS_ATOL, f"stitched probabilities differ by {err}")
 
-    bf16_args = parser.parse_args(["--net_G", "ChangeFormerV6", "--init_seed", "0",
-                                   "--device", "cuda", "--tile", str(TILE), "--bf16"])
+    bf16_args = parser.parse_args(["--net_G", "ChangeFormerV6", "--embed_dim", "256",
+                                   "--init_seed", "0", "--device", "cuda", "--tile",
+                                   str(TILE), "--bf16"])
     engine = BatchingEngine(make_base_fn(bf16_args, model), tile=TILE, batch=BATCH,
                             device="cuda")
     try:
@@ -1327,17 +1352,15 @@ PIPE = dict(n=16, size=256, encoder="resnet50", decoder="256,128,64,32,16", batc
 PIPE_DECODE_PASSES = 3  # loader passes over the LEVIR train pairs for the decode rate
 
 
-def phase_pipeline_cli(torch, augment_kernel, gpu_label):
+def phase_pipeline_cli(torch, augment_kernel, gpu_label, root):
     """The pipeline from the command line: cli.pipeline_demo.main writes the
     demo tree (cli.make_demo_data: 16 train and 8 val tiles of 256x256 a
-    dataset) into a temporary directory and runs its six steps at full width
-    on the card (resnet50, decoder 256..16, bf16, batch 8, 3 epochs). Requires
-    every step's artifacts, reliabilities that are not all equal, the models
-    and every loader batch on the card with the images as uint8, and one
-    augmentation launch for each train step of the three stages. Returns the
-    launches."""
-    import tempfile
-
+    dataset) into ``root`` and runs its six steps at full width on the card
+    (resnet50, decoder 256..16, bf16, batch 8, 3 epochs). Requires every step's
+    artifacts, reliabilities that are not all equal, the models and every
+    loader batch on the card with the images as uint8, and one augmentation
+    launch for each train step of the three stages. Returns the launches and
+    the final evaluation's metrics."""
     from stcd_tpu_torch import native
     from stcd_tpu_torch.cli import pipeline_demo
     from stcd_tpu_torch.data import io as data_io
@@ -1360,71 +1383,71 @@ def phase_pipeline_cli(torch, augment_kernel, gpu_label):
     data_io.reset_decode_counts()
     augment_kernel.kernel_launches = 0
     try:
-        with tempfile.TemporaryDirectory() as root:
-            results = pipeline_demo.main([
-                root, "--device", "cuda", "--n", str(PIPE["n"]), "--size", str(PIPE["size"]),
-                "--encoder", PIPE["encoder"], "--decoder_channels", PIPE["decoder"],
-                "--batch_size", str(PIPE["batch"]), "--n_epochs", str(PIPE["epochs"]),
-                "--bf16"])
-            torch.cuda.synchronize()
-            launches = augment_kernel.kernel_launches
-            decodes = data_io.decode_counts()
-            runs, train = os.path.join(root, "runs"), os.path.join(root, "data", "LEVIR", "train")
-            steps = list(results.values())
-            stages = {"stage 1": steps[1]["result"], "stage 2": steps[2]["result"],
-                      "stage 3": steps[5]["result"]}
-            for name in ("seg", "psecd", "stcd"):
-                files = os.listdir(os.path.join(runs, name))
-                require({"last_ckpt", "1.00_model", "2.00_model", "3.00_model"} <= set(files)
-                        and sum(f.endswith("_best_model") for f in files) == 1,
-                        f"run {name}: {sorted(files)}")
-            lists = {k: data_io.read_list(os.path.join(train, "list", f"{k}_ids.txt"))
-                     for k in ("reliable", "unreliable")}
-            require(len(lists["reliable"]) == len(lists["unreliable"]) == PIPE["n"] // 2,
-                    f"reliability lists {lists}")
-            reliability = [r for _, r in steps[3]["result"]["reliability"]]
-            require(len(set(reliability)) > 1, f"every reliability is {reliability[0]}")
-            ff = sorted(os.listdir(os.path.join(train, "ff_label")))
-            require(ff == sorted(os.listdir(os.path.join(train, "A"))), f"ff_label/ {ff}")
-            metrics = steps[6]["result"]
-            require(set(metrics) == {"OA", "precision", "recall", "F1", "IoU", "mIoU"}
-                    and 0.0 <= metrics["OA"] <= 1.0, f"evaluate's metrics {metrics}")
-            train_steps = 0
-            rates = {}
-            for label, (name, out) in zip(("stage 1", "stage 2", "stage 3"),
-                                         zip(("seg", "psecd", "stcd"), stages.values())):
-                state = out["state"]
-                require(all(p.is_cuda for p in state.model.parameters()),
-                        f"{label}: a parameter is off the card")
-                require(state.step == PIPE["epochs"] * (PIPE["n"] // PIPE["batch"]),
-                        f"{label}: {state.step} train steps")
-                train_steps += state.step
-                with open(os.path.join(runs, name, "logs", "scalars.jsonl")) as f:
-                    rates[label] = [round(r["value"], 2) for r in map(json.loads, f)
-                                    if r["tag"] == "train/imgs_per_sec"]
-            require(launches == train_steps == 18,
-                    f"{launches} augmentation launches for {train_steps} train steps")
-            images = {"A", "B", "image", "CA", "CB"}
-            labels = {"label", "s_label_A", "s_label_B", "c_label", "CL"}
-            require(batches and all(dev == "cuda" for _, dev, _ in batches),
-                    f"loader batches off the card: {batches}")
-            require(all(dtype == "uint8" for key, _, dtype in batches if key in images | labels),
-                    f"loader batches not uint8: {batches}")
-            require({key for key, _, _ in batches} >= images,
-                    f"loader keys {sorted(batches)}")
+        # the tree stays in ``root`` for phases 16 and 17
+        results = pipeline_demo.main([
+            root, "--device", "cuda", "--n", str(PIPE["n"]), "--size", str(PIPE["size"]),
+            "--encoder", PIPE["encoder"], "--decoder_channels", PIPE["decoder"],
+            "--batch_size", str(PIPE["batch"]), "--n_epochs", str(PIPE["epochs"]),
+            "--bf16"])
+        torch.cuda.synchronize()
+        launches = augment_kernel.kernel_launches
+        decodes = data_io.decode_counts()
+        runs, train = os.path.join(root, "runs"), os.path.join(root, "data", "LEVIR", "train")
+        steps = list(results.values())
+        stages = {"stage 1": steps[1]["result"], "stage 2": steps[2]["result"],
+                  "stage 3": steps[5]["result"]}
+        for name in ("seg", "psecd", "stcd"):
+            files = os.listdir(os.path.join(runs, name))
+            require({"last_ckpt", "1.00_model", "2.00_model", "3.00_model"} <= set(files)
+                    and sum(f.endswith("_best_model") for f in files) == 1,
+                    f"run {name}: {sorted(files)}")
+        lists = {k: data_io.read_list(os.path.join(train, "list", f"{k}_ids.txt"))
+                 for k in ("reliable", "unreliable")}
+        require(len(lists["reliable"]) == len(lists["unreliable"]) == PIPE["n"] // 2,
+                f"reliability lists {lists}")
+        reliability = [r for _, r in steps[3]["result"]["reliability"]]
+        require(len(set(reliability)) > 1, f"every reliability is {reliability[0]}")
+        ff = sorted(os.listdir(os.path.join(train, "ff_label")))
+        require(ff == sorted(os.listdir(os.path.join(train, "A"))), f"ff_label/ {ff}")
+        metrics = steps[6]["result"]
+        require(set(metrics) == {"OA", "precision", "recall", "F1", "IoU", "mIoU"}
+                and 0.0 <= metrics["OA"] <= 1.0, f"evaluate's metrics {metrics}")
+        train_steps = 0
+        rates = {}
+        for label, (name, out) in zip(("stage 1", "stage 2", "stage 3"),
+                                     zip(("seg", "psecd", "stcd"), stages.values())):
+            state = out["state"]
+            require(all(p.is_cuda for p in state.model.parameters()),
+                    f"{label}: a parameter is off the card")
+            require(state.step == PIPE["epochs"] * (PIPE["n"] // PIPE["batch"]),
+                    f"{label}: {state.step} train steps")
+            train_steps += state.step
+            with open(os.path.join(runs, name, "logs", "scalars.jsonl")) as f:
+                rates[label] = [round(r["value"], 2) for r in map(json.loads, f)
+                                if r["tag"] == "train/imgs_per_sec"]
+        require(launches == train_steps == 18,
+                f"{launches} augmentation launches for {train_steps} train steps")
+        images = {"A", "B", "image", "CA", "CB"}
+        labels = {"label", "s_label_A", "s_label_B", "c_label", "CL"}
+        require(batches and all(dev == "cuda" for _, dev, _ in batches),
+                f"loader batches off the card: {batches}")
+        require(all(dtype == "uint8" for key, _, dtype in batches if key in images | labels),
+                f"loader batches not uint8: {batches}")
+        require({key for key, _, _ in batches} >= images,
+                f"loader keys {sorted(batches)}")
 
-            # the loader's decode rate on this host: the LEVIR train pairs (A, B, label)
-            data_io.reset_decode_counts()
-            loader = data_loader.DataLoader(
-                CDDataset(os.path.join(root, "data"), "LEVIR", "train"), PIPE["batch"],
-                shuffle=True, device="cuda")
-            t0 = time.monotonic()
-            for _ in range(PIPE_DECODE_PASSES):
-                for batch in loader:
-                    pass
-            torch.cuda.synchronize()
-            decode_s = time.monotonic() - t0
-            decoded = sum(data_io.decode_counts().values())
+        # the loader's decode rate on this host: the LEVIR train pairs (A, B, label)
+        data_io.reset_decode_counts()
+        loader = data_loader.DataLoader(
+            CDDataset(os.path.join(root, "data"), "LEVIR", "train"), PIPE["batch"],
+            shuffle=True, device="cuda")
+        t0 = time.monotonic()
+        for _ in range(PIPE_DECODE_PASSES):
+            for batch in loader:
+                pass
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        decoded = sum(data_io.decode_counts().values())
     finally:
         data_loader.DataLoader.__iter__ = plain_iter
         data_io.set_uint8_transfer(False)
@@ -1441,7 +1464,440 @@ def phase_pipeline_cli(torch, augment_kernel, gpu_label):
     print(f"pipeline_cli: reliabilities {sorted(set(round(r, 4) for r in reliability))}; "
           f"evaluate {json.dumps(metrics)}; loader batches {len(batches)} kinds, all on the "
           f"card; augment kernel launches {launches} for {train_steps} train steps", flush=True)
+    return launches, metrics
+
+
+TRAIN_CD = dict(batch=8, size=256, length=16, epochs=2)  # train_cd: 2 steps an epoch
+# forward SRA launches of one forward of V1..V5 at their published widths
+CF_LAUNCHES = {"ChangeFormerV1": 16, "ChangeFormerV2": 16, "ChangeFormerV3": 16,
+               "ChangeFormerV4": 25, "ChangeFormerV5": 28}
+CF_BATCH = 8  # pairs of 256x256 tiles: the encoders' attention sees 16 images
+# (B, H, N, M, D) of the SRA stages of V4 and V5 at CF_BATCH pairs of 256x256 tiles, the
+# shapes no model path gave the kernels before: V4's D = 16 and D = 40, V5's 5 heads
+CF_NEW_SHAPES = ((16, 2, 16384, 256, 16), (16, 2, 4096, 256, 32), (16, 4, 1024, 256, 32),
+                 (16, 8, 256, 256, 40), (16, 16, 64, 64, 32), (16, 1, 4096, 64, 64),
+                 (16, 2, 1024, 64, 64), (16, 5, 256, 64, 64), (16, 8, 64, 64, 64))
+INT8_F1_TOL = 0.02  # the JAX gate (tests/test_serving_quant.py:255-318)
+# that gate's protocol: SegCD-r18 trained on its synthetic task, then float and int8 F1
+INT8_GATE = dict(size=64, n_train=24, n_val=12, batch=4, epochs=4, seed=11,
+                 decoder=(32, 24, 16, 12, 8))
+EXPORT_ATOL = 1e-4  # a loaded program against the eager forward, x max(1, max |eager|)
+
+
+def reset_attention_counts(attention):
+    kernel = attention.cross_attention_kernel
+    kernel.kernel_launches = kernel.backward_launches = 0
+    kernel.forward_variants.clear()
+    kernel.backward_variants.clear()
+    return kernel
+
+
+def phase_train_cd(torch, attention, augment_kernel, gpu_label, root):
+    """cli.train_cd at full width: ChangeFormerV6 (embed 256), 256x256,
+    batch 8, fp32, --augment, synthetic data, 2 epochs of 2 steps; then
+    --eval_only; then a third epoch that resumes at epoch 2; then one epoch of
+    base_transformer_pos_s4_dd8. Requires, for each train step, 13 forward and
+    13 backward f32_cuda attention launches and one augmentation launch (and 13
+    forward launches for each eval batch), a finite loss, best_ckpt, last_ckpt,
+    both curves and the masks. Returns the launches by path."""
+    import numpy as np
+
+    from stcd_tpu_torch.cli import train_cd
+
+    ckpt = os.path.join(root, "train_cd_v6")
+    n = TRAIN_CD["length"] // TRAIN_CD["batch"]  # train steps an epoch
+    val_batches = -(-max(TRAIN_CD["length"] // 2, 2) // TRAIN_CD["batch"])
+    common = ["--net_G", "ChangeFormerV6", "--embed_dim", "256", "--img_size",
+              str(TRAIN_CD["size"]), "--batch_size", str(TRAIN_CD["batch"]), "--augment",
+              "--dataset_name", "synthetic", "--synthetic_length", str(TRAIN_CD["length"]),
+              "--checkpoint_dir", ckpt, "--device", "cuda"]
+    kernel = reset_attention_counts(attention)
+    augment_kernel.kernel_launches = 0
+    t0 = time.monotonic()
+    out = train_cd.main(common + ["--max_epochs", str(TRAIN_CD["epochs"])])
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    steps = TRAIN_CD["epochs"] * n
+    fwd, bwd, aug = kernel.kernel_launches, kernel.backward_launches, augment_kernel.kernel_launches
+    evals = TRAIN_CD["epochs"] * val_batches + val_batches  # each epoch's val and the final
+    require(out["state"].step == steps, f"train_cd: {out['state'].step} steps, not {steps}")
+    require(fwd == 13 * (steps + evals) and bwd == 13 * steps and aug == steps,
+            f"train_cd: {fwd} forward, {bwd} backward attention and {aug} augmentation "
+            f"launches for {steps} train steps and {evals} eval batches")
+    require(set(kernel.forward_variants) == set(kernel.backward_variants) == {"f32_cuda"},
+            f"train_cd variants {dict(kernel.forward_variants)} "
+            f"{dict(kernel.backward_variants)}")
+    files = set(os.listdir(ckpt))
+    require({"best_ckpt", "last_ckpt", "train_acc.npy", "val_acc.npy", "logs", "vis"} <= files,
+            f"train_cd artifacts {sorted(files)}")
+    with open(os.path.join(ckpt, "logs", "scalars.jsonl")) as f:
+        losses = [r["value"] for r in map(json.loads, f) if r["tag"] == "train/loss"]
+    require(len(losses) == TRAIN_CD["epochs"] and all(np.isfinite(losses)),
+            f"train_cd losses {losses}")
+    masks = sorted(os.listdir(os.path.join(ckpt, "vis")))
+    require(len(masks) == max(TRAIN_CD["length"] // 2, 2), f"train_cd masks {masks}")
+    print(f"train_cd ({gpu_label}): ChangeFormerV6 embed 256, {TRAIN_CD['size']}x"
+          f"{TRAIN_CD['size']}, batch {TRAIN_CD['batch']}, fp32, --augment: {steps} steps and "
+          f"{evals} eval batches in {seconds:.2f} s (host clock, build and saves included); "
+          f"losses {[round(x, 4) for x in losses]}; val scores {out['scores']}; "
+          f"{fwd} + {bwd} attention launches, {aug} augmentation launches", flush=True)
+    by_path = {"fwd": fwd, "bwd": bwd, "aug": aug}
+
+    before = kernel.kernel_launches
+    scores = train_cd.main(common + ["--eval_only"])["scores"]
+    require(kernel.kernel_launches - before == 13 * val_batches, "train_cd --eval_only launches")
+    out = train_cd.main(common + ["--max_epochs", str(TRAIN_CD["epochs"] + 1)])
+    curves = [np.load(os.path.join(ckpt, f"{c}_acc.npy")) for c in ("train", "val")]
+    require(out["trainer"].epoch_to_start == TRAIN_CD["epochs"]
+            and out["state"].step == steps + n
+            and all(len(c) == TRAIN_CD["epochs"] + 1 for c in curves),
+            f"train_cd resume: epoch {out['trainer'].epoch_to_start}, step "
+            f"{out['state'].step}, curves {[len(c) for c in curves]}")
+    print(f"train_cd: --eval_only scores {scores}; the third epoch resumed at epoch "
+          f"{out['trainer'].epoch_to_start} (step {out['state'].step}); val mF1 curve "
+          f"{[round(float(x), 4) for x in curves[1]]}", flush=True)
+    by_path["fwd"] += kernel.kernel_launches - before
+    by_path["bwd"] = kernel.backward_launches
+    by_path["aug"] = augment_kernel.kernel_launches
+
+    # BIT, the small_m launches
+    kernel = reset_attention_counts(attention)
+    augment_kernel.kernel_launches = 0
+    bit_dir = os.path.join(root, "train_cd_bit")
+    t0 = time.monotonic()
+    out = train_cd.main(["--img_size", str(TRAIN_CD["size"]), "--batch_size",
+                         str(TRAIN_CD["batch"]), "--augment", "--dataset_name", "synthetic",
+                         "--synthetic_length", str(TRAIN_CD["length"]), "--max_epochs", "1",
+                         "--checkpoint_dir", bit_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = BIT_TRAIN["launches"]
+    require(out["trainer"].cfg.net_G == "base_transformer_pos_s4_dd8", "the default net_G")
+    require(kernel.kernel_launches == launches * (n + 2 * val_batches)
+            and kernel.backward_launches == launches * n
+            and augment_kernel.kernel_launches == n
+            and set(kernel.forward_variants) == set(kernel.backward_variants) == {"small_m"},
+            f"train_cd BIT: {kernel.kernel_launches} forward, {kernel.backward_launches} "
+            f"backward ({dict(kernel.forward_variants)}), "
+            f"{augment_kernel.kernel_launches} augmentation launches")
+    require({"best_ckpt", "last_ckpt"} <= set(os.listdir(bit_dir)), "train_cd BIT artifacts")
+    print(f"train_cd: base_transformer_pos_s4_dd8 (the default), 1 epoch of {n} steps in "
+          f"{time.monotonic() - t0:.2f} s; {kernel.kernel_launches} + "
+          f"{kernel.backward_launches} small_m launches; scores {out['scores']}", flush=True)
+    return {"v6": by_path, "bit": {"fwd": kernel.kernel_launches,
+                                   "bwd": kernel.backward_launches,
+                                   "aug": augment_kernel.kernel_launches}}
+
+
+def phase_changeformer_zoo(torch, attention, gpu_label):
+    """ChangeFormer V1-V5 at their published widths (V5 embed 256), seeded
+    weights: one eval forward of CF_BATCH pairs of 256x256 tiles with the
+    kernel against the plain attention (P(changed) of the final scale within
+    PROBS_ATOL), with CF_LAUNCHES forward launches, all f32_cuda; then one
+    fp32 CDTrainer step of each with as many backward launches. Returns the
+    launches by model."""
+    from stcd_tpu_torch.models.factory import define_G, init_weights
+    from stcd_tpu_torch.tools.profile_step import plain_attention, seeded_cd_batch
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    data = seeded_cd_batch(CF_BATCH, TILE, seed=3, device="cuda")
+    a, b = (data[k].float().div(255.0).permute(0, 3, 1, 2).contiguous() for k in ("A", "B"))
+    launches = {}
+
+    def p_changed(out):
+        out = out[-1] if isinstance(out, (list, tuple)) else out
+        return torch.softmax(out.float(), dim=1)[:, 1:].sum(1)
+
+    for net_G, per_forward in CF_LAUNCHES.items():
+        model = init_weights(define_G(net_G, embed_dim=256, device="cuda"), seed=0).eval()
+        kernel = reset_attention_counts(attention)
+        with torch.no_grad():
+            got = p_changed(model(a, b))
+            torch.cuda.synchronize()
+            fwd = kernel.kernel_launches
+            ms = time_ms(lambda: model(a, b), runs=5)
+            with plain_attention():
+                want = p_changed(model(a, b))
+                plain_ms = time_ms(lambda: model(a, b), runs=5)
+        err = (got - want).abs().max().item()
+        require(fwd == per_forward and set(kernel.forward_variants) == {"f32_cuda"},
+                f"{net_G}: {fwd} forward launches {dict(kernel.forward_variants)}, not "
+                f"{per_forward} f32_cuda")
+        require(err <= PROBS_ATOL, f"{net_G}: P(changed) with the kernel and with the plain "
+                f"attention differ by {err} > {PROBS_ATOL}")
+        del model
+        trainer = CDTrainer(TrainerConfig(net_G=net_G, embed_dim=256, img_size=TILE,
+                                          batch_size=CF_BATCH), steps_per_epoch=100)
+        state = trainer.init_state("cuda", init_seed=0)
+        kernel = reset_attention_counts(attention)
+        loss, _ = trainer.train_step(state, data["A"], data["B"], data["label"])
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(loss)) and kernel.kernel_launches == per_forward
+                and kernel.backward_launches == per_forward
+                and set(kernel.backward_variants) == {"f32_cuda"},
+                f"{net_G} train step: loss {loss.item()}, {kernel.kernel_launches} forward "
+                f"and {kernel.backward_launches} backward launches")
+        launches[net_G] = {"eval_fwd": fwd, "train_fwd": kernel.kernel_launches,
+                           "train_bwd": kernel.backward_launches}
+        print(f"{net_G} ({gpu_label}): eval forward of {CF_BATCH} pairs at {TILE}x{TILE}, "
+              f"fp32: {fwd} f32_cuda launches, max|P(changed) kernel - plain| {err:.3e} "
+              f"(atol {PROBS_ATOL}); forward {ms:.2f} ms with the kernel, {plain_ms:.2f} ms "
+              f"with the plain attention (events, median of 5); one fp32 train step: loss "
+              f"{loss.item():.4f}, {kernel.kernel_launches} + {kernel.backward_launches} "
+              f"launches", flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
     return launches
+
+
+def gate_pair(np, rng, size: int):
+    """One learnable change pair of the JAX package's int8 gate and convergence
+    protocol (benchmarks/convergence_parity.py:59-95, copied): a textured
+    background, bright rectangles removed from A or added in B. Returns A and B
+    as (size, size, 3) float in [0, 1] and the (size, size) label."""
+    base = rng.uniform(0.25, 0.5) + rng.normal(0.0, 0.04, (size, size, 1))
+    bg = np.clip(np.broadcast_to(base, (size, size, 3)).copy()
+                 + rng.normal(0.0, 0.02, (size, size, 3)), 0, 1)
+    a = bg + rng.normal(0.0, 0.01, bg.shape)
+    b = bg + rng.normal(0.0, 0.01, bg.shape)
+    label = np.zeros((size, size), np.float32)
+
+    def rect():
+        h, w = rng.integers(8, 22, 2)
+        return (rng.integers(0, size - h), rng.integers(0, size - w), h, w)
+
+    def paint(img, r, color):
+        y, x, h, w = r
+        img[y:y + h, x:x + w] = color + rng.normal(0.0, 0.02, (h, w, 3))
+
+    for _ in range(rng.integers(1, 4)):
+        r, color = rect(), rng.uniform(0.65, 0.95, 3)
+        paint(a, r, color)
+        if rng.uniform() < 0.5:
+            paint(b, r, color)
+        else:
+            label[r[0]:r[0] + r[2], r[1]:r[1] + r[3]] = 1.0
+    for _ in range(rng.integers(0, 3)):
+        r, color = rect(), rng.uniform(0.65, 0.95, 3)
+        paint(b, r, color)
+        label[r[0]:r[0] + r[2], r[1]:r[1] + r[3]] = 1.0
+    return np.clip(a, 0, 1), np.clip(b, 0, 1), label
+
+
+def int8_gate(torch, np, root, gpu_label):
+    """The JAX package's int8 gate (tests/test_serving_quant.py:255-318) on the
+    card, through cli.evaluate: SegCD-r18 with decoder (32, 24, 16, 12, 8)
+    trained for 4 epochs of Adam 1e-3 on 24 pairs of the gate's synthetic task
+    at 64x64 (batch 4, no augmentation), its 12 val pairs written as a LEVIR
+    tree; the float F1 must be above 0.5 (the model learned) and the --int8 F1
+    within INT8_F1_TOL of it."""
+    from stcd_tpu_torch.cli import evaluate
+    from stcd_tpu_torch.data.io import save_mask_png, write_list
+    from stcd_tpu_torch.models.segcd import SegCD, init_weights
+    from stcd_tpu_torch.train.checkpoint import CheckpointManager
+    from stcd_tpu_torch.train.state import AdamConfig, create_train_state
+    from stcd_tpu_torch.train.steps import make_cd_steps
+    from PIL import Image
+
+    g = INT8_GATE
+    rng = np.random.default_rng(g["seed"])
+    pairs = [gate_pair(np, rng, g["size"]) for _ in range(g["n_train"] + g["n_val"])]
+    u8 = [tuple((x * 255).round().astype(np.uint8) for x in p[:2]) + (p[2],) for p in pairs]
+    train, val = u8[:g["n_train"]], u8[g["n_train"]:]
+    model = init_weights(SegCD("resnet18", decoder_channels=g["decoder"]), seed=0)
+    state = create_train_state(model, AdamConfig(lambda step: 1e-3), device="cuda")
+    train_step, _ = make_cd_steps(augment=False)
+    # cuDNN's deterministic algorithms: the gate's model is the same on every run
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(g["epochs"]):
+            for s0 in range(0, g["n_train"], g["batch"]):
+                chunk = train[s0:s0 + g["batch"]]
+                train_step(state, {
+                    "A": torch.from_numpy(np.stack([p[0] for p in chunk])).cuda(),
+                    "B": torch.from_numpy(np.stack([p[1] for p in chunk])).cuda(),
+                    "label": torch.from_numpy(
+                        np.stack([p[2] for p in chunk])[..., None]).cuda()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    tree = os.path.join(root, "int8_gate", "LEVIR", "val")
+    names = [f"{i}.png" for i in range(g["n_val"])]
+    for name, (a, b, label) in zip(names, val):
+        for sub, img in (("A", a), ("B", b)):
+            os.makedirs(os.path.join(tree, sub), exist_ok=True)
+            Image.fromarray(img).save(os.path.join(tree, sub, name))
+        save_mask_png(label, os.path.join(tree, "label", name))
+    write_list(names, os.path.join(tree, "list", "val.txt"))
+    run = os.path.join(root, "int8_gate", "run")
+    CheckpointManager(run).save_best(state, 0.5)
+    argv = ["--root_path", os.path.join(root, "int8_gate"), "--dataset_name", "LEVIR",
+            "--split", "val", "--load_path", run, "--encoder", "resnet18",
+            "--decoder_channels", ",".join(map(str, g["decoder"])), "--batch_size", "8",
+            "--img_height", str(g["size"]), "--img_width", str(g["size"]), "--device", "cuda"]
+    flt, q = evaluate.main(argv), evaluate.main(argv + ["--int8"])
+    d_f1 = abs(q["F1"] - flt["F1"])
+    print(f"int8 gate ({gpu_label}): SegCD-r18, decoder {g['decoder']}, trained on the card "
+          f"on the gate's synthetic task: F1 {q['F1']:.4f} int8 against {flt['F1']:.4f} "
+          f"float (|d| {d_f1:.4f} <= {INT8_F1_TOL}), IoU {q['IoU']:.4f} against "
+          f"{flt['IoU']:.4f}", flush=True)
+    require(flt["F1"] > 0.5, f"the int8 gate's model did not learn: float F1 {flt['F1']}")
+    require(d_f1 <= INT8_F1_TOL, f"int8 gate: F1 {q['F1']} against float {flt['F1']}: "
+            f"{d_f1} > {INT8_F1_TOL}")
+    return flt, q
+
+
+def phase_int8(torch, np, root, float_metrics, gpu_label):
+    """int8: the JAX package's gate (``int8_gate``); then on the model that
+    phase 13 trained (SegCD-r50, stage 3, decoder 256..16), cli.evaluate --int8
+    beside the phase's float evaluation, with the share of its change logits
+    within 0.1 of 0 (the gate holds a model with margins; this model is 3
+    epochs into its training, and where its logits sit at 0 the int8 rounding
+    moves its decisions: its F1 is reported, not gated), the int8 and float ms of
+    one batch, cli.predict --int8 writing a mask, and cli.serve --int8
+    --calib_dir answering requests in a subprocess."""
+    import base64
+    import socket
+    import urllib.request
+
+    from stcd_tpu_torch.cli import evaluate, predict
+    from stcd_tpu_torch.data.augment import eval_preprocess
+    from stcd_tpu_torch.data.io import read_image, set_uint8_transfer
+
+    int8_gate(torch, np, root, gpu_label)
+    data, stcd = os.path.join(root, "data"), os.path.join(root, "runs", "stcd")
+    model_args = ["--encoder", PIPE["encoder"], "--decoder_channels", PIPE["decoder"],
+                  "--device", "cuda"]
+    metrics = evaluate.main(["--root_path", data, "--dataset_name", "LEVIR", "--split", "val",
+                             "--load_path", stcd, "--batch_size", str(PIPE["batch"]),
+                             "--img_height", str(PIPE["size"]), "--img_width",
+                             str(PIPE["size"]), "--int8", *model_args])
+    d_f1 = abs(metrics["F1"] - float_metrics["F1"])
+    set_uint8_transfer(False)  # cli.evaluate switched it on
+
+    parser = argparse.ArgumentParser()
+    predict.add_model_args(parser)
+    args = parser.parse_args(["--load_path", stcd, "--tile", str(PIPE["size"]), *model_args])
+    model = predict.build_model(args)
+    base_fn = predict.make_base_fn(args, model)
+    val = os.path.join(data, "LEVIR", "val")
+    names = sorted(os.listdir(os.path.join(val, "A")))[:PIPE["batch"]]
+    a, b = (torch.from_numpy(np.stack([read_image(os.path.join(val, d, n)) for n in names]))
+            .cuda() for d in ("A", "B"))
+    qfn, scales = predict.quantize_base_fn(model, base_fn, a, b)
+    with torch.inference_mode():
+        float_ms, int8_ms = time_ms(lambda: base_fn(a, b), runs=10), time_ms(
+            lambda: qfn(a, b), runs=10)
+        change = model(eval_preprocess(a).permute(0, 3, 1, 2),
+                       eval_preprocess(b).permute(0, 3, 1, 2))[2].float()
+        near_zero = (change.abs() < 0.1).float().mean().item()
+    from stcd_tpu_torch.serving.quant import n_quantized_sites
+    print(f"int8 ({gpu_label}): SegCD-r50 of phase 13, {n_quantized_sites(scales)} of "
+          f"{len(scales)} conv sites quantized; evaluate F1 {metrics['F1']:.4f} int8 against "
+          f"{float_metrics['F1']:.4f} float (|d| {d_f1:.4f}, not gated: "
+          f"{100 * near_zero:.1f} % of its change logits lie within 0.1 of 0), IoU "
+          f"{metrics['IoU']:.4f} against {float_metrics['IoU']:.4f}; one step of "
+          f"{PIPE['batch']} tiles of {PIPE['size']}x{PIPE['size']}: float {float_ms:.2f} ms, "
+          f"int8 {int8_ms:.2f} ms (events, median of 10)", flush=True)
+
+    out = os.path.join(root, "int8_mask.png")
+    predict.main(["--image_a", os.path.join(val, "A", names[0]), "--image_b",
+                  os.path.join(val, "B", names[0]), "--out", out, "--int8", "--load_path",
+                  stcd, *model_args])
+    require(os.path.getsize(out) > 0, "cli.predict --int8 wrote no mask")
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "stcd_tpu_torch.cli.serve", "--load_path", stcd, "--int8",
+         "--calib_dir", val, "--port", str(port), "--batch", "4", *model_args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on"):
+                break
+        require(any(x.startswith("int8: ") for x in lines),
+                f"cli.serve --int8 printed {lines[-5:]}")
+        with open(os.path.join(val, "A", names[0]), "rb") as fa, \
+                open(os.path.join(val, "B", names[0]), "rb") as fb:
+            body = json.dumps({"image_a": base64.b64encode(fa.read()).decode(),
+                               "image_b": base64.b64encode(fb.read()).decode()}).encode()
+        replies = []
+        for _ in range(3):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                replies.append(json.loads(r.read()))
+        require(all(r["shape"] == [PIPE["size"], PIPE["size"]] for r in replies),
+                f"cli.serve --int8 replies {[r.get('shape') for r in replies]}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    print(f"int8: cli.predict --int8 wrote {out}; cli.serve --int8 --calib_dir: "
+          f"{[x for x in lines if x.startswith('int8: ')][0]}; answered {len(replies)} "
+          f"requests, latency_ms {[r['latency_ms'] for r in replies]}", flush=True)
+    return metrics
+
+
+def phase_export(torch, np, attention, root, gpu_label):
+    """cli.export_model on the card: SegCD-r50 of phase 13 (the default export),
+    ChangeFormerV6 at embed 256 (the serving forward) and SegCD --int8 with
+    --calib_npz, each written, loaded back and held against the eager forward
+    (EXPORT_ATOL); the loaded V6 program launches the attention kernel 13
+    times a call. Returns its launches."""
+    from stcd_tpu_torch.cli import export_model
+    from stcd_tpu_torch.data.io import read_image, set_uint8_transfer
+
+    stcd = os.path.join(root, "runs", "stcd")
+    val = os.path.join(root, "data", "LEVIR", "val")
+    names = sorted(os.listdir(os.path.join(val, "A")))[:PIPE["batch"]]
+    set_uint8_transfer(False)  # float images in [0, 1], the programs' inputs
+    a, b = (np.stack([read_image(os.path.join(val, d, n)) for n in names])
+            for d in ("A", "B"))
+    calib = os.path.join(root, "calib.npz")
+    np.savez(calib, A=a, B=b)
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    size = ["--img_height", str(PIPE["size"]), "--img_width", str(PIPE["size"]),
+            "--batch_size", str(PIPE["batch"]), "--device", "cuda"]
+    segcd = ["--load_path", stcd, "--encoder", PIPE["encoder"], "--decoder_channels",
+             PIPE["decoder"]]
+    forms = {"segcd_r50": segcd, "changeformer_v6": ["--net_G", "ChangeFormerV6",
+                                                     "--embed_dim", "256", "--init_seed", "0"],
+             "segcd_r50_int8": segcd + ["--int8", "--calib_npz", calib]}
+    kernel = attention.cross_attention_kernel
+    v6_launches = 0
+    for name, argv in forms.items():
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.monotonic()
+        res = export_model.main(argv + size + ["--out", path])
+        seconds = time.monotonic() - t0
+        loaded = torch.export.load(path).module()
+        with torch.no_grad():
+            before = kernel.kernel_launches
+            got = loaded(ta, tb)
+            torch.cuda.synchronize()
+            launches = kernel.kernel_launches - before
+            want = res["fn"](ta, tb)
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        bound = EXPORT_ATOL * max(1.0, max(w.float().abs().max().item() for w in want))
+        require(len(got) == len(want) and err <= bound,
+                f"export {name}: the loaded program differs from eager by {err} > {bound}")
+        if name == "changeformer_v6":
+            require(launches == 13, f"the loaded V6 program launched the attention kernel "
+                    f"{launches} times, not 13")
+            v6_launches = launches
+        print(f"export {name} ({gpu_label}): {os.path.getsize(path) / 1e6:.1f} MB written "
+              f"and loaded in {seconds:.1f} s; outputs {[tuple(g.shape) for g in got]}; "
+              f"max|loaded - eager| {err:.3e} (atol {EXPORT_ATOL} x max(1, max|eager|)); "
+              f"{launches} attention kernel launches a call", flush=True)
+        del res, loaded
+        torch.cuda.empty_cache()
+    return v6_launches
 
 
 def main() -> int:
@@ -1513,23 +1969,46 @@ def main() -> int:
         require(launches > 0, f"the tools never launched {name}")
         (bn if name == "bn_stats" else mm[name])["launches"] = launches
 
-    # phase 13: the pipeline from the command line
-    aug_by_path["pipeline_cli"] = phase_pipeline_cli(torch, augment.apply_augment_kernel,
-                                                     gpu_label)
+    with tempfile.TemporaryDirectory() as root:
+        # phase 13: the pipeline from the command line
+        aug_by_path["pipeline_cli"], float_metrics = phase_pipeline_cli(
+            torch, augment.apply_augment_kernel, gpu_label, root)
+        # phase 14: cli.train_cd at full width
+        train_cd = phase_train_cd(torch, attention, augment.apply_augment_kernel, gpu_label,
+                                  root)
+        aug_by_path["train_cd"] = train_cd["v6"]["aug"] + train_cd["bit"]["aug"]
+        # phase 15: ChangeFormer V1-V5 at their published widths
+        zoo = phase_changeformer_zoo(torch, attention, gpu_label)
+        # phase 16: int8 evaluation, prediction and serving
+        phase_int8(torch, np, root, float_metrics, gpu_label)
+        # phase 17: export
+        export_v6 = phase_export(torch, np, attention, root, gpu_label)
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
-    attn["launches"] = serving_launches + v6_fwd + v6_fp32_fwd + bit_fwd
-    attn["launches_by_path"] = {"v6_serving": serving_launches, "v6_training": v6_fwd,
-                                "v6_fp32_training": v6_fp32_fwd, "bit_training": bit_fwd}
-    attn_bwd["launches"] = v6_bwd + v6_fp32_bwd + bit_bwd
-    attn_bwd["launches_by_path"] = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
-                                    "bit_training": bit_bwd}
+    fwd_by_path = {"v6_serving": serving_launches, "v6_training": v6_fwd,
+                   "v6_fp32_training": v6_fp32_fwd, "bit_training": bit_fwd,
+                   "train_cd_v6": train_cd["v6"]["fwd"], "train_cd_bit": train_cd["bit"]["fwd"],
+                   **{f"{k.lower()}_eval_and_step": v["eval_fwd"] + v["train_fwd"]
+                      for k, v in zoo.items()},
+                   "export_v6_loaded": export_v6}
+    bwd_by_path = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
+                   "bit_training": bit_bwd, "train_cd_v6": train_cd["v6"]["bwd"],
+                   "train_cd_bit": train_cd["bit"]["bwd"],
+                   **{f"{k.lower()}_step": v["train_bwd"] for k, v in zoo.items()}}
+    attn["launches"], attn["launches_by_path"] = sum(fwd_by_path.values()), fwd_by_path
+    attn_bwd["launches"], attn_bwd["launches_by_path"] = sum(bwd_by_path.values()), bwd_by_path
     # the variant each path launched (each path's run required that it launched no other)
-    attn["variants"] = {"f32_cuda": serving_launches + v6_fp32_fwd,
-                        V6_TRAIN["variant"]: v6_fwd, BIT_TRAIN["variant"]: bit_fwd}
-    attn_bwd["variants"] = {"f32_cuda": v6_fp32_bwd, V6_TRAIN["variant"]: v6_bwd,
-                            BIT_TRAIN["variant"]: bit_bwd}
+    f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded")
+    attn["variants"] = {
+        "f32_cuda": sum(fwd_by_path[k] for k in f32_paths) + sum(
+            v["eval_fwd"] + v["train_fwd"] for v in zoo.values()),
+        V6_TRAIN["variant"]: v6_fwd,
+        BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"]}
+    attn_bwd["variants"] = {
+        "f32_cuda": v6_fp32_bwd + train_cd["v6"]["bwd"] + sum(v["train_bwd"]
+                                                             for v in zoo.values()),
+        V6_TRAIN["variant"]: v6_bwd, BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"]}
     attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -6,7 +6,7 @@ Usage:
       --out change.png (--load_path runs/STCD | --weights segcd.pt | --init_seed 0) \\
       [--encoder resnet50 --decoder_channels 256,128,64,32,16] \\
       [--net_G ChangeFormerV6] \\
-      [--tile 256 --stride 128 --threshold 0.5 --prob_out probs.npy --bf16]
+      [--tile 256 --stride 128 --threshold 0.5 --prob_out probs.npy --bf16 --int8]
 
 The model is SegCD with ``--encoder`` and ``--decoder_channels`` unless
 ``--net_G`` names a bespoke-zoo model, as in scripts/predict.py.
@@ -18,7 +18,8 @@ original reference's names; ``--init_seed N`` builds seeded random weights
 instead (by the model family's rules, as ``CDTrainer.init_state`` does).
 The change probability is the sigmoid of a 1-channel change logit (SegCD's
 third output), or for a multi-class head the final scale's P(changed) = sum
-of the softmax classes 1..C-1.
+of the softmax classes 1..C-1. ``--int8`` runs the convs in int8
+(``serving/quant.py``), calibrated on the scene's own first tiles.
 """
 
 from __future__ import annotations
@@ -125,13 +126,27 @@ def make_base_fn(args, model: torch.nn.Module):
     return base_fn
 
 
+def quantize_base_fn(model: torch.nn.Module, base_fn, tiles_a: torch.Tensor,
+                     tiles_b: torch.Tensor):
+    """``base_fn`` with the convs in int8 (``serving/quant.py``), the scales
+    calibrated on one batch of tiles on the model's device; prints the count
+    of quantized sites."""
+    from stcd_tpu_torch.serving.quant import (calibrate_conv_scales, n_quantized_sites,
+                                              quantize_fn)
+    with torch.inference_mode():
+        scales = calibrate_conv_scales(model, base_fn, [(tiles_a, tiles_b)])
+    print(f"int8: {n_quantized_sites(scales)}/{scales.shape[0]} conv sites quantized",
+          flush=True)
+    return quantize_fn(model, base_fn, scales), scales
+
+
 def add_model_args(p: argparse.ArgumentParser) -> None:
-    """Model and weight flags shared by predict and serve."""
+    """Model and weight flags shared by predict, serve and export_model."""
     p.add_argument("--encoder", default="resnet50")
     p.add_argument("--decoder_channels", default="256,128,64,32,16")
     p.add_argument("--net_G", default=None,
                    help="bespoke-zoo model key (models.factory.define_G; ported: "
-                        "ChangeFormerV6, base_resnet18 and the BIT "
+                        "ChangeFormerV1 to V6, base_resnet18 and the BIT "
                         "base_transformer_pos_s4* keys); overrides the SegCD default, "
                         "--encoder and --decoder_channels are then ignored")
     p.add_argument("--load_path", default=None,
@@ -142,12 +157,17 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--init_seed", type=int, default=None,
                    help="seeded random weights instead of --weights")
     p.add_argument("--n_class", type=int, default=2, help="zoo head classes (with --net_G)")
-    p.add_argument("--embed_dim", type=int, default=256,
-                   help="decoder width (the published V6 width is 256)")
+    p.add_argument("--embed_dim", type=int, default=64,
+                   help="zoo embed_dim (with --net_G; ChangeFormerV5 and V6 read it; "
+                        "64 as in the JAX package and cli.train_cd, the published V6 "
+                        "width is 256)")
     p.add_argument("--tile", type=int, default=256)
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--bf16", action="store_true",
                    help="run the model under torch.autocast(bfloat16)")
+    p.add_argument("--int8", action="store_true",
+                   help="post-training int8 quantization of the conv compute "
+                        "(serving/quant.py); everything around the convs stays float")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
 
@@ -171,10 +191,19 @@ def main(argv=None):
     b = read_image(args.image_b)
     if a.shape != b.shape:
         raise SystemExit(f"scene shapes differ: {a.shape} vs {b.shape}")
+    device = resolve_device(args.device)
     model = build_model(args)
-    probs = predict_scene(make_base_fn(args, model), a, b, tile=args.tile,
-                          stride=args.stride, batch=args.batch,
-                          device=resolve_device(args.device))
+    predict_fn = make_base_fn(args, model)
+    if args.int8:
+        from stcd_tpu_torch.data.tiled_inference import tile_origins
+        # only the calibration tiles, not the scene's whole tile stack
+        t = args.tile
+        cal = tile_origins(a.shape[0], a.shape[1], t, args.stride)[:8]
+        ca, cb = (torch.from_numpy(np.stack([im[y:y + t, x:x + t] for y, x in cal])).to(device)
+                  for im in (a, b))
+        predict_fn, _ = quantize_base_fn(model, predict_fn, ca, cb)
+    probs = predict_scene(predict_fn, a, b, tile=args.tile, stride=args.stride,
+                          batch=args.batch, device=device)
     mask = (probs[..., 0] > args.threshold).astype(np.uint8)
     save_mask_png(mask, args.out)
     if args.prob_out:

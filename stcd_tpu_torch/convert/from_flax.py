@@ -1,6 +1,7 @@
 """JAX variables -> the port's state_dict: the exact inverses of
 stcd_tpu/convert/torch_to_flax.py::convert_changeformer_v6 and
-_convert_mit_encoder (:458-493, :588-616), and of convert_resnet,
+_convert_mit_encoder (:458-493, :588-616), of convert_changeformer_v1 to v4
+(:632-701), of convert_mix_transformer (:1392-1425), of convert_resnet,
 convert_unet_decoder and convert_unetseg (:39-70, :177-212), and of convert_bit
 (:365-436).
 
@@ -14,7 +15,7 @@ converter.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -73,17 +74,18 @@ def _bn(sd: StateDict, prefix: str, p: dict, s: dict) -> None:
 
 def mit_encoder_from_flax(enc: Dict[str, Any], prefix: str) -> StateDict:
     """Inverse of _convert_mit_encoder: SegFormerEncoder params -> the
-    ``{prefix}.patch_embed*/block*/norm*`` subtree."""
+    ``{prefix}.patch_embed*/block*/norm*`` subtree (no prefix for "")."""
     sd: StateDict = {}
     n_stages = sum(1 for key in enc if key.startswith("patch_embed"))
+    prefix = f"{prefix}." if prefix else ""
     for s in range(1, n_stages + 1):
         pe = enc[f"patch_embed{s}"]
-        _conv_b(sd, f"{prefix}.patch_embed{s}.proj", pe["proj"])
-        _ln(sd, f"{prefix}.patch_embed{s}.norm", pe["norm"])
+        _conv_b(sd, f"{prefix}patch_embed{s}.proj", pe["proj"])
+        _ln(sd, f"{prefix}patch_embed{s}.norm", pe["norm"])
         i = 0
         while f"block{s}_{i}" in enc:
             blk = enc[f"block{s}_{i}"]
-            base = f"{prefix}.block{s}.{i}"
+            base = f"{prefix}block{s}.{i}"
             _ln(sd, f"{base}.norm1", blk["norm1"])
             _ln(sd, f"{base}.norm2", blk["norm2"])
             attn = blk["attn"]
@@ -96,8 +98,14 @@ def mit_encoder_from_flax(enc: Dict[str, Any], prefix: str) -> StateDict:
             _linear(sd, f"{base}.mlp.fc2", blk["mlp"]["fc2"])
             _conv_b(sd, f"{base}.mlp.dwconv.dwconv", blk["mlp"]["dw"]["dwconv"])
             i += 1
-        _ln(sd, f"{prefix}.norm{s}", enc[f"norm{s}"])
+        _ln(sd, f"{prefix}norm{s}", enc[f"norm{s}"])
     return sd
+
+
+def mix_transformer_from_flax(params: Dict[str, Any]) -> StateDict:
+    """Inverse of convert_mix_transformer: MixTransformerEncoder params
+    (``{"mit": ...}``; LayerNorm only, no batch_stats) -> smp's names."""
+    return mit_encoder_from_flax(params["mit"], "")
 
 
 def changeformer_v6_from_flax(params: Dict[str, Any],
@@ -105,7 +113,37 @@ def changeformer_v6_from_flax(params: Dict[str, Any],
     """JAX ChangeFormerV6 (params, batch_stats) -> the port's state_dict;
     ``convert_changeformer_v6`` of the result gives the inputs back."""
     sd = mit_encoder_from_flax(params["Tenc_x2"], "Tenc_x2")
+    _diff_pyramid_from_flax(sd, params["TDec_x2"], batch_stats["TDec_x2"])
     dec, dst = params["TDec_x2"], batch_stats["TDec_x2"]
+    _conv_b(sd, "TDec_x2.linear_fuse.0", dec["linear_fuse_conv"])
+    _bn(sd, "TDec_x2.linear_fuse.1", dec["linear_fuse_bn"], dst["linear_fuse_bn"])
+    for name in ("convd2x", "convd1x"):
+        _upsample_conv(sd, f"TDec_x2.{name}", dec[name])
+    for name in ("dense_2x", "dense_1x"):
+        _residual_block(sd, f"TDec_x2.{name}", dec[name])
+    _conv_b(sd, "TDec_x2.change_probability.conv2d", dec["change_probability"])
+    return sd
+
+
+# V5's encoder and decoder are V6's modules (convert_changeformer_v6 with
+# depths=(3, 6, 16, 3) reads its state_dict)
+changeformer_v5_from_flax = changeformer_v6_from_flax
+
+
+def _upsample_conv(sd: StateDict, prefix: str, p: dict) -> None:
+    """Inverse of _upsample_conv (:626-629)."""
+    _conv_b(sd, f"{prefix}.conv2d", p["ConvTranspose_0"])
+
+
+def _residual_block(sd: StateDict, prefix: str, p: dict) -> None:
+    """Inverse of _residual_block (:619-623)."""
+    _conv_b(sd, f"{prefix}.0.conv1.conv2d", p["conv1"])
+    _conv_b(sd, f"{prefix}.0.conv2.conv2d", p["conv2"])
+
+
+def _diff_pyramid_from_flax(sd: StateDict, dec: Dict[str, Any], dst: Dict[str, Any]) -> None:
+    """The per-scale ``linear_c*``, ``diff_c*`` and ``make_pred_c*`` of the V4
+    to V6 decoders (convert_changeformer_v4 :680-694, v6 :466-480)."""
     k = 1
     while f"linear_c{k}" in dec:
         _linear(sd, f"TDec_x2.linear_c{k}.proj", dec[f"linear_c{k}"])
@@ -120,13 +158,60 @@ def changeformer_v6_from_flax(params: Dict[str, Any],
         _bn(sd, f"TDec_x2.make_pred_c{k}.2", mp["bn"], dst[f"make_pred_c{k}"]["bn"])
         _conv_b(sd, f"TDec_x2.make_pred_c{k}.3", mp["conv2"])
         k += 1
-    _conv_b(sd, "TDec_x2.linear_fuse.0", dec["linear_fuse_conv"])
-    _bn(sd, "TDec_x2.linear_fuse.1", dec["linear_fuse_bn"], dst["linear_fuse_bn"])
+
+
+def changeformer_v1_from_flax(params: Dict[str, Any],
+                              batch_stats: Optional[Dict[str, Any]] = None) -> StateDict:
+    """Inverse of convert_changeformer_v1: Tenc, the conv projection and the
+    head (V1 has no BatchNorm)."""
+    sd = mit_encoder_from_flax(params["Tenc"], "Tenc")
+    cp = params["convproj"]
+    for name in ("convd16x", "convd8x", "convd4x", "convd2x", "convd1x"):
+        _upsample_conv(sd, f"convproj.{name}", cp[name])
+    for name in ("dense_4", "dense_3", "dense_2", "dense_1"):
+        _residual_block(sd, f"convproj.{name}", cp[name])
+    _conv_b(sd, "change_probability.conv2d", params["change_probability"])
+    return sd
+
+
+def changeformer_v2_from_flax(params: Dict[str, Any],
+                              batch_stats: Optional[Dict[str, Any]] = None) -> StateDict:
+    """Inverse of convert_changeformer_v2: Tenc and TDec."""
+    sd = mit_encoder_from_flax(params["Tenc"], "Tenc")
+    td = params["TDec"]
+    for k in (1, 2, 3, 4):
+        _linear(sd, f"TDec.linear_c{k}.proj", td[f"linear_c{k}"])
+    _conv_b(sd, "TDec.linear_fuse", td["linear_fuse"])
     for name in ("convd2x", "convd1x"):
-        _conv_b(sd, f"TDec_x2.{name}.conv2d", dec[name]["ConvTranspose_0"])
+        _upsample_conv(sd, f"TDec.{name}", td[name])
     for name in ("dense_2x", "dense_1x"):
-        _conv_b(sd, f"TDec_x2.{name}.0.conv1.conv2d", dec[name]["conv1"])
-        _conv_b(sd, f"TDec_x2.{name}.0.conv2.conv2d", dec[name]["conv2"])
+        _residual_block(sd, f"TDec.{name}", td[name])
+    _conv_b(sd, "TDec.change_probability.conv2d", td["change_probability"])
+    return sd
+
+
+def changeformer_v3_from_flax(params: Dict[str, Any],
+                              batch_stats: Optional[Dict[str, Any]] = None) -> StateDict:
+    """Inverse of convert_changeformer_v3: Tenc and TDecV2."""
+    sd = mit_encoder_from_flax(params["Tenc"], "Tenc")
+    td = params["TDec"]
+    for k in (1, 2, 3, 4):
+        _linear(sd, f"TDec.linear_c{k}.proj", td[f"linear_c{k}"])
+    _conv_b(sd, "TDec.linear_fuse", td["linear_fuse"])
+    _conv_b(sd, "TDec.pix_shuffle_conv", td["pix_shuffle_conv"])
+    return sd
+
+
+def changeformer_v4_from_flax(params: Dict[str, Any],
+                              batch_stats: Dict[str, Any]) -> StateDict:
+    """Inverse of convert_changeformer_v4: the 5-stage Tenc_x2 and
+    DecoderTransformerX2."""
+    sd = mit_encoder_from_flax(params["Tenc_x2"], "Tenc_x2")
+    dec = params["TDec_x2"]
+    _diff_pyramid_from_flax(sd, dec, batch_stats["TDec_x2"])
+    _conv_b(sd, "TDec_x2.linear_fuse", dec["linear_fuse"])
+    _upsample_conv(sd, "TDec_x2.convd2x", dec["convd2x"])
+    _residual_block(sd, "TDec_x2.dense_2x", dec["dense_2x"])
     _conv_b(sd, "TDec_x2.change_probability.conv2d", dec["change_probability"])
     return sd
 

@@ -13,11 +13,17 @@ from stcd_tpu_torch.encoders.resnet import RESNET_CFGS, ResNetEncoder
 
 
 def get_encoder(name: str, depth: int = 5, device=None) -> Tuple[nn.Module, Tuple[int, ...]]:
-    """Build an encoder; returns ``(module, out_channels)``. Only the ResNet
-    family (resnet18, resnet34, resnet50) is ported."""
+    """Build an encoder; returns ``(module, out_channels)``. Ported: the ResNet
+    family (resnet18, resnet34, resnet50) and the MiT family (mit_b0 to
+    mit_b5)."""
     if name in RESNET_CFGS:
         enc = ResNetEncoder(name, depth=depth, device=device)
         return enc, enc.out_channels
+    from stcd_tpu_torch.encoders.mix_transformer import MIT_CFGS, MixTransformerEncoder
+    if name in MIT_CFGS:
+        enc = MixTransformerEncoder(name, depth=depth, device=device)
+        return enc, enc.out_channels
     raise NotImplementedError(
         f"encoder {name!r} is not ported to stcd_tpu_torch yet (ported: "
-        f"{sorted(RESNET_CFGS)}); ROADMAP.md Queue 1 #9 lists the other families")
+        f"{sorted(RESNET_CFGS) + sorted(MIT_CFGS)}); ROADMAP.md Queue 1 #9 brings the "
+        "other families")

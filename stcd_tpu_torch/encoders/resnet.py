@@ -44,9 +44,11 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(in_c, features, stride, device) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
+        # the shortcut's conv after the main branch's, in the JAX block's order,
+        # which is the order of serving/quant.py's conv sites
+        identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + identity)
 
 
@@ -70,10 +72,10 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(in_c, out_c, stride, device) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = torch.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)  # as above
         return torch.relu(out + identity)
 
 

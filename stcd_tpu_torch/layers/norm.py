@@ -11,7 +11,9 @@ It differs from ``torch.nn.BatchNorm2d`` in three ways, all on purpose:
 The normalisation is applied as ``x * w + b`` with per-channel float32
 coefficients cast to the input's dtype. The state_dict names are those of
 ``nn.BatchNorm2d`` (``weight``, ``bias``, ``running_mean``, ``running_var``,
-``num_batches_tracked``), so the original reference's checkpoints load.
+``num_batches_tracked``), so the original reference's checkpoints load; a
+state_dict without ``num_batches_tracked`` loads too, as it does into
+``nn.BatchNorm2d`` (the buffer then keeps its value).
 """
 
 from __future__ import annotations
@@ -35,6 +37,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, **f32))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        # as torch.nn.modules.batchnorm._NormBase does for a file without the buffer
+        key = prefix + "num_batches_tracked"
+        if key not in state_dict:
+            state_dict[key] = self.num_batches_tracked
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
+                                      missing_keys, unexpected_keys, error_msgs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:

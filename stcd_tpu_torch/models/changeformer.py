@@ -1,19 +1,24 @@
-"""ChangeFormerV6 in PyTorch (counterpart of stcd_tpu/models/changeformer.py,
-V6 path only).
+"""ChangeFormer V1-V6 in PyTorch (counterpart of
+stcd_tpu/models/changeformer.py, sequential paths).
 
 The modules keep the original reference's state_dict names
 (ref models/ChangeFormer.py), the names ``stcd_tpu/convert/torch_to_flax.py``
 reads: ``Tenc_x2.block1.0.attn.q.weight``, ``TDec_x2.diff_c1.0.weight``,
-``TDec_x2.convd2x.conv2d.weight`` and so on. Inside an encoder stage the
-activations are tokens (B, H*W, C) in row-major pixel order, as in the
-reference; between stages and in the decoder they are NCHW.
+``TDec_x2.convd2x.conv2d.weight``, ``Tenc.block1.0.attn.q.weight``,
+``convproj.dense_4.0.conv1.conv2d.weight`` and so on. Modules the reference
+builds but never calls in its forward (the ``patch_block*`` / ``pnorm*`` of its
+encoders, V4's ``convd1x`` and ``dense_1x``) are not built, as in the JAX
+package, so a reference state_dict loads with those keys dropped. Inside an
+encoder stage the activations are tokens (B, H*W, C) in row-major pixel order,
+as in the reference; between stages and in the decoders they are NCHW.
 
 Numerics follow the JAX package: LayerNorm eps 1e-5 in the patch embeds and
-the SRA norm and 1e-6 in the blocks and stage norms; exact GELU; BatchNorm
-with the JAX semantics (``layers/norm.py``); the SRA product goes through
-``ops.attention.cross_attention`` (the CUDA kernels on a CUDA tensor, in both
-directions). Train-mode randomness (dropout, DropPath, the attention mask's
-seeds) is drawn from one explicit generator: ``layers/stochastic.py``.
+the SRA norm and 1e-6 in the blocks and stage norms (1e-5 throughout V4's
+encoder); exact GELU; BatchNorm with the JAX semantics (``layers/norm.py``);
+the SRA product goes through ``ops.attention.cross_attention`` (the CUDA
+kernels on a CUDA tensor, in both directions). Train-mode randomness
+(dropout, DropPath, the attention mask's seeds) is drawn from one explicit
+generator: ``layers/stochastic.py``.
 """
 
 from __future__ import annotations
@@ -313,7 +318,266 @@ class DecoderTransformerV3(nn.Module):
         return outs
 
 
-class ChangeFormerV6(nn.Module):
+class DecoderTransformerX2(nn.Module):
+    """DecoderTransformer_x2 (ref :1159-1306) as ChangeFormerV4 calls it: five
+    scales, the 2x-upsampled deeper difference concatenated (not added) into
+    the next conv_diff, five side predictions, a 1x1 fuse, one 2x transposed-conv
+    up with a residual block, and the change_probability head. Returns the 6
+    multi-scale outputs, the full-resolution one last."""
+
+    def __init__(self, in_channels: Sequence[int] = (32, 64, 128, 320, 512),
+                 embedding_dim: int = 256, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        e = embedding_dim
+        n = len(in_channels)
+        self.decoder_softmax = decoder_softmax
+        for s, c in enumerate(in_channels, start=1):
+            setattr(self, f"linear_c{s}", MLP(c, e, device=device))
+        for s in range(n, 0, -1):  # the deepest scale has no deeper difference
+            setattr(self, f"diff_c{s}", ConvDiff((2 if s == n else 3) * e, e, device=device))
+        for s in range(n, 0, -1):
+            setattr(self, f"make_pred_c{s}", MakePrediction(e, output_nc, device=device))
+        self.linear_fuse = nn.Conv2d(n * e, e, 1, device=device)
+        self.convd2x = UpsampleConvLayer(e, e, device=device)
+        self.dense_2x = nn.Sequential(ResidualBlock(e, device=device))
+        self.change_probability = ConvLayer(e, output_nc, 3, 1, 1, device=device)
+
+    def forward(self, f1: Sequence[torch.Tensor], f2: Sequence[torch.Tensor]):
+        target_hw = f1[0].shape[2:]
+        outs, ups = [], []
+        prev = None
+        for s in range(len(f1) - 1, -1, -1):
+            proj = getattr(self, f"linear_c{s + 1}")
+            cat = [proj(f1[s]), proj(f2[s])]
+            if prev is not None:
+                cat.insert(0, _up2_bilinear(prev))
+            d = getattr(self, f"diff_c{s + 1}")(torch.cat(cat, 1))
+            outs.append(getattr(self, f"make_pred_c{s + 1}")(d))
+            ups.append(d if s == 0 else resize_bilinear(d, target_hw))
+            prev = d
+        x = self.dense_2x(self.convd2x(self.linear_fuse(torch.cat(ups, 1))))
+        outs.append(self.change_probability(x))
+        if self.decoder_softmax:
+            outs = [torch.sigmoid(o) for o in outs]
+        return outs
+
+
+class TDec(nn.Module):
+    """TDec (ref :691-790): the SegFormer fuse head over four (already
+    differenced) features: per-scale projection to ``embedding_dim``, bilinear
+    up to the finest scale, a 1x1 fuse, two 2x transposed-conv ups with residual
+    blocks, the change_probability head; softmax over the classes with
+    ``decoder_softmax``."""
+
+    def __init__(self, in_channels: Sequence[int] = (64, 128, 320, 512),
+                 embedding_dim: int = 32, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        e = embedding_dim
+        self.decoder_softmax = decoder_softmax
+        for s, c in enumerate(in_channels, start=1):
+            setattr(self, f"linear_c{s}", MLP(c, e, device=device))
+        self.linear_fuse = nn.Conv2d(len(in_channels) * e, e, 1, device=device)
+        self.convd2x = UpsampleConvLayer(e, e, device=device)
+        self.dense_2x = nn.Sequential(ResidualBlock(e, device=device))
+        self.convd1x = UpsampleConvLayer(e, e, device=device)
+        self.dense_1x = nn.Sequential(ResidualBlock(e, device=device))
+        self.change_probability = ConvLayer(e, output_nc, 3, 1, 1, device=device)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        target_hw = feats[0].shape[2:]
+        ups = []
+        for s in range(len(feats) - 1, -1, -1):
+            h = getattr(self, f"linear_c{s + 1}")(feats[s])
+            ups.append(h if s == 0 else resize_bilinear(h, target_hw))
+        x = self.dense_2x(self.convd2x(self.linear_fuse(torch.cat(ups, 1))))
+        cp = self.change_probability(self.dense_1x(self.convd1x(x)))
+        return torch.softmax(cp, dim=1) if self.decoder_softmax else cp
+
+
+class TDecV2(nn.Module):
+    """TDecV2 (ref :793-871): the absolute difference of the per-scale
+    projections of the two images, bilinear up to the finest scale, a 1x1
+    fuse, a 3x3 conv to 16 x output_nc channels, ReLU and PixelShuffle(4)."""
+
+    def __init__(self, in_channels: Sequence[int] = (64, 128, 320, 512),
+                 embedding_dim: int = 64, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        e = embedding_dim
+        self.decoder_softmax = decoder_softmax
+        for s, c in enumerate(in_channels, start=1):
+            setattr(self, f"linear_c{s}", MLP(c, e, device=device))
+        self.linear_fuse = nn.Conv2d(len(in_channels) * e, e, 1, device=device)
+        self.pix_shuffle_conv = nn.Conv2d(e, 16 * output_nc, 3, padding=1, device=device)
+
+    def forward(self, f1: Sequence[torch.Tensor], f2: Sequence[torch.Tensor]):
+        target_hw = f1[0].shape[2:]
+        diffs = []
+        for s in range(len(f1) - 1, -1, -1):
+            proj = getattr(self, f"linear_c{s + 1}")
+            a, b = proj(f1[s]), proj(f2[s])
+            if s != 0:
+                a, b = resize_bilinear(a, target_hw), resize_bilinear(b, target_hw)
+            diffs.append(torch.abs(a - b))
+        x = F.relu(self.pix_shuffle_conv(self.linear_fuse(torch.cat(diffs, 1))))
+        x = F.pixel_shuffle(x, 4)
+        return torch.softmax(x, dim=1) if self.decoder_softmax else x
+
+
+class ConvProjectionBase(nn.Module):
+    """convprojection_base (ref :591-643): cascaded 2x transposed-conv ups with
+    residual blocks, adding the (difference) pyramid's skips on the way up,
+    from 512 channels at /32 to 8 at full resolution."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.convd16x = UpsampleConvLayer(512, 320, device=device)
+        self.dense_4 = nn.Sequential(ResidualBlock(320, device=device))
+        self.convd8x = UpsampleConvLayer(320, 128, device=device)
+        self.dense_3 = nn.Sequential(ResidualBlock(128, device=device))
+        self.convd4x = UpsampleConvLayer(128, 64, device=device)
+        self.dense_2 = nn.Sequential(ResidualBlock(64, device=device))
+        self.convd2x = UpsampleConvLayer(64, 16, device=device)
+        self.dense_1 = nn.Sequential(ResidualBlock(16, device=device))
+        self.convd1x = UpsampleConvLayer(16, 8, device=device)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = self.dense_4(self.convd16x(feats[3])) + feats[2]
+        x = self.dense_3(self.convd8x(x)) + feats[1]
+        x = self.dense_2(self.convd4x(x)) + feats[0]
+        x = self.dense_1(self.convd2x(x))
+        return self.convd1x(x)
+
+
+def _tenc(device=None) -> SegFormerEncoder:
+    """Tenc (ref :525-531): the MiT-b2 layout with patch-3 embeds after the
+    first, DropPath 0.1."""
+    return SegFormerEncoder(3, (64, 128, 320, 512), (3, 4, 6, 3), (1, 2, 4, 8),
+                            (4, 4, 4, 4), (8, 4, 2, 1), first_patch=7, first_stride=4,
+                            patch_size=3, qkv_bias=True, drop_path_rate=0.1,
+                            device=device)
+
+
+class _SiamBase(nn.Module):
+    """One encoder pass over the 2N batch A||B (ref _SiamBase, :571-574); the
+    encoder is the child ``encoder_name``."""
+
+    encoder_name = "Tenc_x2"
+
+    def encode_pair(self, x1, x2):
+        n = x1.shape[0]
+        feats = getattr(self, self.encoder_name)(torch.cat([x1, x2], 0))
+        return [f[:n] for f in feats], [f[n:] for f in feats]
+
+
+class ChangeFormerV1(_SiamBase):
+    """ChangeFormerV1 (ref :644-675): the absolute difference of the Tenc
+    features, the conv projection and a 3x3 head; softmax over the classes with
+    ``decoder_softmax``. NCHW in, one full-resolution NCHW map out."""
+
+    encoder_name = "Tenc"
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        self.decoder_softmax = decoder_softmax
+        self.Tenc = _tenc(device)
+        self.convproj = ConvProjectionBase(device)
+        self.change_probability = ConvLayer(8, output_nc, 3, 1, 1, device=device)
+
+    def forward(self, x1, x2):
+        f1, f2 = self.encode_pair(x1, x2)
+        cp = self.change_probability(self.convproj([torch.abs(a - b)
+                                                    for a, b in zip(f1, f2)]))
+        return torch.softmax(cp, dim=1) if self.decoder_softmax else cp
+
+
+class ChangeFormerV2(_SiamBase):
+    """ChangeFormerV2 (ref :918-949): the absolute difference of the Tenc
+    features into TDec. With ``decoder_softmax`` the reference applies the
+    softmax twice, once inside TDec (:787-788) and once in its own forward
+    (:945-946); the JAX package keeps that and so does the port:
+    softmax(softmax(logits))."""
+
+    encoder_name = "Tenc"
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        self.decoder_softmax = decoder_softmax
+        self.Tenc = _tenc(device)
+        self.TDec = TDec((64, 128, 320, 512), 32, output_nc, decoder_softmax, device=device)
+
+    def forward(self, x1, x2):
+        f1, f2 = self.encode_pair(x1, x2)
+        cp = self.TDec([torch.abs(a - b) for a, b in zip(f1, f2)])
+        return torch.softmax(cp, dim=1) if self.decoder_softmax else cp
+
+
+class ChangeFormerV3(_SiamBase):
+    """ChangeFormerV3 (ref :951-973): Tenc and TDecV2, the PixelShuffle head."""
+
+    encoder_name = "Tenc"
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        self.Tenc = _tenc(device)
+        self.TDec = TDecV2((64, 128, 320, 512), 64, output_nc, decoder_softmax,
+                           device=device)
+
+    def forward(self, x1, x2):
+        return self.TDec(*self.encode_pair(x1, x2))
+
+
+class ChangeFormerV4(_SiamBase):
+    """ChangeFormerV4 (ref :1309-1338): the 5-stage EncoderTransformer_x2 (first
+    stride 2, MLP ratio 2, no q/kv bias, LayerNorm eps 1e-5, no DropPath) and
+    DecoderTransformerX2. Returns the list of 6 multi-scale outputs, the
+    full-resolution one last. Its attention heads have 16, 32 or 40 columns."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 2,
+                 decoder_softmax: bool = False, device=None):
+        super().__init__()
+        dims = (32, 64, 128, 320, 512)
+        self.Tenc_x2 = SegFormerEncoder(
+            input_nc, dims, (3, 3, 4, 12, 3), (2, 2, 4, 8, 16), (2, 2, 2, 2, 2),
+            (8, 4, 2, 1, 1), first_patch=7, first_stride=2, patch_size=3,
+            qkv_bias=False, norm_eps=1e-5, device=device)
+        self.TDec_x2 = DecoderTransformerX2(dims, 256, output_nc, decoder_softmax,
+                                            device=device)
+
+    def forward(self, x1, x2):
+        return self.TDec_x2(*self.encode_pair(x1, x2))
+
+
+class ChangeFormerV5(_SiamBase):
+    """ChangeFormerV5 (ref :1634-1667): a (3, 6, 16, 3)-deep MiT encoder with 5
+    heads at stage 3 and DecoderTransformerV3. The reference builds its
+    encoder with patch_size=4 (:1646), which makes stages 2-4 come out
+    (H/2+1)-sized, and its decoder then fails on the shapes at :1582: the
+    reference V5 cannot run on any input. The JAX package keeps V5's depths and
+    heads with the standard patch-3 embeds so that it runs (its :640-646), and
+    the port follows it. Returns the list of 5 multi-scale outputs."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 2,
+                 decoder_softmax: bool = False, embed_dim: int = 256, device=None):
+        super().__init__()
+        dims = (64, 128, 320, 512)
+        self.Tenc_x2 = SegFormerEncoder(
+            input_nc, dims, (3, 6, 16, 3), (1, 2, 5, 8), (4, 4, 4, 4), (8, 4, 2, 1),
+            first_patch=7, first_stride=4, patch_size=3, qkv_bias=True,
+            drop_path_rate=0.1, device=device)
+        self.TDec_x2 = DecoderTransformerV3(dims, embed_dim, output_nc, decoder_softmax,
+                                            device=device)
+
+    def forward(self, x1, x2):
+        return self.TDec_x2(*self.encode_pair(x1, x2))
+
+
+class ChangeFormerV6(_SiamBase):
     """ChangeFormerV6 (ref :1669-1701): Siamese MiT encoder ``Tenc_x2`` over
     A||B folded into one 2N batch, then ``TDec_x2``. NCHW in, the list of 5
     multi-scale NCHW logits out (the last at full resolution).
@@ -336,12 +600,6 @@ class ChangeFormerV6(nn.Module):
             drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1, device=device)
         self.TDec_x2 = DecoderTransformerV3(embed_dims, embed_dim, output_nc,
                                             decoder_softmax, device=device)
-
-    def encode_pair(self, x1, x2):
-        """One encoder pass over the 2N batch A||B (ref _SiamBase, :571-574)."""
-        n = x1.shape[0]
-        feats = self.Tenc_x2(torch.cat([x1, x2], 0))
-        return [f[:n] for f in feats], [f[n:] for f in feats]
 
     def forward(self, x1, x2):
         f1, f2 = self.encode_pair(x1, x2)

@@ -9,6 +9,8 @@ on the tensor's device:
 - a CUDA tensor goes to the hand-written kernel ``csrc/cross_attention.cu``
   (``cross_attention_kernel``), or the call raises: there is no fallback.
   Under autograd its gradient is the kernel ``csrc/cross_attention_bwd.cu``.
+  Both launches are ``torch.library`` custom ops (``stcd::cross_attention_fwd``,
+  ``stcd::cross_attention_bwd``), which ``torch.export`` records as calls;
   Both sources hold three variants and ``select_variant`` picks one from
   (dtype, M) alone: ``small_m`` for M <= 8 (a lane group per query row, f32
   math), ``mma_bf16`` for bfloat16 at M > 8 (both products on the tensor
@@ -28,7 +30,7 @@ the kernel, which masks ragged tiles itself.
 from __future__ import annotations
 
 import collections
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -388,52 +390,89 @@ def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed):
     return dq, dk, dv
 
 
-class _CrossAttentionFunction(torch.autograd.Function):
-    """The forward kernel with the backward kernel behind it. It saves q, k,
-    v, the output and the rows' log-sum-exp (the JAX side saves q, k, v and
-    the seed and rebuilds the rest): the backward kernel then needs one pass
-    over the keys. Under autocast q, k, v arrive in bfloat16 from the
-    projections and the incoming gradient has the output's dtype; it is cast
-    to q's dtype if it has not, and made contiguous."""
+def _seed_arg(dropout_seed):
+    """(tensor seed or None, int seed) as the custom ops take them: a tensor
+    seed travels as a tensor input, an int seed as an int."""
+    if isinstance(dropout_seed, torch.Tensor):
+        return dropout_seed, 0
+    return None, 0 if dropout_seed is None else int(dropout_seed) & _M32
 
-    @staticmethod
-    def forward(ctx, q, k, v, seed_tensor, scale, dropout_rate, int_seed):
-        seed = seed_tensor if seed_tensor is not None else int_seed
-        out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, True)
-        ctx.save_for_backward(q, k, v, out, lse, seed_tensor)
-        ctx.scale, ctx.dropout_rate, ctx.int_seed = scale, dropout_rate, int_seed
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        q, k, v, out, lse, seed_tensor = ctx.saved_tensors
-        seed = seed_tensor if seed_tensor is not None else ctx.int_seed
-        dq, dk, dv = launch_backward(q, k, v, out, lse, g.to(q.dtype).contiguous(),
-                                     ctx.scale, ctx.dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None
+# The two launches as torch.library custom ops, so that torch.export records
+# them as calls (a ctypes launch on data_ptr() cannot be traced) and a loaded
+# program launches the kernels, and so that autograd reaches the backward
+# kernel. Each has a fake (shape) version for tracing; the real one runs only
+# on CUDA tensors.
+@torch.library.custom_op("stcd::cross_attention_fwd", mutates_args=(), device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            seed_tensor: Optional[torch.Tensor], scale: float, dropout_rate: float,
+            int_seed: int, want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    seed = seed_tensor if seed_tensor is not None else int_seed
+    out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, want_lse)
+    return out, lse if lse is not None else q.new_empty((0,), dtype=torch.float32)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse):
+    lse_shape = q.shape[:3] if want_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+@torch.library.custom_op("stcd::cross_attention_bwd", mutates_args=(), device_types="cuda")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            lse: torch.Tensor, g: torch.Tensor, seed_tensor: Optional[torch.Tensor],
+            scale: float, dropout_rate: float,
+            int_seed: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    seed = seed_tensor if seed_tensor is not None else int_seed
+    return launch_backward(q, k, v, out, lse, g, scale, dropout_rate, seed)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, lse, g, seed_tensor, scale, dropout_rate, int_seed):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _fwd_setup(ctx, inputs, output):
+    """The backward kernel's inputs: q, k, v, the output and the rows'
+    log-sum-exp (the JAX side saves q, k, v and the seed and rebuilds the
+    rest), so that it needs one pass over the keys."""
+    q, k, v, seed_tensor, scale, dropout_rate, int_seed, _ = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], seed_tensor)
+    ctx.scale, ctx.dropout_rate, ctx.int_seed = scale, dropout_rate, int_seed
+
+
+def _fwd_backward(ctx, g, _g_lse):
+    """Under autocast q, k, v arrive in bfloat16 and the incoming gradient may
+    have another dtype: it is cast to q's and made contiguous."""
+    q, k, v, out, lse, seed_tensor = ctx.saved_tensors
+    dq, dk, dv = _bwd_op(q, k, v, out, lse, g.to(q.dtype).contiguous(), seed_tensor,
+                         ctx.scale, ctx.dropout_rate, ctx.int_seed)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
                            dropout_seed=None) -> torch.Tensor:
-    """Launch ``csrc/cross_attention.cu`` on q's device and current stream.
+    """Launch ``csrc/cross_attention.cu`` on q's device and current stream,
+    through the custom op ``torch.ops.stcd.cross_attention_fwd``.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device, D <= 128; raises on anything else. ``dropout_seed`` is an int, or
     one int64 on q's device, which the kernel reads there. Where autograd
-    records the call, the gradient is ``csrc/cross_attention_bwd.cu``.
-    ``kernel_launches`` counts the forward launches and ``backward_launches``
-    the backward ones; ``forward_variants`` and ``backward_variants`` count
-    them by the variant that ``select_variant`` picked."""
+    records the call, the gradient is ``csrc/cross_attention_bwd.cu``
+    (``torch.ops.stcd.cross_attention_bwd``). ``kernel_launches`` counts the
+    forward launches and ``backward_launches`` the backward ones, those of a
+    program exported with ``torch.export`` and run included;
+    ``forward_variants`` and ``backward_variants`` count them by the variant
+    that ``select_variant`` picked."""
     _check_kernel_args(q, k, v, dropout_rate, dropout_seed)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        # a tensor seed travels as a saved tensor, an int seed as an attribute
-        is_tensor = isinstance(dropout_seed, torch.Tensor)
-        return _CrossAttentionFunction.apply(
-            q, k, v, dropout_seed if is_tensor else None, float(scale),
-            float(dropout_rate), None if is_tensor else dropout_seed)
-    return launch_forward(q, k, v, scale, dropout_rate, dropout_seed, False)[0]
+    want_lse = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+    seed_tensor, int_seed = _seed_arg(dropout_seed if dropout_rate > 0.0 else None)
+    return _fwd_op(q, k, v, seed_tensor, float(scale), float(dropout_rate), int_seed,
+                   want_lse)[0]
 
 
 cross_attention_kernel.kernel_launches = 0

@@ -1,48 +1,64 @@
-"""Config-driven CDTrainer: the train and eval steps (counterpart of
-stcd_tpu/train/trainer.py, ``CDTrainer._build_steps`` and what it calls).
+"""Config-driven CDTrainer and CDEvaluator (counterpart of
+stcd_tpu/train/trainer.py).
 
 Ported: ``TrainerConfig``, the optimizer choice sgd / adam / adamw, the loss
-dispatch ce / bce / cd_loss / fl / miou / mmiou with multi-scale training, multi-scale inference,
-and ``train_step`` / ``eval_step`` with on-device normalisation, augmentation,
-bf16 autocast and confusion counts. Not ported yet: the trainer's epoch loop
-(``train_models``, ``_run_epoch``) and ``CDEvaluator``, which would write
-through the ported ``train/checkpoint.py`` and ``utils/logging.py`` (ROADMAP.md
-Queue 1 #7), and pipeline and tensor parallelism (Queue 1 #11).
+dispatch ce / bce / cd_loss / fl / miou / mmiou with multi-scale training,
+multi-scale inference, ``train_step`` / ``eval_step`` with on-device
+normalisation, augmentation, bf16 autocast and confusion counts, and the epoch
+loop: ``train_models`` (resume from ``last_ckpt``, ``best_ckpt`` by val mF1,
+the ``train_acc.npy`` / ``val_acc.npy`` curves, the scalar log) and
+``CDEvaluator`` (weights-only load of ``best_ckpt`` or ``last_ckpt``, the
+scores, the masks). They write through ``train/checkpoint.py`` (one
+``torch.save`` file where the JAX package writes an orbax directory of the
+same name) and ``utils/logging.py``. Not ported: pipeline and tensor
+parallelism (``pp_stages``, ``tp_axis`` other than 1 raise; ROADMAP.md
+Queue 1 #11).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX
 steps do; the models run NCHW inside. The state is mutable: ``train_step``
 updates it in place and returns ``(loss, confusion counts)`` as tensors on
-the device, so a step forces no host sync.
+the device, so a step forces no host sync; the epoch loop adds them up there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from stcd_tpu_torch.data.augment import eval_preprocess, to_float01, train_augment_pair
+from stcd_tpu_torch.data.io import save_mask_png
 from stcd_tpu_torch.layers.modules import upsample_nearest
 from stcd_tpu_torch.layers.stochastic import set_generator
 from stcd_tpu_torch.losses import functional as L
-from stcd_tpu_torch.metrics.confusion import confusion_matrix
+from stcd_tpu_torch.metrics.confusion import SegmentationMetric, confusion_matrix
 from stcd_tpu_torch.models.factory import define_G, init_weights
+from stcd_tpu_torch.train.checkpoint import CheckpointManager
+from stcd_tpu_torch.train.loops import _device_batch
 from stcd_tpu_torch.train.schedules import Schedule, get_scheduler
 from stcd_tpu_torch.train.state import (AdamConfig, AdamWConfig, OptimizerConfig, SGDConfig,
                                         TrainState, create_train_state)
+from stcd_tpu_torch.utils.logging import ScalarLogger
+
+# pixels of confusion counts summed on the device before they go to the host's
+# float64 matrix (the JAX package's stcd_tpu/train/loops.py:45, where int32 cells
+# would wrap past 2^31; the port's int64 cells would not, so the budget only
+# bounds how long a device sum lives)
+_CM_FLUSH_PIXEL_BUDGET = 1 << 30
 
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The args object of the reference trainer, as the JAX package keeps it,
-    without the pipeline- and tensor-parallel fields and without
-    ``checkpoint_dir`` and ``vis_dir``, whose readers (checkpoints, logging)
-    are not ported. ``dtype`` is None or
-    ``torch.float32`` for float32, ``torch.bfloat16`` for bf16 autocast with
-    float32 weights."""
+    """The args object of the reference trainer, as the JAX package keeps it.
+    ``dtype`` is None or ``torch.float32`` for float32, ``torch.bfloat16`` for
+    bf16 autocast with float32 weights. ``device`` is where ``train_models``
+    and ``CDEvaluator`` put the state: the card unless the caller asks for
+    the CPU. ``pp_stages`` and ``tp_axis`` exist for the JAX surface; values
+    other than 1 raise (ROADMAP.md Queue 1 #11)."""
 
     net_G: str = "base_transformer_pos_s4_dd8"
     n_class: int = 2
@@ -57,6 +73,8 @@ class TrainerConfig:
     multi_scale_train: bool = False
     multi_scale_infer: bool = False
     multi_pred_weights: Sequence[float] = (0.5, 0.5, 0.5, 0.8, 1.0)
+    checkpoint_dir: str = "checkpoints"
+    vis_dir: str = "vis"
     batch_size: int = 8
     seed: int = 1337
     dtype: Any = None
@@ -65,6 +83,15 @@ class TrainerConfig:
     # to training batches and always ends in normalisation.
     normalize: bool = True
     augment: bool = False
+    pp_stages: int = 1
+    tp_axis: int = 1
+    device: str = "cuda"
+
+
+def get_alpha_from_loader(loader) -> np.ndarray:
+    """The class-occurrence scan of the reference's get_alpha over a train
+    loader (``losses.functional.get_alpha``)."""
+    return L.get_alpha(loader)
 
 
 def _make_optimizer(cfg: TrainerConfig, schedule: Schedule) -> OptimizerConfig:
@@ -88,24 +115,38 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 class CDTrainer:
     """The args-driven training harness over the ``define_G`` zoo: it builds
     the model, the schedule and the optimizer config from ``cfg`` and offers
-    ``init_state``, ``train_step`` and ``eval_step``. ``steps_per_epoch``
-    stands for the length of the train loader (the schedules are per epoch);
-    ``alpha`` for the class counts the JAX trainer scans its train loader for."""
+    ``init_state``, ``train_step``, ``eval_step`` and the epoch loop
+    ``train_models`` over ``dataloaders`` (``{"train": ..., "val": ...}``, any
+    iterables of dict batches with a length). The schedules are per epoch, of
+    ``len(dataloaders["train"])`` steps, or of ``steps_per_epoch`` where no
+    loaders are given. ``alpha`` is the class counts of the losses fl and
+    miou; None scans the train loader for them when the loop starts."""
 
-    def __init__(self, cfg: TrainerConfig, steps_per_epoch: int = 1, alpha=None):
+    def __init__(self, cfg: TrainerConfig, dataloaders: Optional[dict] = None,
+                 alpha=None, steps_per_epoch: Optional[int] = None):
+        if cfg.tp_axis != 1 or cfg.pp_stages != 1:
+            raise NotImplementedError(
+                f"tp_axis={cfg.tp_axis}, pp_stages={cfg.pp_stages}: tensor and pipeline "
+                "parallelism are not ported (ROADMAP.md Queue 1 #11)")
         self.cfg = cfg
-        self.alpha = alpha  # class counts (``get_alpha``) for the losses fl and miou
+        self.dataloaders = dataloaders or {}
+        self.alpha = alpha
         self.model = define_G(cfg.net_G, n_class=cfg.n_class, embed_dim=cfg.embed_dim)
+        if steps_per_epoch is None:
+            steps_per_epoch = len(self.dataloaders["train"]) if "train" in self.dataloaders else 1
         schedule = get_scheduler(cfg.lr_policy, cfg.lr, max(steps_per_epoch, 1),
                                  max_epochs=cfg.max_epochs,
                                  lr_decay_iters=cfg.lr_decay_iters)
         self.tx = _make_optimizer(cfg, schedule)
+        self.best_val_acc = 0.0
+        self.best_epoch_id = 0
+        self.epoch_to_start = 0
 
     def init_state(self, device="cuda", init_seed: Optional[int] = None) -> TrainState:
         """The model on ``device`` with its optimizer and a generator seeded
         with ``cfg.seed`` for the steps' draws. ``init_seed`` gives seeded
         random weights (``models.factory.init_weights``); None keeps the
-        weights the modules were built with."""
+        weights the modules hold."""
         if init_seed is not None:
             init_weights(self.model, init_seed)
         return create_train_state(self.model, self.tx, device=device,
@@ -218,3 +259,148 @@ class CDTrainer:
         with state.autocast():
             preds = _as_list(model(_nchw(a), _nchw(b)))
         return self._counts(preds, _nchw(label))
+
+    # --- the epoch loop ---
+    @staticmethod
+    def scores(metric: SegmentationMetric) -> dict:
+        """The reference's ConfuseMatrixMeter.get_scores: acc, miou, mf1 and the
+        per-class entries."""
+        f1 = metric.F1score()
+        iou = metric.IntersectionOverUnion()
+        return {
+            "acc": float(metric.OverallAccuracy()),
+            "miou": float(np.nanmean(iou)),
+            "mf1": float(np.nanmean(f1)),
+            "iou_0": float(iou[0]), "iou_1": float(iou[-1]),
+            "F1_0": float(f1[0]), "F1_1": float(f1[-1]),
+            "precision_1": float(metric.Precision()[-1]),
+            "recall_1": float(metric.Recall()[-1]),
+        }
+
+    def _run_epoch(self, state: TrainState, loader, training: bool):
+        """One pass over ``loader``: ``(metric, mean loss)``. The losses and the
+        confusion counts are summed on the device, and the counts go to the
+        host each ``_CM_FLUSH_PIXEL_BUDGET`` pixels and at the end, so no step
+        waits for the host."""
+        metric = SegmentationMetric(self.cfg.n_class)
+        loss_sum, n_steps = None, 0
+        cm_dev, px_acc = None, 0
+        for batch in loader:
+            batch, _ = _device_batch(batch, state.device)
+            a, b, label = batch["A"], batch["B"], batch["label"].float()
+            if training:
+                loss, cm = self.train_step(state, a, b, label)
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                n_steps += 1
+            else:
+                _, cm = self.eval_step(state, a, b, label)
+            cm_dev = cm if cm_dev is None else cm_dev + cm
+            px_acc += int(np.prod(label.shape[:3]))
+            if px_acc >= _CM_FLUSH_PIXEL_BUDGET:
+                metric.confusionMatrix += cm_dev.cpu().numpy().astype(np.float64)
+                cm_dev, px_acc = None, 0
+        if cm_dev is not None:
+            metric.confusionMatrix += cm_dev.cpu().numpy().astype(np.float64)
+        return metric, float(loss_sum) / n_steps if n_steps else 0.0
+
+    def _ensure_alpha(self) -> None:
+        if self.cfg.loss in ("fl", "miou") and self.alpha is None:
+            self.alpha = get_alpha_from_loader(self.dataloaders["train"])
+
+    def train_models(self) -> TrainState:
+        """The reference trainer's train/val loop (its trainer.py:316-371):
+        resumes from ``{checkpoint_dir}/last_ckpt`` when one exists (weights,
+        optimizer, step, epoch, best), else starts from weights seeded with
+        ``cfg.seed``; each epoch trains, evaluates, saves ``best_ckpt`` when the
+        val mF1 beats the best so far and ``last_ckpt`` always, extends the
+        ``train_acc.npy`` and ``val_acc.npy`` curves (the saved ones up to the
+        resumed epoch first) and logs the scalars. Returns the state."""
+        cfg = self.cfg
+        self._ensure_alpha()
+        ckpt = CheckpointManager(cfg.checkpoint_dir)
+        logger = ScalarLogger(os.path.join(cfg.checkpoint_dir, "logs"))
+        state = self.init_state(cfg.device, init_seed=cfg.seed)
+        train_curve, val_curve = [], []
+        restored = ckpt.restore_last(state, "last_ckpt")
+        if restored is not None:
+            state, last_epoch, self.best_val_acc, self.best_epoch_id = restored
+            self.epoch_to_start = last_epoch + 1
+            for name, curve in (("train_acc.npy", train_curve), ("val_acc.npy", val_curve)):
+                path = os.path.join(cfg.checkpoint_dir, name)
+                if os.path.exists(path):
+                    curve.extend(np.load(path)[:self.epoch_to_start].tolist())
+        try:
+            for epoch_id in range(self.epoch_to_start, cfg.max_epochs):
+                m, loss = self._run_epoch(state, self.dataloaders["train"], training=True)
+                tr = self.scores(m)
+                train_curve.append(tr["mf1"])
+                logger.add_scalar("train/mf1", tr["mf1"], epoch_id)
+                logger.add_scalar("train/loss", loss, epoch_id)
+
+                m, _ = self._run_epoch(state, self.dataloaders["val"], training=False)
+                va = self.scores(m)
+                val_curve.append(va["mf1"])
+                for k, v in va.items():
+                    logger.add_scalar(f"val/{k}", v, epoch_id)
+
+                if va["mf1"] > self.best_val_acc:
+                    self.best_val_acc = va["mf1"]
+                    self.best_epoch_id = epoch_id
+                    ckpt.save_last(state, epoch_id, self.best_val_acc, self.best_epoch_id,
+                                   name="best_ckpt")
+                ckpt.save_last(state, epoch_id, self.best_val_acc, self.best_epoch_id,
+                               name="last_ckpt")
+                for name, curve in (("train_acc.npy", train_curve),
+                                    ("val_acc.npy", val_curve)):
+                    np.save(os.path.join(cfg.checkpoint_dir, name),
+                            np.asarray(curve, np.float32))
+                logger.flush()
+        finally:
+            logger.close()
+        return state
+
+
+class CDEvaluator:
+    """The reference's evaluator (its models/evaluator.py:19-193): a
+    checkpoint's weights, the eval loop with the scores, the predicted masks
+    written to ``cfg.vis_dir``."""
+
+    def __init__(self, cfg: TrainerConfig, dataloader):
+        self.cfg = cfg
+        self.dataloader = dataloader
+        self.trainer = CDTrainer(cfg, {"train": dataloader, "val": dataloader})
+
+    def load(self, ckpt_name: str = "best_ckpt") -> TrainState:
+        """A state with the weights of ``{checkpoint_dir}/{ckpt_name}``. The
+        load is weights-only (the module's parameters and BatchNorm buffers), so
+        an evaluator whose config names another optimizer than the run that
+        wrote the file reads it. The JAX evaluator falls back to a complete
+        ``<name>.new`` left by a crash inside its directory swap; the port writes
+        each checkpoint as one file renamed over its target
+        (``train/checkpoint.py``), which leaves the old file or the new one and
+        no ``.new`` window, so there is nothing to fall back to."""
+        path = os.path.join(self.cfg.checkpoint_dir, ckpt_name)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no checkpoint {ckpt_name} in {self.cfg.checkpoint_dir}")
+        state = self.trainer.init_state(self.cfg.device)
+        return CheckpointManager(self.cfg.checkpoint_dir).load_weights(state, path)
+
+    def eval_models(self, ckpt_name: str = "best_ckpt", save_vis: bool = True) -> dict:
+        """The scores of ``ckpt_name`` over the loader. With ``save_vis`` each
+        named sample's predicted classes go to ``{vis_dir}/{name}`` as a PNG
+        (class ids spread over 0..255: {0, 255} for two classes)."""
+        state = self.load(ckpt_name)
+        metric = SegmentationMetric(self.cfg.n_class)
+        os.makedirs(self.cfg.vis_dir, exist_ok=True)
+        denom = max(self.cfg.n_class - 1, 1)
+        for batch in self.dataloader:
+            batch, names = _device_batch(batch, state.device)
+            final, cm = self.trainer.eval_step(state, batch["A"], batch["B"],
+                                               batch["label"].float())
+            metric.confusionMatrix += cm.cpu().numpy().astype(np.float64)
+            if save_vis and names is not None:
+                preds = self.trainer._pred_to_labels(final).cpu().numpy()
+                for i, name in enumerate(names):
+                    save_mask_png(preds[i].astype(np.float32) / denom,
+                                  os.path.join(self.cfg.vis_dir, name))
+        return CDTrainer.scores(metric)

@@ -36,6 +36,17 @@ from test_torch_changeformer import _inputs, _nchw, _perturb
 from test_torch_changeformer_train import _assert_close
 from test_torch_train_steps import _float64_through_the_losses
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 N, HW = 2, 64
 ATOL, RTOL = 2e-4, 1e-3  # eval forward: convolutions sum in another order
 

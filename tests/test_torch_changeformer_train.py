@@ -42,6 +42,17 @@ from stcd_tpu_torch.train import trainer as ttrainer
 
 from test_torch_changeformer import NARROW, NARROW_EMBED, _inputs, _nchw, _perturb
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 SEED = 0x5EED1234
 N, HW = 2, 64
 

@@ -26,6 +26,17 @@ from stcd_tpu_torch.models import segcd as tsegcd
 
 from test_torch_train_steps import _float64_through_the_losses
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 ATOL, RTOL = 2e-4, 1e-3
 DEC = (32, 24, 16, 12, 8)
 LAYERS = {"resnet18": (2, 2, 2, 2), "resnet50": (3, 4, 6, 3)}

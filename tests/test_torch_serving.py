@@ -260,8 +260,8 @@ def test_predict_cli_writes_mask_and_probs(tmp_path):
     mask = np.asarray(Image.open(tmp_path / "out" / "mask.png"))
     np.testing.assert_array_equal(mask > 127, probs[..., 0] > 0.5)
 
-    args = argparse.Namespace(net_G="ChangeFormerV6", n_class=2, embed_dim=256,
-                              device="cpu", weights=None, init_seed=0)
+    args = argparse.Namespace(net_G="ChangeFormerV6", n_class=2, embed_dim=64,
+                              device="cpu", weights=None, init_seed=0)  # the CLI's default
     torch.save(cli_predict.build_model(args).state_dict(), tmp_path / "v6.pt")
     cli_predict.main(common + ["--weights", str(tmp_path / "v6.pt"),
                                "--prob_out", str(tmp_path / "p2.npy"),

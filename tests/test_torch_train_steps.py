@@ -34,6 +34,17 @@ from stcd_tpu_torch.train.state import (AdamConfig, AdamWConfig, SGDConfig, adam
 from stcd_tpu_torch.train.schedules import poly_schedule
 from stcd_tpu_torch.train.steps import make_cd_steps, make_seg_steps, make_semi_cd_steps
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 DEC = (32, 24, 16, 12, 8)
 N, HW = 2, 32
 SCHEDULE = (1e-3, 2, 4)  # base rate, epochs, iterations per epoch: 8 steps
