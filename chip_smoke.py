@@ -124,6 +124,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    at embed 256 (the serving forward) and SegCD --int8 --calib_npz, each written,
    loaded back and held against the eager forward within EXPORT_ATOL; the loaded
    V6 program launches the attention kernel 13 times a call.
+18. the rest of the define_G zoo: Unet, SiamUnet_sub/_abs/_conc/_cross_conc, SNUNet,
+   DTCDSCN, IFNet, ChangeGNNV1, ChangeGNNV2, ChangeGNNV2_sub/_abs/_conc and GNN at the
+   widths of the JAX CLI defaults (embed_dim 64; the ViG encoder 80/160/400/640):
+   each through CDTrainer (sgd 0.01, ce; IFNet bce with n_class 1), fp32, augment
+   on, 6 steps of 8 pairs of 256x256 tiles (finite losses, one augmentation call a
+   step, the median ms of the last 5 and the peak memory), and one eval forward of 2 pairs on
+   the card against the same weights on the CPU within ZOO_ATOL (the ViG keys on the
+   card's KNN indices, with ZOO_NEIGHBOUR_SHARE of the CPU's own equal to them); then
+   cli.train_cd --augment and cli.predict --load_path for SNUNet and ChangeGNNV2.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -1900,6 +1909,177 @@ def phase_export(torch, np, attention, root, gpu_label):
     return v6_launches
 
 
+# phase 18: the rest of the define_G zoo, at the widths of the JAX CLI defaults
+ZOO_KEYS = ("Unet", "SiamUnet_sub", "SiamUnet_abs", "SiamUnet_conc", "SiamUnet_cross_conc",
+            "SNUNet", "DTCDSCN", "IFNet", "ChangeGNNV1", "ChangeGNNV2", "ChangeGNNV2_sub",
+            "ChangeGNNV2_abs", "ChangeGNNV2_conc", "GNN")
+# train_cd's default batch; the first step is not timed; the CLI runs take cli_steps
+ZOO_TRAIN = dict(batch=8, size=256, steps=6, cli_steps=2, cpu_batch=2)
+# the card's eval forward against the CPU's on the same weights and inputs (fp32, TF32
+# off on the card), x max(1, max |CPU output|): the two sum each conv in another order
+ZOO_ATOL = 1e-3
+# ViG keys: the share of the card's neighbour indices that the CPU's own KNN picks too,
+# at least; the CPU forward is then run on the card's indices and held to ZOO_ATOL
+ZOO_NEIGHBOUR_SHARE = 0.99
+
+
+@contextlib.contextmanager
+def card_neighbours():
+    """Record the KNN indices of every Grapher call (``gcn_lib.knn_graph``);
+    ``feed()`` then makes the next forward's Graphers take them, in order, and
+    count how many of its own indices equal them (a near-tie of two scores
+    ranks either way on either device; one other neighbour early in the
+    encoder moves the outputs downstream of it)."""
+    from stcd_tpu_torch.models import gcn_lib
+    own = gcn_lib.knn_graph
+    recorded, counts = [], [0, 0]
+
+    def record(*args, **kwargs):
+        idx = own(*args, **kwargs)
+        recorded.append(idx)
+        return idx
+
+    def feed():
+        queue = [i.cpu() for i in recorded]
+
+        def take(*args, **kwargs):
+            mine = own(*args, **kwargs)
+            theirs = queue.pop(0)
+            counts[0] += int((mine == theirs).sum())
+            counts[1] += mine.numel()
+            return theirs
+
+        gcn_lib.knn_graph = take
+        return queue
+
+    gcn_lib.knn_graph = record
+    try:
+        yield feed, counts
+    finally:
+        gcn_lib.knn_graph = own
+
+
+def phase_zoo(torch, augment_kernel, gpu_label, root):
+    """The 14 define_G keys of this phase at full width (the ViG encoder's
+    80/160/400/640, embed_dim 64): for each, CDTrainer with the TrainerConfig
+    defaults (sgd 0.01, ce; IFNet bce with n_class 1), fp32 with TF32 off,
+    augment on, seeded weights (models.factory.init_weights) and data, 6 train
+    steps of 8 pairs of 256x256 tiles: finite losses, one augmentation call a
+    step (counted from 0), the median ms of the last 5 steps (CUDA events) and
+    the peak memory. Then one
+    eval forward of 2 pairs on the card held against the same weights on the
+    CPU (ZOO_ATOL; the ViG keys on the card's neighbours, ZOO_NEIGHBOUR_SHARE).
+    Then cli.train_cd --augment (1 epoch of 2 steps, synthetic data) and
+    cli.predict --load_path on what it wrote, for SNUNet and ChangeGNNV2.
+    Returns the augmentation calls by path."""
+    import copy
+
+    import numpy as np
+
+    from stcd_tpu_torch.cli import predict, train_cd
+    from stcd_tpu_torch.data.augment import eval_preprocess
+    from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    n, size, steps = ZOO_TRAIN["batch"], ZOO_TRAIN["size"], ZOO_TRAIN["steps"]
+    data = seeded_cd_batch(n, size, seed=5, device="cuda")
+    m = ZOO_TRAIN["cpu_batch"]
+    xa, xb = (eval_preprocess(data[k][:m]).permute(0, 3, 1, 2).contiguous() for k in "AB")
+    aug_calls, rows = 0, {}
+    for net_G in ZOO_KEYS:
+        bce = dict(loss="bce", n_class=1) if net_G == "IFNet" else {}
+        trainer = CDTrainer(TrainerConfig(net_G=net_G, img_size=size, batch_size=n,
+                                          augment=True, **bce), steps_per_epoch=steps)
+        state = trainer.init_state("cuda", init_seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        augment_kernel.kernel_launches = 0
+        losses, times = [], []
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss, _ = trainer.train_step(state, data["A"], data["B"], data["label"])
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            losses.append(loss.item())
+        calls = augment_kernel.kernel_launches
+        aug_calls += calls
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(all(np.isfinite(losses)) and calls == steps,
+                f"{net_G}: losses {losses}, {calls} augmentation calls for {steps} steps")
+        model = state.model.eval()
+        vig = net_G.startswith(("ChangeGNN", "GNN"))
+        with torch.no_grad(), card_neighbours() as (feed, counts):
+            card = model(xa, xb)
+            queue = feed() if vig else []
+            cpu = copy.deepcopy(model).cpu()(xa.cpu(), xb.cpu())
+        card = (card[-1] if isinstance(card, (list, tuple)) else card).float().cpu()
+        cpu = cpu[-1] if isinstance(cpu, (list, tuple)) else cpu
+        err = (card - cpu).abs().max().item()
+        bound = ZOO_ATOL * max(1.0, cpu.abs().max().item())
+        share = counts[0] / counts[1] if vig else None
+        require(card.shape == (m, 1 if bce else 2, size, size) and not queue
+                and bool(torch.isfinite(card).all()) and err <= bound,
+                f"{net_G}: card forward {tuple(card.shape)} against the CPU's: max|err| "
+                f"{err} > {bound}")
+        require(not vig or share >= ZOO_NEIGHBOUR_SHARE,
+                f"{net_G}: {share} of the neighbour indices equal on the card and the CPU")
+        timed = sorted(times[1:])
+        rows[net_G] = {"step_ms": timed[len(timed) // 2], "peak_gib": peak}
+        print(f"zoo {net_G} ({gpu_label}): {steps} train steps of {n} pairs at {size}x{size}, "
+              f"fp32, augment: losses {[round(x, 4) for x in losses]}, step ms "
+              f"{[round(t, 2) for t in times]} (median of the last {steps - 1} "
+              f"{rows[net_G]['step_ms']:.2f}), peak "
+              f"{peak:.2f} GiB, {calls} augmentation calls; eval of {m} pairs, card against "
+              f"CPU: max|err| {err:.3e} (atol {ZOO_ATOL} x max(1, max|CPU|) = {bound:.3e})"
+              + (f", {share:.4f} of the neighbour indices equal" if vig else ""), flush=True)
+        del trainer, state, model
+        torch.cuda.empty_cache()
+    print("zoo step table: " + json.dumps(rows), flush=True)
+
+    # from the command line: train_cd, then predict on what it wrote
+    from PIL import Image
+    rng = np.random.default_rng(6)
+    images = []
+    for name in ("zoo_a.png", "zoo_b.png"):
+        path = os.path.join(root, name)
+        Image.fromarray(rng.integers(0, 256, (2 * size, 2 * size, 3), dtype=np.uint8)).save(path)
+        images.append(path)
+    cli_calls, cli_steps = 0, ZOO_TRAIN["cli_steps"]
+    for net_G in ("SNUNet", "ChangeGNNV2"):
+        ckpt = os.path.join(root, f"train_cd_{net_G}")
+        augment_kernel.kernel_launches = 0
+        t0 = time.monotonic()
+        out = train_cd.main(["--net_G", net_G, "--augment", "--dataset_name", "synthetic",
+                             "--synthetic_length", str(cli_steps * n), "--batch_size", str(n),
+                             "--img_size", str(size), "--max_epochs", "1", "--checkpoint_dir",
+                             ckpt, "--device", "cuda"])
+        torch.cuda.synchronize()
+        calls = augment_kernel.kernel_launches
+        cli_calls += calls
+        require(out["state"].step == cli_steps and calls == cli_steps
+                and {"best_ckpt", "last_ckpt"} <= set(os.listdir(ckpt)),
+                f"train_cd {net_G}: step {out['state'].step}, {calls} augmentation calls, "
+                f"{sorted(os.listdir(ckpt))}")
+        mask = os.path.join(root, f"zoo_{net_G}.png")
+        prob = os.path.join(root, f"zoo_{net_G}.npy")
+        predict.main(["--net_G", net_G, "--load_path", ckpt, "--image_a", images[0],
+                      "--image_b", images[1], "--out", mask, "--prob_out", prob,
+                      "--tile", str(size), "--device", "cuda"])
+        probs = np.load(prob)
+        require(os.path.isfile(mask) and probs.shape == (2 * size, 2 * size, 1)
+                and np.isfinite(probs).all() and 0 <= probs.min() and probs.max() <= 1,
+                f"predict {net_G}: {probs.shape} probabilities")
+        print(f"zoo cli ({gpu_label}): train_cd --net_G {net_G} --augment, 1 epoch of {cli_steps} "
+              f"steps in {time.monotonic() - t0:.1f} s (host clock, eval and saves included), "
+              f"{calls} augmentation calls, scores {out['scores']}; predict --load_path wrote "
+              f"a {2 * size}x{2 * size} mask", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    return {"zoo_train": aug_calls, "zoo_cli": cli_calls}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1983,6 +2163,8 @@ def main() -> int:
         phase_int8(torch, np, root, float_metrics, gpu_label)
         # phase 17: export
         export_v6 = phase_export(torch, np, attention, root, gpu_label)
+        # phase 18: the rest of the define_G zoo
+        aug_by_path.update(phase_zoo(torch, augment.apply_augment_kernel, gpu_label, root))
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after

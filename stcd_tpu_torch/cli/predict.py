@@ -31,6 +31,8 @@ import os
 import numpy as np
 import torch
 
+from stcd_tpu_torch.models.factory import NET_G_KEYS
+
 
 def resolve_device(name: str) -> torch.device:
     """``cuda`` without a card raises: the port never carries on silently on
@@ -72,8 +74,10 @@ def build_model(args) -> torch.nn.Module:
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.net_G:
         from stcd_tpu_torch.models.factory import define_G, init_weights
+        # the tile is the zoo's img_size, as in scripts/predict.py; 256, the
+        # flag's default, for a Namespace built by hand without it
         model = define_G(args.net_G, n_class=args.n_class, embed_dim=args.embed_dim,
-                         device=device)
+                         img_size=getattr(args, "tile", 256), device=device)
     else:
         from stcd_tpu_torch.models.segcd import SegCD, init_weights
         dec = tuple(int(c) for c in args.decoder_channels.split(","))
@@ -145,10 +149,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder", default="resnet50")
     p.add_argument("--decoder_channels", default="256,128,64,32,16")
     p.add_argument("--net_G", default=None,
-                   help="bespoke-zoo model key (models.factory.define_G; ported: "
-                        "ChangeFormerV1 to V6, base_resnet18 and the BIT "
-                        "base_transformer_pos_s4* keys); overrides the SegCD default, "
-                        "--encoder and --decoder_channels are then ignored")
+                   help="bespoke-zoo model key (models.factory.define_G: "
+                        + ", ".join(NET_G_KEYS) + "); overrides the SegCD default, "
+                        "--encoder and --decoder_channels are then ignored; --tile is "
+                        "its img_size (ChangeGNNV2* size pos_embed by it)")
     p.add_argument("--load_path", default=None,
                    help="run directory of the port's training (its *_best_model, "
                         "then best_ckpt, then last_ckpt) or one checkpoint file")
@@ -158,7 +162,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="seeded random weights instead of --weights")
     p.add_argument("--n_class", type=int, default=2, help="zoo head classes (with --net_G)")
     p.add_argument("--embed_dim", type=int, default=64,
-                   help="zoo embed_dim (with --net_G; ChangeFormerV5 and V6 read it; "
+                   help="zoo embed_dim (with --net_G; ChangeFormerV5, V6 and the ViG "
+                        "decoders read it; "
                         "64 as in the JAX package and cli.train_cd, the published V6 "
                         "width is 256)")
     p.add_argument("--tile", type=int, default=256)

@@ -13,6 +13,8 @@ Usage:
       --checkpoint_dir runs/V6 [--augment] [--bf16] [--device cpu]
   python -m stcd_tpu_torch.cli.train_cd --net_G ChangeFormerV6 --checkpoint_dir runs/V6 \\
       --eval_only [--eval_ckpt last_ckpt] [--vis_dir runs/V6/vis]
+  python -m stcd_tpu_torch.cli.train_cd --net_G SNUNet --checkpoint_dir runs/SNUNet
+  python -m stcd_tpu_torch.cli.train_cd --net_G IFNet --n_class 1 --loss bce  # a 1-channel head
 
 ``--pp_stages``, ``--pp_microbatches`` and ``--tp_axis`` other than 1 (0) raise:
 the port runs on one card (ROADMAP.md Queue 1 #11).
@@ -26,13 +28,14 @@ import os
 import torch
 
 from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.models.factory import NET_G_KEYS
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--net_G", default="base_transformer_pos_s4_dd8",
-                   help="define_G key (models.factory.define_G)")
+                   help="define_G key (models.factory.define_G): " + ", ".join(NET_G_KEYS))
     p.add_argument("--n_class", type=int, default=2)
     p.add_argument("--embed_dim", type=int, default=64)
     p.add_argument("--img_size", type=int, default=256)

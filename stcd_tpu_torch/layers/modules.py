@@ -9,6 +9,49 @@ import torch.nn.functional as F
 from torch import nn
 
 from stcd_tpu_torch.layers.norm import BatchNorm
+from stcd_tpu_torch.layers.stochastic import Stochastic
+
+
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
+             padding: int = 0) -> torch.Tensor:
+    """Max pool of an NCHW tensor (stcd_tpu/layers/modules.py:39-55): the
+    padding counts as -inf, as in ``F.max_pool2d`` and the JAX
+    ``reduce_window``."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+class Dropout2d(Stochastic):
+    """Channel dropout (stcd_tpu/layers/modules.py:338-349, torch
+    ``nn.Dropout2d``): in training each (sample, channel) map is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; identity in eval or
+    at ``p == 0``. The mask is drawn from ``self.generator``."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2), device=x.device,
+                           dtype=x.dtype).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def pad_replicate_to(x: torch.Tensor, size) -> torch.Tensor:
+    """Replication pad of an NCHW tensor at the bottom and right up to
+    ``size`` = (H, W) (stcd_tpu/layers/modules.py:112-123); a no-op at
+    power-of-two sizes."""
+    dh, dw = size[0] - x.shape[2], size[1] - x.shape[3]
+    if dh == 0 and dw == 0:
+        return x
+    return F.pad(x, (0, dw, 0, dh), mode="replicate")
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],

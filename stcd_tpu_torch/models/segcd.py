@@ -6,6 +6,7 @@ in and out; state_dict names are smp's (``encoder.``, ``decoder.``,
 - SegCD: the shared encoder and decoder on A and B;
   change = min(head(|dec(A) - dec(B)|), |head(dec(A)) - head(dec(B))|).
 - FFCTLCD: the abs-diff taken at every encoder level, then decoded.
+- CDNet: the per-level abs-diff fusion head over two lists of decoder features.
 
 ``siamese_batched`` (default True) folds A and B into one 2N-image pass, as
 the JAX models do. The weights are shared either way; in train mode the
@@ -15,14 +16,15 @@ the same in both forms.
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import torch
 from torch import nn
 
 from stcd_tpu_torch.decoders.unet import UnetDecoder
 from stcd_tpu_torch.encoders import get_encoder
-from stcd_tpu_torch.layers.modules import SegmentationHead
+from stcd_tpu_torch.layers.modules import SegmentationHead, resize_bilinear
+from stcd_tpu_torch.layers.se import ChannelSpatialSELayer
 
 
 class _EncDecHead(nn.Module):
@@ -120,6 +122,43 @@ class FFCTLCD(_EncDecHead):
         mask_t2 = self.head(self.decode(features2))
         diffseg = torch.abs(mask_t1 - mask_t2)
         return mask_t1, mask_t2, torch.minimum(diffea, diffseg)
+
+
+class _AttBlock(nn.Module):
+    """``block`` = conv3x3, ReLU, ChannelSpatialSELayer (the reference's names)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.block = nn.Sequential(nn.Conv2d(channels, channels, 3, padding=1, device=device),
+                                   nn.ReLU(),
+                                   ChannelSpatialSELayer(channels, 2, device=device))
+
+    def forward(self, x):
+        return self.block(x)
+
+
+class CDNet(nn.Module):
+    """The per-level abs-diff fusion head (stcd_tpu/models/segcd.py:185-218):
+    ``forward(x1, x2)`` over two 5-level lists of decoder features, coarse to
+    fine; each |x1 - x2| is resized bilinearly to the finest level, the five
+    are concatenated, then conv + ReLU + scSE (``AttBlock``), ``cd1``, ReLU,
+    ``cd2``. The reference's ``Deconv*`` blocks reduce to the abs-diff and hold
+    no live weights, so they are not built."""
+
+    def __init__(self, decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 classes: int = 1, device=None):
+        super().__init__()
+        c = sum(decoder_channels)
+        self.AttBlock = _AttBlock(c, device=device)
+        self.cd1 = nn.Conv2d(c, 64, 3, padding=1, device=device)
+        self.cd2 = nn.Conv2d(64, classes, 3, padding=1, device=device)
+
+    def forward(self, x1: List[torch.Tensor], x2: List[torch.Tensor]) -> torch.Tensor:
+        size = tuple(x1[4].shape[2:])
+        diffs = [torch.abs(a - b) for a, b in zip(x1[:5], x2[:5])]
+        diffs = [resize_bilinear(d, size) for d in diffs[:4]] + diffs[4:]
+        h = self.AttBlock(torch.cat(diffs, dim=1))
+        return self.cd2(torch.relu(self.cd1(h)))
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -22,10 +22,14 @@ dilated conv of the block's input with the upsample-composed kernel, and a conv
 of the skip; one conv where the block has no skip). flax's ``ConvTranspose``
 lowers through ``lax.conv_transpose``, which calls the library's own
 ``conv_general_dilated`` and not the patched name, so transposed convs are no
-site there and stay float here as well. The port catches the sites per module,
-never by patching a global function: while ``fn`` runs, each ``nn.Conv2d`` of
-``model`` and each UNet ``DecoderBlock`` gets an instance ``forward`` that
-reports to the site table, and loses it after. A ``DecoderBlock``'s first conv
+site there and stay float here as well. The exception is a stride-1
+``nn.ConvTranspose2d`` (the FC-Siam decoders' ``conv*d``): the JAX package
+builds it as an ``nn.Conv`` with the flipped, IO-swapped kernel, so it is a
+site there, and here it runs as that conv. The port catches the sites per
+module, never by patching a global function: while ``fn`` runs, each
+``nn.Conv2d`` and stride-1 ``nn.ConvTranspose2d`` of ``model`` and each UNet
+``DecoderBlock`` gets an instance ``forward`` that reports to the site table,
+and loses it after. A ``DecoderBlock``'s first conv
 is run as JAX's two convs there; the ResNet blocks run their shortcut conv
 after the main branch, as the JAX blocks do.
 
@@ -156,6 +160,16 @@ class _Sites:
             return nn.Conv2d.forward(m, x)
         return _quantized_conv(x, m.weight, m.bias, scale, m.stride, m.padding, m.dilation)
 
+    def conv_transpose_s1(self, m: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+        """A stride-1 ``nn.ConvTranspose2d``: one site, the conv with the
+        flipped, IO-swapped kernel and padding d (k - 1) - p, as JAX runs it."""
+        w = m.weight.flip(2, 3).transpose(0, 1)  # (out, in, kh, kw)
+        scale = self._next(x, self._quantizable(x, w, m.groups, w.shape[1]))
+        if scale is None:
+            return nn.ConvTranspose2d.forward(m, x)
+        pad = tuple(d * (k - 1) - p for d, k, p in zip(m.dilation, m.kernel_size, m.padding))
+        return _quantized_conv(x, w, m.bias, scale, (1, 1), pad, m.dilation)
+
     def decoder_block(self, block, x: torch.Tensor, skip=None) -> torch.Tensor:
         """A UNet ``DecoderBlock``: its first conv as the JAX decoder's split
         form (a site for the upsampled input, one for the skip), then its
@@ -192,15 +206,20 @@ def _intercept(model: nn.Module, sites: _Sites):
     claimed = {id(b.conv1[0]) for b in blocks}
     convs = [m for m in model.modules()
              if isinstance(m, nn.Conv2d) and id(m) not in claimed]
+    convs_t = [m for m in model.modules()
+               if isinstance(m, nn.ConvTranspose2d) and m.stride == (1, 1)
+               and m.output_padding == (0, 0) and m.groups == 1]
     with _LOCK:
         try:
             for m in convs:
                 m.forward = lambda x, m=m: sites.conv(m, x)
+            for m in convs_t:
+                m.forward = lambda x, output_size=None, m=m: sites.conv_transpose_s1(m, x)
             for b in blocks:
                 b.forward = lambda x, skip=None, b=b: sites.decoder_block(b, x, skip)
             yield sites
         finally:
-            for m in convs + blocks:
+            for m in convs + convs_t + blocks:
                 m.__dict__.pop("forward", None)
 
 

@@ -131,7 +131,8 @@ class CDTrainer:
         self.cfg = cfg
         self.dataloaders = dataloaders or {}
         self.alpha = alpha
-        self.model = define_G(cfg.net_G, n_class=cfg.n_class, embed_dim=cfg.embed_dim)
+        self.model = define_G(cfg.net_G, n_class=cfg.n_class, embed_dim=cfg.embed_dim,
+                              img_size=cfg.img_size)
         if steps_per_epoch is None:
             steps_per_epoch = len(self.dataloaders["train"]) if "train" in self.dataloaders else 1
         schedule = get_scheduler(cfg.lr_policy, cfg.lr, max(steps_per_epoch, 1),

@@ -203,8 +203,8 @@ def test_define_g_builds_every_changeformer_with_its_launch_count():
         assert all(torch.equal(w[k], w2[k]) for k in w), net_G
     assert define_G("ChangeFormerV6").TDec_x2.linear_c1.proj.out_features == 64
     assert define_G("ChangeFormerV5", embed_dim=32).TDec_x2.linear_c1.proj.out_features == 32
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        define_G("SNUNet")
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        define_G("ChangeFormerV7")
 
 
 @pytest.mark.parametrize("name", [f"mit_b{i}" for i in range(6)])

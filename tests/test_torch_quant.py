@@ -286,3 +286,43 @@ def test_model_sites_scales_and_int8_outputs_match_jax(build):
     decide = (lambda o: o[..., 0] > 0) if want.shape[-1] == 1 else (lambda o: o.argmax(-1))
     assert np.mean(decide(got) == decide(want)) >= DECISIONS
     assert np.abs(got - flt.transpose(0, 2, 3, 1)).max() > 0  # it did run in int8
+
+
+@pytest.mark.parametrize("net_G", ["Unet", "SiamUnet_abs", "SiamUnet_conc", "DTCDSCN",
+                                   "SNUNet"])
+def test_zoo_sites_and_scales_match_jax(net_G):
+    """The zoo int8 gate's keys (tests/test_serving_quant.py::test_quantized_zoo_f1)
+    at 32x32: the conv-site sequence, the NaN pattern and the scales are
+    JAX's. The FC-Siam decoders' stride-1 ConvTranspose2d (conv*d) are sites,
+    as the JAX nn.Conv with the flipped, IO-swapped kernel is; the stride-2
+    transposed convs (upconv*, DTCDSCN's deconv2 and head, SNUNet's Up) are
+    none. Scales to rtol 1e-5. The FC-Siam keys' int8 outputs are held within
+    INT8_REL of JAX's (test_model_sites_scales_and_int8_outputs_match_jax has
+    the reasons); DTCDSCN's and SNUNet's are only required to differ from the
+    float ones, as XLA takes 15 to 25 s on a CPU to compile their int8
+    forwards, and their sites hold no kind the other models do not."""
+    from test_torch_zoo_siam import _build
+    jmodel, variables, port = _build(net_G, seed=3)
+    port.eval()
+    rng = np.random.default_rng(10)
+    a, b = (rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    jfn = lambda x, y: jmodel.apply(variables, x, y)  # noqa: E731
+    fn = lambda x, y: port(x, y)  # noqa: E731
+    jscales = jq.calibrate_conv_scales(jfn, [(jnp.asarray(a), jnp.asarray(b))])
+    scales = tq.calibrate_conv_scales(port, fn, [(_nchw(a), _nchw(b))])
+    assert scales.shape == jscales.shape and scales.shape[0] > 10
+    np.testing.assert_array_equal(np.isnan(scales), np.isnan(jscales))
+    np.testing.assert_allclose(scales, jscales, rtol=1e-5)
+    if net_G.startswith(("Unet", "SiamUnet")):  # 10 encoder convs, then the decoder's
+        n_dec = sum(isinstance(m, nn.ConvTranspose2d) and m.stride == (1, 1)
+                    for m in port.modules())
+        assert n_dec == 10 and scales.shape[0] == 10 + n_dec
+    with torch.no_grad():
+        got = tq.quantize_fn(port, fn, scales)(_nchw(a), _nchw(b)).numpy()
+        flt = fn(_nchw(a), _nchw(b)).numpy()
+    assert np.abs(got - flt).max() > 0  # it did run in int8
+    if net_G.startswith(("Unet", "SiamUnet")):
+        want = np.asarray(jax.jit(jq.quantize_fn(jfn, jscales))(jnp.asarray(a),
+                                                                jnp.asarray(b)))
+        got = got.transpose(0, 2, 3, 1)
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= INT8_REL

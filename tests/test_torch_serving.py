@@ -28,7 +28,6 @@ from stcd_tpu.serving.server import BatchingEngine as JaxBatchingEngine
 from stcd_tpu_torch.cli import predict as cli_predict
 from stcd_tpu_torch.convert.from_flax import changeformer_v6_from_flax
 from stcd_tpu_torch.models.changeformer import ChangeFormerV6
-from stcd_tpu_torch.models.factory import define_G
 from stcd_tpu_torch.serving.server import BatchingEngine, serve
 
 from stcd_tpu.models.segcd import SegCD as JaxSegCD
@@ -273,8 +272,9 @@ def test_device_cuda_without_card_raises_and_other_models_wait(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_predict.resolve_device("cuda")
+    from stcd_tpu_torch.encoders import get_encoder
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        define_G("SNUNet")
+        get_encoder("vgg16")  # the smp zoo's encoders wait (Queue 1 #9)
 
 
 def test_every_entry_point_defaults_to_the_card(monkeypatch):
