@@ -133,6 +133,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card against the same weights on the CPU within ZOO_ATOL (the ViG keys on the
    card's KNN indices, with ZOO_NEIGHBOUR_SHARE of the CPU's own equal to them); then
    cli.train_cd --augment and cli.predict --load_path for SNUNet and ChangeGNNV2.
+19. the smp architectures of create_model at smp's default widths, classes 1: Unet
+   with scse gates (its eval model with an aux head of 4 classes), UnetPlusPlus over
+   vgg16_bn (the center block), MAnet, Linknet over resnext50_32x4d, FPN, FPN over
+   mit_b2 (the attention kernels), PSPNet (encoder depth 3), DeepLabV3 over resnet50
+   (output stride 8), DeepLabV3+ and PAN (output stride 16), the rest over resnet34:
+   each 6 steps of make_seg_steps (augment on, Adam) on 8 images of 256x256, fp32
+   (finite losses, one augmentation call a step, the median ms of the last 5 and the
+   peak memory), and predict of 2 images on the card against the CPU within ZOO_ATOL;
+   FPN over mit_b2 with 16 f32_cuda forward launches in predict and 16 + 16 a train
+   step, and one fp32 step with the kernels against the plain attention.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -2080,6 +2090,155 @@ def phase_zoo(torch, augment_kernel, gpu_label, root):
     return {"zoo_train": aug_calls, "zoo_cli": cli_calls}
 
 
+# phase 19: the smp architectures of create_model at smp's default widths
+# (label, arch, encoder, create_model keywords); classes=1 for each
+SMP_MODELS = (
+    ("unet_scse", "unet", "resnet34", dict(decoder_attention_type="scse")),
+    ("unetplusplus", "unetplusplus", "vgg16_bn", {}),
+    ("manet", "manet", "resnet34", {}),
+    ("linknet", "linknet", "resnext50_32x4d", {}),
+    ("fpn", "fpn", "resnet34", {}),
+    ("fpn_mit_b2", "fpn", "mit_b2", {}),
+    ("pspnet", "pspnet", "resnet34", {}),
+    ("deeplabv3", "deeplabv3", "resnet50", {}),
+    ("deeplabv3plus", "deeplabv3plus", "resnet34", {}),
+    ("pan", "pan", "resnet34", {}),
+)
+SMP_AUX = {"classes": 4}  # the aux head of unet_scse's eval check (trained without it)
+SMP_TRAIN = dict(batch=8, size=256, steps=6, cpu_batch=2)  # the first step is not timed
+SMP_MIT_LAUNCHES = 16  # SRA calls of mit_b2 a forward: depths 3 + 4 + 6 + 3
+
+
+def phase_smp(torch, attention, augment_kernel, gpu_label):
+    """create_model's architectures at smp's default widths on the card:
+    each model of SMP_MODELS (classes 1, seeded weights
+    ``models.segcd.init_weights``) takes SMP_TRAIN["steps"] train steps
+    of make_seg_steps(augment=True) with Adam on 8 images of 256x256, fp32
+    with TF32 off, one fixed seeded batch: finite losses, one augmentation
+    call a step (counted from 0), the median ms of the steps after the first
+    (CUDA events) and the peak memory. Its eval forward (``predict``) of 2
+    images on the card is held against the same weights on the CPU within
+    ZOO_ATOL x max(1, max |CPU|); unet_scse's eval model carries the aux head
+    (both outputs held), and the model it trains has none. fpn_mit_b2 runs the
+    attention kernels: SMP_MIT_LAUNCHES f32_cuda forward launches in predict
+    and as many forward and backward a train step, and one fp32 train step
+    with the kernels against one with the plain attention (same weights,
+    batch and generator seed) within ATTN_STEP_LOSS_ATOL.
+    Returns (augmentation calls, attention forward launches, backward
+    launches) of the path."""
+    import copy
+
+    from stcd_tpu_torch.data.augment import eval_preprocess
+    from stcd_tpu_torch.models import create_model
+    from stcd_tpu_torch.models.segcd import init_weights
+    from stcd_tpu_torch.tools.profile_step import plain_attention, seeded_stage_batch
+    from stcd_tpu_torch.train.state import adam_poly, create_train_state
+    from stcd_tpu_torch.train.steps import make_seg_steps
+
+    n, size, steps, m = (SMP_TRAIN[k] for k in ("batch", "size", "steps", "cpu_batch"))
+    data = seeded_stage_batch(1, n, size, seed=7, device="cuda")
+    x = eval_preprocess(data["image"][:m]).permute(0, 3, 1, 2).contiguous()
+    train_step, _ = make_seg_steps(augment=True)
+
+    def build(arch, encoder, kw):
+        return init_weights(create_model(arch, encoder, classes=1, device="cuda", **kw),
+                            seed=0)
+
+    def one_step(arch, encoder, kw, batch):
+        state = create_train_state(build(arch, encoder, kw), adam_poly(1e-3, 60, 1000),
+                                   device="cuda", seed=8)
+        return float(train_step(state, batch, state.generator)["loss"])
+
+    aug_calls, attn_fwd, attn_bwd, rows = 0, 0, 0, {}
+    for label, arch, encoder, kw in SMP_MODELS:
+        mit = encoder.startswith("mit")
+        # the eval forward on the card and on the CPU, same weights and inputs
+        model = build(arch, encoder, {**kw, **({"aux_params": SMP_AUX} if label == "unet_scse"
+                                              else {})})
+        kernel = reset_attention_counts(attention)
+        card = model.predict(x)
+        torch.cuda.synchronize()
+        eval_fwd = kernel.kernel_launches
+        cpu = copy.deepcopy(model).cpu().predict(x.cpu())
+        card, cpu = (list(o) if isinstance(o, tuple) else [o] for o in (card, cpu))
+        errs = [((c.cpu() - w).abs().max().item(), ZOO_ATOL * max(1.0, w.abs().max().item()))
+                for c, w in zip(card, cpu)]
+        require(len(card) == (2 if label == "unet_scse" else 1)
+                and card[0].shape == (m, 1, size, size)
+                and all(bool(torch.isfinite(c).all()) for c in card)
+                and all(e <= b for e, b in errs),
+                f"{label}: card forward {[tuple(c.shape) for c in card]} against the CPU's: "
+                f"max|err| and bounds {errs}")
+        require(eval_fwd == (SMP_MIT_LAUNCHES if mit else 0)
+                and set(kernel.forward_variants) <= {"f32_cuda"},
+                f"{label}: {eval_fwd} attention launches in predict "
+                f"{dict(kernel.forward_variants)}")
+        del model, card, cpu
+        # the train steps
+        state = create_train_state(build(arch, encoder, kw), adam_poly(1e-3, 60, 1000),
+                                   device="cuda", seed=8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        augment_kernel.kernel_launches = 0
+        kernel = reset_attention_counts(attention)
+        losses, times = [], []
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = train_step(state, data, state.generator)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            losses.append(float(out["loss"]))
+        calls = augment_kernel.kernel_launches
+        fwd, bwd = kernel.kernel_launches, kernel.backward_launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = SMP_MIT_LAUNCHES * steps if mit else 0
+        require(all(v == v and abs(v) != float("inf") for v in losses) and calls == steps
+                and state.step == steps,
+                f"{label}: losses {losses}, {calls} augmentation calls and {state.step} "
+                f"updates for {steps} steps")
+        require(fwd == want and bwd == want and set(kernel.forward_variants) <= {"f32_cuda"}
+                and set(kernel.backward_variants) <= {"f32_cuda"},
+                f"{label}: {fwd} forward and {bwd} backward attention launches "
+                f"{dict(kernel.forward_variants)} {dict(kernel.backward_variants)}, not {want}")
+        aug_calls += calls
+        attn_fwd += eval_fwd + fwd
+        attn_bwd += bwd
+        timed = sorted(times[1:])
+        rows[label] = {"step_ms": timed[len(timed) // 2], "peak_gib": peak}
+        print(f"smp {label} ({arch}, {encoder}; {gpu_label}): {steps} train steps of {n} "
+              f"images at {size}x{size}, fp32, augment, Adam: losses "
+              f"{[round(v, 4) for v in losses]}, step ms {[round(t, 2) for t in times]} "
+              f"(median of the last {steps - 1} {rows[label]['step_ms']:.2f}), peak "
+              f"{peak:.2f} GiB, {calls} augmentation calls"
+              + (f", attention {eval_fwd} launches in predict and {fwd} + {bwd} in the steps, "
+                 f"all f32_cuda" if mit else "")
+              + f"; predict of {m} images, card against CPU: max|err| "
+              + ", ".join(f"{e:.3e} (bound {b:.3e})" for e, b in errs), flush=True)
+        del state, out
+        torch.cuda.empty_cache()
+        if mit:  # one fp32 step with the kernels and one with the plain attention
+            small = {k: v[:m] for k, v in data.items()}
+            kernel = reset_attention_counts(attention)
+            got = one_step(arch, encoder, kw, small)
+            launched = kernel.kernel_launches + kernel.backward_launches
+            with plain_attention():
+                plain = one_step(arch, encoder, kw, small)
+            require(launched == 2 * SMP_MIT_LAUNCHES and kernel.kernel_launches
+                    + kernel.backward_launches == launched,
+                    f"{label}: {launched} launches with the kernels, "
+                    f"{kernel.kernel_launches + kernel.backward_launches - launched} plain")
+            d_loss = abs(got - plain)
+            print(f"smp {label}: one fp32 train step of {m} images, kernels against plain "
+                  f"attention: loss {got:.6f} vs {plain:.6f} (|d|={d_loss:.2e}, atol "
+                  f"{ATTN_STEP_LOSS_ATOL})", flush=True)
+            require(d_loss <= ATTN_STEP_LOSS_ATOL, f"{label}: step losses differ by {d_loss}")
+            torch.cuda.empty_cache()
+    print("smp step table: " + json.dumps(rows), flush=True)
+    return aug_calls, attn_fwd, attn_bwd
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2165,6 +2324,9 @@ def main() -> int:
         export_v6 = phase_export(torch, np, attention, root, gpu_label)
         # phase 18: the rest of the define_G zoo
         aug_by_path.update(phase_zoo(torch, augment.apply_augment_kernel, gpu_label, root))
+    # phase 19: the smp architectures of create_model
+    aug_by_path["smp_zoo"], smp_fwd, smp_bwd = phase_smp(
+        torch, attention, augment.apply_augment_kernel, gpu_label)
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
@@ -2173,23 +2335,25 @@ def main() -> int:
                    "train_cd_v6": train_cd["v6"]["fwd"], "train_cd_bit": train_cd["bit"]["fwd"],
                    **{f"{k.lower()}_eval_and_step": v["eval_fwd"] + v["train_fwd"]
                       for k, v in zoo.items()},
-                   "export_v6_loaded": export_v6}
+                   "export_v6_loaded": export_v6, "smp_fpn_mit_b2": smp_fwd}
     bwd_by_path = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
                    "bit_training": bit_bwd, "train_cd_v6": train_cd["v6"]["bwd"],
                    "train_cd_bit": train_cd["bit"]["bwd"],
-                   **{f"{k.lower()}_step": v["train_bwd"] for k, v in zoo.items()}}
+                   **{f"{k.lower()}_step": v["train_bwd"] for k, v in zoo.items()},
+                   "smp_fpn_mit_b2": smp_bwd}
     attn["launches"], attn["launches_by_path"] = sum(fwd_by_path.values()), fwd_by_path
     attn_bwd["launches"], attn_bwd["launches_by_path"] = sum(bwd_by_path.values()), bwd_by_path
     # the variant each path launched (each path's run required that it launched no other)
-    f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded")
+    f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded",
+                 "smp_fpn_mit_b2")
     attn["variants"] = {
         "f32_cuda": sum(fwd_by_path[k] for k in f32_paths) + sum(
             v["eval_fwd"] + v["train_fwd"] for v in zoo.values()),
         V6_TRAIN["variant"]: v6_fwd,
         BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"]}
     attn_bwd["variants"] = {
-        "f32_cuda": v6_fp32_bwd + train_cd["v6"]["bwd"] + sum(v["train_bwd"]
-                                                             for v in zoo.values()),
+        "f32_cuda": v6_fp32_bwd + train_cd["v6"]["bwd"] + smp_bwd + sum(
+            v["train_bwd"] for v in zoo.values()),
         V6_TRAIN["variant"]: v6_bwd, BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"]}
     attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 

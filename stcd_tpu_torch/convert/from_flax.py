@@ -6,7 +6,15 @@ convert_unet_decoder and convert_unetseg (:39-70, :177-212), of convert_bit
 (:365-436), and of the bespoke zoo's: convert_siam_unet (:261), convert_snunet
 (:323), convert_dtcdscn (:496), convert_dsifn (:549) with
 convert_vgg16_features (:77), convert_cdnet (:215) and convert_changevig
-(:1103) with its decoder helpers (:876-1100).
+(:1103) with its decoder helpers (:876-1100), and of the smp assemblies of
+``create_model``: convert_vgg (:1480), convert_fpn_decoder (:704),
+convert_psp_decoder (:721), convert_linknet_decoder (:736),
+convert_unetplusplus_decoder (:757), convert_manet_decoder (:771), _aspp,
+convert_deeplabv3_decoder and convert_deeplabv3plus_decoder (:797-846) and
+convert_pan_decoder (:847), with the parts no JAX converter reads (the scse
+gates, the VGG center block, the classification head), all reached through
+``smp_model_from_flax``. ``resnet_from_flax`` takes ResNeXt's grouped kernels
+as they are.
 
 It takes the nested dicts of arrays that flax holds (numpy or anything
 ``np.asarray`` reads) and returns a flat state_dict of CPU tensors under the
@@ -246,20 +254,48 @@ def resnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
     return sd
 
 
+def _conv_bn_relu(sd: StateDict, prefix: str, p: dict, s: dict) -> None:
+    """Inverse of _conv_block (:166-174): a ConvBNReLU's ``conv`` and ``bn``
+    -> smp's ``{prefix}.0`` and ``{prefix}.1``."""
+    _conv_b(sd, f"{prefix}.0", p["conv"])
+    if "bn" in p:
+        _bn(sd, f"{prefix}.1", p["bn"], s["bn"])
+
+
+def _scse(sd: StateDict, prefix: str, p: dict) -> None:
+    """The JAX SCSEModule (``cse_fc1``, ``cse_fc2``, ``sse_conv``) -> smp's
+    ``{prefix}.cSE.1``, ``.cSE.3`` and ``.sSE.0`` (no JAX converter writes it)."""
+    _conv_b(sd, f"{prefix}.cSE.1", p["cse_fc1"])
+    _conv_b(sd, f"{prefix}.cSE.3", p["cse_fc2"])
+    _conv_b(sd, f"{prefix}.sSE.0", p["sse_conv"])
+
+
+def _decoder_block(sd: StateDict, prefix: str, p: dict, s: dict) -> None:
+    """A U-Net DecoderBlock: ``conv{1,2}`` and the scse gates
+    ``attention{1,2}``, which sit under ``attention{1,2}.attention``."""
+    for cname in ("conv1", "conv2"):
+        _conv_bn_relu(sd, f"{prefix}.{cname}", p[cname], s.get(cname, {}))
+    for gate in ("attention1", "attention2"):
+        if gate in p:
+            _scse(sd, f"{prefix}.{gate}.attention", p[gate]["SCSEModule_0"])
+
+
 def unet_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
                            prefix: str = "decoder") -> StateDict:
     """Inverse of convert_unet_decoder: ``block{i}/conv{1,2}/{conv,bn}`` ->
-    smp's ``{prefix}.blocks.{i}.conv{1,2}.{0,1}``."""
+    smp's ``{prefix}.blocks.{i}.conv{1,2}.{0,1}``; also the scse gates and the
+    VGG center block (``center/conv{1,2}`` -> ``{prefix}.center.{0,1}``),
+    which convert_unet_decoder does not read."""
     sd: StateDict = {}
     i = 0
     while f"block{i}" in params:
-        for cname in ("conv1", "conv2"):
-            p = params[f"block{i}"][cname]
-            base = f"{prefix}.blocks.{i}.{cname}"
-            _conv_b(sd, f"{base}.0", p["conv"])
-            if "bn" in p:
-                _bn(sd, f"{base}.1", p["bn"], stats[f"block{i}"][cname]["bn"])
+        _decoder_block(sd, f"{prefix}.blocks.{i}", params[f"block{i}"],
+                       stats.get(f"block{i}", {}))
         i += 1
+    if "center" in params:
+        for j, cname in enumerate(("conv1", "conv2")):
+            _conv_bn_relu(sd, f"{prefix}.center.{j}", params["center"][cname],
+                          stats["center"].get(cname, {}))
     return sd
 
 
@@ -626,4 +662,213 @@ def changevig_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
                 "gnn_v2_conc": "conc"}[model]
         _decoder_v2(sd, dec, p, s, mode)
     _final_head(sd, dec, p["head"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The smp assemblies of create_model (torch_to_flax.py:704-874, :1480-1504)
+# ---------------------------------------------------------------------------
+
+def vgg_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                  prefix: str = "") -> StateDict:
+    """Inverse of convert_vgg (:1480-1504): VGGEncoder's ``conv{i}`` (and
+    ``bn{i}`` in a ``_bn`` variant) -> torchvision's ``{prefix}features.{j}``.
+    The indices follow from the stages, which are read from the kernels'
+    output widths: 64, 128 and 256, then 512 in two stages as long as the
+    256 one (torchvision's configs A, B, D and E)."""
+    sd: StateDict = {}
+    n = sum(1 for k in params if k.startswith("conv"))
+    widths = [np.asarray(params[f"conv{i}"]["kernel"]).shape[-1] for i in range(n)]
+    stage_len = widths.count(256)
+    stage_of = [min(3 + (i - widths.index(512)) // stage_len, 4) if w == 512
+                else (64, 128, 256).index(w) for i, w in enumerate(widths)]
+    bn = "bn0" in params
+    j = 0
+    for i in range(n):
+        if i > 0 and stage_of[i] != stage_of[i - 1]:
+            j += 1  # the max pool between two stages
+        _conv_b(sd, f"{prefix}features.{j}", params[f"conv{i}"])
+        if bn:
+            _bn(sd, f"{prefix}features.{j + 1}", params[f"bn{i}"], stats[f"bn{i}"])
+        j += 3 if bn else 2
+    return sd
+
+
+def _encoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any]) -> StateDict:
+    """The ``encoder`` of any create_model arch, by its tree: MiT, VGG or ResNet."""
+    if "mit" in params:
+        return mit_encoder_from_flax(params["mit"], "encoder")
+    if "conv0" in params:
+        return vgg_from_flax(params, stats, "encoder.")
+    return resnet_from_flax(params, stats, "encoder.")
+
+
+def fpn_decoder_from_flax(params: Dict[str, Any], prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_fpn_decoder (:704-718)."""
+    sd: StateDict = {}
+    _conv_b(sd, f"{prefix}.p5", params["p5"])
+    for name in ("p4", "p3", "p2"):
+        _conv_b(sd, f"{prefix}.{name}.skip_conv", params[f"{name}_skip"])
+    for i, n_up in enumerate((3, 2, 1, 0)):
+        for j in range(max(n_up, 1)):
+            p = params[f"seg{i}_{j}"]
+            base = f"{prefix}.seg_blocks.{i}.block.{j}.block"
+            _conv_b(sd, f"{base}.0", p["conv"])
+            sd[f"{base}.1.weight"] = _t(p["gn"]["scale"])
+            sd[f"{base}.1.bias"] = _t(p["gn"]["bias"])
+    return sd
+
+
+def psp_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                          prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_psp_decoder (:721-733)."""
+    sd: StateDict = {}
+    for i in range(4):
+        _conv_bn_relu(sd, f"{prefix}.psp.blocks.{i}.pool.1", params[f"psp{i}"],
+                      stats.get(f"psp{i}", {}))
+    _conv_bn_relu(sd, f"{prefix}.conv", params["conv"], stats.get("conv", {}))
+    return sd
+
+
+def linknet_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                              prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_linknet_decoder (:736-754); the transposed conv's
+    kernel goes back by _conv_w (the inverse of _convT_2x)."""
+    sd: StateDict = {}
+    i = 0
+    while f"block{i}" in params:
+        p, s = params[f"block{i}"], stats.get(f"block{i}", {})
+        base = f"{prefix}.blocks.{i}.block"
+        _conv_bn_relu(sd, f"{base}.0", p["conv1"], s.get("conv1", {}))
+        _conv_b(sd, f"{base}.1.0", p["transpose"])
+        if "transpose_bn" in p:
+            _bn(sd, f"{base}.1.1", p["transpose_bn"], s["transpose_bn"])
+        _conv_bn_relu(sd, f"{base}.2", p["conv2"], s.get("conv2", {}))
+        i += 1
+    return sd
+
+
+def unetplusplus_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                                   prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_unetplusplus_decoder (:757-768): the nodes keep
+    their ``x_{depth}_{layer}`` names under ``{prefix}.blocks``."""
+    sd: StateDict = {}
+    for node, p in params.items():
+        _decoder_block(sd, f"{prefix}.blocks.{node}", p, stats.get(node, {}))
+    return sd
+
+
+def manet_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                            prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_manet_decoder (:771-795)."""
+    sd: StateDict = {}
+    c = params["center"]
+    for ours, ref in (("top", "top_conv"), ("center", "center_conv"),
+                      ("bottom", "bottom_conv"), ("out_conv", "out_conv")):
+        _conv_b(sd, f"{prefix}.center.{ref}", c[ours])
+    i = 0
+    while f"block{i}" in params:
+        p, s = params[f"block{i}"], stats.get(f"block{i}", {})
+        base = f"{prefix}.blocks.{i}"
+        if "hl1" in p:  # MFAB
+            _conv_bn_relu(sd, f"{base}.hl_conv.0", p["hl1"], s.get("hl1", {}))
+            _conv_bn_relu(sd, f"{base}.hl_conv.1", p["hl2"], s.get("hl2", {}))
+            for ours, ref in (("se_hl", "SE_hl"), ("se_ll", "SE_ll")):
+                _conv_b(sd, f"{base}.{ref}.1", p[ours]["fc1"])
+                _conv_b(sd, f"{base}.{ref}.3", p[ours]["fc2"])
+        _conv_bn_relu(sd, f"{base}.conv1", p["conv1"], s.get("conv1", {}))
+        _conv_bn_relu(sd, f"{base}.conv2", p["conv2"], s.get("conv2", {}))
+        i += 1
+    return sd
+
+
+def _separable(sd: StateDict, prefix: str, p: dict) -> None:
+    _conv_b(sd, f"{prefix}.0", p["dw"])
+    _conv_b(sd, f"{prefix}.1", p["pw"])
+
+
+def _aspp(sd: StateDict, prefix: str, p: dict, s: dict) -> None:
+    """Inverse of _aspp (:797-819), plain or separable by the tree."""
+    _conv_b(sd, f"{prefix}.convs.0.0", p["b0_conv"])
+    _bn(sd, f"{prefix}.convs.0.1", p["b0_bn"], s["b0_bn"])
+    for i in (1, 2, 3):
+        if f"b{i}" in p:  # separable
+            _separable(sd, f"{prefix}.convs.{i}.0", p[f"b{i}"])
+            _bn(sd, f"{prefix}.convs.{i}.1", p[f"b{i}"]["bn"], s[f"b{i}"]["bn"])
+        else:
+            _conv_b(sd, f"{prefix}.convs.{i}.0", p[f"b{i}_conv"])
+            _bn(sd, f"{prefix}.convs.{i}.1", p[f"b{i}_bn"], s[f"b{i}_bn"])
+    _conv_b(sd, f"{prefix}.convs.4.1", p["pool_conv"])
+    _bn(sd, f"{prefix}.convs.4.2", p["pool_bn"], s["pool_bn"])
+    _conv_b(sd, f"{prefix}.project.0", p["project_conv"])
+    _bn(sd, f"{prefix}.project.1", p["project_bn"], s["project_bn"])
+
+
+def deeplabv3_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                                prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_deeplabv3_decoder (:822-829)."""
+    sd: StateDict = {}
+    _aspp(sd, f"{prefix}.0", params["aspp"], stats["aspp"])
+    _conv_b(sd, f"{prefix}.1", params["conv"])
+    _bn(sd, f"{prefix}.2", params["bn"], stats["bn"])
+    return sd
+
+
+def deeplabv3plus_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                                    prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_deeplabv3plus_decoder (:832-846)."""
+    sd: StateDict = {}
+    _aspp(sd, f"{prefix}.aspp.0", params["aspp"], stats["aspp"])
+    _separable(sd, f"{prefix}.aspp.1", params["aspp_sep"])
+    _bn(sd, f"{prefix}.aspp.2", params["aspp_sep"]["bn"], stats["aspp_sep"]["bn"])
+    _conv_b(sd, f"{prefix}.block1.0", params["block1_conv"])
+    _bn(sd, f"{prefix}.block1.1", params["block1_bn"], stats["block1_bn"])
+    _separable(sd, f"{prefix}.block2.0", params["block2"])
+    _bn(sd, f"{prefix}.block2.1", params["block2"]["bn"], stats["block2"]["bn"])
+    return sd
+
+
+def pan_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                          prefix: str = "decoder") -> StateDict:
+    """Inverse of convert_pan_decoder (:847-870)."""
+    sd: StateDict = {}
+
+    def cbr(name: str, p: dict, s: dict) -> None:
+        _conv_b(sd, f"{prefix}.{name}.conv", p["conv"])
+        _bn(sd, f"{prefix}.{name}.bn", p["bn"], s["bn"])
+
+    fpa, fpa_s = params["fpa"], stats["fpa"]
+    for ours, ref in (("branch1", "branch1.1"), ("mid", "mid.0"), ("down1", "down1.1"),
+                      ("down2", "down2.1"), ("down3a", "down3.1"), ("down3b", "down3.2"),
+                      ("conv1", "conv1"), ("conv2", "conv2")):
+        cbr(f"fpa.{ref}", fpa[ours], fpa_s[ours])
+    for k in (1, 2, 3):
+        g, gs = params[f"gau{k}"], stats[f"gau{k}"]
+        cbr(f"gau{k}.conv1.1", g["conv1"], gs["conv1"])
+        cbr(f"gau{k}.conv2", g["conv2"], gs["conv2"])
+    return sd
+
+
+_DECODERS = {
+    "unet": unet_decoder_from_flax, "unetseg": unet_decoder_from_flax,
+    "segcd": unet_decoder_from_flax, "ffctlcd": unet_decoder_from_flax,
+    "unetplusplus": unetplusplus_decoder_from_flax, "manet": manet_decoder_from_flax,
+    "linknet": linknet_decoder_from_flax, "fpn": lambda p, s: fpn_decoder_from_flax(p),
+    "pspnet": psp_decoder_from_flax, "deeplabv3": deeplabv3_decoder_from_flax,
+    "deeplabv3plus": deeplabv3plus_decoder_from_flax, "pan": pan_decoder_from_flax,
+}
+
+
+def smp_model_from_flax(arch: str, params: Dict[str, Any],
+                        batch_stats: Optional[Dict[str, Any]] = None) -> StateDict:
+    """A JAX ``create_model(arch, ...)``'s (params, batch_stats) -> the port's
+    state_dict for ``create_model(arch, ...)`` with the same settings: the
+    encoder (ResNet/ResNeXt, VGG or MiT, told apart by the tree), the decoder,
+    the segmentation head and Unet's classification head."""
+    batch_stats = batch_stats or {}
+    sd = _encoder_from_flax(params["encoder"], batch_stats.get("encoder", {}))
+    sd.update(_DECODERS[arch.lower()](params["decoder"], batch_stats.get("decoder", {})))
+    _conv_b(sd, "segmentation_head.0", params["segmentation_head"]["conv"])
+    if "classification_head" in params:
+        _linear(sd, "classification_head.3", params["classification_head"]["Dense_0"])
     return sd

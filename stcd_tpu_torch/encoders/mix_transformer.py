@@ -34,9 +34,10 @@ class MixTransformerEncoder(SegFormerEncoder):
     """heads (1, 2, 5, 8), SR ratios (8, 4, 2, 1), MLP ratio 4, patch 7 stride
     4 and then patch 3 stride 2, q/kv bias, DropPath 0.1, LayerNorm eps 1e-6."""
 
-    def __init__(self, variant: str = "mit_b0", depth: int = 5, device=None):
+    def __init__(self, variant: str = "mit_b0", depth: int = 5, in_channels: int = 3,
+                 device=None):
         cfg = MIT_CFGS[variant]
-        super().__init__(3, cfg["embed_dims"], cfg["depths"], (1, 2, 5, 8), (4, 4, 4, 4),
+        super().__init__(in_channels, cfg["embed_dims"], cfg["depths"], (1, 2, 5, 8), (4, 4, 4, 4),
                          (8, 4, 2, 1), first_patch=7, first_stride=4, patch_size=3,
                          qkv_bias=True, drop_path_rate=0.1, device=device)
         self.depth = depth

@@ -9,7 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stcd_tpu_torch.layers.norm import BatchNorm
-from stcd_tpu_torch.layers.stochastic import Stochastic
+from stcd_tpu_torch.layers.stochastic import Dropout, Stochastic
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
@@ -146,3 +146,81 @@ class SegmentationHead(nn.Sequential):
             x = resize_bilinear(x, (h * self.upsampling, w * self.upsampling),
                                 align_corners=True)
         return self.activation(x)
+
+
+class PredictMixin:
+    """smp's ``model.predict(x)`` (stcd_tpu/layers/modules.py:157-169): the
+    forward in eval mode without autograd. The module stays in eval mode, as
+    smp's does."""
+
+    def predict(self, *inputs):
+        self.eval()
+        with torch.no_grad():
+            return self(*inputs)
+
+
+class ConvTranspose2x(nn.ConvTranspose2d):
+    """``ConvTranspose2d(k, stride 2, padding k // 2, output_padding 1)``: an
+    exact 2x upsample for odd k (stcd_tpu/layers/modules.py:219-244)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 bias: bool = True, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=2,
+                         padding=kernel_size // 2, output_padding=1, bias=bias,
+                         device=device)
+
+
+class SCSEModule(nn.Module):
+    """Concurrent spatial and channel squeeze-excitation
+    (stcd_tpu/layers/modules.py:247-270), under smp's names: ``cSE.1`` and
+    ``cSE.3`` are the channel gate's 1x1 convs, ``sSE.0`` the spatial gate's.
+    ``x * cSE(x) + x * sSE(x)``."""
+
+    def __init__(self, in_channels: int, reduction: int = 16, device=None):
+        super().__init__()
+        reduced = max(in_channels // reduction, 1)
+        self.cSE = nn.Sequential(nn.AdaptiveAvgPool2d(1),
+                                 nn.Conv2d(in_channels, reduced, 1, device=device), nn.ReLU(),
+                                 nn.Conv2d(reduced, in_channels, 1, device=device),
+                                 nn.Sigmoid())
+        self.sSE = nn.Sequential(nn.Conv2d(in_channels, 1, 1, device=device), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.cSE(x) + x * self.sSE(x)
+
+
+class AttentionGate(nn.Module):
+    """smp's ``Attention`` (stcd_tpu/layers/modules.py:273-287): ``None`` is
+    the identity, ``"scse"`` an SCSEModule under ``attention``."""
+
+    def __init__(self, name: Union[str, None], in_channels: int = 0, device=None):
+        super().__init__()
+        if name is None:
+            self.attention = nn.Identity()
+        elif name == "scse":
+            self.attention = SCSEModule(in_channels, device=device)
+        else:
+            raise ValueError(f"Attention {name} is not implemented")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.attention(x)
+
+
+class ClassificationHead(nn.Sequential):
+    """Pool, flatten, dropout, linear and activation over the deepest encoder
+    feature (stcd_tpu/layers/modules.py:315-337), under smp's names: ``3`` is
+    the linear layer. The dropout is element-wise and draws from the port's
+    generator (``layers/stochastic.py``)."""
+
+    def __init__(self, in_channels: int, classes: int, pooling: str = "avg",
+                 dropout: float = 0.2, activation: Union[str, Callable, None] = None,
+                 device=None):
+        if pooling not in ("max", "avg"):
+            raise ValueError(f"Pooling should be one of ('max', 'avg'), got {pooling}.")
+        pool = nn.AdaptiveAvgPool2d(1) if pooling == "avg" else nn.AdaptiveMaxPool2d(1)
+        super().__init__(pool, nn.Flatten(), Dropout(dropout) if dropout else nn.Identity(),
+                         nn.Linear(in_channels, classes, device=device))
+        self.activation = Activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.activation(super().forward(x))

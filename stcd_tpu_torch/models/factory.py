@@ -1,9 +1,62 @@
-"""Model factory (counterpart of stcd_tpu/models/factory.py::define_G)."""
+"""Model factories (counterpart of stcd_tpu/models/factory.py): smp's
+``create_model`` over the 12 architectures of the JAX ``_ARCHS``, and
+``define_G`` over the bespoke change-detection zoo."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from stcd_tpu_torch.models import segcd as _segcd
+from stcd_tpu_torch.models import smp_models as _smp
+
+_ARCHS = {
+    "unet": _segcd.Unet,
+    "unetseg": _segcd.UnetSeg,
+    "segcd": _segcd.SegCD,
+    "ffctlcd": _segcd.FFCTLCD,
+    "unetplusplus": _smp.UnetPlusPlus,
+    "manet": _smp.MAnet,
+    "linknet": _smp.Linknet,
+    "fpn": _smp.FPN,
+    "pspnet": _smp.PSPNet,
+    "deeplabv3": _smp.DeepLabV3,
+    "deeplabv3plus": _smp.DeepLabV3Plus,
+    "pan": _smp.PAN,
+}
+
+
+def create_model(arch: str, encoder_name: str = "resnet34",
+                 encoder_weights: Optional[str] = None, in_channels: int = 3,
+                 classes: int = 1, device=None, **kwargs) -> nn.Module:
+    """smp's ``create_model`` (stcd_tpu/models/factory.py:32-71): ``arch`` is
+    one of ``_ARCHS`` (any case); ``kwargs`` go to its constructor.
+    ``encoder_weights`` (a path, or a name such as ``"imagenet"`` looked up
+    in ``$STCD_PRETRAINED_DIR``) is resolved here, so a missing file raises
+    before anything is built, and loaded into the encoder. ``in_channels``
+    other than 3 builds the first conv at that width; with pretrained
+    weights it raises, as in the JAX package, since the first conv's
+    adaptation is not ported."""
+    arch_l = arch.lower()
+    if arch_l not in _ARCHS:
+        raise KeyError(f"Wrong architecture `{arch}`. Available: {sorted(_ARCHS)}")
+    if in_channels != 3 and encoder_weights is not None:
+        raise NotImplementedError(
+            f"in_channels={in_channels} with pretrained weights needs the first-conv "
+            "adaptation, which is not ported: build with encoder_weights=None and load "
+            "a checkpoint made for that width.")
+    if encoder_weights is not None:
+        from stcd_tpu_torch.convert.pretrained import resolve_encoder_weights
+        encoder_weights = resolve_encoder_weights(encoder_weights, encoder_name)
+    return _ARCHS[arch_l](encoder_name=encoder_name, encoder_weights=encoder_weights,
+                          in_channels=in_channels, classes=classes, device=device, **kwargs)
+
+
+def register_arch(name: str, cls) -> None:
+    _ARCHS[name.lower()] = cls
+
 
 _BIT_KEYS = {
     "base_transformer_pos_s4": dict(),

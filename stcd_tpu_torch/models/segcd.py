@@ -16,38 +16,54 @@ the same in both forms.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from stcd_tpu_torch.decoders.unet import UnetDecoder
 from stcd_tpu_torch.encoders import get_encoder
-from stcd_tpu_torch.layers.modules import SegmentationHead, resize_bilinear
+from stcd_tpu_torch.layers.modules import (ClassificationHead, PredictMixin, SegmentationHead,
+                                           resize_bilinear)
 from stcd_tpu_torch.layers.se import ChannelSpatialSELayer
 
 
-class _EncDecHead(nn.Module):
+class _EncDecHead(PredictMixin, nn.Module):
     """Shared encoder + UnetDecoder + SegmentationHead assembly
-    (stcd_tpu/models/segcd.py:44-108)."""
+    (stcd_tpu/models/segcd.py:44-108). ``decoder_attention_type="scse"``
+    gates every decoder block; a VGG encoder gets the center block;
+    ``aux_params`` (``classes``, ``pooling``, ``dropout``, ``activation``)
+    adds smp's classification head over the deepest feature, which ``Unet``
+    returns beside the mask. ``encoder_weights`` is loaded into the encoder
+    (``encoders.get_encoder``)."""
 
     def __init__(self, encoder_name: str = "resnet34", encoder_depth: int = 5,
+                 encoder_weights: Optional[str] = None,
                  decoder_use_batchnorm: bool = True,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 classes: int = 1, activation: Union[str, None] = None,
+                 decoder_attention_type: Optional[str] = None,
+                 in_channels: int = 3, classes: int = 1,
+                 activation: Union[str, None] = None, aux_params: Optional[dict] = None,
                  siamese_batched: bool = True, device=None):
         super().__init__()
         self.encoder_name = encoder_name
         self.encoder_depth = encoder_depth
         self.siamese_batched = siamese_batched
-        self.encoder, encoder_channels = get_encoder(encoder_name, depth=encoder_depth,
-                                                     device=device)
+        self.encoder, encoder_channels = get_encoder(
+            encoder_name, in_channels=in_channels, depth=encoder_depth,
+            weights=encoder_weights, device=device)
         self.decoder = UnetDecoder(encoder_channels, tuple(decoder_channels),
                                    n_blocks=encoder_depth,
-                                   use_batchnorm=decoder_use_batchnorm, device=device)
+                                   use_batchnorm=decoder_use_batchnorm,
+                                   attention_type=decoder_attention_type,
+                                   center=encoder_name.startswith("vgg"), device=device)
         self.segmentation_head = SegmentationHead(decoder_channels[-1], classes,
                                                   kernel_size=3, activation=activation,
                                                   device=device)
+        self.classification_head = None
+        if aux_params is not None:
+            self.classification_head = ClassificationHead(encoder_channels[-1], device=device,
+                                                          **aux_params)
 
     def check_input_shape(self, x: torch.Tensor) -> None:
         """Reject spatial sizes the pyramid cannot round-trip."""
@@ -79,8 +95,16 @@ class UnetSeg(_EncDecHead):
         return self.head(self.decode(self.encode(x)))
 
 
-class Unet(UnetSeg):
-    """smp Unet without the auxiliary classification head."""
+class Unet(_EncDecHead):
+    """smp's Unet: ``forward(x) -> mask``, or ``(mask, labels)`` with
+    ``aux_params``."""
+
+    def forward(self, x: torch.Tensor):
+        feats = self.encode(x)
+        mask = self.head(self.decode(feats))
+        if self.classification_head is not None:
+            return mask, self.classification_head(feats[-1])
+        return mask
 
 
 class SegCD(_EncDecHead):
@@ -162,18 +186,21 @@ class CDNet(nn.Module):
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights: every conv kernel normal(0, sqrt(1 / fan_in))
-    (the JAX models' lecun_normal scale, untruncated), conv biases 0,
+    """Seeded random weights for these models and every model of
+    ``create_model``: every conv, transposed-conv and linear weight normal(0,
+    sqrt(1 / fan_in)) (the JAX models' lecun_normal scale, untruncated; the
+    fan counts the receptive field and a group's input channels), biases 0,
     BatchNorm weight 1 and bias 0. Drawn on the CPU from one
     ``torch.Generator`` and copied to each parameter's device, so a seed gives
     the same weights on every device."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.weight[0].numel()
-                w = torch.randn(mod.weight.shape, generator=gen) * fan_in ** -0.5
-                mod.weight.copy_(w)
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = mod.weight  # a transposed conv's is (in, out / groups, kh, kw)
+                fan_in = (w.shape[0] * w[0, 0].numel() if isinstance(mod, nn.ConvTranspose2d)
+                          else w[0].numel())
+                mod.weight.copy_(torch.randn(w.shape, generator=gen) * fan_in ** -0.5)
                 if mod.bias is not None:
                     mod.bias.zero_()
     return model

@@ -199,10 +199,13 @@ class _Sites:
 @contextlib.contextmanager
 def _intercept(model: nn.Module, sites: _Sites):
     """Give ``model``'s conv modules and UNet decoder blocks an instance
-    ``forward`` that goes through ``sites``; take it away after."""
+    ``forward`` that goes through ``sites``; take it away after. A block with
+    scse gates keeps its own forward, its convs sites of their own: the JAX
+    block takes the split form only without gates."""
     from stcd_tpu_torch.decoders.unet import DecoderBlock
 
-    blocks = [m for m in model.modules() if isinstance(m, DecoderBlock)]
+    blocks = [m for m in model.modules() if isinstance(m, DecoderBlock)
+              and isinstance(m.attention2.attention, nn.Identity)]
     claimed = {id(b.conv1[0]) for b in blocks}
     convs = [m for m in model.modules()
              if isinstance(m, nn.Conv2d) and id(m) not in claimed]

@@ -13,6 +13,7 @@ from torch import nn
 
 from stcd_tpu_torch.cli.predict import resolve_device
 from stcd_tpu_torch.convert.pretrained import resolve_encoder_weights
+from stcd_tpu_torch.encoders import load_encoder_weights
 from stcd_tpu_torch.train.schedules import Schedule, poly_schedule
 
 
@@ -48,8 +49,6 @@ class AdamWConfig(NamedTuple):
 
 
 OptimizerConfig = Union[AdamConfig, SGDConfig, AdamWConfig]
-# a torchvision classification model's head, which no encoder has
-_CLASSIFIER_KEYS = ("fc.weight", "fc.bias")
 
 
 def make_optimizer(tx: OptimizerConfig, params) -> torch.optim.Optimizer:
@@ -115,10 +114,10 @@ def create_train_state(model: nn.Module, tx: OptimizerConfig, device="cuda",
     names, loaded strictly into ``model.encoder``: its path, or ``"imagenet"``
     for ``{encoder}.pth`` under ``$STCD_PRETRAINED_DIR``
     (``convert.pretrained.resolve_encoder_weights``: a missing file raises,
-    nothing is downloaded). A torchvision classifier's ``fc.weight`` and
-    ``fc.bias`` are dropped first, as smp's ``ResNetEncoder.load_state_dict``
-    drops them and the JAX converter never reads them; every other unexpected
-    or missing key raises. A file without ``num_batches_tracked`` loads
+    nothing is downloaded). A torchvision classifier (``fc.*``, VGG's
+    ``classifier.*``) is dropped first (``encoders.load_encoder_weights``), as
+    smp's encoders drop it and the JAX converters never read it; every other
+    unexpected or missing key raises. A file without ``num_batches_tracked`` loads
     (``layers.norm.BatchNorm``)."""
     device = resolve_device(device)
     model = model.to(device)
@@ -126,9 +125,7 @@ def create_train_state(model: nn.Module, tx: OptimizerConfig, device="cuda",
         model = model.to(memory_format=torch.channels_last)
     path = resolve_encoder_weights(encoder_weights, getattr(model, "encoder_name", None))
     if path is not None:
-        sd = torch.load(path, map_location=device, weights_only=True)
-        sd = {k: v for k, v in sd.items() if k not in _CLASSIFIER_KEYS}
-        model.encoder.load_state_dict(sd, strict=True)
+        load_encoder_weights(model.encoder, path)
     generator = None
     if seed is not None:
         generator = torch.Generator(device=device).manual_seed(seed)

@@ -23,8 +23,9 @@ BatchNorm buffers as the first forward set them.
 
 Every train step is ``train_step(state, batch, generator=None,
 aug_params=None, augment_impl=None)``: it updates ``state`` in place and
-returns a dict of tensors. ``aug_params`` replaces the sampling from
-``generator``, so that draws made elsewhere can drive the step.
+returns a dict of tensors. ``generator`` gives the augmentation's draws and
+the model's dropout and DropPath masks; ``aug_params`` replaces the sampling
+of the augmentation, so that draws made elsewhere can drive the step.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from stcd_tpu_torch.data.augment import (concat_params, eval_preprocess, params_to,
                                          sample_pair_params, train_augment,
                                          train_augment_pair)
+from stcd_tpu_torch.layers.stochastic import set_generator
 from stcd_tpu_torch.losses.functional import bce_dice, contrastive_loss
 from stcd_tpu_torch.metrics.confusion import confusion_matrix
 
@@ -63,20 +65,30 @@ def _micro_slices(n: int, accum_steps: int):
     return [slice(i * m, (i + 1) * m) for i in range(accum_steps)]
 
 
-def _accum_update(state, micro: Callable, accum_steps: int, remat: bool
+def _accum_update(state, micro: Callable, accum_steps: int, remat: bool,
+                  generator: Optional[torch.Generator]
                   ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """The micro-batch loop that the three train steps share, and one
     optimizer update. ``micro(i) -> (model inputs, loss_of)`` gives micro-batch
     i's inputs and a function from the model's output to
     ``(loss, counts, extra loss terms)``. Returns the mean loss, the summed
-    counts and the mean extras."""
-    model = state.model.train()
+    counts and the mean extras. The model's dropouts and DropPaths draw from
+    ``generator`` (``layers/stochastic.py``), as the JAX steps draw them from
+    the step's key; the recomputed forward of ``remat`` draws the same masks."""
+    model = set_generator(state.model.train(), generator)
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum, cm, extras_sum = 0.0, 0, ()
     for i in range(accum_steps):
         inputs, loss_of = micro(i)
         if remat:
-            out = checkpoint(_forward, state, *inputs, use_reentrant=False)
+            drawn_from = generator.get_state() if generator is not None else None
+
+            def forward(*inputs):
+                if drawn_from is not None:
+                    generator.set_state(drawn_from)
+                return _forward(state, *inputs)
+
+            out = checkpoint(forward, *inputs, use_reentrant=False)
             buffers = [buf.clone() for buf in model.buffers()]
         else:
             out = _forward(state, *inputs)
@@ -126,7 +138,7 @@ def make_seg_steps(model=None, augment: bool = True, remat: bool = False,
             ml = label[slices[i]]
             return (image[slices[i]],), lambda pred: _binary_loss(pred, ml)
 
-        loss, cm, _ = _accum_update(state, micro, accum_steps, remat)
+        loss, cm, _ = _accum_update(state, micro, accum_steps, remat, generator)
         return {"loss": loss, "cm": cm}
 
     @torch.no_grad()
@@ -166,7 +178,7 @@ def make_cd_steps(model=None, augment: bool = True, remat: bool = False,
             ml = label[slices[i]]
             return (a[slices[i]], b[slices[i]]), lambda out: _binary_loss(out[2], ml)
 
-        loss, cm, _ = _accum_update(state, micro, accum_steps, remat)
+        loss, cm, _ = _accum_update(state, micro, accum_steps, remat, generator)
         return {"loss": loss, "cm": cm}
 
     @torch.no_grad()
@@ -239,7 +251,8 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
 
             return (data_a, data_b), loss_of
 
-        loss, cm, (seg_loss, cd_loss, ct_loss) = _accum_update(state, micro, accum_steps, remat)
+        loss, cm, (seg_loss, cd_loss, ct_loss) = _accum_update(state, micro, accum_steps,
+                                                               remat, generator)
         return {"loss": loss, "seg_loss": seg_loss, "cd_loss": cd_loss, "ct_loss": ct_loss,
                 "cm": cm}
 

@@ -274,7 +274,7 @@ def test_device_cuda_without_card_raises_and_other_models_wait(monkeypatch):
         cli_predict.resolve_device("cuda")
     from stcd_tpu_torch.encoders import get_encoder
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_encoder("vgg16")  # the smp zoo's encoders wait (Queue 1 #9)
+        get_encoder("densenet121")  # the other encoder families wait (Queue 1 #9d)
 
 
 def test_every_entry_point_defaults_to_the_card(monkeypatch):
