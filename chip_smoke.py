@@ -143,6 +143,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak memory), and predict of 2 images on the card against the CPU within ZOO_ATOL;
    FPN over mit_b2 with 16 f32_cuda forward launches in predict and 16 + 16 a train
    step, and one fp32 step with the kernels against the plain attention.
+20. the encoder families of get_encoder: SegCD (decoder 256..16, classes 1) over
+   efficientnet-b4, timm-efficientnet-b3, mobilenet_v2, timm-mobilenetv3_large_100,
+   se_resnext50_32x4d, densenet121, timm-regnety_016, dpn68, xception, inceptionv4,
+   timm-res2net50_26w_4s, timm-resnest50d, timm-skresnet34, timm-gernet_m and
+   mobileone_s1, each 6 make_cd_steps steps (augment on, Adam, drop_connect live) on
+   8 pairs of 256x256, fp32, and DeepLabV3+ over mobilenet_v2 (output stride 16) and
+   DeepLabV3 over se_resnext50_32x4d (output stride 8) through create_model, 6
+   make_seg_steps steps each (finite losses, one augmentation call a step, the median
+   ms of the last 5 and the peak memory); the eval forward of 2 on the card against
+   the CPU within ZOO_ATOL; then cli.make_demo_data, cli.train_pse_cd --encoder
+   efficientnet-b4 for one epoch and cli.predict --load_path on what it saved.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -2239,6 +2250,160 @@ def phase_smp(torch, attention, augment_kernel, gpu_label):
     return aug_calls, attn_fwd, attn_bwd
 
 
+# phase 20: SegCD over one encoder of each family beyond ResNet, VGG and MiT, at
+# the published configs, the way cli/common.py::build_state builds it
+ENC_ZOO = ("efficientnet-b4", "timm-efficientnet-b3", "mobilenet_v2",
+           "timm-mobilenetv3_large_100", "se_resnext50_32x4d", "densenet121",
+           "timm-regnety_016", "dpn68", "xception", "inceptionv4", "timm-res2net50_26w_4s",
+           "timm-resnest50d", "timm-skresnet34", "timm-gernet_m", "mobileone_s1")
+# (label, arch, encoder): dilated encoders through create_model, make_seg_steps
+ENC_ZOO_DILATED = (("deeplabv3plus_mobilenet_v2_os16", "deeplabv3plus", "mobilenet_v2"),
+                   ("deeplabv3_se_resnext50_os8", "deeplabv3", "se_resnext50_32x4d"))
+ENC_ZOO_TRAIN = dict(batch=8, size=256, steps=6, cpu_batch=2)  # the first step is not timed
+ENC_ZOO_DECODER = (256, 128, 64, 32, 16)
+ENC_ZOO_CLI = dict(encoder="efficientnet-b4", n=8, size=256, batch=4)  # 2 steps an epoch
+
+
+def phase_encoder_zoo(torch, augment_kernel, gpu_label):
+    """The encoder families of get_encoder on the card: SegCD over each
+    encoder of ENC_ZOO (decoder ENC_ZOO_DECODER, classes 1, seeded
+    ``models.segcd.init_weights``) takes ENC_ZOO_TRAIN["steps"] steps of
+    make_cd_steps(augment=True) with Adam and the Poly schedule on 8 pairs of
+    256x256, fp32 with TF32 off, one fixed seeded batch
+    (tools/profile_step.py::seeded_stage_batch), drop_connect live; the two
+    dilated models of ENC_ZOO_DILATED take as many make_seg_steps steps.
+    Requires finite losses, one augmentation call a step (counted from 0) and
+    state.step == steps; prints the losses, the median ms of the steps after
+    the first (CUDA events) and the peak memory. The eval forward of 2 pairs
+    (2 images for the DeepLabs) on the card is held against the same weights
+    on the CPU within ZOO_ATOL x max(1, max |CPU|). Then from the command
+    line: cli.make_demo_data, cli.train_pse_cd --encoder efficientnet-b4 for
+    one epoch, and cli.predict --encoder efficientnet-b4 --load_path on what
+    it saved. Returns the augmentation calls of the steps and of the CLI run."""
+    import copy
+
+    import numpy as np
+
+    from stcd_tpu_torch.cli import make_demo_data, predict, train_pse_cd
+    from stcd_tpu_torch.data.augment import eval_preprocess
+    from stcd_tpu_torch.models import create_model
+    from stcd_tpu_torch.models.segcd import SegCD, init_weights
+    from stcd_tpu_torch.tools.profile_step import seeded_stage_batch
+    from stcd_tpu_torch.train.state import adam_poly, create_train_state
+    from stcd_tpu_torch.train.steps import make_cd_steps, make_seg_steps
+
+    n, size, steps, m = (ENC_ZOO_TRAIN[k] for k in ("batch", "size", "steps", "cpu_batch"))
+    pairs = seeded_stage_batch(2, n, size, seed=9, device="cuda")
+    images = seeded_stage_batch(1, n, size, seed=10, device="cuda")
+    cd_step, _ = make_cd_steps(augment=True)
+    seg_step, _ = make_seg_steps(augment=True)
+    models = [(name, "segcd", name) for name in ENC_ZOO] + list(ENC_ZOO_DILATED)
+
+    def build(arch, encoder):
+        if arch == "segcd":
+            model = SegCD(encoder, classes=1, decoder_channels=ENC_ZOO_DECODER, device="cuda")
+        else:
+            model = create_model(arch, encoder, classes=1, device="cuda")
+        return init_weights(model, seed=0)
+
+    aug_calls, rows = 0, {}
+    for label, arch, encoder in models:
+        cd = arch == "segcd"
+        model = build(arch, encoder).eval()
+        ins = ([eval_preprocess(pairs[k][:m]).permute(0, 3, 1, 2).contiguous()
+                for k in ("A", "B")] if cd else
+               [eval_preprocess(images["image"][:m]).permute(0, 3, 1, 2).contiguous()])
+        with torch.no_grad():
+            card = model(*ins) if cd else model.predict(*ins)
+            cpu = copy.deepcopy(model).cpu()(*(t.cpu() for t in ins)) if cd else \
+                copy.deepcopy(model).cpu().predict(*(t.cpu() for t in ins))
+        card, cpu = (list(o) if isinstance(o, (tuple, list)) else [o] for o in (card, cpu))
+        errs = [((c.cpu() - w).abs().max().item(), ZOO_ATOL * max(1.0, w.abs().max().item()))
+                for c, w in zip(card, cpu)]
+        require(len(card) == len(cpu) and card[-1].shape[-2:] == (size, size)
+                and all(bool(torch.isfinite(c).all()) for c in card)
+                and all(e <= b for e, b in errs),
+                f"{label}: card forward {[tuple(c.shape) for c in card]} against the CPU's: "
+                f"max|err| and bounds {errs}")
+        del model, card, cpu
+        state = create_train_state(build(arch, encoder), adam_poly(1e-3, 60, 1000),
+                                   device="cuda", seed=8)
+        step, data = (cd_step, pairs) if cd else (seg_step, images)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        augment_kernel.kernel_launches = 0
+        losses, times = [], []
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(state, data, state.generator)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            losses.append(float(out["loss"]))
+        calls = augment_kernel.kernel_launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(all(v == v and abs(v) != float("inf") for v in losses) and calls == steps
+                and state.step == steps,
+                f"{label}: losses {losses}, {calls} augmentation calls and {state.step} "
+                f"updates for {steps} steps")
+        aug_calls += calls
+        timed = sorted(times[1:])
+        rows[label] = {"step_ms": timed[len(timed) // 2], "peak_gib": peak}
+        print(f"encoder zoo {label} ({arch}, {encoder}; {gpu_label}): {steps} "
+              f"{'make_cd_steps' if cd else 'make_seg_steps'} steps of {n} "
+              f"{'pairs' if cd else 'images'} at {size}x{size}, fp32, augment, Adam: losses "
+              f"{[round(v, 4) for v in losses]}, step ms {[round(t, 2) for t in times]} "
+              f"(median of the last {steps - 1} {rows[label]['step_ms']:.2f}), peak "
+              f"{peak:.2f} GiB, {calls} augmentation calls; eval of {m}, card against CPU: "
+              "max|err| " + ", ".join(f"{e:.3e} (bound {b:.3e})" for e, b in errs), flush=True)
+        del state, out
+        torch.cuda.empty_cache()
+    print("encoder zoo step table: " + json.dumps(rows), flush=True)
+
+    # from the command line: the demo tree, train_pse_cd, then predict on what it saved
+    cli = ENC_ZOO_CLI
+    with tempfile.TemporaryDirectory() as root:
+        data, save = os.path.join(root, "data"), os.path.join(root, "runs", "psecd")
+        make_demo_data.main([data, "--n", str(cli["n"]), "--size", str(cli["size"])])
+        augment_kernel.kernel_launches = 0
+        t0 = time.monotonic()
+        try:
+            out = train_pse_cd.main([
+                "--root_path", data, "--dataset_name", "LEVIR", "--CDdataset_name", "LEVIR",
+                "--encoder", cli["encoder"], "--batch_size", str(cli["batch"]),
+                "--n_epochs", "1", "--img_height", str(cli["size"]), "--img_width",
+                str(cli["size"]), "--save_name", save, "--device", "cuda"])
+        finally:
+            from stcd_tpu_torch.data import io as data_io
+            data_io.set_uint8_transfer(False)
+        torch.cuda.synchronize()
+        cli_calls = augment_kernel.kernel_launches
+        want = cli["n"] // cli["batch"]
+        require(out["state"].step == want and cli_calls == want
+                and "last_ckpt" in os.listdir(save),
+                f"train_pse_cd --encoder {cli['encoder']}: step {out['state'].step}, "
+                f"{cli_calls} augmentation calls, {sorted(os.listdir(save))}")
+        val = os.path.join(data, "LEVIR", "val")
+        mask, prob = os.path.join(root, "mask.png"), os.path.join(root, "prob.npy")
+        predict.main(["--encoder", cli["encoder"], "--load_path", save,
+                      "--image_a", os.path.join(val, "A", "0.png"),
+                      "--image_b", os.path.join(val, "B", "0.png"), "--out", mask,
+                      "--prob_out", prob, "--tile", str(cli["size"]), "--device", "cuda"])
+        probs = np.load(prob)
+        require(os.path.isfile(mask) and probs.shape == (cli["size"], cli["size"], 1)
+                and np.isfinite(probs).all() and 0 <= probs.min() and probs.max() <= 1,
+                f"predict --encoder {cli['encoder']}: {probs.shape} probabilities")
+        print(f"encoder zoo cli ({gpu_label}): train_pse_cd --encoder {cli['encoder']}, 1 epoch "
+              f"of {want} steps of {cli['batch']} pairs at {cli['size']}x{cli['size']} in "
+              f"{time.monotonic() - t0:.1f} s (host clock, eval and saves included), "
+              f"{cli_calls} augmentation calls, best IoU {out['best']:.4f}; predict "
+              f"--load_path wrote a {cli['size']}x{cli['size']} mask", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    return {"encoder_zoo": aug_calls, "encoder_zoo_cli": cli_calls}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2327,6 +2492,8 @@ def main() -> int:
     # phase 19: the smp architectures of create_model
     aug_by_path["smp_zoo"], smp_fwd, smp_bwd = phase_smp(
         torch, attention, augment.apply_augment_kernel, gpu_label)
+    # phase 20: the encoder families of get_encoder
+    aug_by_path.update(phase_encoder_zoo(torch, augment.apply_augment_kernel, gpu_label))
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after

@@ -54,10 +54,11 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
                    help="seeds the weights and the augmentation generator")
     p.add_argument("--encoder", type=str, default="resnet50")
     p.add_argument("--encoder_weights", type=str, default=None,
-                   help="a torch state_dict of the encoder under torchvision's names: "
-                        "its path, or 'imagenet' to resolve {encoder}.pth under "
-                        "$STCD_PRETRAINED_DIR (missing weights raise; nothing is "
-                        "downloaded)")
+                   help="a torch state_dict of the encoder under its upstream "
+                        "checkpoint's names (torchvision, efficientnet_pytorch, timm or "
+                        "pretrainedmodels; the classifier head is dropped): its path, or "
+                        "'imagenet' to resolve {encoder}.pth under $STCD_PRETRAINED_DIR "
+                        "(missing weights raise; nothing is downloaded)")
     p.add_argument("--decoder_channels", type=str, default="256,128,64,32,16",
                    help="comma-separated unet decoder widths")
     p.add_argument("--float_transfer", action="store_true",

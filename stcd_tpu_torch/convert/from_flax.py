@@ -14,7 +14,10 @@ convert_deeplabv3_decoder and convert_deeplabv3plus_decoder (:797-846) and
 convert_pan_decoder (:847), with the parts no JAX converter reads (the scse
 gates, the VGG center block, the classification head), all reached through
 ``smp_model_from_flax``. ``resnet_from_flax`` takes ResNeXt's grouped kernels
-as they are.
+as they are. The encoder zoo's converters (:1142-1907), convert_efficientnet
+through convert_inceptionresnetv2, have their inverses too, picked by encoder
+name in ``encoder_from_flax``: the trees of the 14 families cannot be told
+apart by their shape, and timm's grouped block names need the variant.
 
 It takes the nested dicts of arrays that flax holds (numpy or anything
 ``np.asarray`` reads) and returns a flat state_dict of CPU tensors under the
@@ -228,7 +231,7 @@ def changeformer_v4_from_flax(params: Dict[str, Any],
 
 
 def resnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
-                     prefix: str = "") -> StateDict:
+                     prefix: str = "", **_) -> StateDict:
     """Inverse of convert_resnet: ResNetEncoder (params, batch_stats) ->
     torchvision names under ``prefix`` (e.g. ``"encoder."``)."""
     sd: StateDict = {}
@@ -299,10 +302,13 @@ def unet_decoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
     return sd
 
 
-def unetseg_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> StateDict:
+def unetseg_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                      encoder_name: str = "resnet50") -> StateDict:
     """JAX UnetSeg / SegCD / FFCTLCD (params, batch_stats) -> the port's
-    state_dict; ``convert_unetseg`` of the result gives the inputs back."""
-    sd = resnet_from_flax(params["encoder"], batch_stats["encoder"], "encoder.")
+    state_dict; ``convert_unetseg`` of the result gives the inputs back. The
+    model's ``encoder_name`` picks the inverse of its family's converter
+    (``encoder_from_flax``); every ResNet name picks ``resnet_from_flax``."""
+    sd = encoder_from_flax(encoder_name, params["encoder"], batch_stats["encoder"], "encoder.")
     sd.update(unet_decoder_from_flax(params["decoder"], batch_stats["decoder"]))
     _conv_b(sd, "segmentation_head.0", params["segmentation_head"]["conv"])
     return sd
@@ -670,7 +676,7 @@ def changevig_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def vgg_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
-                  prefix: str = "") -> StateDict:
+                  prefix: str = "", **_) -> StateDict:
     """Inverse of convert_vgg (:1480-1504): VGGEncoder's ``conv{i}`` (and
     ``bn{i}`` in a ``_bn`` variant) -> torchvision's ``{prefix}features.{j}``.
     The indices follow from the stages, which are read from the kernels'
@@ -694,13 +700,460 @@ def vgg_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
     return sd
 
 
-def _encoder_from_flax(params: Dict[str, Any], stats: Dict[str, Any]) -> StateDict:
-    """The ``encoder`` of any create_model arch, by its tree: MiT, VGG or ResNet."""
-    if "mit" in params:
-        return mit_encoder_from_flax(params["mit"], "encoder")
-    if "conv0" in params:
-        return vgg_from_flax(params, stats, "encoder.")
-    return resnet_from_flax(params, stats, "encoder.")
+# ---------------------------------------------------------------------------
+# The encoder zoo (torch_to_flax.py:1142-1907): each family's upstream names
+# ---------------------------------------------------------------------------
+
+def _conv_norm(sd: StateDict, prefix: str, conv: dict, bn_p: dict, bn_s: dict) -> None:
+    """A timm ConvNormAct or pretrainedmodels BasicConv2d: ``.conv``, ``.bn``."""
+    _conv_b(sd, f"{prefix}.conv", conv)
+    _bn(sd, f"{prefix}.bn", bn_p, bn_s)
+
+
+def _blocks(params: Dict[str, Any], fmt: str, start: int = 0):
+    """The indices of ``fmt.format(i)`` in ``params``, from ``start`` on."""
+    i = start
+    while fmt.format(i) in params:
+        yield i
+        i += 1
+
+
+def efficientnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                           prefix: str = "", **_) -> StateDict:
+    """Inverse of convert_efficientnet (:1150): efficientnet_pytorch's names."""
+    sd: StateDict = {}
+    _conv_b(sd, f"{prefix}_conv_stem", params["stem_conv"])
+    _bn(sd, f"{prefix}_bn0", params["stem_bn"], stats["stem_bn"])
+    for i in _blocks(params, "block{}"):
+        bp, bs, base = params[f"block{i}"], stats[f"block{i}"], f"{prefix}_blocks.{i}"
+        if "expand_conv" in bp:
+            _conv_b(sd, f"{base}._expand_conv", bp["expand_conv"])
+            _bn(sd, f"{base}._bn0", bp["expand_bn"], bs["expand_bn"])
+        _conv_b(sd, f"{base}._depthwise_conv", bp["dw_conv"])
+        _bn(sd, f"{base}._bn1", bp["dw_bn"], bs["dw_bn"])
+        if "se_reduce" in bp:
+            _conv_b(sd, f"{base}._se_reduce", bp["se_reduce"])
+            _conv_b(sd, f"{base}._se_expand", bp["se_expand"])
+        _conv_b(sd, f"{base}._project_conv", bp["project_conv"])
+        _bn(sd, f"{base}._bn2", bp["project_bn"], bs["project_bn"])
+    return sd
+
+
+def _timm_block(sd: StateDict, base: str, bp: dict, bs: dict) -> None:
+    """A timm InvertedResidual, or DepthwiseSeparableConv without an expand
+    conv, from the JAX MBConv / InvertedResidual tree (:1179, :1263)."""
+    if "expand_conv" in bp:
+        roles = (("expand_conv", "expand_bn", "conv_pw", "bn1"),
+                 ("dw_conv", "dw_bn", "conv_dw", "bn2"),
+                 ("project_conv", "project_bn", "conv_pwl", "bn3"))
+    else:
+        roles = (("dw_conv", "dw_bn", "conv_dw", "bn1"),
+                 ("project_conv", "project_bn", "conv_pw", "bn2"))
+    for conv, bn, tconv, tbn in roles:
+        _conv_b(sd, f"{base}.{tconv}", bp[conv])
+        _bn(sd, f"{base}.{tbn}", bp[bn], bs[bn])
+    if "se_reduce" in bp:
+        _conv_b(sd, f"{base}.se.conv_reduce", bp["se_reduce"])
+        _conv_b(sd, f"{base}.se.conv_expand", bp["se_expand"])
+
+
+def timm_efficientnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                                prefix: str = "", variant: str = "b0", lite: bool = False,
+                                **_) -> StateDict:
+    """Inverse of convert_timm_efficientnet (:1179): the flat ``block{i}``
+    regrouped into timm's ``blocks.{group}.{i}`` by the variant's repeats."""
+    from stcd_tpu_torch.encoders.efficientnet import timm_block_groups
+    sd: StateDict = {}
+    _conv_b(sd, f"{prefix}conv_stem", params["stem_conv"])
+    _bn(sd, f"{prefix}bn1", params["stem_bn"], stats["stem_bn"])
+    for i, (g, j) in zip(_blocks(params, "block{}"), timm_block_groups(variant, lite)):
+        _timm_block(sd, f"{prefix}blocks.{g}.{j}", params[f"block{i}"], stats[f"block{i}"])
+    return sd
+
+
+def mobilenet_v2_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                           prefix: str = "", **_) -> StateDict:
+    """Inverse of convert_mobilenet_v2 (:1227): torchvision's names."""
+    sd: StateDict = {}
+    _conv_b(sd, f"{prefix}features.0.0", params["stem_conv"])
+    _bn(sd, f"{prefix}features.0.1", params["stem_bn"], stats["stem_bn"])
+    last = 0
+    for i in _blocks(params, "block{}", 1):
+        bp, bs, base = params[f"block{i}"], stats[f"block{i}"], f"{prefix}features.{i}.conv"
+        j = 0
+        if "expand_conv" in bp:
+            _conv_b(sd, f"{base}.0.0", bp["expand_conv"])
+            _bn(sd, f"{base}.0.1", bp["expand_bn"], bs["expand_bn"])
+            j = 1
+        _conv_b(sd, f"{base}.{j}.0", bp["dw_conv"])
+        _bn(sd, f"{base}.{j}.1", bp["dw_bn"], bs["dw_bn"])
+        _conv_b(sd, f"{base}.{j + 1}", bp["project_conv"])
+        _bn(sd, f"{base}.{j + 2}", bp["project_bn"], bs["project_bn"])
+        last = i
+    if "final_conv" in params:
+        _conv_b(sd, f"{prefix}features.{last + 1}.0", params["final_conv"])
+        _bn(sd, f"{prefix}features.{last + 1}.1", params["final_bn"], stats["final_bn"])
+    return sd
+
+
+def mobilenet_v3_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                           prefix: str = "", mode: str = "large", **_) -> StateDict:
+    """Inverse of convert_mobilenet_v3 (:1259): ``block{j}`` regrouped into
+    timm's ``blocks.{group}.{i}``; the final conv is ``blocks.{groups}.0``."""
+    from stcd_tpu_torch.encoders.mobilenet import _V3_LARGE, _V3_SMALL
+    specs = _V3_LARGE if mode == "large" else _V3_SMALL
+    places = [(g, i) for g, group in enumerate(specs) for i in range(len(group))]
+    sd: StateDict = {}
+    _conv_b(sd, f"{prefix}conv_stem", params["stem_conv"])
+    _bn(sd, f"{prefix}bn1", params["stem_bn"], stats["stem_bn"])
+    for j, (g, i) in zip(_blocks(params, "block{}"), places):
+        _timm_block(sd, f"{prefix}blocks.{g}.{i}", params[f"block{j}"], stats[f"block{j}"])
+    if "final_conv" in params:
+        _conv_b(sd, f"{prefix}blocks.{len(specs)}.0.conv", params["final_conv"])
+        _bn(sd, f"{prefix}blocks.{len(specs)}.0.bn1", params["final_bn"], stats["final_bn"])
+    return sd
+
+
+def senet_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                    **_) -> StateDict:
+    """Inverse of convert_senet (:1301): pretrainedmodels' names."""
+    sd: StateDict = {}
+    for ci in _blocks(params, "stem_conv{}", 1):
+        _conv_b(sd, f"{prefix}layer0.conv{ci}", params[f"stem_conv{ci}"])
+        _bn(sd, f"{prefix}layer0.bn{ci}", params[f"stem_bn{ci}"], stats[f"stem_bn{ci}"])
+    for li in range(1, 5):
+        for bi in _blocks(params, f"layer{li}_block{{}}"):
+            bp, bs = params[f"layer{li}_block{bi}"], stats[f"layer{li}_block{bi}"]
+            base = f"{prefix}layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                _conv_b(sd, f"{base}.conv{ci}", bp[f"conv{ci}"])
+                _bn(sd, f"{base}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            _conv_b(sd, f"{base}.se_module.fc1", bp["se"]["fc1"])
+            _conv_b(sd, f"{base}.se_module.fc2", bp["se"]["fc2"])
+            if "downsample_conv" in bp:
+                _conv_b(sd, f"{base}.downsample.0", bp["downsample_conv"])
+                _bn(sd, f"{base}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+    return sd
+
+
+def densenet_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                       **_) -> StateDict:
+    """Inverse of convert_densenet (:1352): torchvision's current names."""
+    sd: StateDict = {}
+    f = f"{prefix}features"
+    _conv_b(sd, f"{f}.conv0", params["conv0"])
+    _bn(sd, f"{f}.norm0", params["norm0"], stats["norm0"])
+    for di in _blocks(params, "denseblock{}", 1):
+        dbp, dbs = params[f"denseblock{di}"], stats[f"denseblock{di}"]
+        for li in _blocks(dbp, "denselayer{}", 1):
+            base = f"{f}.denseblock{di}.denselayer{li}"
+            for ni in (1, 2):
+                _conv_b(sd, f"{base}.conv{ni}", dbp[f"denselayer{li}"][f"conv{ni}"])
+                _bn(sd, f"{base}.norm{ni}", dbp[f"denselayer{li}"][f"norm{ni}"],
+                    dbs[f"denselayer{li}"][f"norm{ni}"])
+    for ti in _blocks(params, "transition{}_conv", 1):
+        _conv_b(sd, f"{f}.transition{ti}.conv", params[f"transition{ti}_conv"])
+        _bn(sd, f"{f}.transition{ti}.norm", params[f"transition{ti}_norm"],
+            stats[f"transition{ti}_norm"])
+    if "norm5" in params:
+        _bn(sd, f"{f}.norm5", params["norm5"], stats["norm5"])
+    return sd
+
+
+def regnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                     **_) -> StateDict:
+    """Inverse of convert_timm_regnet (:1652): timm's names, blocks b1.."""
+    sd: StateDict = {}
+    _conv_norm(sd, f"{prefix}stem", params["stem_conv"], params["stem_bn"], stats["stem_bn"])
+    for si in range(1, 5):
+        for b in _blocks(params, f"stage{si}_block{{}}"):
+            bp, bs = params[f"stage{si}_block{b}"], stats[f"stage{si}_block{b}"]
+            base = f"{prefix}s{si}.b{b + 1}"
+            for ci in (1, 2, 3):
+                _conv_norm(sd, f"{base}.conv{ci}", bp[f"conv{ci}"], bp[f"bn{ci}"],
+                           bs[f"bn{ci}"])
+            if "se_fc1" in bp:
+                _conv_b(sd, f"{base}.se.fc1", bp["se_fc1"])
+                _conv_b(sd, f"{base}.se.fc2", bp["se_fc2"])
+            if "downsample_conv" in bp:
+                _conv_norm(sd, f"{base}.downsample", bp["downsample_conv"],
+                           bp["downsample_bn"], bs["downsample_bn"])
+    return sd
+
+
+def dpn_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                  **_) -> StateDict:
+    """Inverse of convert_dpn (:1718): pretrainedmodels' ``features.*``
+    names; a stage's first block projects by ``c1x1_w_s1`` in conv2 and
+    ``c1x1_w_s2`` after."""
+    sd: StateDict = {}
+    f = f"{prefix}features"
+    _conv_b(sd, f"{f}.conv1_1.conv", params["stem_conv"])
+    _bn(sd, f"{f}.conv1_1.bn", params["stem_bn"], stats["stem_bn"])
+    for si in range(2, 6):
+        for j in _blocks(params, f"conv{si}_{{}}", 1):
+            bp, bs, base = params[f"conv{si}_{j}"], stats[f"conv{si}_{j}"], f"{f}.conv{si}_{j}"
+            if "c1x1_w" in bp:
+                w = "c1x1_w_s1" if si == 2 else "c1x1_w_s2"
+                _conv_b(sd, f"{base}.{w}.conv", bp["c1x1_w"])
+                _bn(sd, f"{base}.{w}.bn", bp["c1x1_w_bn"], bs["c1x1_w_bn"])
+            for c in ("c1x1_a", "c3x3_b"):
+                _conv_b(sd, f"{base}.{c}.conv", bp[c])
+                _bn(sd, f"{base}.{c}.bn", bp[f"{c}_bn"], bs[f"{c}_bn"])
+            _bn(sd, f"{base}.c1x1_c.bn", bp["c1x1_c_bn"], bs["c1x1_c_bn"])
+            if "c1x1_c" in bp:
+                _conv_b(sd, f"{base}.c1x1_c.conv", bp["c1x1_c"])
+            else:
+                _conv_b(sd, f"{base}.c1x1_c1", bp["c1x1_c1"])
+                _conv_b(sd, f"{base}.c1x1_c2", bp["c1x1_c2"])
+    if "final_bn" in params:
+        _bn(sd, f"{f}.conv5_bn_ac.bn", params["final_bn"], stats["final_bn"])
+    return sd
+
+
+def xception_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                       **_) -> StateDict:
+    """Inverse of convert_xception (:1758): ``block{i}.rep`` at
+    pretrainedmodels' Sequential indices (relu, separable conv, BatchNorm a
+    rep; block1 starts without the relu)."""
+    sd: StateDict = {}
+    for c, b in (("conv1", "bn1"), ("conv2", "bn2")):
+        _conv_b(sd, f"{prefix}{c}", params[c])
+        _bn(sd, f"{prefix}{b}", params[b], stats[b])
+    for blk in _blocks(params, "block{}", 1):
+        bp, bs, rep = params[f"block{blk}"], stats[f"block{blk}"], f"{prefix}block{blk}.rep"
+        shift = 0 if blk == 1 else 1
+        for n in _blocks(bp, "sepconv{}", 1):
+            i = 3 * (n - 1) + shift
+            _conv_b(sd, f"{rep}.{i}.conv1", bp[f"sepconv{n}"]["depthwise"])
+            _conv_b(sd, f"{rep}.{i}.pointwise", bp[f"sepconv{n}"]["pointwise"])
+            _bn(sd, f"{rep}.{i + 1}", bp[f"bn{n}"], bs[f"bn{n}"])
+        if "skip_conv" in bp:
+            _conv_b(sd, f"{prefix}block{blk}.skip", bp["skip_conv"])
+            _bn(sd, f"{prefix}block{blk}.skipbn", bp["skip_bn"], bs["skip_bn"])
+    for c, b in (("conv3", "bn3"), ("conv4", "bn4")):
+        if c in params:
+            _conv_b(sd, f"{prefix}{c}.conv1", params[c]["depthwise"])
+            _conv_b(sd, f"{prefix}{c}.pointwise", params[c]["pointwise"])
+            _bn(sd, f"{prefix}{b}", params[b], stats[b])
+    return sd
+
+
+def _inceptionv4_pairs():
+    """convert_inceptionv4's (ours, theirs) BasicConv2d pairs (:1806-1855)."""
+    pairs = [("conv1", "features.0"), ("conv2", "features.1"), ("conv3", "features.2"),
+             ("mixed3a_conv", "features.3.conv"), ("mixed5a_conv", "features.5.conv")]
+    pairs += [(f"mixed4a_b0_{i}", f"features.4.branch0.{i}") for i in range(2)]
+    pairs += [(f"mixed4a_b1_{i}", f"features.4.branch1.{i}") for i in range(4)]
+    for a in range(4):
+        base = f"features.{6 + a}"
+        pairs += [(f"inceptionA{a}_b0", f"{base}.branch0"),
+                  (f"inceptionA{a}_b3", f"{base}.branch3.1")]
+        pairs += [(f"inceptionA{a}_b1_{i}", f"{base}.branch1.{i}") for i in range(2)]
+        pairs += [(f"inceptionA{a}_b2_{i}", f"{base}.branch2.{i}") for i in range(3)]
+    pairs.append(("redA_b0", "features.10.branch0"))
+    pairs += [(f"redA_b1_{i}", f"features.10.branch1.{i}") for i in range(3)]
+    for b in range(7):
+        base = f"features.{11 + b}"
+        pairs += [(f"inceptionB{b}_b0", f"{base}.branch0"),
+                  (f"inceptionB{b}_b3", f"{base}.branch3.1")]
+        pairs += [(f"inceptionB{b}_b1_{i}", f"{base}.branch1.{i}") for i in range(3)]
+        pairs += [(f"inceptionB{b}_b2_{i}", f"{base}.branch2.{i}") for i in range(5)]
+    pairs += [(f"redB_b0_{i}", f"features.18.branch0.{i}") for i in range(2)]
+    pairs += [(f"redB_b1_{i}", f"features.18.branch1.{i}") for i in range(4)]
+    for c in range(3):
+        base = f"features.{19 + c}"
+        pairs += [(f"inceptionC{c}_{k}", f"{base}.branch{k[1:]}")
+                  for k in ("b0", "b1_0", "b1_1a", "b1_1b", "b2_0", "b2_1", "b2_2",
+                            "b2_3a", "b2_3b")]
+        pairs.append((f"inceptionC{c}_b3", f"{base}.branch3.1"))
+    return pairs
+
+
+def inceptionv4_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                          **_) -> StateDict:
+    """Inverse of convert_inceptionv4 (:1806)."""
+    sd: StateDict = {}
+    for ours, theirs in _inceptionv4_pairs():
+        if ours in params:
+            _conv_norm(sd, f"{prefix}{theirs}", params[ours]["conv"], params[ours]["bn"],
+                       stats[ours]["bn"])
+    return sd
+
+
+def inceptionresnetv2_from_flax(params: Dict[str, Any], stats: Dict[str, Any],
+                                prefix: str = "", **_) -> StateDict:
+    """Inverse of convert_inceptionresnetv2 (:1858): the BasicConv2d pairs
+    and the biased up-projections ``conv2d`` of the residual blocks."""
+    pairs = [("conv1a", "conv2d_1a"), ("conv2a", "conv2d_2a"), ("conv2b", "conv2d_2b"),
+             ("conv3b", "conv2d_3b"), ("conv4a", "conv2d_4a"), ("conv7b", "conv2d_7b"),
+             ("m5b_b0", "mixed_5b.branch0"), ("m5b_b3", "mixed_5b.branch3.1"),
+             ("m6a_b0", "mixed_6a.branch0")]
+    pairs += [(f"m5b_b1_{i}", f"mixed_5b.branch1.{i}") for i in range(2)]
+    pairs += [(f"m5b_b2_{i}", f"mixed_5b.branch2.{i}") for i in range(3)]
+    pairs += [(f"m6a_b1_{i}", f"mixed_6a.branch1.{i}") for i in range(3)]
+    pairs += [(f"m7a_b{b}_{i}", f"mixed_7a.branch{b}.{i}") for b, n in ((0, 2), (1, 2), (2, 3))
+              for i in range(n)]
+    ups = []
+    for ours, theirs, n, branches in (("block35", "repeat", 10, (2, 3)),
+                                      ("block17", "repeat_1", 20, (3,)),
+                                      ("block8", "repeat_2", 9, (3,))):
+        for i in range(n):
+            pairs.append((f"{ours}_{i}_b0", f"{theirs}.{i}.branch0"))
+            for b, m in enumerate(branches, start=1):
+                pairs += [(f"{ours}_{i}_b{b}_{j}", f"{theirs}.{i}.branch{b}.{j}")
+                          for j in range(m)]
+            ups.append((f"{ours}_{i}_up", f"{theirs}.{i}.conv2d"))
+    pairs.append(("block8_final_b0", "block8.branch0"))
+    pairs += [(f"block8_final_b1_{j}", f"block8.branch1.{j}") for j in range(3)]
+    ups.append(("block8_final_up", "block8.conv2d"))
+    sd: StateDict = {}
+    for ours, theirs in pairs:
+        if ours in params:
+            _conv_norm(sd, f"{prefix}{theirs}", params[ours]["conv"], params[ours]["bn"],
+                       stats[ours]["bn"])
+    for ours, theirs in ups:
+        if ours in params:
+            _conv_b(sd, f"{prefix}{theirs}", params[ours])
+    return sd
+
+
+def _sk_from_flax(sd: StateDict, base: str, p: dict, s: dict) -> None:
+    """Inverse of _sk_subtree (:1603)."""
+    for i in (0, 1):
+        _conv_norm(sd, f"{base}.paths.{i}", p[f"path{i}_conv"], p[f"path{i}_bn"],
+                   s[f"path{i}_bn"])
+    _conv_b(sd, f"{base}.attn.fc_reduce", p["attn_fc1"])
+    _bn(sd, f"{base}.attn.bn", p["attn_bn"], s["attn_bn"])
+    _conv_b(sd, f"{base}.attn.fc_select", p["attn_fc2"])
+
+
+def timm_resnet_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                          arch: str = "res2net50_26w_4s", **_) -> StateDict:
+    """Inverse of convert_timm_res2net (:1533), convert_timm_resnest (:1565)
+    and convert_timm_sknet (:1616), by the arch's family."""
+    from stcd_tpu_torch.encoders.timm_resnet import _TIMM_RESNET_CFGS
+    kind = _TIMM_RESNET_CFGS[arch][0]
+    sd: StateDict = {}
+    if kind == "nest":
+        for i, (ck, bk) in enumerate((("conv1.0", "conv1.1"), ("conv1.3", "conv1.4"),
+                                      ("conv1.6", "bn1")), start=1):
+            _conv_b(sd, f"{prefix}{ck}", params[f"stem_conv{i}"])
+            _bn(sd, f"{prefix}{bk}", params[f"stem_bn{i}"], stats[f"stem_bn{i}"])
+    else:
+        _conv_b(sd, f"{prefix}conv1", params["stem_conv1"])
+        _bn(sd, f"{prefix}bn1", params["stem_bn1"], stats["stem_bn1"])
+    for li in range(1, 5):
+        for b in _blocks(params, f"layer{li}_block{{}}"):
+            bp, bs = params[f"layer{li}_block{b}"], stats[f"layer{li}_block{b}"]
+            base = f"{prefix}layer{li}.{b}"
+            ds = 0
+            if kind in ("res2", "nest"):
+                for ci in (1, 3):
+                    _conv_b(sd, f"{base}.conv{ci}", bp[f"conv{ci}"])
+                    _bn(sd, f"{base}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            if kind == "res2":
+                for i in _blocks(bp, "conv2_{}"):
+                    _conv_b(sd, f"{base}.convs.{i}", bp[f"conv2_{i}"])
+                    _bn(sd, f"{base}.bns.{i}", bp[f"bn2_{i}"], bs[f"bn2_{i}"])
+            elif kind == "nest":
+                c2p, c2s = bp["conv2"], bs["conv2"]
+                for name in ("conv", "fc1", "fc2"):
+                    _conv_b(sd, f"{base}.conv2.{name}", c2p[name])
+                for name in ("bn0", "bn1"):
+                    _bn(sd, f"{base}.conv2.{name}", c2p[name], c2s[name])
+                ds = 1
+            elif kind == "sk_bottle":
+                _conv_norm(sd, f"{base}.conv1", bp["conv1"], bp["bn1"], bs["bn1"])
+                _sk_from_flax(sd, f"{base}.conv2", bp["sk"], bs["sk"])
+                _conv_norm(sd, f"{base}.conv3", bp["conv3"], bp["bn3"], bs["bn3"])
+            else:
+                _sk_from_flax(sd, f"{base}.conv1", bp["sk"], bs["sk"])
+                _conv_norm(sd, f"{base}.conv2", bp["conv2"], bp["bn2"], bs["bn2"])
+            if "downsample_conv" in bp:
+                _conv_b(sd, f"{base}.downsample.{ds}", bp["downsample_conv"])
+                _bn(sd, f"{base}.downsample.{ds + 1}", bp["downsample_bn"],
+                    bs["downsample_bn"])
+    return sd
+
+
+def gernet_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                     **_) -> StateDict:
+    """Inverse of convert_timm_gernet (:1682): timm's ByobNet names."""
+    sd: StateDict = {}
+    _conv_norm(sd, f"{prefix}stem", params["stem_conv"], params["stem_bn"], stats["stem_bn"])
+    for si in range(5):
+        for b in _blocks(params, f"stage{si}_block{{}}"):
+            bp, bs = params[f"stage{si}_block{b}"], stats[f"stage{si}_block{b}"]
+            base = f"{prefix}stages.{si}.{b}"
+            names = (("1", "conv1_1x1"), ("2", "conv2_kxk"), ("3", "conv3_1x1")) \
+                if "conv3" in bp else (("1", "conv1_kxk"), ("2", "conv2_kxk"))
+            for n, theirs in names:
+                _conv_norm(sd, f"{base}.{theirs}", bp[f"conv{n}"], bp[f"bn{n}"], bs[f"bn{n}"])
+            if "shortcut_conv" in bp:
+                _conv_norm(sd, f"{base}.shortcut", bp["shortcut_conv"], bp["shortcut_bn"],
+                           bs["shortcut_bn"])
+    if "final_conv" in params:
+        _conv_norm(sd, f"{prefix}final_conv", params["final_conv"], params["final_bn"],
+                   stats["final_bn"])
+    return sd
+
+
+def _mobileone_block(sd: StateDict, base: str, p: dict, s: dict) -> None:
+    """Inverse of _mobileone_block (:1428)."""
+    for i in _blocks(p, "branch{}_conv"):
+        _conv_norm(sd, f"{base}.rbr_conv.{i}", p[f"branch{i}_conv"], p[f"branch{i}_bn"],
+                   s[f"branch{i}_bn"])
+    if "scale_conv" in p:
+        _conv_norm(sd, f"{base}.rbr_scale", p["scale_conv"], p["scale_bn"], s["scale_bn"])
+    if "identity_bn" in p:
+        _bn(sd, f"{base}.rbr_skip", p["identity_bn"], s["identity_bn"])
+    if "se_fc1" in p:
+        _conv_b(sd, f"{base}.se.reduce", p["se_fc1"])
+        _conv_b(sd, f"{base}.se.expand", p["se_fc2"])
+
+
+def mobileone_from_flax(params: Dict[str, Any], stats: Dict[str, Any], prefix: str = "",
+                        **_) -> StateDict:
+    """Inverse of convert_mobileone (:1454): a stage block's ``dw`` and
+    ``pw`` are ``stage{s}.{2b}`` and ``stage{s}.{2b + 1}``."""
+    sd: StateDict = {}
+    if "stem" in params:
+        _mobileone_block(sd, f"{prefix}stage0", params["stem"], stats["stem"])
+    for si in range(1, 5):
+        for b in _blocks(params, f"stage{si}_block{{}}"):
+            for part, idx in (("dw", 2 * b), ("pw", 2 * b + 1)):
+                _mobileone_block(sd, f"{prefix}stage{si}.{idx}",
+                                 params[f"stage{si}_block{b}"][part],
+                                 stats[f"stage{si}_block{b}"][part])
+    return sd
+
+
+def encoder_from_flax(name: str, params: Dict[str, Any], stats: Dict[str, Any],
+                      prefix: str = "") -> StateDict:
+    """The JAX encoder ``name``'s (params, batch_stats) -> the port's
+    state_dict of ``get_encoder(name)`` under ``prefix``, by the inverse of
+    the family's converter. The tree cannot tell the 14 families apart; the
+    name does."""
+    from stcd_tpu_torch import encoders as tenc
+    spec = tenc.encoder_spec(name)
+    if spec.cls is tenc.MixTransformerEncoder:
+        return mit_encoder_from_flax(params["mit"], prefix.rstrip("."))
+    inverse = {
+        tenc.ResNetEncoder: resnet_from_flax, tenc.VGGEncoder: vgg_from_flax,
+        tenc.EfficientNetEncoder: efficientnet_from_flax,
+        tenc.TimmEfficientNetEncoder: timm_efficientnet_from_flax,
+        tenc.MobileNetV2Encoder: mobilenet_v2_from_flax,
+        tenc.MobileNetV3Encoder: mobilenet_v3_from_flax,
+        tenc.SENetEncoder: senet_from_flax, tenc.DenseNetEncoder: densenet_from_flax,
+        tenc.RegNetEncoder: regnet_from_flax, tenc.DPNEncoder: dpn_from_flax,
+        tenc.XceptionEncoder: xception_from_flax,
+        tenc.InceptionV4Encoder: inceptionv4_from_flax,
+        tenc.InceptionResNetV2Encoder: inceptionresnetv2_from_flax,
+        tenc.TimmResNetEncoder: timm_resnet_from_flax, tenc.GERNetEncoder: gernet_from_flax,
+        tenc.MobileOneEncoder: mobileone_from_flax,
+    }[spec.cls]
+    return inverse(params, stats, prefix, **spec.kwargs)
 
 
 def fpn_decoder_from_flax(params: Dict[str, Any], prefix: str = "decoder") -> StateDict:
@@ -860,13 +1313,15 @@ _DECODERS = {
 
 
 def smp_model_from_flax(arch: str, params: Dict[str, Any],
-                        batch_stats: Optional[Dict[str, Any]] = None) -> StateDict:
-    """A JAX ``create_model(arch, ...)``'s (params, batch_stats) -> the port's
-    state_dict for ``create_model(arch, ...)`` with the same settings: the
-    encoder (ResNet/ResNeXt, VGG or MiT, told apart by the tree), the decoder,
+                        batch_stats: Optional[Dict[str, Any]] = None, *,
+                        encoder_name: str) -> StateDict:
+    """A JAX ``create_model(arch, encoder_name, ...)``'s (params, batch_stats)
+    -> the port's state_dict for ``create_model(arch, encoder_name, ...)``
+    with the same settings: the encoder (``encoder_from_flax``), the decoder,
     the segmentation head and Unet's classification head."""
     batch_stats = batch_stats or {}
-    sd = _encoder_from_flax(params["encoder"], batch_stats.get("encoder", {}))
+    sd = encoder_from_flax(encoder_name, params["encoder"], batch_stats.get("encoder", {}),
+                           "encoder.")
     sd.update(_DECODERS[arch.lower()](params["decoder"], batch_stats.get("decoder", {})))
     _conv_b(sd, "segmentation_head.0", params["segmentation_head"]["conv"])
     if "classification_head" in params:

@@ -3,8 +3,8 @@ stcd_tpu/convert/pretrained.py).
 
 The reference trains every stage from ImageNet-pretrained encoders
 (``encoder_weights="imagenet"``). The port loads torch state_dicts under
-torchvision's names (``train/state.py``), so what is left of the JAX module
-is the path resolution. It downloads nothing.
+each encoder family's upstream names (``encoders.load_encoder_weights``), so
+what is left of the JAX module is the path resolution. It downloads nothing.
 
 Contract (loud, never a silent no-op):
 - ``weights=None``        -> random init (the only silent path).
@@ -53,6 +53,6 @@ def resolve_encoder_weights(weights: Optional[str],
         f"encoder_weights={weights!r}"
         + (f" for encoder {encoder_name!r}" if encoder_name else "")
         + f" not found (searched the literal path and {pretrained_dir()}). Nothing is "
-        "downloaded: save the encoder's torchvision state_dict (torch.save of "
+        "downloaded: save the encoder's upstream state_dict (torch.save of "
         f"model.state_dict()) as {os.path.join(pretrained_dir(), name + '.pth')}, or "
         "set $STCD_PRETRAINED_DIR to the directory that holds it.")

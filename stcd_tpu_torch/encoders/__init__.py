@@ -2,10 +2,13 @@
 
 Every encoder obeys the smp stage contract: ``module(x)`` returns a pyramid
 [f0 .. f_depth] of NCHW features, each level 2x smaller than the one before.
-Registered: the ResNet and ResNeXt family, VGG 11/13/16/19 with their
-``_bn`` variants, and MiT b0 to b5. The JAX package's other families are
-listed in ``PENDING_FAMILIES``: asking for one of their names raises
-NotImplementedError naming ROADMAP.md Queue 1 #9d.
+Registered: the JAX package's 124 names, in 14 families: ResNet and ResNeXt,
+VGG 11/13/16/19 with their ``_bn`` variants, MiT b0 to b5, EfficientNet
+(efficientnet_pytorch's and timm's names, the lite variants), MobileNet V2
+and V3, SENet, DenseNet, RegNet X and Y, DPN, Xception, InceptionV4 and
+InceptionResNetV2, Res2Net / ResNeSt / SKNet, GERNet and MobileOne. Each
+family's module keeps the state_dict names of its upstream checkpoints
+(torchvision, efficientnet_pytorch, timm, pretrainedmodels).
 
 ``weights`` is resolved (``convert/pretrained.py``: a local file, nothing is
 downloaded; a missing file raises) and loaded into the encoder here, as smp
@@ -16,16 +19,35 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from stcd_tpu_torch.encoders.densenet import (_DENSENET_CFGS, DenseNetEncoder,
+                                              densenet_out_channels)
+from stcd_tpu_torch.encoders.dpn import _DPN_CFGS, DPNEncoder, dpn_out_channels
+from stcd_tpu_torch.encoders.efficientnet import (EfficientNetEncoder, TimmEfficientNetEncoder,
+                                                  efficientnet_out_channels)
+from stcd_tpu_torch.encoders.gernet import _GERNET_CFGS, GERNetEncoder, gernet_out_channels
+from stcd_tpu_torch.encoders.inception import (InceptionResNetV2Encoder, InceptionV4Encoder,
+                                               inceptionresnetv2_out_channels,
+                                               inceptionv4_out_channels)
 from stcd_tpu_torch.encoders.mix_transformer import (MIT_CFGS, MixTransformerEncoder,
                                                      mit_out_channels)
+from stcd_tpu_torch.encoders.mobilenet import (MobileNetV2Encoder, MobileNetV3Encoder,
+                                               mobilenetv3_out_channels)
+from stcd_tpu_torch.encoders.mobileone import (_MOBILEONE_CFGS, MobileOneEncoder,
+                                               mobileone_out_channels)
+from stcd_tpu_torch.encoders.regnet import _REGNET_CFGS, RegNetEncoder, regnet_out_channels
 from stcd_tpu_torch.encoders.resnet import RESNET_CFGS, ResNetEncoder, resnet_out_channels
+from stcd_tpu_torch.encoders.senet import _SENET_CFGS, SENetEncoder, senet_out_channels
+from stcd_tpu_torch.encoders.timm_resnet import (_TIMM_RESNET_CFGS, TimmResNetEncoder,
+                                                 timm_resnet_out_channels)
 from stcd_tpu_torch.encoders.vgg import VGG16Features, VGGEncoder, vgg_out_channels
+from stcd_tpu_torch.encoders.xception import XceptionEncoder, xception_out_channels
 
 
 @dataclasses.dataclass
@@ -53,33 +75,46 @@ for _name in MIT_CFGS:
     register_encoder(_name, MixTransformerEncoder, {"variant": _name},
                      mit_out_channels(_name))
 
-_SIZES = ("002", "004", "006", "008", "016", "032", "040", "064", "080", "120", "160", "320")
-# the JAX package's encoder families that the port has not yet (ROADMAP.md Queue 1 #9d)
-PENDING_FAMILIES = {
-    "densenet": tuple(f"densenet{n}" for n in (121, 161, 169, 201)),
-    "efficientnet": (tuple(f"efficientnet-b{i}" for i in range(8))
-                     + tuple(f"timm-efficientnet-{v}"
-                             for v in ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7", "b8",
-                                       "l2"))
-                     + tuple(f"timm-tf_efficientnet_lite{i}" for i in range(5))),
-    "mobilenet": ("mobilenet_v2",) + tuple(
-        f"timm-mobilenetv3_{mode}_{tag}" for mode in ("large", "small")
-        for tag in ("075", "100", "minimal_100")),
-    "senet": ("se_resnet50", "se_resnet101", "se_resnet152", "se_resnext50_32x4d",
-              "se_resnext101_32x4d", "senet154"),
-    "xception": ("xception",),
-    "inception": ("inceptionv4", "inceptionresnetv2"),
-    "dpn": tuple(f"dpn{n}" for n in ("68", "68b", "92", "98", "107", "131")),
-    "regnet": tuple(f"timm-regnet{kind}_{size}" for kind in "xy" for size in _SIZES),
-    "timm_resnet": tuple("timm-" + n for n in (
-        "res2net50_26w_4s", "res2net101_26w_4s", "res2net50_26w_6s", "res2net50_26w_8s",
-        "res2net50_48w_2s", "res2net50_14w_8s", "res2next50", "resnest14d", "resnest26d",
-        "resnest50d", "resnest101e", "resnest200e", "resnest269e", "resnest50d_4s2x40d",
-        "resnest50d_1s4x24d", "skresnet18", "skresnet34", "skresnext50_32x4d")),
-    "gernet": tuple(f"timm-gernet_{s}" for s in "sml"),
-    "mobileone": tuple(f"mobileone_s{i}" for i in range(5)),
-}
-_PENDING = {name: family for family, names in PENDING_FAMILIES.items() for name in names}
+for _name in _DENSENET_CFGS:
+    register_encoder(_name, DenseNetEncoder, {"arch": _name}, densenet_out_channels(_name))
+# efficientnet_pytorch's names slice stages by flat block index; timm's by group
+for _v in ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7"):
+    register_encoder(f"efficientnet-{_v}", EfficientNetEncoder, {"variant": _v},
+                     efficientnet_out_channels(_v))
+for _v in ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7", "b8", "l2"):
+    register_encoder(f"timm-efficientnet-{_v}", TimmEfficientNetEncoder, {"variant": _v},
+                     efficientnet_out_channels(_v))
+for _v in ("lite0", "lite1", "lite2", "lite3", "lite4"):
+    register_encoder(f"timm-tf_efficientnet_{_v}", TimmEfficientNetEncoder,
+                     {"variant": _v, "lite": True}, efficientnet_out_channels(_v, lite=True))
+register_encoder("mobilenet_v2", MobileNetV2Encoder, {}, (3, 16, 24, 32, 96, 1280))
+for _mode in ("large", "small"):
+    for _wm, _tag in ((0.75, "075"), (1.0, "100")):
+        register_encoder(f"timm-mobilenetv3_{_mode}_{_tag}", MobileNetV3Encoder,
+                         {"mode": _mode, "width_mult": _wm},
+                         mobilenetv3_out_channels(_mode, _wm))
+    register_encoder(f"timm-mobilenetv3_{_mode}_minimal_100", MobileNetV3Encoder,
+                     {"mode": _mode, "width_mult": 1.0, "minimal": True},
+                     mobilenetv3_out_channels(_mode, 1.0))
+for _name in _SENET_CFGS:
+    register_encoder(_name, SENetEncoder, {"arch": _name}, senet_out_channels(_name))
+register_encoder("xception", XceptionEncoder, {}, xception_out_channels())
+register_encoder("inceptionv4", InceptionV4Encoder, {}, inceptionv4_out_channels())
+register_encoder("inceptionresnetv2", InceptionResNetV2Encoder, {},
+                 inceptionresnetv2_out_channels())
+for _name in _DPN_CFGS:
+    register_encoder(_name, DPNEncoder, {"arch": _name}, dpn_out_channels(_name))
+for _name in _REGNET_CFGS:
+    register_encoder(f"timm-{_name}", RegNetEncoder, {"arch": _name},
+                     regnet_out_channels(_name))
+for _name in _TIMM_RESNET_CFGS:
+    register_encoder(f"timm-{_name}", TimmResNetEncoder, {"arch": _name},
+                     timm_resnet_out_channels(_name))
+for _name in _GERNET_CFGS:
+    register_encoder(f"timm-{_name}", GERNetEncoder, {"arch": _name},
+                     gernet_out_channels(_name))
+for _name in _MOBILEONE_CFGS:
+    register_encoder(_name, MobileOneEncoder, {"arch": _name}, mobileone_out_channels(_name))
 
 
 def encoder_names():
@@ -91,15 +126,19 @@ def encoder_out_channels(name: str, depth: int = 5) -> Tuple[int, ...]:
     return _REGISTRY[name].out_channels[: depth + 1]
 
 
-def _known(name: str) -> bool:
-    return name in _REGISTRY or name in _PENDING
-
-
-def _require_ported(name: str) -> None:
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"encoder {name!r} ({_PENDING[name]} family) is not ported to stcd_tpu_torch "
-            f"yet; ROADMAP.md Queue 1 #9d brings it. Ported: {encoder_names()}")
+def encoder_spec(name: str) -> EncoderSpec:
+    """The registry's entry of ``name`` (``tu-<name>`` resolved as in
+    ``get_encoder``)."""
+    if name.startswith("tu-"):
+        for cand in (name[3:], f"timm-{name[3:]}"):
+            if cand in _REGISTRY:
+                return _REGISTRY[cand]
+        raise KeyError(
+            f"`{name}`: timm universal encoders need the optional timm "
+            f"dependency; locally available encoders: {encoder_names()}")
+    if name not in _REGISTRY:
+        raise KeyError(f"Wrong encoder name `{name}`, supported encoders: {encoder_names()}")
+    return _REGISTRY[name]
 
 
 def get_encoder(name: str, in_channels: int = 3, depth: int = 5,
@@ -113,19 +152,7 @@ def get_encoder(name: str, in_channels: int = 3, depth: int = 5,
     ValueError. ``tu-<name>`` resolves ``<name>`` or ``timm-<name>`` here (the
     JAX package has no timm either). ``weights``: see the module docstring
     and ``load_encoder_weights``."""
-    if name.startswith("tu-"):
-        for cand in (name[3:], f"timm-{name[3:]}"):
-            if _known(cand):
-                name = cand
-                break
-        else:
-            raise KeyError(
-                f"`{name}`: timm universal encoders need the optional timm "
-                f"dependency; locally available encoders: {encoder_names()}")
-    _require_ported(name)
-    if name not in _REGISTRY:
-        raise KeyError(f"Wrong encoder name `{name}`, supported encoders: {encoder_names()}")
-    spec = _REGISTRY[name]
+    spec = encoder_spec(name)
     kwargs = dict(spec.kwargs)
     if output_stride != 32:
         if output_stride not in (8, 16):
@@ -145,13 +172,40 @@ def get_encoder(name: str, in_channels: int = 3, depth: int = 5,
 
 
 def load_encoder_weights(encoder: nn.Module, path: str) -> None:
-    """Load a torchvision state_dict file strictly into ``encoder``. The
-    classifier (ResNet's ``fc.*``, VGG's ``classifier.*``), which no encoder
-    has and the JAX converters never read, is dropped first, as smp's
-    encoders drop it."""
+    """Load an upstream state_dict file strictly into ``encoder``. First the
+    checkpoint's classifier head, which no encoder has and the JAX converters
+    never read, is dropped (the encoder class's ``head_prefixes``: ResNet's
+    ``fc``, VGG's ``classifier`` by default); DenseNet's legacy names
+    (``norm.1``) are renamed; a fused MobileOne file (``reparam_conv``) is
+    refused, as the JAX converter refuses it; and a conv bias that the
+    encoder declares and the file lacks (timm's SK ``fc_select``) is zero, as
+    the JAX converter of that family makes it."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    encoder.load_state_dict(
-        {k: v for k, v in sd.items() if not k.startswith(("fc.", "classifier."))}, strict=True)
+    if any(k.endswith("reparam_conv.weight") for k in sd):
+        raise ValueError("fused (inference-form) MobileOne checkpoint: convert the unfused "
+                         "train-form weights instead (reparam_conv.* found)")
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(getattr(encoder, "head_prefixes", ("fc.", "classifier.")))}
+    if isinstance(encoder, DenseNetEncoder):
+        sd = densenet_normalize_keys(sd)
+    if isinstance(encoder, (TimmResNetEncoder, RegNetEncoder)):
+        for k, v in encoder.state_dict().items():
+            if k.endswith(".bias") and k not in sd and k[:-4] + "weight" in sd:
+                sd[k] = torch.zeros_like(v, device="cpu")
+    encoder.load_state_dict(sd, strict=True)
+
+
+def densenet_normalize_keys(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """torchvision's legacy DenseNet names (``denselayer1.norm.1.weight``) ->
+    the current ones (``denselayer1.norm1.weight``), by the regex of the JAX
+    converter (stcd_tpu/convert/torch_to_flax.py:1335-1350)."""
+    pattern = re.compile(r"^(.*denselayer\d+\.(?:norm|relu|conv))\.((?:[12])\.(?:weight|bias|"
+                         r"running_mean|running_var))$")
+    out = {}
+    for k, v in sd.items():
+        m = pattern.match(k)
+        out[m.group(1) + m.group(2) if m else k] = v
+    return out
 
 
 # pretrainedmodels' settings of the reference's dpn, inception and xception encoders
@@ -164,11 +218,10 @@ _PREPROCESS_SPECIAL = {
 
 def get_preprocessing_params(encoder_name: str, pretrained: str = "imagenet") -> dict:
     """The normalisation an encoder's pretrained weights expect
-    (stcd_tpu/encoders/__init__.py:213-229). It needs the name only, so the
-    names of families not yet ported answer too."""
+    (stcd_tpu/encoders/__init__.py:213-229)."""
     if encoder_name.startswith("tu-"):
         encoder_name = encoder_name[3:]
-    if not _known(encoder_name) and not _known(f"timm-{encoder_name}"):
+    if encoder_name not in _REGISTRY and f"timm-{encoder_name}" not in _REGISTRY:
         raise KeyError(f"Wrong encoder name `{encoder_name}`")
     settings = dict(input_space="RGB", input_range=[0, 1],
                     mean=[0.485, 0.456, 0.406], std=[0.229, 0.224, 0.225])
@@ -200,5 +253,9 @@ def get_preprocessing_fn(encoder_name: str, pretrained: str = "imagenet"):
 
 __all__ = ["get_encoder", "load_encoder_weights", "get_preprocessing_params",
            "get_preprocessing_fn", "preprocess_input", "encoder_names", "encoder_out_channels",
-           "register_encoder", "PENDING_FAMILIES", "ResNetEncoder", "VGGEncoder",
-           "VGG16Features", "MixTransformerEncoder"]
+           "encoder_spec", "register_encoder", "ResNetEncoder", "VGGEncoder", "VGG16Features",
+           "MixTransformerEncoder", "EfficientNetEncoder", "TimmEfficientNetEncoder",
+           "MobileNetV2Encoder", "MobileNetV3Encoder", "SENetEncoder", "DenseNetEncoder",
+           "RegNetEncoder", "DPNEncoder", "XceptionEncoder", "InceptionV4Encoder",
+           "InceptionResNetV2Encoder", "TimmResNetEncoder", "GERNetEncoder",
+           "MobileOneEncoder"]

@@ -126,6 +126,23 @@ class ConvBNReLU(nn.Sequential):
         return torch.relu(super().forward(x))
 
 
+class ConvNorm(nn.Module):
+    """A bias-free Conv2d and the port's BatchNorm under timm's ConvNormAct
+    names, ``conv`` and ``bn``; the caller applies the activation. The conv
+    pads ``(k // 2) * dilation`` a side."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 stride: int = 1, dilation: int = 1, groups: int = 1, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                              padding=(kernel_size // 2) * dilation, dilation=dilation,
+                              groups=groups, bias=False, device=device)
+        self.bn = BatchNorm(out_channels, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv(x))
+
+
 class SegmentationHead(nn.Sequential):
     """3x3 conv head + optional bilinear upsample (align_corners=True) +
     activation, under smp's names: ``0`` is the conv

@@ -110,14 +110,16 @@ def create_train_state(model: nn.Module, tx: OptimizerConfig, device="cuda",
     ``device`` is ``"cuda"`` unless the caller asks for the CPU; ``cuda``
     without a card raises. On a card the model is laid out channels_last.
     ``bf16`` runs the forward under bfloat16 autocast with float32 master
-    weights. ``encoder_weights`` is a torch state_dict under torchvision's
-    names, loaded strictly into ``model.encoder``: its path, or ``"imagenet"``
-    for ``{encoder}.pth`` under ``$STCD_PRETRAINED_DIR``
+    weights. ``encoder_weights`` is a torch state_dict under the encoder
+    family's upstream names (torchvision, efficientnet_pytorch, timm,
+    pretrainedmodels), loaded strictly into ``model.encoder``: its path, or
+    ``"imagenet"`` for ``{encoder}.pth`` under ``$STCD_PRETRAINED_DIR``
     (``convert.pretrained.resolve_encoder_weights``: a missing file raises,
-    nothing is downloaded). A torchvision classifier (``fc.*``, VGG's
-    ``classifier.*``) is dropped first (``encoders.load_encoder_weights``), as
-    smp's encoders drop it and the JAX converters never read it; every other
-    unexpected or missing key raises. A file without ``num_batches_tracked`` loads
+    nothing is downloaded). The checkpoint's classifier head (ResNet's
+    ``fc.*``, VGG's and DenseNet's ``classifier.*``, pretrainedmodels'
+    ``last_linear.*``, ...) is dropped first (``encoders.load_encoder_weights``),
+    as smp's encoders drop it and the JAX converters never read it; every
+    other unexpected or missing key raises. A file without ``num_batches_tracked`` loads
     (``layers.norm.BatchNorm``)."""
     device = resolve_device(device)
     model = model.to(device)

@@ -51,7 +51,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                  "models.gcn_lib", "models.changevig", "models.init", "encoders.dilation",
                  "decoders.fpn", "decoders.pspnet", "decoders.linknet", "decoders.unetplusplus",
                  "decoders.manet", "decoders.deeplabv3", "decoders.pan", "models.smp_models",
-                 "models.factory"):
+                 "models.factory", "encoders.efficientnet", "encoders.mobilenet",
+                 "encoders.senet", "encoders.densenet", "encoders.regnet", "encoders.dpn",
+                 "encoders.xception", "encoders.inception", "encoders.timm_resnet",
+                 "encoders.gernet", "encoders.mobileone"):
         assert f"stcd_tpu_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 80
     assert res["bad"] == []

@@ -273,8 +273,11 @@ def test_device_cuda_without_card_raises_and_other_models_wait(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_predict.resolve_device("cuda")
     from stcd_tpu_torch.encoders import get_encoder
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_encoder("densenet121")  # the other encoder families wait (Queue 1 #9d)
+    # no model waits any more: the encoder families that raised until they were
+    # ported build (densenet121), and a name the JAX registry lacks is a KeyError
+    assert get_encoder("densenet121", device="cpu")[1] == (3, 64, 256, 512, 1024, 1024)
+    with pytest.raises(KeyError, match="Wrong encoder name"):
+        get_encoder("densenet100")
 
 
 def test_every_entry_point_defaults_to_the_card(monkeypatch):

@@ -8,8 +8,7 @@ BatchNorm of one sample.
 
 Weights are the JAX encoder's variables drawn with numpy
 (``test_torch_zoo_siam.jax_variables``), carried across by
-``convert/from_flax.py`` (``resnet_from_flax``, ``vgg_from_flax``,
-``mit_encoder_from_flax``). Every pyramid level is held within ATOL + RTOL
+``convert/from_flax.py::encoder_from_flax``. Every pyramid level is held within ATOL + RTOL
 |want| in eval mode (the convolutions sum in another order in oneDNN than in
 XLA:CPU; random running statistics over up to 16 residual blocks give levels
 of order 10).
@@ -25,8 +24,7 @@ import jax.numpy as jnp
 from stcd_tpu import encoders as jenc
 from stcd_tpu.models import factory as jfactory
 from stcd_tpu_torch import encoders as tenc
-from stcd_tpu_torch.convert.from_flax import (mit_encoder_from_flax, resnet_from_flax,
-                                              vgg_from_flax)
+from stcd_tpu_torch.convert.from_flax import encoder_from_flax
 from stcd_tpu_torch.models import create_model
 from stcd_tpu_torch.models import factory as tfactory
 
@@ -54,10 +52,8 @@ def _pyramids(name, hw, seed, in_channels=3, **kw):
         np.float32)
     want = jax.jit(jmodule.apply)(variables, jnp.asarray(x))
     port, tch = tenc.get_encoder(name, in_channels=in_channels, **kw)
-    p, s = variables["params"], variables.get("batch_stats", {})
-    sd = (mit_encoder_from_flax(p["mit"], "") if "mit" in p else
-          vgg_from_flax(p, s) if "conv0" in p else resnet_from_flax(p, s))
-    port.load_state_dict(sd)
+    port.load_state_dict(encoder_from_flax(name, variables["params"],
+                                           variables.get("batch_stats", {})), strict=True)
     with torch.no_grad():
         got = port.eval()(_nchw(x))
     assert tch == jch and tuple(port.out_channels) == tuple(jch)
@@ -127,12 +123,11 @@ def test_in_channels_4_matches_jax(name):
 
 
 def test_registry_matches_jax():
-    """Every registered name, its out_channels at every depth, and with the
-    pending families, JAX's names exactly; preprocessing parameters of all
-    of them (also with ``tu-`` and for ``advprop``) and preprocess_input."""
-    pending = {n for names in tenc.PENDING_FAMILIES.values() for n in names}
-    assert set(tenc.encoder_names()) | pending == set(jenc.encoder_names())
-    assert not set(tenc.encoder_names()) & pending and len(tenc.encoder_names()) == 25
+    """JAX's 124 names exactly, each one's out_channels at every depth;
+    preprocessing parameters of all of them (also with ``tu-`` and for
+    ``advprop``) and preprocess_input."""
+    assert set(tenc.encoder_names()) == set(jenc.encoder_names())
+    assert len(tenc.encoder_names()) == 124
     for name in tenc.encoder_names():
         for depth in range(1, 6):
             assert tenc.encoder_out_channels(name, depth) == jenc.encoder_out_channels(
@@ -152,10 +147,18 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("name", ["densenet121", "tu-regnetx_002", "timm-skresnet18",
                                   "efficientnet-b0"])
 def test_pending_family_raises_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="#9d"):
-        tenc.get_encoder(name)
-    with pytest.raises(NotImplementedError, match="#9d"):
-        create_model("unet", name)
+    """The four names that raised NotImplementedError while their families
+    were not ported: each now builds with JAX's out_channels, and
+    ``create_model("unet", name)`` gives JAX's output shape."""
+    module, channels = tenc.get_encoder(name)
+    assert channels == jenc.get_encoder(name)[1] == tuple(module.out_channels)
+    jmodel = jfactory.create_model("unet", name, decoder_channels=(16, 16, 12, 8, 8))
+    z = jnp.zeros((1, 64, 64, 3))
+    want = jax.eval_shape(lambda: jmodel.init_with_output(jax.random.PRNGKey(0), z)[0])
+    port = create_model("unet", name, decoder_channels=(16, 16, 12, 8, 8)).eval()
+    with torch.no_grad():
+        got = port(torch.zeros(1, 3, 64, 64))
+    assert tuple(got.permute(0, 2, 3, 1).shape) == want.shape
 
 
 def test_unknown_names_raise_key_error_as_jax():

@@ -131,7 +131,7 @@ def _port(name, dtype=torch.float32):
     _, variables = _jax(name)
     port = create_model(arch, encoder, classes=2, **kw)
     port.load_state_dict(smp_model_from_flax(arch, variables["params"],
-                                             variables.get("batch_stats")))
+                                             variables.get("batch_stats"), encoder_name=encoder))
     return port.to(dtype)
 
 
@@ -208,10 +208,11 @@ def test_train_forward_and_running_stats_match_jax(name, monkeypatch):
         hold(_to_nhwc(got), np.asarray(want), _to_nhwc(ref), out_jax, out_64, "output")
     got_stats = _running_stats(port.state_dict())
     ref_stats = _running_stats(port64.state_dict())
+    encoder = MODELS[name][1]
     old = _running_stats(smp_model_from_flax(arch, variables["params"],
-                                             variables.get("batch_stats")))
+                                             variables.get("batch_stats"), encoder_name=encoder))
     want = _running_stats(smp_model_from_flax(arch, variables["params"],
-                                              mutated["batch_stats"]))
+                                              mutated["batch_stats"], encoder_name=encoder))
     assert set(got_stats) == set(want) and want
     for key, value in want.items():
         hold(got_stats[key], value, ref_stats[key], stats_jax, stats_64, key)
@@ -237,7 +238,8 @@ def test_train_gradients_match_jax_and_float64(name, monkeypatch):
 
     (want_loss, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         variables["params"])
-    want = smp_model_from_flax(arch, grads, variables.get("batch_stats"))
+    want = smp_model_from_flax(arch, grads, variables.get("batch_stats"),
+                               encoder_name=MODELS[name][1])
     loss = ((port(*map(_nchw, xs)) - _nchw(target)) ** 2).mean()
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
