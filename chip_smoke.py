@@ -154,6 +154,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms of the last 5 and the peak memory); the eval forward of 2 on the card against
    the CPU within ZOO_ATOL; then cli.make_demo_data, cli.train_pse_cd --encoder
    efficientnet-b4 for one epoch and cli.predict --load_path on what it saved.
+21. smp's fit loop (utils.meter TrainEpoch / ValidEpoch): (a) the CamVid configuration
+   of smp's fit-loop notebook, FPN over se_resnext50_32x4d (sigmoid), 8 seeded 320x320
+   pairs a batch through get_training_augmentation on the card and the encoder's
+   preprocessing, utils DiceLoss with IoU and Fscore, Adam 1e-4: 6 train batches, 2 valid,
+   then 3 with the optimizer swapped to Adam 1e-5 (moments and step kept); (b) a seeded
+   synthetic Oxford Pet tree read by SimpleOxfordPetDataset through the loader, FPN over
+   resnet34 with losses.smp.DiceLoss(binary), 4 batches of 16 at 256x256, then get_stats
+   and iou_score on the held-out batch. Card against CPU: the batched augmentation against
+   the per-image path, cutout, get_stats, the smp losses and the FPN-r34 eval forward.
+   Median batch ms, images/s, peak memory; the eight kernels' counters do not move.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -2404,6 +2414,283 @@ def phase_encoder_zoo(torch, augment_kernel, gpu_label):
     return {"encoder_zoo": aug_calls, "encoder_zoo_cli": cli_calls}
 
 
+# phase 21: smp's fit loop (utils.meter) over create_model: the CamVid configuration of
+# smp's fit-loop notebook, then the Oxford Pet configuration of its binary example
+SMP_FIT = dict(encoder="se_resnext50_32x4d", batch=8, size=320, train=6, valid=2, swap=3,
+               lr=1e-4, swap_lr=1e-5)
+PET_FIT = dict(encoder="resnet34", batch=16, batches=4, n_trainval=72, n_test=8, valid_batch=8,
+               cpu_batch=2, lr=1e-4)
+AUG_ATOL, AUG_MASK_SHARE = 1e-4, 0.999  # batched card against the per-image CPU path
+SMP_LOSS_RTOL = 1e-5  # each smp loss, card against CPU on one fixed pair
+FIT_FWD_ATOL = 1e-4  # FPN-r34 eval forward, card against CPU, times max(1, max |CPU|)
+
+
+def kernel_counts(attention, augment) -> dict:
+    """The launch counters of the eight kernels' wrappers."""
+    from stcd_tpu_torch.ops import bn_stats, matmul_stats
+    return {"cross_attention": attention.cross_attention_kernel.kernel_launches,
+            "cross_attention_bwd": attention.cross_attention_kernel.backward_launches,
+            "augment": augment.apply_augment_kernel.kernel_launches,
+            "bn_stats": bn_stats.bn_stats_kernel.kernel_launches,
+            **{name: getattr(matmul_stats, name + "_kernel").kernel_launches
+               for name in ("matmul_stats", "matmul_bf16", "matmul_stats_rows",
+                            "matmul_stats_mma")}}
+
+
+def seeded_street_batches(torch, n_batches: int, batch: int, size: int, seed: int) -> list:
+    """Stand-ins for CamVid's car masks, on the card: images of noise in [0, 0.6]
+    with one to four axis-aligned boxes ("cars") of a colour of their own, and
+    masks of 1 on the boxes; drawn on the CPU from ``seed``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for _ in range(n_batches):
+        img = torch.rand(batch, size, size, 3, generator=gen) * 0.6
+        mask = torch.zeros(batch, size, size, 1)
+        for i in range(batch):
+            for _ in range(int(torch.randint(1, 5, (1,), generator=gen))):
+                h, w = (int(v) for v in torch.randint(size // 10, size // 3, (2,), generator=gen))
+                y, x = (int(v) for v in torch.randint(0, size - max(h, w), (2,), generator=gen))
+                mask[i, y:y + h, x:x + w] = 1.0
+                img[i, y:y + h, x:x + w] = (0.5 * img[i, y:y + h, x:x + w]
+                                            + 0.5 * torch.rand(3, generator=gen))
+        out.append((img.cuda(), mask.cuda()))
+    return out
+
+
+def timed_batches(torch, batches, events: list):
+    """Yield ``batches``, recording a CUDA event before each and one after the
+    last: event i to i + 1 spans batch i's update and its log reads."""
+    for batch in batches:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        yield batch
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+
+
+def batch_ms(events: list) -> list:
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def phase_smp_fit(torch, counters, gpu_label):
+    """smp's fit loop on the card, fp32 with TF32 off.
+
+    (a) The CamVid configuration of smp's fit-loop notebook: FPN over
+    se_resnext50_32x4d, classes 1, activation sigmoid (seeded weights),
+    utils.meter.DiceLoss with IoU and Fscore at threshold 0.5, Adam 1e-4;
+    batches of 8 seeded 320x320 image and mask pairs through
+    get_training_augmentation (batched, on the state's generator) and the
+    encoder's preprocessing; TrainEpoch over 6 batches, ValidEpoch over 2,
+    then TrainEpoch(tx=Adam 1e-5) over 3, which must keep the optimizer, its
+    moments and the step count. (b) Oxford Pet: a seeded synthetic tree in the
+    dataset's layout, SimpleOxfordPetDataset in train and valid mode through
+    the loader; FPN over resnet34 (classes 1), losses.smp.DiceLoss('binary',
+    from_logits=True), TrainEpoch over 4 batches of 16 at 256x256; then
+    get_stats and iou_score (micro, micro-imagewise) on the held-out batch.
+
+    Card against the CPU on the same draws and weights: the batched
+    augmentation against the per-image CPU path (images within AUG_ATOL,
+    masks equal on AUG_MASK_SHARE of the pixels: a perspective solve may move
+    a coordinate across a rounding boundary), cutout equal with the fill
+    injected, get_stats' counts equal, each smp loss within SMP_LOSS_RTOL, the
+    FPN-r34 eval forward within FIT_FWD_ATOL x max(1, max |CPU|). Prints the
+    median batch ms after the first (CUDA events), images/s, peak memory,
+    each epoch's logs and the step count around the swap. This path launches
+    none of the eight kernels: their counters are read before and after."""
+    import copy
+
+    from stcd_tpu_torch import losses, metrics
+    from stcd_tpu_torch.data import augment as aug
+    from stcd_tpu_torch.data.loader import DataLoader
+    from stcd_tpu_torch.data.oxford_pet import SimpleOxfordPetDataset, write_synthetic_tree
+    from stcd_tpu_torch.encoders import get_preprocessing_fn
+    from stcd_tpu_torch.models import create_model
+    from stcd_tpu_torch.models.segcd import init_weights
+    from stcd_tpu_torch.train.state import AdamConfig, create_train_state
+    from stcd_tpu_torch.utils import meter
+
+    t_phase = time.monotonic()
+    before = counters()
+    cfg = SMP_FIT
+    n, size = cfg["batch"], cfg["size"]
+    data = seeded_street_batches(torch, cfg["train"] + cfg["valid"] + cfg["swap"], n, size,
+                                 seed=21)
+
+    # the augmentation and the losses, card against CPU
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    img0, mask0 = data[0]
+    params = aug.sample_training_augmentation_params(gen, n, size, size)
+    card_i, card_m = aug.apply_training_augmentation(img0, mask0, params)
+    cpu_params = aug.params_to(params, "cpu")
+    per_image = [aug.apply_training_augmentation(img0[i:i + 1].cpu(), mask0[i:i + 1].cpu(),
+                                                 aug.select_params(cpu_params, i))
+                 for i in range(n)]
+    aug_err = (card_i.cpu() - torch.cat([p[0] for p in per_image])).abs().max().item()
+    mask_share = (card_m.cpu() == torch.cat([p[1] for p in per_image])).float().mean().item()
+    require(aug_err <= AUG_ATOL and mask_share >= AUG_MASK_SHARE
+            and bool(torch.isfinite(card_i).all()),
+            f"augmentation card against per-image CPU: max|err| {aug_err:.3e} (bound "
+            f"{AUG_ATOL}), masks equal on {mask_share:.6f} (bound {AUG_MASK_SHARE})")
+    cut = aug.sample_cutout_params(gen, n, size, size, p=1.0)
+    card_cut = aug.cutout(None, img0, img0.flip(0), mask0, params=cut)
+    cpu_cut = aug.cutout(None, img0.cpu(), img0.flip(0).cpu(), mask0.cpu(),
+                         params=aug.params_to(cut, "cpu"))
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(card_cut, cpu_cut)),
+            "cutout on the card differs from the CPU's with the same fill")
+    lgen = torch.Generator(device="cpu").manual_seed(22)
+    logits = torch.randn(2, 3, 64, 64, generator=lgen) * 2
+    binary_t = (torch.rand(2, 1, 64, 64, generator=lgen) > 0.5).float()
+    multi_t = torch.randint(0, 3, (2, 64, 64), generator=lgen)
+    label_t = (torch.rand(2, 3, 64, 64, generator=lgen) > 0.5).float()
+    loss_cases = [(f"{cls}({mode})", getattr(losses, cls)(mode=mode), x, t)
+                  for cls in ("DiceLoss", "JaccardLoss", "TverskyLoss", "FocalLoss", "LovaszLoss")
+                  for mode, x, t in (("binary", logits[:, :1], binary_t),
+                                     ("multiclass", logits, multi_t),
+                                     ("multilabel", logits, label_t))]
+    loss_cases += [("SoftBCEWithLogitsLoss", losses.SoftBCEWithLogitsLoss(smooth_factor=0.1),
+                    logits, label_t),
+                   ("SoftCrossEntropyLoss", losses.SoftCrossEntropyLoss(smooth_factor=0.1),
+                    logits, multi_t),
+                   ("MCCLoss", losses.MCCLoss(), logits[:, :1].sigmoid(), binary_t)]
+    loss_errs = {}
+    for name, fn, x, t in loss_cases:
+        want = fn(x, t).item()
+        got = fn(x.cuda(), t.cuda()).item()
+        loss_errs[name] = abs(got - want) / max(abs(want), 1e-12)
+    require(max(loss_errs.values()) <= SMP_LOSS_RTOL,
+            f"smp losses card against CPU, relative errors {loss_errs}")
+
+    # (a) the CamVid configuration through TrainEpoch, ValidEpoch and the tx swap
+    preprocess = get_preprocessing_fn(cfg["encoder"])
+    model = init_weights(create_model("FPN", encoder_name=cfg["encoder"], classes=1,
+                                      activation="sigmoid", device="cuda"), seed=0)
+    state = create_train_state(model, AdamConfig(lambda step: cfg["lr"]), device="cuda", seed=5)
+    fn = aug.get_training_augmentation()
+    aug_events, batches = [], []
+    for k, (img, mask) in enumerate(data):
+        if k < cfg["train"] or k >= cfg["train"] + cfg["valid"]:
+            aug_events.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+            aug_events[-1][0].record()
+            img, mask = fn(state.generator, img, mask)
+            aug_events[-1][1].record()
+        batches.append({"image": preprocess(img), "label": mask})
+    torch.cuda.synchronize()
+    aug_ms = sorted(a.elapsed_time(b) for a, b in aug_events)
+    train_b = batches[:cfg["train"]]
+    valid_b = batches[cfg["train"]:cfg["train"] + cfg["valid"]]
+    swap_b = batches[cfg["train"] + cfg["valid"]:]
+    loss = meter.DiceLoss()
+    mets = [meter.IoU(threshold=0.5), meter.Fscore(threshold=0.5)]
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    state, train_logs = meter.TrainEpoch(model, loss, mets).run(
+        state, timed_batches(torch, train_b, events))
+    train_ms = batch_ms(events)
+    state, valid_logs = meter.ValidEpoch(model, loss, mets).run(state, valid_b)
+    step_before, optimizer = state.step, state.optimizer
+    events = []
+    state, swap_logs = meter.TrainEpoch(model, loss, mets,
+                                        tx=AdamConfig(lambda step: cfg["swap_lr"])).run(
+        state, timed_batches(torch, swap_b, events))
+    swap_ms = batch_ms(events)
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    adam_steps = {int(s["step"]) for s in state.optimizer.state.values()}
+    logs = (train_logs, valid_logs, swap_logs)
+    require(all(v == v and abs(v) != float("inf") for d in logs for v in d.values())
+            and set(train_logs) == {"loss", "iou_score", "fscore"}
+            and step_before == cfg["train"] and state.step == cfg["train"] + cfg["swap"]
+            and state.optimizer is optimizer and adam_steps == {state.step}
+            and state.optimizer.param_groups[0]["lr"] == cfg["swap_lr"],
+            f"smp fit (a): logs {logs}, step {step_before} -> {state.step}, Adam steps "
+            f"{adam_steps}, optimizer kept {state.optimizer is optimizer}")
+    timed = sorted(train_ms[1:] + swap_ms[1:])
+    med_a = timed[len(timed) // 2]
+    print(f"smp fit (a) ({gpu_label}): FPN {cfg['encoder']} (sigmoid), {n} images of "
+          f"{size}x{size} a batch, fp32, utils DiceLoss, IoU and Fscore at 0.5; augmentation "
+          f"ms a batch {[round(t, 2) for t in aug_ms]}; TrainEpoch Adam {cfg['lr']} over "
+          f"{cfg['train']} batches: ms {[round(t, 2) for t in train_ms]}, logs {train_logs}; "
+          f"ValidEpoch over {cfg['valid']}: {valid_logs}; TrainEpoch(tx=Adam {cfg['swap_lr']}) "
+          f"over {cfg['swap']}: ms {[round(t, 2) for t in swap_ms]}, logs {swap_logs}; step "
+          f"{step_before} -> {state.step}, the optimizer and its moments kept (Adam step "
+          f"{sorted(adam_steps)}); median batch ms after the first {med_a:.2f} "
+          f"({n / med_a * 1e3:.1f} images/s), peak {peak_a:.2f} GiB", flush=True)
+    del state, model, optimizer, batches, data
+    torch.cuda.empty_cache()
+
+    # (b) Oxford Pet: the dataset's layout on disk, the loader, FPN-r34
+    pet = PET_FIT
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        write_synthetic_tree(root, pet["n_trainval"], pet["n_test"], seed=7)
+        t_write = time.monotonic() - t0
+        train_ds, valid_ds = (SimpleOxfordPetDataset(root, mode) for mode in ("train", "valid"))
+        require(len(train_ds) == pet["batch"] * pet["batches"]
+                and len(valid_ds) == pet["valid_batch"],
+                f"Oxford Pet splits: {len(train_ds)} train, {len(valid_ds)} valid")
+        preprocess = get_preprocessing_fn(pet["encoder"])
+        model = init_weights(create_model("FPN", pet["encoder"], classes=1, device="cuda"),
+                             seed=1)
+        state = create_train_state(model, AdamConfig(lambda step: pet["lr"]), device="cuda",
+                                   seed=6)
+        loader = DataLoader(train_ds, pet["batch"], shuffle=True, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        t0 = time.monotonic()
+        state, pet_logs = meter.TrainEpoch(
+            model, losses.DiceLoss("binary", from_logits=True),
+            [meter.IoU(threshold=0.5, activation="sigmoid")]).run(
+            state, timed_batches(torch, ({"image": preprocess(b["image"]), "label": b["label"]}
+                                         for b in loader), events))
+        pet_ms = batch_ms(events)
+        t_epoch = time.monotonic() - t0
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+        held = next(iter(DataLoader(valid_ds, pet["valid_batch"], device="cuda")))
+        x = preprocess(held["image"]).permute(0, 3, 1, 2)
+        logits = model.predict(x)
+        pred = (logits.sigmoid() > 0.5).long()
+        target = held["label"].permute(0, 3, 1, 2).long()
+        stats = metrics.get_stats(pred, target, "binary")
+        cpu_stats = metrics.get_stats(pred.cpu(), target.cpu(), "binary")
+        iou = {r: metrics.iou_score(*stats, reduction=r).item()
+               for r in ("micro", "micro-imagewise")}
+        m = pet["cpu_batch"]
+        with torch.no_grad():
+            cpu_logits = copy.deepcopy(model).cpu().predict(x[:m].cpu().contiguous())
+        fwd_err = (logits[:m].cpu() - cpu_logits).abs().max().item()
+        fwd_bound = FIT_FWD_ATOL * max(1.0, cpu_logits.abs().max().item())
+        require(state.step == pet["batches"] and all(v == v for v in pet_logs.values())
+                and all(torch.equal(a.cpu(), b) for a, b in zip(stats, cpu_stats))
+                and int(sum(s.sum() for s in stats)) == pet["valid_batch"] * 256 * 256
+                and all(0.0 <= v <= 1.0 for v in iou.values()) and fwd_err <= fwd_bound,
+                f"smp fit (b): step {state.step}, logs {pet_logs}, get_stats card "
+                f"{[s.sum().item() for s in stats]} CPU {[s.sum().item() for s in cpu_stats]}, "
+                f"iou {iou}, eval forward max|err| {fwd_err:.3e} (bound {fwd_bound:.3e})")
+        med_b = sorted(pet_ms[1:])[len(pet_ms[1:]) // 2]
+        print(f"smp fit (b) ({gpu_label}): Oxford Pet layout ({pet['n_trainval']} trainval, "
+              f"{pet['n_test']} test JPEGs of 300-500 px written in {t_write:.1f} s), "
+              f"SimpleOxfordPetDataset through the loader, FPN {pet['encoder']}, losses.smp."
+              f"DiceLoss(binary, from_logits), Adam {pet['lr']}: TrainEpoch over "
+              f"{pet['batches']} batches of {pet['batch']} at 256x256 in {t_epoch:.2f} s (host "
+              f"clock, decode included), batch ms {[round(t, 2) for t in pet_ms]} (median after "
+              f"the first {med_b:.2f}, {pet['batch'] / med_b * 1e3:.1f} images/s), peak "
+              f"{peak_b:.2f} GiB, logs {pet_logs}; held-out batch of {pet['valid_batch']}: "
+              f"get_stats tp/fp/fn/tn {[int(s.sum()) for s in stats]} (equal on the CPU), "
+              f"iou_score {iou}; eval forward of {m}, card against CPU: max|err| {fwd_err:.3e} "
+              f"(bound {fwd_bound:.3e})", flush=True)
+        del state, model
+        torch.cuda.empty_cache()
+    after = counters()
+    require(after == before, f"the smp fit loop launched kernels: {before} -> {after}")
+    print(f"smp fit: card against CPU, augmentation max|err| {aug_err:.3e}, masks equal on "
+          f"{mask_share:.6f}, cutout equal, smp losses max relative error "
+          f"{max(loss_errs.values()):.3e}; kernel counters before and after {after}; phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    return {"a_batch_ms": med_a, "a_peak_gib": peak_a, "b_batch_ms": med_b, "b_peak_gib": peak_b}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2495,6 +2782,8 @@ def main() -> int:
     # phase 20: the encoder families of get_encoder
     aug_by_path.update(phase_encoder_zoo(torch, augment.apply_augment_kernel, gpu_label))
     aug["launches"] = sum(aug_by_path.values())
+    # phase 21: smp's fit loop (launches none of the kernels)
+    phase_smp_fit(torch, lambda: kernel_counts(attention, augment), gpu_label)
 
     # every path's count was taken from 0 just before it and read just after
     fwd_by_path = {"v6_serving": serving_launches, "v6_training": v6_fwd,

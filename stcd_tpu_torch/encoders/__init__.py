@@ -234,15 +234,23 @@ def get_preprocessing_params(encoder_name: str, pretrained: str = "imagenet") ->
 
 
 def preprocess_input(x, mean=None, std=None, input_space="RGB", input_range=None, **kwargs):
-    """Normalise a channels-last numpy image (stcd_tpu/encoders/__init__.py:232-243)."""
+    """Normalise a channels-last image (stcd_tpu/encoders/__init__.py:232-243):
+    a numpy array, or a tensor, which stays on its device."""
+    tensor = isinstance(x, torch.Tensor)
+
+    def const(v):
+        if tensor:
+            return torch.tensor(v, dtype=torch.float32, device=x.device)
+        return np.array(v, dtype=np.float32)
+
     if input_space == "BGR":
-        x = x[..., ::-1]
+        x = x.flip(-1) if tensor else x[..., ::-1]
     if input_range is not None and x.max() > 1 and input_range[1] == 1:
         x = x / 255.0
     if mean is not None:
-        x = x - np.array(mean, dtype=np.float32)
+        x = x - const(mean)
     if std is not None:
-        x = x / np.array(std, dtype=np.float32)
+        x = x / const(std)
     return x
 
 

@@ -77,6 +77,14 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def upsample_bilinear(x: torch.Tensor, scale: int = 2,
+                      align_corners: bool = False) -> torch.Tensor:
+    """Bilinear upsample of an NCHW tensor by an integer factor
+    (stcd_tpu/layers/modules.py:112-114)."""
+    h, w = x.shape[2:]
+    return resize_bilinear(x, (h * scale, w * scale), align_corners=align_corners)
+
+
 _ACTIVATIONS = {
     None: lambda x: x,
     "identity": lambda x: x,

@@ -132,3 +132,23 @@ class SiamUnet(nn.Module):
         x = torch.cat([pad_replicate_to(x, fused[0].shape[2:]), fused[0]], dim=1)
         return self.conv11d(self._block("12d", x))
 
+
+def UnetEF(label_nbr: int = 2, device=None) -> SiamUnet:
+    """FC-EF: the two images concatenated at the input."""
+    return SiamUnet("ef", label_nbr=label_nbr, device=device)
+
+
+def SiamUnetDiff(label_nbr: int = 2, device=None) -> SiamUnet:
+    return SiamUnet("diff", label_nbr=label_nbr, device=device)
+
+
+def SiamUnetConc(label_nbr: int = 2, device=None) -> SiamUnet:
+    return SiamUnet("conc", label_nbr=label_nbr, device=device)
+
+
+def SiamUnetSub(label_nbr: int = 2, device=None) -> SiamUnet:
+    return SiamUnet("sub", label_nbr=label_nbr, device=device)
+
+
+def SiamUnetCrossConc(label_nbr: int = 2, device=None) -> SiamUnet:
+    return SiamUnet("crossconc", label_nbr=label_nbr, device=device)
