@@ -164,6 +164,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    and iou_score on the held-out batch. Card against CPU: the batched augmentation against
    the per-image path, cutout, get_stats, the smp losses and the FPN-r34 eval forward.
    Median batch ms, images/s, peak memory; the eight kernels' counters do not move.
+22. data-parallel training (stcd_tpu_torch/parallel), the ranks in processes of their own
+   (this script with --phase22-cli or --phase22-rank): (a) cli.train_pse_cd at full width
+   (SegCD-r50, decoder 256..16, 16 pairs of 256x256 from cli.make_demo_data, batch 8,
+   fp32, 1 epoch) under torch.distributed.run --nproc_per_node 1 (NCCL, a world of 1) and
+   in a plain process, at once, with cuDNN's deterministic algorithms: the two runs'
+   weights equal. (b) two ranks on the one card under gloo (initialize(backend="gloo");
+   NCCL refuses two ranks on one device): the stage-2 step at global batch 8, fp32, TF32
+   off, SGD, 3 steps, each rank holding rows r::2, against the one-process step of this
+   process: the first loss within DP_LOSS_RTOL, the counts but for STEP_CM_PIXELS, the
+   parameters and running statistics within DP_PARAM_SHARE and DP_STATS_SHARE, both ranks'
+   states equal; then bf16 at global batch 64 (32 a rank): step ms by rank, peak GiB, the
+   augmentation kernel's launches (counted in the kernels line).
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -172,6 +184,7 @@ before it lists the kernels with their launches, errors, times and bounds.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -2691,6 +2704,266 @@ def phase_smp_fit(torch, counters, gpu_label):
     return {"a_batch_ms": med_a, "a_peak_gib": peak_a, "b_batch_ms": med_b, "b_peak_gib": peak_b}
 
 
+# phase 22: data-parallel training (stcd_tpu_torch/parallel) on the card. (a) cli.train_pse_cd
+# at full width as one torchrun rank under NCCL, against the same CLI in a plain process;
+# (b) two ranks on the one card under gloo (NCCL refuses two ranks on one device), the
+# stage-2 step against the one-process step at the same global batch, then bf16 steps
+DP_CLI = dict(n=16, size=256, batch=8)  # one epoch of 2 steps of SegCD-r50 (CLI defaults)
+DP_STEP = dict(batch=8, size=256, steps=3, lr=1e-3)  # fp32, SGD momentum 0.9, 4 pairs a rank
+DP_BF16 = dict(batch=64, warm=2, steps=8)  # bf16 autocast, 32 pairs a rank
+DP_LOSS_RTOL = 1e-5  # the first step's loss, two ranks against one process
+# after DP_STEP's 3 steps, two ranks against one process, |d| over max(1, the tensor's
+# largest magnitude): float32 sums in another order and cuDNN's algorithms for 4 pairs
+# against those for 8; a running variance E[x^2] - E[x]^2 magnifies that noise. Measured
+# on an H100 80GB HBM3 at 700 W: parameters 5.6e-6 (encoder.conv1.weight), running
+# statistics 7.7e-5 and 8.3e-5 (encoder.layer4.2.bn1.running_var); the first loss equal
+DP_PARAM_SHARE = 3e-5
+DP_STATS_SHARE = 5e-4
+DP_TIMEOUT = 400  # seconds a launch may take
+DP_ENV_DROP = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+               "MASTER_PORT", "TORCHELASTIC_RUN_ID")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tagged(out: str, tag: str) -> list:
+    """The JSON objects of the lines that start with ``tag``."""
+    return [json.loads(line[len(tag) + 1:]) for line in out.splitlines()
+            if line.startswith(tag + " ")]
+
+
+def launch(cmd: list, timeout: int = DP_TIMEOUT) -> str:
+    """Run ``cmd`` in a session of its own and return its output; on a time-out
+    the whole session (torchrun and its ranks) is killed. A failure raises."""
+    import signal
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV_DROP}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd[:6])} ... did not end in {timeout} s")
+    require(proc.returncode == 0, f"{' '.join(cmd[:6])} ... exited {proc.returncode}:\n"
+            f"{out[-4000:]}")
+    return out
+
+
+def torchrun(nproc: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+            str(nproc), "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+            os.path.abspath(__file__), *args]
+
+
+def dp_fp32_run(torch, rows) -> dict:
+    """DP_STEP's fp32 stage-2 steps (SegCD-r50, decoder 256..16, augmentation on, SGD)
+    on the global batches from seeds 10, 11, 12, this process holding ``rows`` of each;
+    the draws from one generator on the card seeded 2."""
+    from stcd_tpu_torch.models.segcd import SegCD, init_weights
+    from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
+    from stcd_tpu_torch.train.state import SGDConfig, create_train_state
+    from stcd_tpu_torch.train.steps import make_cd_steps
+
+    model = init_weights(SegCD("resnet50", classes=1, decoder_channels=(256, 128, 64, 32, 16)),
+                         seed=0)
+    state = create_train_state(model, SGDConfig(lambda step: DP_STEP["lr"], momentum=0.9,
+                                                weight_decay=0.0), device="cuda")
+    train_step = make_cd_steps(augment=True)[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    losses, counts = [], []
+    for i in range(DP_STEP["steps"]):
+        data = seeded_cd_batch(DP_STEP["batch"], DP_STEP["size"], seed=10 + i, device="cuda")
+        out = train_step(state, {k: v[rows] for k, v in data.items()}, gen)
+        losses.append(float(out["loss"]))
+        counts.append(out["cm"].cpu().tolist())
+    return {"losses": losses, "counts": counts,
+            "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def state_errors(want: dict, got: dict) -> dict:
+    """The largest |got - want| / max(1, max |want|) of each group of a
+    state_dict (parameters, running means, running variances, counts), as
+    (error, name)."""
+    errs = {}
+    for k, v in want.items():
+        group = ("running_var" if k.endswith("running_var") else "running_mean"
+                 if k.endswith("running_mean") else "param" if v.is_floating_point()
+                 else "count")
+        err = ((got[k].double() - v.double()).abs().max().item()
+               / max(1.0, v.abs().max().item()))
+        errs[group] = max(errs.get(group, (-1.0, "")), (err, k))
+    return errs
+
+
+def phase22_cli(argv) -> int:
+    """One process of phase 22 (a): cli.train_pse_cd.main(argv) with cuDNN's
+    deterministic algorithms, so that two runs can be held to equal weights."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.cli import train_pse_cd
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    augment.apply_augment_kernel.kernel_launches = 0
+    out = train_pse_cd.main(argv)
+    torch.cuda.synchronize()
+    print("PHASE22_CLI " + json.dumps({
+        "launches": augment.apply_augment_kernel.kernel_launches, "step": out["state"].step,
+        "world": distributed.world_size(), "device": str(out["state"].device),
+        "backend": torch.distributed.get_backend() if distributed.is_initialized() else None}),
+        flush=True)
+    return 0
+
+
+def phase22_rank(out_dir: str) -> int:
+    """One of the two ranks of phase 22 (b), on cuda:0 under gloo."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.parallel import distributed
+    from stcd_tpu_torch.tools.profile_step import seeded_cd_batch, stage_setup
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize("cuda:0", backend="gloo")
+    rank, world = distributed.rank(), distributed.world_size()
+    require(world == 2 and torch.distributed.get_backend() == "gloo" and device.index == 0,
+            f"rank {rank}: world {world}, {torch.distributed.get_backend()}, {device}")
+    rows = distributed.global_batch_sharding()
+    augment.apply_augment_kernel.kernel_launches = 0
+    t0 = time.monotonic()
+    fp32 = dp_fp32_run(torch, rows)
+    fp32_s = time.monotonic() - t0
+    torch.save(fp32["state"], os.path.join(out_dir, f"rank{rank}.pt"))
+
+    state, train_step, _ = stage_setup(2, bf16=True)
+    data = seeded_cd_batch(DP_BF16["batch"], DP_STEP["size"], seed=1, device="cuda")
+    data = {k: v[rows] for k, v in data.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(DP_BF16["warm"] + DP_BF16["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(state, data, gen)["loss"]))  # float() waits
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times = sorted(times[DP_BF16["warm"]:])
+    print("PHASE22_RANK " + json.dumps({
+        "rank": rank, "losses": fp32["losses"], "counts": fp32["counts"], "fp32_s": fp32_s,
+        "bf16_losses": losses, "bf16_step_ms": times[len(times) // 2],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": augment.apply_augment_kernel.kernel_launches}), flush=True)
+    distributed.barrier("phase 22 done")
+    return 0
+
+
+def phase_data_parallel(torch, gpu_label) -> dict:
+    """Phase 22. Returns the augmentation kernel's launches by path."""
+    from stcd_tpu_torch.cli import make_demo_data
+
+    t_phase = time.monotonic()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the CLI as one torchrun rank under NCCL and in a plain process, at once
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(DP_CLI["n"]), "--size", str(DP_CLI["size"])])
+        cli = ["--phase22-cli", "--root_path", data, "--dataset_name", "LEVIR",
+               "--CDdataset_name", "LEVIR", "--batch_size", str(DP_CLI["batch"]), "--n_epochs",
+               "1", "--img_height", str(DP_CLI["size"]), "--img_width", str(DP_CLI["size"]),
+               "--device", "cuda", "--no_preempt"]
+        runs = {"nccl": torchrun(1, *cli, "--save_name", os.path.join(root, "nccl")),
+                "plain": [sys.executable, os.path.abspath(__file__), *cli, "--save_name",
+                          os.path.join(root, "plain")]}
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+            futures = {k: pool.submit(launch, cmd) for k, cmd in runs.items()}
+            info = {k: tagged(f.result(), "PHASE22_CLI")[0] for k, f in futures.items()}
+        cli_s = time.monotonic() - t0
+        want_steps = DP_CLI["n"] // DP_CLI["batch"]
+        require(info["nccl"]["backend"] == "nccl" and info["nccl"]["world"] == 1
+                and info["plain"]["backend"] is None and info["plain"]["world"] == 1,
+                f"phase 22 (a): {info}")
+        for k, v in info.items():
+            require(v["step"] == v["launches"] == want_steps and v["device"].startswith("cuda"),
+                    f"phase 22 (a) {k}: {v}")
+            launches[f"dp_cli_{k}"] = v["launches"]
+        saved = {k: torch.load(os.path.join(root, k, "last_ckpt"), map_location="cpu",
+                               weights_only=True)["model"] for k in runs}
+        cli_diff = max((saved["nccl"][k].double() - v.double()).abs().max().item()
+                       for k, v in saved["plain"].items() if v.is_floating_point())
+        require(saved["nccl"].keys() == saved["plain"].keys() and cli_diff == 0.0,
+                f"phase 22 (a): torchrun's weights differ from the plain run's by {cli_diff}")
+        print(f"data parallel (a) ({gpu_label}): cli.train_pse_cd SegCD-r50 (256..16), "
+              f"{DP_CLI['n']} pairs of {DP_CLI['size']}x{DP_CLI['size']}, batch "
+              f"{DP_CLI['batch']}, 1 epoch: torchrun --nproc_per_node 1 (NCCL, world 1) and a "
+              f"plain process, at once, {cli_s:.1f} s; weights equal (max |d| {cli_diff}); "
+              f"augment launches {info['nccl']['launches']} + {info['plain']['launches']}",
+              flush=True)
+        del saved
+
+        # (b) the one-process reference, then two ranks on the one card under gloo
+        one = dp_fp32_run(torch, slice(None))
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        out = launch(torchrun(2, "--phase22-rank", root))
+        ranks_s = time.monotonic() - t0
+        ranks = sorted(tagged(out, "PHASE22_RANK"), key=lambda r: r["rank"])
+        require([r["rank"] for r in ranks] == [0, 1], f"phase 22 (b): {out[-3000:]}")
+        states = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+                  for r in range(2)]
+    loss_err = abs(ranks[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    flips = max(sum(abs(a - b) for ga, wa in zip(got, want) for a, b in zip(ga, wa)) // 2
+                for r in ranks for got, want in zip(r["counts"], one["counts"]))
+    errs = state_errors(one["state"], states[0])
+    print(f"data parallel (b) ({gpu_label}): 2 ranks on one card under gloo, SegCD-r50 "
+          f"stage 2, global batch {DP_STEP['batch']} fp32 (TF32 off), {DP_STEP['steps']} SGD "
+          f"steps against one process: losses {ranks[0]['losses']} vs {one['losses']} "
+          f"(step 1 rel {loss_err:.2e}); after the steps, |d| / max(1, |w|) by group "
+          f"{ {g: (f'{e:.2e}', k) for g, (e, k) in errs.items()} }; counts differ in at most "
+          f"{flips} pixels", flush=True)
+    require(all(torch.equal(states[1][k], v) for k, v in states[0].items()),
+            "phase 22 (b): the two ranks' states differ")
+    require(loss_err <= DP_LOSS_RTOL and ranks[0]["losses"] == ranks[1]["losses"],
+            f"phase 22 (b): losses {[r['losses'] for r in ranks]} against {one['losses']}")
+    for r in ranks:
+        for got, want in zip(r["counts"], one["counts"]):
+            require([sum(x) for x in got] == [sum(x) for x in want],
+                    f"phase 22 (b): counts {got} against {want}")
+    require(flips <= STEP_CM_PIXELS, f"phase 22 (b): counts differ in {flips} pixels")
+    require(errs["count"][0] == 0.0 and errs["param"][0] <= DP_PARAM_SHARE
+            and max(errs["running_mean"][0], errs["running_var"][0]) <= DP_STATS_SHARE,
+            f"phase 22 (b): the state after the steps: {errs}")
+    print(f"data parallel (b) ({gpu_label}): bf16 global batch {DP_BF16['batch']} "
+          f"({DP_BF16['batch'] // 2} a rank), median of {DP_BF16['steps']} steps by the host "
+          f"clock, gloo through the host: step ms by rank "
+          f"{[round(r['bf16_step_ms'], 1) for r in ranks]}, peak GiB by rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]}, augment launches by rank "
+          f"{[r['launches'] for r in ranks]}; losses {ranks[0]['bf16_losses'][0]:.4f} -> "
+          f"{ranks[0]['bf16_losses'][-1]:.4f}; launch {ranks_s:.1f} s (the fp32 steps "
+          f"{ranks[0]['fp32_s']:.1f} s); phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    for r in ranks:
+        bf16 = r["bf16_losses"]
+        require(all(x == x and abs(x) != float("inf") for x in bf16) and bf16[-1] < bf16[0],
+                f"phase 22 (b) rank {r['rank']}: bf16 losses {bf16}")
+        want_launches = DP_STEP["steps"] + DP_BF16["warm"] + DP_BF16["steps"]
+        require(r["launches"] == want_launches,
+                f"phase 22 (b) rank {r['rank']}: {r['launches']} augment launches")
+    launches["dp_gloo_two_ranks"] = sum(r["launches"] for r in ranks)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2781,9 +3054,11 @@ def main() -> int:
         torch, attention, augment.apply_augment_kernel, gpu_label)
     # phase 20: the encoder families of get_encoder
     aug_by_path.update(phase_encoder_zoo(torch, augment.apply_augment_kernel, gpu_label))
-    aug["launches"] = sum(aug_by_path.values())
     # phase 21: smp's fit loop (launches none of the kernels)
     phase_smp_fit(torch, lambda: kernel_counts(attention, augment), gpu_label)
+    # phase 22: data-parallel training, its ranks in processes of their own
+    aug_by_path.update(phase_data_parallel(torch, gpu_label))
+    aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
     fwd_by_path = {"v6_serving": serving_launches, "v6_training": v6_fwd,
@@ -2857,4 +3132,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase22-cli"]:  # a process that phase 22 starts
+        sys.exit(phase22_cli(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase22-rank"]:
+        sys.exit(phase22_rank(sys.argv[2]))
     sys.exit(main())

@@ -2,14 +2,24 @@
 
 The flag surface is the JAX scripts' (the reference's argparse, its
 hard-coded booleans ``load_model`` / ``select_data`` / ``generate_label`` as
-flags), plus ``--device``. One card: ``--data_axis``, ``--space_axis`` and
-``--model_axis`` other than 1 raise (data parallel is ROADMAP.md Queue 1 #10;
-spatial and tensor parallel #11), and so ``make_mesh``, ``pick_steps`` and
-``place_state`` have no counterpart yet.
+flags), plus ``--device``.
+
+Data parallel: launched by ``torchrun --nproc_per_node W -m
+stcd_tpu_torch.cli.train_...``, the stage CLIs run W ranks, one a card (or W
+gloo processes with ``--device cpu``), and train what the JAX CLI trains on
+one host with W devices: ``make_mesh`` joins the process group and makes the
+data axis, ``--data_axis`` None meaning the launch's W (another size raises
+and says how to launch); ``--batch_size`` is the global batch, as on that
+host, of which each rank loads ``batch_size / W`` (W must divide it);
+``place_state`` makes every rank's state rank 0's after any restore. A plain
+``python -m`` run is one process. ``--space_axis`` and ``--model_axis`` other
+than 1 raise (spatial and tensor parallel are ROADMAP.md Queue 1 #11), so
+``pick_steps`` has one kind of step to pick.
 
 The helpers below the JAX ones build what every stage CLI builds the same way:
 the seeded model and train state, the loaders, the augmentation generator,
-``--load_model``, and the two gated passes of stages 2 and 3.
+``--load_model``, and the two gated passes of stages 2 and 3, which run their
+loader whole on every rank (rank 0 writes their files).
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ import os
 import torch
 
 from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.parallel import distributed
+from stcd_tpu_torch.parallel.distributed import print_primary
 
 
 def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentParser:
@@ -31,7 +43,9 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
     p.add_argument("--dataset_name", type=str, default=dataset_default)
     p.add_argument("--CDdataset_name", type=str, default=dataset_default)
     p.add_argument("--save_name", type=str, default=save_default, help="experiments name")
-    p.add_argument("--batch_size", type=int, default=4, help="size of the batches")
+    p.add_argument("--batch_size", type=int, default=4,
+                   help="size of the (global) batches; each of W data-parallel ranks "
+                        "loads batch_size / W")
     p.add_argument("--n_cpu", type=int, default=4, help="host decode threads")
     p.add_argument("--img_height", type=int, default=256,
                    help="accepted for the JAX surface; the models take any size "
@@ -80,24 +94,21 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
                    help="do not install the SIGTERM handler that saves a full resume "
                         "point before exiting")
     p.add_argument("--data_axis", type=int, default=None,
-                   help="data-parallel size; the port runs on one card (1)")
+                   help="data-parallel size: the ranks of the launch (default; "
+                        "torchrun --nproc_per_node N), one process without torchrun")
     p.add_argument("--space_axis", type=int, default=1,
-                   help="spatial-partitioning size; the port runs on one card (1)")
+                   help="spatial-partitioning size; only 1 (ROADMAP.md Queue 1 #11)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel size; the port runs on one card (1)")
+                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
     return p
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the port does not run: a mesh of more than one
-    device, or a card that is not there."""
+    """Parse, and refuse what the port does not run: a spatial or model axis,
+    or a card that is not there. ``make_mesh`` checks the data axis."""
     args = parser.parse_args(argv)
-    if args.data_axis not in (None, 1):
-        raise NotImplementedError(
-            f"--data_axis {args.data_axis}: data parallel is not ported "
-            "(ROADMAP.md Queue 1 #10)")
     for flag in ("space_axis", "model_axis"):
         if getattr(args, flag) != 1:
             raise NotImplementedError(
@@ -105,6 +116,42 @@ def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace
                 "ported (ROADMAP.md Queue 1 #11)")
     resolve_device(args.device)
     return args
+
+
+def make_mesh(args):
+    """Join the process group of a torchrun launch (a no-op in a plain
+    process) and make the data axis over it. ``args.device`` becomes this
+    rank's device (``cuda:LOCAL_RANK``). Raises where ``--data_axis`` is not
+    the launch's size or W does not divide ``--batch_size``. Returns the
+    ``parallel.mesh.Mesh``."""
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+
+    args.device = str(distributed.initialize(args.device))
+    mesh = create_mesh(data=args.data_axis, model=args.model_axis, space=args.space_axis)
+    if args.batch_size % mesh.data:
+        raise ValueError(f"--batch_size {args.batch_size} is the global batch: the "
+                         f"{mesh.data} data-parallel ranks must divide it")
+    return mesh
+
+
+def pick_steps(mesh, make_steps, args):
+    """The step pair for the run's mesh, ``make_steps()``: the JAX CLIs'
+    other choice, the manual spatial steps, needs a space axis (#11). Raises
+    where a rank's batch does not split into ``--accum_steps`` micro-batches
+    (W must divide a global micro-batch)."""
+    local = args.batch_size // mesh.data
+    if local % args.accum_steps:
+        raise ValueError(
+            f"--accum_steps {args.accum_steps}: a rank's batch of {local} (--batch_size "
+            f"{args.batch_size} over {mesh.data} ranks) does not split into micro-batches")
+    return make_steps()
+
+
+def place_state(mesh, state):
+    """Every rank's state made rank 0's; called after ``resume_and_guard``, so
+    that a restored state is placed too."""
+    from stcd_tpu_torch.parallel.mesh import place_train_state
+    return place_train_state(mesh, state)
 
 
 def resume_and_guard(args, state):
@@ -116,12 +163,12 @@ def resume_and_guard(args, state):
         from stcd_tpu_torch.train.checkpoint import CheckpointManager
         restored = CheckpointManager(args.save_name).restore_last(state)
         if restored is None:
-            print(f"--resume: no last_ckpt under {args.save_name}; starting fresh")
+            print_primary(f"--resume: no last_ckpt under {args.save_name}; starting fresh")
         else:
             state, epoch_id, best, best_epoch = restored
             kwargs.update(start_epoch=epoch_id + 1, best=best, best_epoch=best_epoch)
-            print(f"resumed full state from {args.save_name}/last_ckpt "
-                  f"(epoch {epoch_id}, best {best:.4f} @ {best_epoch})")
+            print_primary(f"resumed full state from {args.save_name}/last_ckpt "
+                          f"(epoch {epoch_id}, best {best:.4f} @ {best_epoch})")
     if not getattr(args, "no_preempt", False):
         from stcd_tpu_torch.train.preemption import PreemptionGuard
         kwargs["preemption"] = PreemptionGuard()
@@ -157,13 +204,14 @@ def build_state(args, model_cls, iters_per_epoch: int = 1, tx=None):
 
 def make_loaders(args, train_ds, val_ds):
     """The stage's train loader (shuffled by ``--seed``, whole batches) and
-    its val loader (twice the batch)."""
+    its val loader (twice the batch), each of this rank's share: a rank
+    loads ``--batch_size / W``."""
     from stcd_tpu_torch.data.loader import DataLoader
 
-    train = DataLoader(train_ds, args.batch_size, shuffle=True, num_workers=args.n_cpu,
+    local = args.batch_size // distributed.world_size()
+    train = DataLoader(train_ds, local, shuffle=True, num_workers=args.n_cpu,
                        seed=args.seed, drop_last=True, device=args.device)
-    val = DataLoader(val_ds, args.batch_size * 2, num_workers=args.n_cpu,
-                     device=args.device)
+    val = DataLoader(val_ds, local * 2, num_workers=args.n_cpu, device=args.device)
     return train, val
 
 
@@ -181,9 +229,9 @@ def load_model(args, state, note: str = "") -> None:
     best = mgr.best_path()
     if best:
         mgr.load_weights(state, best)
-        print(f"resumed weights from {best}{note}")
+        print_primary(f"resumed weights from {best}{note}")
     else:
-        print("Will start from scratch")
+        print_primary("Will start from scratch")
 
 
 def snapshot_paths(load_path: str) -> list:
@@ -214,7 +262,8 @@ def select_data(args, state, eval_step, make_state):
         states.append(snap)
     states.append(state)
     loader = DataLoader(CDDataset(args.root_path, args.CDdataset_name, "train"), 1,
-                        num_workers=args.n_cpu, device=args.device)
+                        num_workers=args.n_cpu, device=args.device, process_index=0,
+                        process_count=1)
     return select_reliable([eval_step] * len(states), states, loader,
                            os.path.join(args.root_path, args.CDdataset_name, "train", "list"))
 
@@ -228,10 +277,11 @@ def generate_label(args, state, eval_step, out_name: str, threshold: float,
     from stcd_tpu_torch.train.loops import generate_pseudo_labels
 
     loader = DataLoader(CDDataset(args.root_path, args.CDdataset_name, "train"), 1,
-                        num_workers=args.n_cpu, drop_last=False, device=args.device)
+                        num_workers=args.n_cpu, drop_last=False, device=args.device,
+                        process_index=0, process_count=1)
     metrics = generate_pseudo_labels(
         eval_step, state, loader,
         os.path.join(args.root_path, args.CDdataset_name, "train", out_name),
         threshold=threshold, vis_dir=vis_dir)
-    print("pseudo-label metrics:", metrics)
+    print_primary("pseudo-label metrics:", metrics)
     return metrics

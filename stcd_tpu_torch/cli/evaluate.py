@@ -15,7 +15,7 @@ batch of the split, as scripts/evaluate.py:57-80 does.
 from __future__ import annotations
 
 from stcd_tpu_torch.cli.common import (base_parser, build_state, configure_host_transfer,
-                                       parse_args)
+                                       parse_args, print_primary)
 
 
 def main(argv=None) -> dict:
@@ -43,11 +43,12 @@ def main(argv=None) -> dict:
     if best is None:
         raise SystemExit(f"no *_best_model checkpoint under {args.load_path}")
     mgr.load_weights(state, best)
-    print(f"loaded {best}")
+    print_primary(f"loaded {best}")
 
+    # the whole split on every rank of a data-parallel launch (cli.pipeline_demo)
     loader = DataLoader(CDDataset(args.root_path, args.dataset_name, args.split),
                         args.batch_size, num_workers=args.n_cpu, drop_last=False,
-                        device=args.device)
+                        device=args.device, process_index=0, process_count=1)
     _, eval_step = make_cd_steps(augment=False)
     if args.int8:
         eval_step = int8_eval_step(state, loader)
@@ -57,7 +58,7 @@ def main(argv=None) -> dict:
     else:
         metrics = evaluate(eval_step, state, loader)
     for k, v in metrics.items():
-        print(f"{k}: {v:.4f}")
+        print_primary(f"{k}: {v:.4f}")
     return metrics
 
 

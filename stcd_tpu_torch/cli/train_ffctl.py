@@ -16,7 +16,8 @@ Usage:
 from __future__ import annotations
 
 from stcd_tpu_torch.cli.common import (base_parser, build_state, configure_host_transfer,
-                                       load_model, make_loaders, parse_args,
+                                       load_model, make_loaders, make_mesh, parse_args,
+                                       pick_steps, place_state, print_primary,
                                        resume_and_guard, train_generator)
 
 
@@ -29,23 +30,25 @@ def main(argv=None) -> dict:
     p = base_parser("LEVIR", "runs/LEVIR-FFCTL")
     p.add_argument("--net", choices=["ffctlcd", "segcd"], default="ffctlcd")
     args = parse_args(p, argv)
+    mesh = make_mesh(args)
     configure_host_transfer(args)
-    print(args)
+    print_primary(args)
     train_loader, val_loader = make_loaders(
         args, FFCDataset(args.root_path, args.dataset_name, "train"),
         CDDataset(args.root_path, args.CDdataset_name, "val"))
     state = build_state(args, {"ffctlcd": FFCTLCD, "segcd": SegCD}[args.net],
                         len(train_loader))
-    train_step, eval_step = make_cd_steps(augment=True, remat=args.remat,
-                                          accum_steps=args.accum_steps)
+    train_step, eval_step = pick_steps(mesh, lambda: make_cd_steps(
+        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
     if args.load_model:  # warm start from the stage-2 checkpoint
         load_model(args, state)
     state, run_kwargs = resume_and_guard(args, state)
+    state = place_state(mesh, state)
     state, best, history = run_training(
         train_step, eval_step, state, train_loader, val_loader,
         n_epochs=args.n_epochs, save_dir=args.save_name, rng=train_generator(args),
         **run_kwargs)
-    print(f"best cd IoU: {best:.4f}")
+    print_primary(f"best cd IoU: {best:.4f}")
     return {"state": state, "best": best, "history": history}
 
 

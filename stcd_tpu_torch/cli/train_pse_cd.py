@@ -18,7 +18,8 @@ Usage:
 from __future__ import annotations
 
 from stcd_tpu_torch.cli.common import (base_parser, build_state, configure_host_transfer,
-                                       generate_label, load_model, make_loaders, parse_args,
+                                       generate_label, load_model, make_loaders, make_mesh,
+                                       parse_args, pick_steps, place_state, print_primary,
                                        resume_and_guard, select_data, train_generator)
 
 
@@ -29,14 +30,15 @@ def main(argv=None) -> dict:
     from stcd_tpu_torch.train.steps import make_cd_steps
 
     args = parse_args(base_parser("LEVIR", "runs/LEVIR-PseCD"), argv)
+    mesh = make_mesh(args)
     configure_host_transfer(args)
-    print(args)
+    print_primary(args)
     train_loader, val_loader = make_loaders(
         args, PSEDataset(args.root_path, args.dataset_name, "train"),
         CDDataset(args.root_path, args.CDdataset_name, "val"))
     state = build_state(args, SegCD, len(train_loader))
-    train_step, eval_step = make_cd_steps(augment=True, remat=args.remat,
-                                          accum_steps=args.accum_steps)
+    train_step, eval_step = pick_steps(mesh, lambda: make_cd_steps(
+        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
     if args.load_model:
         load_model(args, state)
     if args.select_data:
@@ -48,11 +50,12 @@ def main(argv=None) -> dict:
                 "metrics": generate_label(args, state, eval_step, "ff_label", 0.7)}
 
     state, run_kwargs = resume_and_guard(args, state)
+    state = place_state(mesh, state)
     state, best, history = run_training(
         train_step, eval_step, state, train_loader, val_loader,
         n_epochs=args.n_epochs, save_dir=args.save_name, rng=train_generator(args),
         **run_kwargs)
-    print(f"best cd IoU: {best:.4f}")
+    print_primary(f"best cd IoU: {best:.4f}")
     return {"state": state, "best": best, "history": history}
 
 

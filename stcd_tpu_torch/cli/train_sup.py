@@ -16,7 +16,8 @@ Usage:
 from __future__ import annotations
 
 from stcd_tpu_torch.cli.common import (base_parser, build_state, configure_host_transfer,
-                                       load_model, make_loaders, parse_args,
+                                       load_model, make_loaders, make_mesh, parse_args,
+                                       pick_steps, place_state, print_primary,
                                        resume_and_guard, train_generator)
 
 
@@ -27,22 +28,24 @@ def main(argv=None) -> dict:
     from stcd_tpu_torch.train.steps import make_seg_steps
 
     args = parse_args(base_parser("WHU-AB", "runs/WHU-Seg"), argv)
+    mesh = make_mesh(args)
     configure_host_transfer(args)
-    print(args)
+    print_primary(args)
     train_loader, val_loader = make_loaders(
         args, WHUDataset(args.root_path, args.dataset_name, "train"),
         WHUDataset(args.root_path, args.dataset_name, "val"))
     state = build_state(args, UnetSeg, len(train_loader))
     if args.load_model:
         load_model(args, state)
-    train_step, eval_step = make_seg_steps(augment=True, remat=args.remat,
-                                           accum_steps=args.accum_steps)
+    train_step, eval_step = pick_steps(mesh, lambda: make_seg_steps(
+        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
     state, run_kwargs = resume_and_guard(args, state)
+    state = place_state(mesh, state)
     state, best, history = run_training(
         train_step, eval_step, state, train_loader, val_loader,
         n_epochs=args.n_epochs, save_dir=args.save_name, rng=train_generator(args),
         **run_kwargs)
-    print(f"best IoU: {best:.4f}")
+    print_primary(f"best IoU: {best:.4f}")
     return {"state": state, "best": best, "history": history}
 
 

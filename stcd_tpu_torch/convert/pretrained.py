@@ -14,12 +14,17 @@ Contract (loud, never a silent no-op):
   under ``$STCD_PRETRAINED_DIR`` (default
   ``~/.cache/stcd_tpu_torch/pretrained``); raise FileNotFoundError with
   instructions if absent.
+
+``patch_first_conv`` adapts such a state_dict's RGB stem to another number
+of input channels, as smp does for ``in_channels != 3``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 _DEFAULT_DIR = os.path.join("~", ".cache", "stcd_tpu_torch", "pretrained")
 
@@ -56,3 +61,27 @@ def resolve_encoder_weights(weights: Optional[str],
         "downloaded: save the encoder's upstream state_dict (torch.save of "
         f"model.state_dict()) as {os.path.join(pretrained_dir(), name + '.pth')}, or "
         "set $STCD_PRETRAINED_DIR to the directory that holds it.")
+
+
+def patch_first_conv(state_dict: Dict[str, torch.Tensor], new_in_channels: int,
+                     default_in_channels: int = 3) -> Dict[str, torch.Tensor]:
+    """smp's ``encoders/_utils.py`` ``patch_first_conv`` on a state_dict of
+    OIHW tensors (stcd_tpu/convert/torch_to_flax.py:1099, which does it on
+    HWIO kernels): the stem, the first 4-D weight with ``default_in_channels``
+    input channels in module order, is adapted so that pretrained RGB weights
+    drive ``new_in_channels`` inputs. One channel: the sum over the input
+    channels. Otherwise the source channels cycle (i mod 3), rescaled by
+    3 / new. Returns a new dict; the other entries are the same tensors."""
+    stem = next((k for k, w in state_dict.items()
+                 if w.dim() == 4 and w.shape[1] == default_in_channels), None)
+    if stem is None:
+        raise ValueError(f"no stem conv with {default_in_channels} input channels found")
+    if new_in_channels == default_in_channels:
+        return dict(state_dict)
+    w = state_dict[stem]
+    if new_in_channels == 1:
+        patched = w.sum(dim=1, keepdim=True)
+    else:
+        idx = [i % default_in_channels for i in range(new_in_channels)]
+        patched = w[:, idx] * (default_in_channels / new_in_channels)
+    return {**state_dict, stem: patched.to(w.dtype)}

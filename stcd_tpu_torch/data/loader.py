@@ -13,8 +13,15 @@ consumer's kernels may still read it.
 
 The index order is the JAX loader's (``np.random.default_rng(seed + epoch)``
 shuffles each epoch), and so are ``__len__``, ``drop_last``, the partial final
-batch and the ``name`` lists. One process only: the strided split of the data
-over processes is ROADMAP.md Queue 1 #10.
+batch and the ``name`` lists. So is the split over the processes of a
+data-parallel run (stcd_tpu/data/loader.py:41-120): every process draws the
+same permutation and takes the strided slice ``idx[r::W]``, wrapped to
+``ceil(n / W)`` samples, so that every process runs the same number of
+steps; without ``drop_last`` its final batch is padded to ``batch_size`` by
+wrapping, so the tail samples count twice in what it feeds (an eval's
+metrics). ``batch_size`` is the size of this process's batches. Until a
+process wraps, rank r's batch b holds the rows ``r::W`` of the one-process
+loader's batch b at ``W * batch_size``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.parallel import distributed
 
 PREFETCH = 2  # batches whose copy is in flight on the card
 
@@ -51,7 +59,10 @@ class DataLoader:
     """Epoch-based loader: shuffle, batch, threaded decode, copies to ``device``.
 
     ``device`` is ``"cuda"`` unless the caller asks for the CPU; ``cuda``
-    without a card raises. On the CPU the batches are host tensors."""
+    without a card raises. On the CPU the batches are host tensors.
+    ``process_index`` / ``process_count``: this process's share of the data
+    (module docstring); both or neither, by default the rank and the size of
+    the process group (``parallel.distributed``), one process without one."""
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False, seed: int = 1337,
@@ -60,10 +71,11 @@ class DataLoader:
             raise ValueError(
                 "pass process_index AND process_count together (got "
                 f"process_index={process_index}, process_count={process_count})")
-        if process_count is not None and process_count > 1:
-            raise NotImplementedError(
-                f"process_count={process_count}: the loader's split over processes is not "
-                "ported (ROADMAP.md Queue 1 #10)")
+        if process_count is None:
+            process_index, process_count = distributed.rank(), distributed.world_size()
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count} processes")
+        self.process_index, self.process_count = process_index, process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,16 +85,35 @@ class DataLoader:
         self.device = resolve_device(device)
         self._epoch = 0
 
+    def _local_count(self) -> int:
+        """The samples this process sees an epoch: all of them in one process,
+        ``ceil(n / W)`` on each of W, so that every process runs the same
+        number of steps (a collective one process skips waits forever)."""
+        return -(-len(self.dataset) // self.process_count)
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._local_count()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _indices(self) -> np.ndarray:
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:  # one permutation on every process: the seed is the epoch's
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        if self.process_count > 1:
+            per = self._local_count()
+            strided = idx[self.process_index::self.process_count]
+            if len(strided) < per:  # wrap, so that every process has per samples
+                extra = idx[:per - len(strided)] if len(strided) == 0 \
+                    else strided[:per - len(strided)]
+                strided = np.concatenate([strided, extra])
+            idx = strided
+            if not self.drop_last:  # pad the final batch by wrapping
+                total = len(self) * self.batch_size
+                if len(idx) < total:
+                    idx = np.resize(idx, total)
         self._epoch += 1
         return idx
 

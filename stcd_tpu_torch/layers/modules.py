@@ -36,9 +36,7 @@ class Dropout2d(Stochastic):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2), device=x.device,
-                           dtype=x.dtype).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+        return x * self.bernoulli(x, x.shape[:2] + (1,) * (x.dim() - 2), keep) / keep
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

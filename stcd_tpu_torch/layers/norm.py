@@ -9,7 +9,12 @@ It differs from ``torch.nn.BatchNorm2d`` in three ways, all on purpose:
 - the running update uses flax's momentum: new = 0.9 * old + 0.1 * batch.
 
 The normalisation is applied as ``x * w + b`` with per-channel float32
-coefficients cast to the input's dtype. The state_dict names are those of
+coefficients cast to the input's dtype. Under a process group of W > 1
+ranks (``parallel.distributed``) the train-mode moments are those of the
+global batch, as in the JAX package, where XLA reduces them over the mesh:
+the per-channel float32 ``[sum x, sum x^2, count]`` is summed over the ranks
+(``_moments``), whose backward sums the gradient over the ranks. One process
+takes the moments as before. The state_dict names are those of
 ``nn.BatchNorm2d`` (``weight``, ``bias``, ``running_mean``, ``running_var``,
 ``num_batches_tracked``), so the original reference's checkpoints load; a
 state_dict without ``num_batches_tracked`` loads too, as it does into
@@ -20,6 +25,21 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from stcd_tpu_torch.parallel import distributed
+
+
+def _moments(xf: torch.Tensor, axes) -> tuple:
+    """Per-channel float32 mean and biased variance of ``xf`` over ``axes``:
+    of the local batch in one process, of the global batch across ranks."""
+    if not distributed.data_parallel():
+        mean = xf.mean(axes)
+        return mean, torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+    c = xf.shape[1]
+    count = xf.new_full((1,), xf.numel() // c)
+    sums = distributed.all_reduce_sum(torch.cat([xf.sum(axes), xf.square().sum(axes), count]))
+    mean = sums[:c] / sums[-1]
+    return mean, torch.clamp(sums[c:2 * c] / sums[-1] - mean.square(), min=0.0)
 
 
 class BatchNorm(nn.Module):
@@ -50,9 +70,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = [0] + list(range(2, x.dim()))
-            xf = x.float()
-            mean = xf.mean(axes)
-            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            mean, var = _moments(x.float(), axes)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1.0 - self.momentum) * mean)

@@ -6,27 +6,79 @@ draws from ``self.generator``, a ``torch.Generator`` on the model's device
 that the train step owns and hands over with ``set_generator``; ``None``
 means PyTorch's global generator of that device. All draws are made on the
 generator's device and stay there: none is read on the host.
+
+In data-parallel training (``parallel.distributed``) every rank holds the
+same generator and a ``RowMap`` of its rows in the global batch: a layer
+then draws its mask for the global batch, as the JAX layer does on the
+global array, and keeps its rank's rows. So W ranks draw what one process
+draws on the global batch, for row-major and channels_last layouts.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 
+class RowMap(NamedTuple):
+    """Where a rank's rows sit in the global batch. A tensor whose batch is k
+    blocks of ``local`` rows (the step's rows, concatenated k times, as SegCD
+    folds A and B) has row j of block q at global row
+    ``q * n_global + rows[j]`` of k blocks of ``n_global``."""
+
+    local: int
+    n_global: int
+    rows: torch.Tensor  # (local,) int64, on the model's device
+
+    def take(self, draw, n: int) -> torch.Tensor:
+        """``draw(m)`` makes a mask of m rows: the rows of the global batch's
+        mask that this rank's ``n``-row input holds."""
+        if n % self.local:
+            raise ValueError(f"a batch of {n} rows is no whole number of the step's "
+                             f"{self.local} rows: its global rows are unknown")
+        k = n // self.local
+        full = draw(k * self.n_global)
+        blocks = torch.arange(k, device=full.device)[:, None] * self.n_global
+        return full.index_select(0, (blocks + self.rows.to(full.device)).reshape(-1))
+
+
 class Stochastic(nn.Module):
-    """A module whose train-mode forward draws from ``self.generator``."""
+    """A module whose train-mode forward draws from ``self.generator``,
+    for the global batch when it has a ``RowMap`` (``self.rows``)."""
 
     generator: Optional[torch.Generator] = None
+    rows: Optional[RowMap] = None
+
+    def bernoulli(self, x: torch.Tensor, shape: tuple, keep: float) -> torch.Tensor:
+        """A mask of ``shape`` (x's batch first, in x's dtype and on its device)
+        whose elements are 1 with probability ``keep``; laid out channels_last
+        where ``shape`` is that of a channels_last ``x``."""
+        fmt = torch.contiguous_format
+        if (tuple(shape) == tuple(x.shape) and x.dim() == 4 and not x.is_contiguous()
+                and x.is_contiguous(memory_format=torch.channels_last)):
+            fmt = torch.channels_last
+
+        def draw(n: int) -> torch.Tensor:
+            if n == x.shape[0] and tuple(shape) == tuple(x.shape):
+                out = torch.empty_like(x)
+            else:
+                out = torch.empty((n, *shape[1:]), device=x.device, dtype=x.dtype,
+                                  memory_format=fmt)
+            return out.bernoulli_(keep, generator=self.generator)
+
+        return draw(shape[0]) if self.rows is None else self.rows.take(draw, shape[0])
 
 
-def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
-    """Point every stochastic layer of ``model`` at ``generator``."""
+def set_generator(model: nn.Module, generator: Optional[torch.Generator],
+                  rows: Optional[RowMap] = None) -> nn.Module:
+    """Point every stochastic layer of ``model`` at ``generator`` and at the
+    ``RowMap`` of a data-parallel step (None: the batch is the whole batch)."""
     for mod in model.modules():
         if isinstance(mod, Stochastic):
             mod.generator = generator
+            mod.rows = rows
     return model
 
 
@@ -45,8 +97,7 @@ class Dropout(Stochastic):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+        return x * self.bernoulli(x, x.shape, keep) / keep
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -63,9 +114,7 @@ class DropPath(Stochastic):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
-                           dtype=x.dtype).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+        return x * self.bernoulli(x, (x.shape[0],) + (1,) * (x.dim() - 1), keep) / keep
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:

@@ -3,7 +3,15 @@ of stcd_tpu/losses/functional.py). The binary losses and ``contrastive_loss``
 take probabilities (sigmoid outputs) and targets of one shape; the class
 losses (``cross_entropy``, ``focal_loss``, ``miou_loss``, ``mmiou_loss``) take
 NCHW logits, where the JAX functions take NHWC, and integer targets. All
-compute in float32."""
+compute in float32.
+
+Under a process group of W > 1 ranks each rank holds rows of the global
+batch, and the losses that are ratios of batch sums (``dice_loss``,
+``cross_entropy``, ``contrastive_loss``) sum those over the ranks
+(``parallel.distributed.all_reduce_sum``), so each rank gets the global
+loss, as the JAX functions do on a batch sharded over the mesh. The losses
+that are means of per-sample terms (``bce_loss``, ``focal_loss``, ...) stay
+local: the mean of the ranks' gradients makes them global."""
 
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from stcd_tpu_torch.layers.modules import resize_bilinear
+from stcd_tpu_torch.parallel.distributed import all_reduce_sum
 
 _EPS = 1e-8
 
@@ -37,11 +46,12 @@ def bce_loss(probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def dice_loss(probs: torch.Tensor, target: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
-    """Soft Dice over the whole batch."""
+    """Soft Dice over the whole (global) batch."""
     p = probs.float().reshape(-1)
     t = target.float().reshape(-1)
-    intersection = torch.sum(p * t)
-    return 1.0 - (2.0 * intersection + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+    intersection, p_sum, t_sum = all_reduce_sum(
+        torch.stack([torch.sum(p * t), torch.sum(p), torch.sum(t)]))
+    return 1.0 - (2.0 * intersection + smooth) / (p_sum + t_sum + smooth)
 
 
 def bce_dice(probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -78,6 +88,7 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
         denom = valid.sum().to(torch.float32)
     else:
         denom = (weight[torch.where(valid, target, 0)] * valid).sum()
+    total, denom = all_reduce_sum(torch.stack([total, denom]))
     return total / torch.clamp(denom, min=_EPS)
 
 
@@ -174,9 +185,10 @@ def contrastive_loss(pred: torch.Tensor, cd_label: torch.Tensor,
     disagree = 1.0 - agree
     se_pos = (pse_pred - cd_pred) ** 2
     se_neg = (pse_pred - torch.abs(cd_pred - 1.0)) ** 2
-    loss_pos = torch.sum(se_pos * agree) / (torch.sum(agree) + _EPS)
-    loss_neg = torch.sum(se_neg * disagree) / (torch.sum(disagree) + _EPS)
-    return loss_pos + loss_neg
+    pos, n_agree, neg, n_disagree = all_reduce_sum(torch.stack([
+        torch.sum(se_pos * agree), torch.sum(agree), torch.sum(se_neg * disagree),
+        torch.sum(disagree)]))
+    return pos / (n_agree + _EPS) + neg / (n_disagree + _EPS)
 
 
 def get_alpha(loader) -> np.ndarray:

@@ -1,12 +1,18 @@
 """Confusion-matrix segmentation metrics (counterpart of
 stcd_tpu/metrics/confusion.py). The per-batch count runs on the tensors'
 device and forces no host sync; accumulation happens on the host in numpy
-float64, as the reference keeps it."""
+float64, as the reference keeps it. Under a process group of W > 1 ranks a
+rank counts its own rows, and ``global_counts`` sums the counts over the
+ranks: the train steps do so before their counts leave the step, the eval
+loop once an evaluation, so that the metrics (and the best-by-IoU choice) are
+those of the global batch, as in the JAX package."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stcd_tpu_torch.parallel import distributed
 
 
 def confusion_matrix(pred: torch.Tensor, label: torch.Tensor,
@@ -17,6 +23,12 @@ def confusion_matrix(pred: torch.Tensor, label: torch.Tensor,
     idx = num_classes * label.reshape(-1).to(torch.int64) + pred.reshape(-1).to(torch.int64)
     return torch.bincount(idx, minlength=num_classes ** 2)[:num_classes ** 2].reshape(
         num_classes, num_classes)
+
+
+def global_counts(cm: torch.Tensor) -> torch.Tensor:
+    """Counts summed over the ranks (every rank calls it together); ``cm``
+    itself in one process."""
+    return distributed.all_reduce_(cm.clone()) if distributed.data_parallel() else cm
 
 
 class SegmentationMetric:

@@ -37,16 +37,18 @@ def create_model(arch: str, encoder_name: str = "resnet34",
     in ``$STCD_PRETRAINED_DIR``) is resolved here, so a missing file raises
     before anything is built, and loaded into the encoder. ``in_channels``
     other than 3 builds the first conv at that width; with pretrained
-    weights it raises, as in the JAX package, since the first conv's
-    adaptation is not ported."""
+    weights it raises, as in the JAX package: the file's stem is adapted
+    first, by ``convert.pretrained.patch_first_conv``."""
     arch_l = arch.lower()
     if arch_l not in _ARCHS:
         raise KeyError(f"Wrong architecture `{arch}`. Available: {sorted(_ARCHS)}")
     if in_channels != 3 and encoder_weights is not None:
         raise NotImplementedError(
             f"in_channels={in_channels} with pretrained weights needs the first-conv "
-            "adaptation, which is not ported: build with encoder_weights=None and load "
-            "a checkpoint made for that width.")
+            "adaptation: apply stcd_tpu_torch.convert.pretrained.patch_first_conv("
+            f"torch.load(file), {in_channels}) to the encoder's file, torch.save the result, "
+            "build with encoder_weights=None and load it with "
+            "encoders.load_encoder_weights(model.encoder, path).")
     if encoder_weights is not None:
         from stcd_tpu_torch.convert.pretrained import resolve_encoder_weights
         encoder_weights = resolve_encoder_weights(encoder_weights, encoder_name)

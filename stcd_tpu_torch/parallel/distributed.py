@@ -1,0 +1,237 @@
+"""The process group of data-parallel training and its collectives
+(counterpart of stcd_tpu/parallel/distributed.py).
+
+The JAX package runs one SPMD program over a mesh whose ``data`` axis spans
+every device, and XLA inserts each reduction, so a data-parallel step
+computes the one-device step on the global batch. The port runs one process
+a card and makes those reductions itself:
+
+1. ``initialize()`` once a process. Under torchrun (``RANK``, ``WORLD_SIZE``,
+   ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) it
+   creates the process group: NCCL for a card (``cuda:LOCAL_RANK``), gloo for
+   the CPU. A process started without them is one process, and
+   ``initialize`` does nothing.
+2. The loader (data/loader.py) gives rank r the rows ``r::W`` of each global
+   batch (``global_batch_sharding``).
+3. What XLA would reduce is reduced where the arithmetic needs it:
+   BatchNorm's moments (layers/norm.py) and the sums of the ratio losses
+   (losses/functional.py) through ``all_reduce_sum``, whose backward
+   all-reduces the incoming gradient; the gradients by one flat all-reduce
+   after the backward, averaged over the ranks (``average_gradients``). With
+   that mean, the summed backward of ``all_reduce_sum`` gives the gradient of
+   the global loss exactly, as SyncBatchNorm's does.
+
+Every collective here is a no-op in one process (``data_parallel()`` false),
+so one process runs the arithmetic it runs without this module. Nothing
+creates a process group at import.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, Optional
+
+import torch
+import torch.distributed as dist
+
+
+def _env_int(name: str) -> Optional[int]:
+    value = os.environ.get(name)
+    return None if value is None else int(value)
+
+
+def initialize(device="cuda", backend: Optional[str] = None,
+               init_method: Optional[str] = None, world_size: Optional[int] = None,
+               rank: Optional[int] = None) -> torch.device:
+    """Join the process group of a multi-process run; returns this process's
+    device (``cuda:LOCAL_RANK`` for a card, else ``device``).
+
+    The arguments default to torchrun's environment (``init_method``
+    ``env://`` reads ``MASTER_ADDR`` and ``MASTER_PORT``; a card is
+    ``cuda:LOCAL_RANK`` unless ``device`` names one). Without a world size
+    there or here the process is alone and nothing is done, as in the JAX
+    function. The backend follows the device: NCCL for a card, gloo for the
+    CPU; ``backend`` overrides it (two ranks that share one card need gloo:
+    NCCL refuses them). A failure raises: a run that meant to be W processes
+    never carries on as one. A second call is a no-op."""
+    device = torch.device(device)
+    world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
+    if world_size is None:
+        return device
+    if dist.is_initialized():
+        return (torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda"
+                else device)
+    rank = _env_int("RANK") if rank is None else rank
+    if rank is None:
+        raise ValueError(f"world size {world_size} without a rank: set RANK or pass rank")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank}: --device {device}: no CUDA device is available")
+        device = torch.device("cuda", device.index if device.index is not None
+                              else _env_int("LOCAL_RANK") or 0)
+        torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend=backend, init_method=init_method or "env://",
+                            world_size=world_size, rank=rank)
+    return device
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def is_primary() -> bool:
+    return rank() == 0
+
+
+def data_parallel() -> bool:
+    """True under a process group of more than one rank: the collectives
+    below then reduce; otherwise each returns its input."""
+    return world_size() > 1
+
+
+def print_primary(*args, **kwargs) -> None:
+    """``print`` on rank 0 only."""
+    if is_primary():
+        print(*args, **kwargs)
+
+
+def _comm_device() -> torch.device:
+    """Where a tensor made only to be reduced lives: the card under NCCL,
+    the host under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def barrier(name: str) -> None:
+    """Every rank waits here for every other (no-op without a group). ``name``
+    labels the error when the barrier fails."""
+    if not is_initialized():
+        return
+    try:
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+    except RuntimeError as e:
+        raise RuntimeError(f"barrier {name!r} on rank {rank()}: {e}") from e
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ranks; its backward is the sum over ranks of the incoming
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.contiguous().clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, differentiably; ``x`` itself in one
+    process. Every rank must call it, in the same order."""
+    return _AllReduceSum.apply(x) if data_parallel() else x
+
+
+def all_reduce_(x: torch.Tensor, op=None) -> torch.Tensor:
+    """In place: ``x`` reduced over the ranks by ``op`` (default the sum),
+    without a gradient. Returns ``x``."""
+    if data_parallel():
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op)
+    return x
+
+
+def average_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
+    """Replace every gradient by its mean over the ranks: one all-reduce a
+    (device, dtype) group of one flat buffer. Every rank holds gradients for
+    the same parameters, as the same model on every rank does."""
+    if not data_parallel():
+        return
+    groups: Dict[tuple, list] = {}
+    for p in parameters:
+        if p.grad is not None:
+            groups.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
+    n = world_size()
+    for grads in groups.values():
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat)
+        flat.div_(n)
+        for g, synced in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(synced)
+
+
+def broadcast_(x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """In place: rank ``src``'s ``x`` on every rank. A host tensor under NCCL
+    and a tensor in another memory layout go through a copy."""
+    if not data_parallel():
+        return x
+    staged = x
+    if not x.is_contiguous() or (dist.get_backend() == "nccl" and not x.is_cuda):
+        staged = x.to(_comm_device() if not x.is_cuda else x.device).contiguous()
+    dist.broadcast(staged, src)
+    if staged is not x:
+        x.copy_(staged)
+    return x
+
+
+def global_or(flag: bool) -> bool:
+    """The OR of a per-rank flag over the ranks (an all-reduce MAX; every rank
+    must call it together)."""
+    if not data_parallel():
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=_comm_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def global_batch_sharding(n_ranks: Optional[int] = None, index: Optional[int] = None) -> slice:
+    """The rows of the global batch that rank ``index`` (default this one) of
+    ``n_ranks`` holds, ``r::W``: the strided split of data/loader.py gives
+    rank r its rows in this order."""
+    n_ranks = world_size() if n_ranks is None else n_ranks
+    index = rank() if index is None else index
+    return slice(index, None, n_ranks)
+
+
+def assemble_global_batch(local_batch: dict) -> dict:
+    """The global batch on every rank, from each rank's rows of it (rank r's
+    row j is global row ``r + W j``). The ranks may hold different counts:
+    a partial final batch of n rows split ``r::W`` gives rank r
+    ``ceil((n - r) / W)`` of them. Entries that are not tensors (``name``
+    lists) stay this rank's. One process: the batch as it is."""
+    if not data_parallel():
+        return dict(local_batch)
+    n_ranks, me = world_size(), rank()
+    out = {}
+    for key, value in local_batch.items():
+        if not torch.is_tensor(value):
+            out[key] = value
+            continue
+        counts = torch.zeros(n_ranks, dtype=torch.int64, device=_comm_device())
+        counts[me] = value.shape[0]
+        dist.all_reduce(counts)
+        counts = counts.tolist()
+        staged = value.to(torch.uint8) if value.dtype == torch.bool else value
+        buf = staged.new_zeros((n_ranks, max(counts)) + tuple(value.shape[1:]))
+        buf[me, :value.shape[0]] = staged
+        dist.all_reduce(buf)
+        g = torch.arange(sum(counts), device=buf.device)
+        out[key] = buf[g % n_ranks, g // n_ranks].to(value.dtype)
+    return out

@@ -9,8 +9,12 @@ orbax directory of the same name. A file is written whole under a temporary
 name and renamed over its target, so a crash leaves the old artifact or the
 new one, never a partial one. The schedule is a function of the step count,
 so the step is the scheduler's position. Not ported: ``repair`` (the swap
-windows of a directory checkpoint do not exist for a renamed file) and the
-multi-process barriers.
+windows of a directory checkpoint do not exist for a renamed file).
+
+Data parallel (``parallel.distributed``): every rank holds the same state,
+so only rank 0 writes (``_is_primary``), on a file system that the ranks
+share, and every save ends at a barrier (``_barrier``), after which every
+rank sees the new file. Every rank loads the same bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +24,17 @@ import os
 from typing import Optional
 
 import torch
+
+from stcd_tpu_torch.parallel import distributed
+
+
+def _is_primary() -> bool:
+    return distributed.is_primary()
+
+
+def _barrier(name: str) -> None:
+    """Every rank waits for rank 0's write (no-op in one process)."""
+    distributed.barrier("stcd_ckpt_" + name)
 
 
 def _save_atomic(payload: dict, path: str) -> str:
@@ -45,14 +60,18 @@ class CheckpointManager:
     # --- full resume ---
     def save_last(self, state, epoch_id: int, best_val_acc: float, best_epoch_id: int,
                   name: str = "last_ckpt") -> str:
-        return _save_atomic({
-            "epoch_id": int(epoch_id),
-            "best_val_acc": float(best_val_acc),
-            "best_epoch_id": int(best_epoch_id),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-        }, os.path.join(self.directory, name))
+        path = os.path.join(self.directory, name)
+        if _is_primary():
+            _save_atomic({
+                "epoch_id": int(epoch_id),
+                "best_val_acc": float(best_val_acc),
+                "best_epoch_id": int(best_epoch_id),
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": int(state.step),
+            }, path)
+        _barrier("save_last")
+        return path
 
     def restore_last(self, state, name: str = "last_ckpt"):
         """Load the resume point into ``state`` in place. Returns
@@ -72,16 +91,21 @@ class CheckpointManager:
     def save_best(self, state, metric: float) -> str:
         """Keep only the current best, named ``%.2f_best_model`` (x 100). The
         new best is in place before the old one is deleted."""
-        path = _save_atomic({"model": state.model.state_dict()},
-                            os.path.join(self.directory, "%.2f_best_model" % (metric * 100)))
-        for old in glob.glob(os.path.join(self.directory, "*_best_model")):
-            if old != path:
-                os.remove(old)
+        path = os.path.join(self.directory, "%.2f_best_model" % (metric * 100))
+        if _is_primary():
+            _save_atomic({"model": state.model.state_dict()}, path)
+            for old in glob.glob(os.path.join(self.directory, "*_best_model")):
+                if old != path:
+                    os.remove(old)
+        _barrier("save_best")
         return path
 
     def save_snapshot(self, state, epoch: int) -> str:
-        return _save_atomic({"model": state.model.state_dict()},
-                            os.path.join(self.directory, "%.2f_model" % epoch))
+        path = os.path.join(self.directory, "%.2f_model" % epoch)
+        if _is_primary():
+            _save_atomic({"model": state.model.state_dict()}, path)
+        _barrier("save_snapshot")
+        return path
 
     def load_weights(self, state, path: str):
         """Weights-only load (parameters and BatchNorm buffers) into ``state``

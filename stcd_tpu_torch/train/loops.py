@@ -13,6 +13,14 @@ loop adds them there and brings them to the host once an epoch, so between
 the ``log_every`` steps it forces no host sync. The JAX loop flushes its int32
 counts on a pixel budget; int64 cells hold 9e18 pixels, so the port keeps no
 budget.
+
+Data parallel (``parallel.distributed``): every rank runs the same loop on
+its share of the data. The train steps return global losses and counts;
+``evaluate`` sums its counts over the ranks; the checkpoints are written by
+rank 0 (train/checkpoint.py); only rank 0 prints, and each rank keeps its
+own scalar log (utils/logging.py). ``generate_pseudo_labels`` and
+``select_reliable`` run their loader whole on every rank, so rank 0 writes
+what one process would.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 
 from stcd_tpu_torch.data.io import save_jet_png, save_mask_png, write_list
-from stcd_tpu_torch.metrics.confusion import SegmentationMetric
+from stcd_tpu_torch.metrics.confusion import SegmentationMetric, global_counts
+from stcd_tpu_torch.parallel import distributed
 from stcd_tpu_torch.train.checkpoint import CheckpointManager
 from stcd_tpu_torch.utils.logging import ScalarLogger, Throughput
 
@@ -95,13 +104,13 @@ def run_training(train_step, eval_step, state, train_loader, eval_loader,
                 _add_counts(train_metric, cm_dev)
                 ckpt.save_last(state, epoch - 1, best, best_epoch)
                 logger.flush()
-                print(f"preemption: saved resume point at epoch {epoch - 1}; "
-                      f"restart from restore_last")
+                distributed.print_primary(f"preemption: saved resume point at epoch "
+                                          f"{epoch - 1}; restart from restore_last")
                 return state, best, history
             batch, _ = _device_batch(batch, device)
             out = train_step(state, batch, rng)
             cm_dev = out["cm"] if cm_dev is None else cm_dev + out["cm"]
-            meter.update(next(iter(batch.values())).shape[0])
+            meter.update(next(iter(batch.values())).shape[0] * distributed.world_size())
             if global_step % log_every == 0:
                 logger.add_scalar("train/loss", float(out["loss"]), global_step)
                 for k in ("seg_loss", "cd_loss", "ct_loss"):
@@ -130,13 +139,16 @@ def run_training(train_step, eval_step, state, train_loader, eval_loader,
 
 
 def evaluate(eval_step, state, eval_loader) -> Dict[str, float]:
+    """The metrics of ``eval_step``'s counts over the loader, summed over the
+    ranks of a data-parallel run (each rank's loader holds its share; a
+    loader that gives every rank the whole set gives W times every count,
+    and the same metrics)."""
     metric = SegmentationMetric(2)
-    cm_dev = None
+    cm_dev = torch.zeros((2, 2), dtype=torch.int64, device=state.device)
     for batch in eval_loader:
         batch, _ = _device_batch(batch, state.device)
-        out = eval_step(state, batch)
-        cm_dev = out["cm"] if cm_dev is None else cm_dev + out["cm"]
-    _add_counts(metric, cm_dev)
+        cm_dev = cm_dev + eval_step(state, batch)["cm"]
+    _add_counts(metric, global_counts(cm_dev))
     return _epoch_metrics(metric)
 
 
@@ -147,6 +159,7 @@ def generate_pseudo_labels(eval_step, state, loader, out_dir: str,
     sample's name; returns the metrics against the batches' labels. With
     ``vis_dir`` the raw probability map is saved there too, jet-coloured."""
     metric = SegmentationMetric(2)
+    write = distributed.is_primary()
     os.makedirs(out_dir, exist_ok=True)
     for batch in loader:
         labels = np.asarray(torch.as_tensor(batch["label"]).cpu()).astype(np.int64)
@@ -154,10 +167,11 @@ def generate_pseudo_labels(eval_step, state, loader, out_dir: str,
         probs = eval_step(state, batch)["probs"].float().cpu().numpy()
         preds = (probs > threshold).astype(np.uint8)
         metric.addBatch(preds.astype(np.int64), labels)
-        for i, name in enumerate(names):
+        for i, name in enumerate(names if write else ()):
             save_mask_png(preds[i], os.path.join(out_dir, name))
             if vis_dir:
                 save_jet_png(probs[i], os.path.join(vis_dir, name))
+    distributed.barrier("generate_pseudo_labels")
     return _epoch_metrics(metric)
 
 
@@ -188,8 +202,10 @@ def select_reliable(eval_steps, states, loader, list_dir: str):
             id_to_reliability.append((names[i], float(np.mean(mious))))
     id_to_reliability.sort(key=lambda x: x[1], reverse=True)
     half = len(id_to_reliability) // 2
-    write_list([i for i, _ in id_to_reliability[:half]],
-               os.path.join(list_dir, "reliable_ids.txt"))
-    write_list([i for i, _ in id_to_reliability[half:]],
-               os.path.join(list_dir, "unreliable_ids.txt"))
+    if distributed.is_primary():
+        write_list([i for i, _ in id_to_reliability[:half]],
+                   os.path.join(list_dir, "reliable_ids.txt"))
+        write_list([i for i, _ in id_to_reliability[half:]],
+                   os.path.join(list_dir, "unreliable_ids.txt"))
+    distributed.barrier("select_reliable")
     return id_to_reliability

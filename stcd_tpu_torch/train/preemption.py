@@ -6,11 +6,14 @@ resume point (``CheckpointManager.save_last``: weights, optimizer, step,
 epoch, best metric) and returns; the same command with ``--resume``
 continues from the interrupted epoch.
 
-One process: ``should_stop`` answers from the local flag at once. A caller
-may pass ``global_or``, an OR of the flag over processes that every process
-calls together; the guard then calls it every ``sync_every`` calls and
-returns the last agreed value in between, as the JAX guard does across
-hosts. The default OR over processes is ROADMAP.md Queue 1 #10.
+One process: ``should_stop`` answers from the local flag at once. Across
+the ranks of a data-parallel run every rank must leave the step loop at the
+same iteration, or the others wait forever in the next collective: the guard
+then ORs the flag over the ranks every ``sync_every`` calls and returns the
+last agreed value in between, as the JAX guard does across hosts. The
+default OR is an all-reduce MAX over the process group
+(``parallel.distributed.global_or``); a caller may pass its own
+``global_or``, which every process calls together.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import signal
 import threading
 from typing import Callable, Optional
+
+from stcd_tpu_torch.parallel import distributed
 
 
 class PreemptionGuard:
@@ -83,12 +88,15 @@ class PreemptionGuard:
         """Call once a train step. Sticky once True."""
         if self._agreed:
             return True
-        if self._global_or is None:
+        global_or = self._global_or
+        if global_or is None and distributed.data_parallel():
+            global_or = distributed.global_or
+        if global_or is None:
             self._agreed = self._flag
             return self._agreed
         # the OR is a collective: it runs on a call count that is the same on
         # every process, never "when the local flag is set"
         self._calls += 1
         if self._calls % self.sync_every == 0:
-            self._agreed = bool(self._global_or(self._flag))
+            self._agreed = bool(global_or(self._flag))
         return self._agreed

@@ -26,6 +26,20 @@ aug_params=None, augment_impl=None)``: it updates ``state`` in place and
 returns a dict of tensors. ``generator`` gives the augmentation's draws and
 the model's dropout and DropPath masks; ``aug_params`` replaces the sampling
 of the augmentation, so that draws made elsewhere can drive the step.
+
+Under a process group of W > 1 ranks (``parallel.distributed``) the steps
+compute the one-process step on the global batch, as the JAX steps do on a
+batch sharded over the mesh. Rank r holds the global rows ``r::W`` (the
+loader's split). Every rank draws the augmentation's and the model's
+per-row randomness for the global batch from the same seeded generator and
+keeps its rows (``aug_params`` are the global batch's draws too), and the
+augmentation then runs on the rank's own rows. BatchNorm's moments and the
+ratio losses are global (layers/norm.py, losses/functional.py), the
+gradients are averaged over the ranks by one flat all-reduce after the
+backward (``distributed.average_gradients``), and the step returns the
+global loss terms and counts on every rank. Under ``accum_steps`` the global
+micro-batch i is the union of every rank's contiguous local micro-batch i,
+so the local batch must split into ``accum_steps`` parts.
 """
 
 from __future__ import annotations
@@ -36,11 +50,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from stcd_tpu_torch.data.augment import (concat_params, eval_preprocess, params_to,
-                                         sample_pair_params, train_augment,
-                                         train_augment_pair)
-from stcd_tpu_torch.layers.stochastic import set_generator
+                                         sample_augment_params, sample_pair_params,
+                                         select_params, train_augment, train_augment_pair)
+from stcd_tpu_torch.layers.stochastic import RowMap, set_generator
 from stcd_tpu_torch.losses.functional import bce_dice, contrastive_loss
-from stcd_tpu_torch.metrics.confusion import confusion_matrix
+from stcd_tpu_torch.metrics.confusion import confusion_matrix, global_counts
+from stcd_tpu_torch.parallel import distributed
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -59,23 +74,64 @@ def _forward(state, *inputs):
 
 
 def _micro_slices(n: int, accum_steps: int):
+    """The local rows of each micro-batch. Across W ranks global micro-batch
+    i is every rank's local slice i, which needs W to divide its size."""
     if n % accum_steps != 0:
-        raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}")
+        world = distributed.world_size()
+        where = (f" (a global batch of {n * world} over {world} ranks: {world} must divide "
+                 f"the micro-batch of {n * world / accum_steps:g})") if world > 1 else ""
+        raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}{where}")
     m = n // accum_steps
     return [slice(i * m, (i + 1) * m) for i in range(accum_steps)]
 
 
-def _accum_update(state, micro: Callable, accum_steps: int, remat: bool,
+def _own_rows(params):
+    """The rows of the global batch's draws (a dict, or nested tuples of
+    dicts) that this rank holds; the draws themselves in one process."""
+    if not distributed.data_parallel():
+        return params
+    if isinstance(params, (tuple, list)):
+        return tuple(_own_rows(p) for p in params)
+    return select_params(params, distributed.global_batch_sharding())
+
+
+def _row_map(n_local: int, device) -> Optional[RowMap]:
+    """Where this rank's ``n_local`` rows of a (micro-)batch sit in the
+    global one, for the model's dropout and DropPath draws."""
+    if not distributed.data_parallel():
+        return None
+    world = distributed.world_size()
+    return RowMap(n_local, n_local * world,
+                  torch.arange(distributed.rank(), n_local * world, world, device=device))
+
+
+def _global_outputs(out: dict) -> dict:
+    """The step's outputs over the global batch: every loss term averaged over
+    the ranks (a ratio loss is the same on each, a mean of per-sample terms
+    is the mean of the ranks'), the counts summed."""
+    if not distributed.data_parallel():
+        return out
+    terms = [k for k in out if k != "cm"]
+    means = distributed.all_reduce_(torch.stack([out[k].double() for k in terms]))
+    means /= distributed.world_size()
+    return {**{k: means[i].to(out[k].dtype) for i, k in enumerate(terms)},
+            "cm": global_counts(out["cm"])}
+
+
+def _accum_update(state, micro: Callable, accum_steps: int, n_micro: int, remat: bool,
                   generator: Optional[torch.Generator]
                   ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """The micro-batch loop that the three train steps share, and one
     optimizer update. ``micro(i) -> (model inputs, loss_of)`` gives micro-batch
     i's inputs and a function from the model's output to
-    ``(loss, counts, extra loss terms)``. Returns the mean loss, the summed
-    counts and the mean extras. The model's dropouts and DropPaths draw from
-    ``generator`` (``layers/stochastic.py``), as the JAX steps draw them from
-    the step's key; the recomputed forward of ``remat`` draws the same masks."""
-    model = set_generator(state.model.train(), generator)
+    ``(loss, counts, extra loss terms)``; ``n_micro`` is the rows of one. Returns
+    the mean loss, the summed counts and the mean extras, of this rank's rows.
+    The model's dropouts and DropPaths draw from ``generator``
+    (``layers/stochastic.py``), as the JAX steps draw them from the step's
+    key; the recomputed forward of ``remat`` draws the same masks. Across
+    ranks the gradients are averaged before the update."""
+    model = set_generator(state.model.train(), generator,
+                          _row_map(n_micro, state.device))
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum, cm, extras_sum = 0.0, 0, ()
     for i in range(accum_steps):
@@ -102,6 +158,7 @@ def _accum_update(state, micro: Callable, accum_steps: int, remat: bool,
         cm = cm + micro_cm
         extras = tuple(e.detach() for e in extras)
         extras_sum = tuple(a + b for a, b in zip(extras_sum, extras)) if extras_sum else extras
+    distributed.average_gradients(model.parameters())
     state.apply_gradients()
     return loss_sum / accum_steps, cm, tuple(e / accum_steps for e in extras_sum)
 
@@ -126,20 +183,25 @@ def make_seg_steps(model=None, augment: bool = True, remat: bool = False,
 
     def train_step(state, batch, generator: Optional[torch.Generator] = None,
                    aug_params=None, augment_impl: Optional[str] = None):
+        n = batch["image"].shape[0]
+        slices = _micro_slices(n, accum_steps)
         if augment:
-            image = train_augment(generator, batch["image"], aug_params=aug_params,
+            if aug_params is None:
+                aug_params = sample_augment_params(generator, n * distributed.world_size(),
+                                                   0.5)
+            image = train_augment(generator, batch["image"], aug_params=_own_rows(aug_params),
                                   impl=augment_impl)
         else:
             image = eval_preprocess(batch["image"])
         image, label = _nchw(image), _label_nchw(batch["label"]).float()
-        slices = _micro_slices(image.shape[0], accum_steps)
 
         def micro(i):
             ml = label[slices[i]]
             return (image[slices[i]],), lambda pred: _binary_loss(pred, ml)
 
-        loss, cm, _ = _accum_update(state, micro, accum_steps, remat, generator)
-        return {"loss": loss, "cm": cm}
+        loss, cm, _ = _accum_update(state, micro, accum_steps, n // accum_steps, remat,
+                                    generator)
+        return _global_outputs({"loss": loss, "cm": cm})
 
     @torch.no_grad()
     def eval_step(state, batch):
@@ -166,20 +228,24 @@ def make_cd_steps(model=None, augment: bool = True, remat: bool = False,
 
     def train_step(state, batch, generator: Optional[torch.Generator] = None,
                    aug_params=None, augment_impl: Optional[str] = None):
+        n = batch["A"].shape[0]
+        slices = _micro_slices(n, accum_steps)
         if augment:
+            if aug_params is None:
+                aug_params = sample_pair_params(generator, n * distributed.world_size(), 0.5)
             a, b = train_augment_pair(generator, batch["A"], batch["B"], jitter_p=0.5,
-                                      aug_params=aug_params, impl=augment_impl)
+                                      aug_params=_own_rows(aug_params), impl=augment_impl)
         else:
             a, b = eval_preprocess(batch["A"]), eval_preprocess(batch["B"])
         a, b, label = _nchw(a), _nchw(b), _label_nchw(batch["label"]).float()
-        slices = _micro_slices(a.shape[0], accum_steps)
 
         def micro(i):
             ml = label[slices[i]]
             return (a[slices[i]], b[slices[i]]), lambda out: _binary_loss(out[2], ml)
 
-        loss, cm, _ = _accum_update(state, micro, accum_steps, remat, generator)
-        return {"loss": loss, "cm": cm}
+        loss, cm, _ = _accum_update(state, micro, accum_steps, n // accum_steps, remat,
+                                    generator)
+        return _global_outputs({"loss": loss, "cm": cm})
 
     @torch.no_grad()
     def eval_step(state, batch):
@@ -217,9 +283,11 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
         n = batch["A"].shape[0]
         if augment:
             if aug_params is None:
-                aug_params = (sample_pair_params(generator, n, 0.5),
-                              sample_pair_params(generator, batch["CA"].shape[0], 0.8))
-            draws = concat_params(*aug_params[0], *aug_params[1])
+                world = distributed.world_size()
+                aug_params = (sample_pair_params(generator, n * world, 0.5),
+                              sample_pair_params(generator, batch["CA"].shape[0] * world, 0.8))
+            own = _own_rows(aug_params)
+            draws = concat_params(*own[0], *own[1])
             images = torch.cat([batch[k] for k in names], dim=0)
             out = apply_augment_batch(images, params_to(draws, images.device),
                                       impl=augment_impl)
@@ -251,10 +319,10 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
 
             return (data_a, data_b), loss_of
 
-        loss, cm, (seg_loss, cd_loss, ct_loss) = _accum_update(state, micro, accum_steps,
-                                                               remat, generator)
-        return {"loss": loss, "seg_loss": seg_loss, "cd_loss": cd_loss, "ct_loss": ct_loss,
-                "cm": cm}
+        loss, cm, (seg_loss, cd_loss, ct_loss) = _accum_update(
+            state, micro, accum_steps, n // accum_steps, remat, generator)
+        return _global_outputs({"loss": loss, "seg_loss": seg_loss, "cd_loss": cd_loss,
+                                "ct_loss": ct_loss, "cm": cm})
 
     _, eval_step = make_cd_steps(model, augment=False)
     return train_step, eval_step

@@ -1,8 +1,10 @@
 """Scalar logging and a throughput meter (counterpart of
 stcd_tpu/utils/logging.py): a JSON-lines scalar log always, and a TensorBoard
-writer beside it when ``torch.utils.tensorboard`` imports. One process, one
-file: the per-process file names of the JAX package wait for the multi-process
-loop."""
+writer beside it when ``torch.utils.tensorboard`` imports. In a
+data-parallel run every rank logs (the scalars are the global ones on every
+rank) into a file of its own, so that writes to a shared file system do not
+interleave: rank 0 into ``scalars.jsonl``, rank r into ``scalars.p{r}.jsonl``.
+Rank 0 alone has the TensorBoard writer."""
 
 from __future__ import annotations
 
@@ -10,14 +12,18 @@ import json
 import os
 import time
 
+from stcd_tpu_torch.parallel import distributed
+
 
 class ScalarLogger:
     def __init__(self, logdir: str, use_tensorboard: bool = True):
         os.makedirs(logdir, exist_ok=True)
-        self.path = os.path.join(logdir, "scalars.jsonl")
+        rank = distributed.rank()
+        self.path = os.path.join(logdir, "scalars.jsonl" if rank == 0
+                                 else f"scalars.p{rank}.jsonl")
         self._f = open(self.path, "a")
         self._tb = None
-        if use_tensorboard:
+        if use_tensorboard and rank == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(logdir)

@@ -150,8 +150,8 @@ def test_loader_matches_jax_over_two_epochs(kwargs):
 
 def test_loader_names_its_limits(monkeypatch):
     ds = port_ds.SyntheticCDDataset(4, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        DataLoader(ds, device="cpu", process_index=0, process_count=2)
+    with pytest.raises(ValueError, match="process_index 2 of 2"):
+        DataLoader(ds, device="cpu", process_index=2, process_count=2)
     with pytest.raises(ValueError, match="together"):
         DataLoader(ds, device="cpu", process_count=1)
     assert DataLoader(ds, device="cpu", process_index=0, process_count=1).device.type == "cpu"
