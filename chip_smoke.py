@@ -176,6 +176,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameters and running statistics within DP_PARAM_SHARE and DP_STATS_SHARE, both ranks'
    states equal; then bf16 at global batch 64 (32 a rank): step ms by rank, peak GiB, the
    augmentation kernel's launches (counted in the kernels line).
+23. spatial partitioning (stcd_tpu_torch/parallel/spatial.py), the ranks in processes of
+   their own (this script with --phase22-cli or --phase23-rank): (a) two ranks on the one
+   card under gloo at a space axis of 2, each holding a strip of 256 rows of every image:
+   the stage-2 spatial step of SegCD-r50 (decoder 256..16) at 512x512, global batch 4,
+   SGD, 3 steps, in fp32 (TF32 off) and then in bf16, against the one-process step of
+   this process on the same batches and draws: the losses, counts, parameters and
+   running statistics within the bounds of tools/check_spatial.py (bf16: the SP_BF16_*
+   bounds), both ranks' states
+   equal; each rank's step ms and peak memory beside the one process's. (b)
+   cli.train_pse_cd --space_axis 2 --device cuda:0 at full width (SegCD-r50, 4 pairs of
+   512x512, batch 4, 1 epoch: one Adam step) under torch.distributed.run
+   --nproc_per_node 2, so gloo (two ranks on one card), and the same CLI in a plain
+   process, at once: both ranks end with one state; the first loss within LOSS_RTOL,
+   the parameters within one Adam step and at least SP_CLI_AGREE of them within 1e-5 of
+   the plain run's, the running statistics within SP_CLI_STATS_SHARE. The augmentation
+   kernel's launches of (a) and (b) are counted in the kernels line.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -2732,9 +2748,20 @@ def free_port() -> int:
 
 
 def tagged(out: str, tag: str) -> list:
-    """The JSON objects of the lines that start with ``tag``."""
-    return [json.loads(line[len(tag) + 1:]) for line in out.splitlines()
-            if line.startswith(tag + " ")]
+    """The JSON objects that follow ``tag`` in ``out``. Ranks share one pipe, so
+    another rank's text may stand between an object and its newline: each is
+    read to its closing brace."""
+    decoder, found, start = json.JSONDecoder(), [], 0
+    while (i := out.find(tag + " {", start)) >= 0:
+        obj, start = decoder.raw_decode(out, i + len(tag) + 1)
+        found.append(obj)
+    return found
+
+
+def print_tagged(tag: str, obj: dict) -> None:
+    """One line ``tag {json}`` in one write, which a pipe keeps whole."""
+    sys.stdout.write(f"{tag} {json.dumps(obj)}\n")
+    sys.stdout.flush()
 
 
 def launch(cmd: list, timeout: int = DP_TIMEOUT) -> str:
@@ -2817,11 +2844,10 @@ def phase22_cli(argv) -> int:
     augment.apply_augment_kernel.kernel_launches = 0
     out = train_pse_cd.main(argv)
     torch.cuda.synchronize()
-    print("PHASE22_CLI " + json.dumps({
+    print_tagged("PHASE22_CLI", {
         "launches": augment.apply_augment_kernel.kernel_launches, "step": out["state"].step,
         "world": distributed.world_size(), "device": str(out["state"].device),
-        "backend": torch.distributed.get_backend() if distributed.is_initialized() else None}),
-        flush=True)
+        "backend": torch.distributed.get_backend() if distributed.is_initialized() else None})
     return 0
 
 
@@ -2859,11 +2885,11 @@ def phase22_rank(out_dir: str) -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     times = sorted(times[DP_BF16["warm"]:])
-    print("PHASE22_RANK " + json.dumps({
+    print_tagged("PHASE22_RANK", {
         "rank": rank, "losses": fp32["losses"], "counts": fp32["counts"], "fp32_s": fp32_s,
         "bf16_losses": losses, "bf16_step_ms": times[len(times) // 2],
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "launches": augment.apply_augment_kernel.kernel_launches}), flush=True)
+        "launches": augment.apply_augment_kernel.kernel_launches})
     distributed.barrier("phase 22 done")
     return 0
 
@@ -2964,6 +2990,194 @@ def phase_data_parallel(torch, gpu_label) -> dict:
     return launches
 
 
+# phase 23: spatial partitioning (stcd_tpu_torch/parallel/spatial.py) on the card. (a) two
+# ranks on the one card under gloo at a space axis of 2: the stage-2 spatial step against
+# the one-process step at the same global batch, fp32 then bf16; (b) cli.train_pse_cd
+# --space_axis 2 under torch.distributed.run against the same CLI in a plain process
+SP_CLI = dict(n=4, size=512, batch=4)  # one epoch of one Adam step at lr 1e-3 (CLI defaults)
+# fp32: the bounds of stcd_tpu_torch/tools/check_spatial.py. bf16 autocast: each conv's
+# output rounded to bf16 from sums in another order. Measured on an H100 80GB HBM3 at
+# 700 W: losses 1.6e-4 relative, 662 pixels, parameters 5.9e-5, running statistics 1.0e-2
+SP_BF16_LOSS_RTOL = 1e-3
+SP_BF16_CM_PIXELS = 2048
+SP_BF16_PARAM_SHARE = 3e-4
+SP_BF16_STATS_SHARE = 5e-2
+# (b) Adam's first step (lr 1e-3) moves each element by lr times the sign of its gradient,
+# whatever the gradient's size: an element whose gradient is within float32 noise of 0
+# may move the other way (2 lr apart), every other one agrees within rounding. So the
+# step shows a gradient that is wrong in sign or zero in the share of the elements that
+# agree within 1e-5 (SP_CLI_AGREE), not in the largest difference: a zero or negated
+# gradient leaves almost none. A gradient scaled as a whole is invisible to Adam; (a)
+# holds the same spatial step's SGD updates to the one process's. Measured on an H100
+# 80GB HBM3 at 700 W: the first loss equal, parameters 2.0e-3 apart, 0.983397 of them
+# within 1e-5, running statistics 1.4e-6
+SP_CLI_ATOL = 2 * 1e-3 + 1e-6
+SP_CLI_AGREE = 0.95
+SP_CLI_STATS_SHARE = 1e-4  # the statistics of one forward
+
+
+def phase23_rank(out_dir: str) -> int:
+    """One of the two ranks of phase 23 (a), on cuda:0 under gloo, a space axis of 2."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.parallel import distributed
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+    from stcd_tpu_torch.tools.check_spatial import cd_steps_run
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize("cuda:0", backend="gloo")
+    mesh = create_mesh(space=2)
+    rank = distributed.rank()
+    require(mesh.space == 2 and mesh.data == 1 and device.index == 0
+            and torch.distributed.get_backend() == "gloo",
+            f"rank {rank}: {mesh}, {torch.distributed.get_backend()}, {device}")
+    augment.apply_augment_kernel.kernel_launches = 0
+    res = {}
+    for prec in ("fp32", "bf16"):
+        res[prec] = cd_steps_run(prec == "bf16", mesh)
+        torch.save(res[prec].pop("state"), os.path.join(out_dir, f"sp_{prec}_rank{rank}.pt"))
+    print_tagged("PHASE23_RANK", {
+        "rank": rank, "space_rank": distributed.space_rank(), **res,
+        "launches": augment.apply_augment_kernel.kernel_launches})
+    distributed.barrier("phase 23 done")
+    return 0
+
+
+def phase_spatial(torch, gpu_label) -> dict:
+    """Phase 23. Returns the augmentation kernel's launches by path."""
+    from stcd_tpu_torch.cli import make_demo_data
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.tools.check_spatial import (CM_PIXELS, LOSS_RTOL, PARAM_SHARE, RUN,
+                                                    STATS_SHARE, cd_steps_run)
+
+    t_phase = time.monotonic()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the one-process steps of this process, then the two strips on the one card
+        one = {}
+        augment.apply_augment_kernel.kernel_launches = 0
+        for prec in ("fp32", "bf16"):
+            one[prec] = cd_steps_run(prec == "bf16")
+            torch.cuda.empty_cache()
+        launches["sp_one_process"] = augment.apply_augment_kernel.kernel_launches
+        t0 = time.monotonic()
+        out = launch(torchrun(2, "--phase23-rank", root))
+        ranks_s = time.monotonic() - t0
+        ranks = sorted(tagged(out, "PHASE23_RANK"), key=lambda r: r["rank"])
+        require([(r["rank"], r["space_rank"]) for r in ranks] == [(0, 0), (1, 1)],
+                f"phase 23 (a): {out[-3000:]}")
+        bounds = {"fp32": (LOSS_RTOL, CM_PIXELS, PARAM_SHARE, STATS_SHARE),
+                  "bf16": (SP_BF16_LOSS_RTOL, SP_BF16_CM_PIXELS, SP_BF16_PARAM_SHARE,
+                           SP_BF16_STATS_SHARE)}
+        for prec, (loss_tol, cm_tol, param_tol, stats_tol) in bounds.items():
+            states = [torch.load(os.path.join(root, f"sp_{prec}_rank{r}.pt"), weights_only=True)
+                      for r in range(2)]
+            want = one[prec]
+            loss_err = max(abs(a - b) / abs(b) for r in ranks
+                           for a, b in zip(r[prec]["losses"], want["losses"]))
+            flips = max(sum(abs(a - b) for ga, wa in zip(got, w) for a, b in zip(ga, wa)) // 2
+                        for r in ranks for got, w in zip(r[prec]["counts"], want["counts"]))
+            errs = state_errors(want["state"], states[0])
+            print(f"spatial (a) {prec} ({gpu_label}): 2 ranks on one card under gloo, space 2 "
+                  f"(strips of {RUN['size'] // 2} rows), SegCD-r50 stage 2 at "
+                  f"{RUN['size']}x{RUN['size']}, global batch {RUN['batch']}, "
+                  f"{RUN['steps']} SGD steps against one process: losses "
+                  f"{ranks[0][prec]['losses']} vs {want['losses']} (max rel {loss_err:.2e}); "
+                  f"after the steps, |d| / max(1, |w|) by group "
+                  f"{ {g: (f'{e:.2e}', k) for g, (e, k) in errs.items()} }; counts differ in "
+                  f"at most {flips} pixels", flush=True)
+            print(f"spatial (a) {prec} ({gpu_label}): step ms by rank (the fastest of steps "
+                  f"2-{RUN['steps']}, host clock, halos and reductions through the host "
+                  f"under gloo) {[round(r[prec]['step_ms'], 1) for r in ranks]} against "
+                  f"{want['step_ms']:.1f} for one process; peak GiB by rank "
+                  f"{[round(r[prec]['peak_gib'], 3) for r in ranks]} against "
+                  f"{want['peak_gib']:.3f} for one process", flush=True)
+            require(all(torch.equal(states[1][k], v) for k, v in states[0].items()),
+                    f"phase 23 (a) {prec}: the two ranks' states differ")
+            require(loss_err <= loss_tol and ranks[0][prec]["losses"] == ranks[1][prec]["losses"],
+                    f"phase 23 (a) {prec}: losses {[r[prec]['losses'] for r in ranks]} against "
+                    f"{want['losses']}")
+            for r in ranks:
+                for got, w in zip(r[prec]["counts"], want["counts"]):
+                    require([sum(x) for x in got] == [sum(x) for x in w],
+                            f"phase 23 (a) {prec}: counts {got} against {w}")
+            require(flips <= cm_tol, f"phase 23 (a) {prec}: counts differ in {flips} pixels")
+            require(errs["count"][0] == 0.0 and errs["param"][0] <= param_tol
+                    and max(errs["running_mean"][0], errs["running_var"][0]) <= stats_tol,
+                    f"phase 23 (a) {prec}: the state after the steps: {errs}")
+            del states
+        for r in ranks:
+            require(r["launches"] == 2 * RUN["steps"],
+                    f"phase 23 (a) rank {r['rank']}: {r['launches']} augment launches")
+        launches["sp_two_ranks"] = sum(r["launches"] for r in ranks)
+
+        # (b) the CLI at space 2 under torchrun and in a plain process, at once
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(SP_CLI["n"]), "--size", str(SP_CLI["size"])])
+        cli = ["--phase22-cli", "--root_path", data, "--dataset_name", "LEVIR",
+               "--CDdataset_name", "LEVIR", "--batch_size", str(SP_CLI["batch"]),
+               "--n_epochs", "1", "--img_height", str(SP_CLI["size"]), "--img_width",
+               str(SP_CLI["size"]), "--device", "cuda", "--no_preempt"]
+        # both ranks on card 0 (a card would otherwise be cuda:LOCAL_RANK)
+        runs = {"space2": torchrun(2, *cli, "--space_axis", "2", "--device", "cuda:0",
+                                   "--save_name", os.path.join(root, "space2")),
+                "plain": [sys.executable, os.path.abspath(__file__), *cli, "--save_name",
+                          os.path.join(root, "plain")]}
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+            futures = {k: pool.submit(launch, cmd) for k, cmd in runs.items()}
+            info = {k: tagged(f.result(), "PHASE22_CLI") for k, f in futures.items()}
+        cli_s = time.monotonic() - t0
+        want_steps = SP_CLI["n"] // SP_CLI["batch"]
+        require(len(info["space2"]) == 2 and len(info["plain"]) == 1, f"phase 23 (b): {info}")
+        for v in info["space2"]:
+            require(v["backend"] == "gloo" and v["world"] == 2 and v["step"] == want_steps
+                    and v["launches"] == want_steps and v["device"].startswith("cuda"),
+                    f"phase 23 (b) space2: {v}")
+        require(info["plain"][0]["step"] == info["plain"][0]["launches"] == want_steps,
+                f"phase 23 (b) plain: {info['plain']}")
+        launches["sp_cli_space2"] = sum(v["launches"] for v in info["space2"])
+        launches["sp_cli_plain"] = info["plain"][0]["launches"]
+        saved = {k: torch.load(os.path.join(root, k, "last_ckpt"), map_location="cpu",
+                               weights_only=True)["model"] for k in runs}
+        first_loss = {}
+        for k in runs:
+            with open(os.path.join(root, k, "logs", "scalars.jsonl")) as f:
+                first_loss[k] = [r["value"] for r in map(json.loads, f)
+                                 if r["tag"] == "train/loss" and r["step"] == 0][0]
+        loss_err = abs(first_loss["space2"] - first_loss["plain"]) / abs(first_loss["plain"])
+        params = [k for k, v in saved["plain"].items()
+                  if v.is_floating_point() and "running" not in k]
+        param_err = max((saved["space2"][k] - saved["plain"][k]).abs().max().item()
+                        for k in params)
+        agree = (sum(((saved["space2"][k] - saved["plain"][k]).abs() <= 1e-5).sum().item()
+                     for k in params) / sum(saved["plain"][k].numel() for k in params))
+        stats_err = max(((saved["space2"][k].double() - v.double()).abs().max()
+                         / v.abs().max().clamp(min=1.0)).item()
+                        for k, v in saved["plain"].items() if "running" in k)
+        print(f"spatial (b) ({gpu_label}): cli.train_pse_cd --space_axis 2 --device cuda:0 "
+              f"(torchrun --nproc_per_node 2, one card, gloo) and a plain process, at once, "
+              f"SegCD-r50, {SP_CLI['n']} pairs of {SP_CLI['size']}x{SP_CLI['size']}, batch "
+              f"{SP_CLI['batch']}, 1 epoch: {cli_s:.1f} s; first loss {first_loss['space2']} vs "
+              f"{first_loss['plain']} (rel {loss_err:.2e}); after the Adam step the "
+              f"parameters within {param_err:.2e} ({agree:.6f} of them within 1e-5), the "
+              f"running statistics within {stats_err:.2e} of their largest magnitude; augment "
+              f"launches by rank {[v['launches'] for v in info['space2']]} + "
+              f"{info['plain'][0]['launches']}", flush=True)
+        require(saved["space2"].keys() == saved["plain"].keys() and loss_err <= LOSS_RTOL
+                and param_err <= SP_CLI_ATOL and agree >= SP_CLI_AGREE
+                and stats_err <= SP_CLI_STATS_SHARE,
+                f"phase 23 (b): the space-2 run against the plain run: first loss {loss_err}, "
+                f"parameters {param_err} ({agree} within 1e-5), running statistics "
+                f"{stats_err}")
+        del saved
+    print(f"spatial: ranks {ranks_s:.1f} s, phase {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3058,6 +3272,8 @@ def main() -> int:
     phase_smp_fit(torch, lambda: kernel_counts(attention, augment), gpu_label)
     # phase 22: data-parallel training, its ranks in processes of their own
     aug_by_path.update(phase_data_parallel(torch, gpu_label))
+    # phase 23: spatial partitioning, its ranks in processes of their own
+    aug_by_path.update(phase_spatial(torch, gpu_label))
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
@@ -3136,4 +3352,6 @@ if __name__ == "__main__":
         sys.exit(phase22_cli(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase22-rank"]:
         sys.exit(phase22_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase23-rank"]:
+        sys.exit(phase23_rank(sys.argv[2]))
     sys.exit(main())

@@ -12,9 +12,20 @@ data axis, ``--data_axis`` None meaning the launch's W (another size raises
 and says how to launch); ``--batch_size`` is the global batch, as on that
 host, of which each rank loads ``batch_size / W`` (W must divide it);
 ``place_state`` makes every rank's state rank 0's after any restore. A plain
-``python -m`` run is one process. ``--space_axis`` and ``--model_axis`` other
-than 1 raise (spatial and tensor parallel are ROADMAP.md Queue 1 #11), so
-``pick_steps`` has one kind of step to pick.
+``python -m`` run is one process.
+
+Spatial partitioning: ``--space_axis S`` splits the launch's W ranks into a
+``data`` x ``space`` grid (W = D x S, space the inner axis); the S ranks of a
+space group load the same images (``--batch_size / D`` each) and train each
+a strip of their rows, through the halo exchange of
+``parallel/spatial.py``: the stage CLIs build their steps with
+``space=mesh.space``. Every stage height must divide over S (input sizes a
+multiple of 32 S), the encoder must be a resnet or resnext (the surface with
+a halo rule for every op), and ``--remat`` is refused. Ranks that share one
+card (``--device cuda:0`` under torchrun) run gloo, since NCCL refuses two
+ranks on one device (``distributed.initialize``).
+``--model_axis`` other than 1 raises (tensor parallel is ROADMAP.md Queue 1
+#11b).
 
 The helpers below the JAX ones build what every stage CLI builds the same way:
 the seeded model and train state, the loaders, the augmentation generator,
@@ -97,53 +108,65 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
                    help="data-parallel size: the ranks of the launch (default; "
                         "torchrun --nproc_per_node N), one process without torchrun")
     p.add_argument("--space_axis", type=int, default=1,
-                   help="spatial-partitioning size; only 1 (ROADMAP.md Queue 1 #11)")
+                   help="spatial partitioning: the ranks that split each image's rows "
+                        "into strips (it divides the launch's W; data axis W / S)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11)")
+                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11b)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
     return p
 
 
+SPATIAL_ENCODERS = ("resnet", "resnext")  # the encoders of the spatial surface
+
+
 def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the port does not run: a spatial or model axis,
-    or a card that is not there. ``make_mesh`` checks the data axis."""
+    """Parse, and refuse what the port does not run: a model axis, a spatial
+    axis over another encoder family, or a card that is not there.
+    ``make_mesh`` checks the grid against the launch, the spatial steps
+    refuse ``--remat``."""
     args = parser.parse_args(argv)
-    for flag in ("space_axis", "model_axis"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: spatial and tensor parallel are not "
-                "ported (ROADMAP.md Queue 1 #11)")
+    if args.model_axis != 1:
+        raise NotImplementedError(
+            f"--model_axis {args.model_axis}: tensor parallel is not ported "
+            "(ROADMAP.md Queue 1 #11b)")
+    if args.space_axis > 1 and not args.encoder.startswith(SPATIAL_ENCODERS):
+        raise ValueError(
+            f"--space_axis {args.space_axis} with --encoder {args.encoder}: spatial "
+            "partitioning (ROADMAP.md Queue 1 #11) covers the resnet and resnext "
+            "encoders; this family's ops (global pools, attention) have no halo rule "
+            "(ROADMAP.md Queue 3 known issue 12)")
     resolve_device(args.device)
     return args
 
 
 def make_mesh(args):
     """Join the process group of a torchrun launch (a no-op in a plain
-    process) and make the data axis over it. ``args.device`` becomes this
-    rank's device (``cuda:LOCAL_RANK``). Raises where ``--data_axis`` is not
-    the launch's size or W does not divide ``--batch_size``. Returns the
-    ``parallel.mesh.Mesh``."""
+    process) and make the data x space grid over it. ``args.device`` becomes
+    this rank's device (``cuda:LOCAL_RANK``). Raises where ``--data_axis`` x
+    ``--space_axis`` is not the launch's size or the data axis does not divide
+    ``--batch_size``. Returns the ``parallel.mesh.Mesh``."""
     from stcd_tpu_torch.parallel.mesh import create_mesh
 
     args.device = str(distributed.initialize(args.device))
     mesh = create_mesh(data=args.data_axis, model=args.model_axis, space=args.space_axis)
     if args.batch_size % mesh.data:
         raise ValueError(f"--batch_size {args.batch_size} is the global batch: the "
-                         f"{mesh.data} data-parallel ranks must divide it")
+                         f"{mesh.data} data-parallel shards must divide it")
     return mesh
 
 
 def pick_steps(mesh, make_steps, args):
-    """The step pair for the run's mesh, ``make_steps()``: the JAX CLIs'
-    other choice, the manual spatial steps, needs a space axis (#11). Raises
-    where a rank's batch does not split into ``--accum_steps`` micro-batches
-    (W must divide a global micro-batch)."""
+    """The step pair for the run's mesh, ``make_steps()`` (the stage CLIs
+    pass ``space=mesh.space`` to their builder, which gives the spatial steps
+    with a space axis). Raises where a data shard's batch does not split into
+    ``--accum_steps`` micro-batches (D must divide a global micro-batch)."""
     local = args.batch_size // mesh.data
     if local % args.accum_steps:
         raise ValueError(
             f"--accum_steps {args.accum_steps}: a rank's batch of {local} (--batch_size "
-            f"{args.batch_size} over {mesh.data} ranks) does not split into micro-batches")
+            f"{args.batch_size} over {mesh.data} data shards) does not split into "
+            "micro-batches")
     return make_steps()
 
 
@@ -204,11 +227,11 @@ def build_state(args, model_cls, iters_per_epoch: int = 1, tx=None):
 
 def make_loaders(args, train_ds, val_ds):
     """The stage's train loader (shuffled by ``--seed``, whole batches) and
-    its val loader (twice the batch), each of this rank's share: a rank
-    loads ``--batch_size / W``."""
+    its val loader (twice the batch), each of this rank's data shard: a rank
+    loads ``--batch_size / D``."""
     from stcd_tpu_torch.data.loader import DataLoader
 
-    local = args.batch_size // distributed.world_size()
+    local = args.batch_size // distributed.data_size()
     train = DataLoader(train_ds, local, shuffle=True, num_workers=args.n_cpu,
                        seed=args.seed, drop_last=True, device=args.device)
     val = DataLoader(val_ds, local * 2, num_workers=args.n_cpu, device=args.device)

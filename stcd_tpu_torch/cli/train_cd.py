@@ -17,7 +17,7 @@ Usage:
   python -m stcd_tpu_torch.cli.train_cd --net_G IFNet --n_class 1 --loss bce  # a 1-channel head
 
 ``--pp_stages``, ``--pp_microbatches`` and ``--tp_axis`` other than 1 (0) raise:
-the port runs on one card (ROADMAP.md Queue 1 #11).
+the port runs on one card (ROADMAP.md Queue 1 #11b).
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"--pp_stages {args.pp_stages} --pp_microbatches {args.pp_microbatches} "
             f"--tp_axis {args.tp_axis}: pipeline and tensor parallelism are not ported "
-            "(ROADMAP.md Queue 1 #11)")
+            "(ROADMAP.md Queue 1 #11b)")
     resolve_device(args.device)
     print(args)
     cfg = TrainerConfig(

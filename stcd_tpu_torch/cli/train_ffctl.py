@@ -39,7 +39,8 @@ def main(argv=None) -> dict:
     state = build_state(args, {"ffctlcd": FFCTLCD, "segcd": SegCD}[args.net],
                         len(train_loader))
     train_step, eval_step = pick_steps(mesh, lambda: make_cd_steps(
-        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
+        augment=True, remat=args.remat, accum_steps=args.accum_steps,
+        space=mesh.space), args)
     if args.load_model:  # warm start from the stage-2 checkpoint
         load_model(args, state)
     state, run_kwargs = resume_and_guard(args, state)

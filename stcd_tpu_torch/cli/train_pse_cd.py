@@ -38,7 +38,8 @@ def main(argv=None) -> dict:
         CDDataset(args.root_path, args.CDdataset_name, "val"))
     state = build_state(args, SegCD, len(train_loader))
     train_step, eval_step = pick_steps(mesh, lambda: make_cd_steps(
-        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
+        augment=True, remat=args.remat, accum_steps=args.accum_steps,
+        space=mesh.space), args)
     if args.load_model:
         load_model(args, state)
     if args.select_data:

@@ -38,7 +38,8 @@ def main(argv=None) -> dict:
     if args.load_model:
         load_model(args, state)
     train_step, eval_step = pick_steps(mesh, lambda: make_seg_steps(
-        augment=True, remat=args.remat, accum_steps=args.accum_steps), args)
+        augment=True, remat=args.remat, accum_steps=args.accum_steps,
+        space=mesh.space), args)
     state, run_kwargs = resume_and_guard(args, state)
     state = place_state(mesh, state)
     state, best, history = run_training(

@@ -61,8 +61,9 @@ class DataLoader:
     ``device`` is ``"cuda"`` unless the caller asks for the CPU; ``cuda``
     without a card raises. On the CPU the batches are host tensors.
     ``process_index`` / ``process_count``: this process's share of the data
-    (module docstring); both or neither, by default the rank and the size of
-    the process group (``parallel.distributed``), one process without one."""
+    (module docstring); both or neither, by default the data shard and the
+    data axis of the process group (``parallel.distributed``: the ranks of a
+    space group load the same full-row samples), one process without one."""
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False, seed: int = 1337,
@@ -72,7 +73,7 @@ class DataLoader:
                 "pass process_index AND process_count together (got "
                 f"process_index={process_index}, process_count={process_count})")
         if process_count is None:
-            process_index, process_count = distributed.rank(), distributed.world_size()
+            process_index, process_count = distributed.data_rank(), distributed.data_size()
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} of {process_count} processes")
         self.process_index, self.process_count = process_index, process_count

@@ -19,7 +19,7 @@ block's ``0`` Grapher and ``1`` FFN), ``decoder.hffm1.cross_conc.diff.0``,
 ``decoder.vffm1.up.up``, ``TDec_x2.csam1.batch_normal1`` and so on; ``VIG``
 keeps its encoder under ``VIG_x2`` and its decoder under ``TDec_x2``. The
 Siamese encoder runs once on the 2N-batched pair, as in the JAX models.
-GPipe routing of the encoder stages is not ported (ROADMAP.md Queue 1 #11).
+GPipe routing of the encoder stages is not ported (ROADMAP.md Queue 1 #11b).
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ class VIGBackbone(nn.Module):
         super().__init__()
         if pipeline is not None:
             raise NotImplementedError("VIGBackbone.pipeline (GPipe over the encoder stages) "
-                                      "is not ported (ROADMAP.md Queue 1 #11)")
+                                      "is not ported (ROADMAP.md Queue 1 #11b)")
         n_blocks = sum(blocks)
         dpr = [drop_path_rate * i / max(n_blocks - 1, 1) for i in range(n_blocks)]
         max_dilation = 49 // k

@@ -9,7 +9,7 @@ a card and makes those reductions itself:
 1. ``initialize()`` once a process. Under torchrun (``RANK``, ``WORLD_SIZE``,
    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) it
    creates the process group: NCCL for a card (``cuda:LOCAL_RANK``), gloo for
-   the CPU. A process started without them is one process, and
+   the CPU and for ranks that share one card. A process started without them is one process, and
    ``initialize`` does nothing.
 2. The loader (data/loader.py) gives rank r the rows ``r::W`` of each global
    batch (``global_batch_sharding``).
@@ -20,6 +20,14 @@ a card and makes those reductions itself:
    after the backward, averaged over the ranks (``average_gradients``). With
    that mean, the summed backward of ``all_reduce_sum`` gives the gradient of
    the global loss exactly, as SyncBatchNorm's does.
+
+Spatial partitioning (``parallel/spatial.py``) splits the W ranks into a
+grid of ``data`` x ``space`` (``mesh.create_mesh``; space the inner axis,
+so rank r is data index ``r // S`` and space index ``r % S``). The ranks of a
+space group hold the same images, each a strip of their rows. The sums above
+stay over every rank: the strips of all the data shards are the global batch.
+What follows the data axis alone (the loader's split, the draws' rows) reads
+``data_size`` and ``data_rank``; without a space axis they are the world's.
 
 Every collective here is a no-op in one process (``data_parallel()`` false),
 so one process runs the arithmetic it runs without this module. Nothing
@@ -51,8 +59,10 @@ def initialize(device="cuda", backend: Optional[str] = None,
     ``cuda:LOCAL_RANK`` unless ``device`` names one). Without a world size
     there or here the process is alone and nothing is done, as in the JAX
     function. The backend follows the device: NCCL for a card, gloo for the
-    CPU; ``backend`` overrides it (two ranks that share one card need gloo:
-    NCCL refuses them). A failure raises: a run that meant to be W processes
+    CPU, and gloo where ``device`` names one card and the launch puts more
+    than one rank on this host (``LOCAL_WORLD_SIZE``): those ranks share the
+    card, and NCCL refuses two ranks on one device. ``backend`` overrides
+    it. A failure raises: a run that meant to be W processes
     never carries on as one. A second call is a no-op."""
     device = torch.device(device)
     world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
@@ -64,6 +74,7 @@ def initialize(device="cuda", backend: Optional[str] = None,
     rank = _env_int("RANK") if rank is None else rank
     if rank is None:
         raise ValueError(f"world size {world_size} without a rank: set RANK or pass rank")
+    shared = device.index is not None and (_env_int("LOCAL_WORLD_SIZE") or 1) > 1
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"rank {rank}: --device {device}: no CUDA device is available")
@@ -71,7 +82,7 @@ def initialize(device="cuda", backend: Optional[str] = None,
                               else _env_int("LOCAL_RANK") or 0)
         torch.cuda.set_device(device)
     if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        backend = "nccl" if device.type == "cuda" and not shared else "gloo"
     dist.init_process_group(backend=backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     return device
@@ -87,6 +98,42 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
+
+
+# the data x space grid that mesh.create_mesh sets: the space axis's size and
+# this rank's space group (None with a space axis of 1)
+_GRID = {"space": 1, "space_group": None}
+
+
+def set_grid(space: int, space_group=None) -> None:
+    """Record the grid that ``mesh.create_mesh`` checked: a space axis of
+    ``space`` ranks and this rank's space group."""
+    _GRID.update(space=space, space_group=space_group)
+
+
+def space_size() -> int:
+    """The ranks that share one image, each holding a strip of its rows."""
+    return _GRID["space"] if is_initialized() else 1
+
+
+def space_rank() -> int:
+    """Which strip of its images this rank holds (0 the top)."""
+    return rank() % space_size()
+
+
+def space_group():
+    """This rank's space group (the ranks of its images' strips), or None."""
+    return _GRID["space_group"] if space_size() > 1 else None
+
+
+def data_size() -> int:
+    """The data axis: the shards the global batch is split into."""
+    return world_size() // space_size()
+
+
+def data_rank() -> int:
+    """Which shard of the global batch this rank holds."""
+    return rank() // space_size()
 
 
 def is_primary() -> bool:
@@ -128,26 +175,28 @@ def barrier(name: str) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over ranks; its backward is the sum over ranks of the incoming
-    gradient."""
+    """The sum over the ranks of ``group`` (None: all); its backward is the
+    sum over them of the incoming gradient."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiably; ``x`` itself in one
-    process. Every rank must call it, in the same order."""
-    return _AllReduceSum.apply(x) if data_parallel() else x
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks (of ``group``, default all of them),
+    differentiably; ``x`` itself in one process. Every rank of the group must
+    call it, in the same order."""
+    return _AllReduceSum.apply(x, group) if data_parallel() else x
 
 
 def all_reduce_(x: torch.Tensor, op=None) -> torch.Tensor:
@@ -202,11 +251,11 @@ def global_or(flag: bool) -> bool:
 
 
 def global_batch_sharding(n_ranks: Optional[int] = None, index: Optional[int] = None) -> slice:
-    """The rows of the global batch that rank ``index`` (default this one) of
-    ``n_ranks`` holds, ``r::W``: the strided split of data/loader.py gives
-    rank r its rows in this order."""
-    n_ranks = world_size() if n_ranks is None else n_ranks
-    index = rank() if index is None else index
+    """The rows of the global batch that data shard ``index`` (default this
+    rank's) of ``n_ranks`` (default the data axis) holds, ``d::D``: the
+    strided split of data/loader.py gives shard d its rows in this order."""
+    n_ranks = data_size() if n_ranks is None else n_ranks
+    index = data_rank() if index is None else index
     return slice(index, None, n_ranks)
 
 

@@ -110,7 +110,7 @@ def run_training(train_step, eval_step, state, train_loader, eval_loader,
             batch, _ = _device_batch(batch, device)
             out = train_step(state, batch, rng)
             cm_dev = out["cm"] if cm_dev is None else cm_dev + out["cm"]
-            meter.update(next(iter(batch.values())).shape[0] * distributed.world_size())
+            meter.update(next(iter(batch.values())).shape[0] * distributed.data_size())
             if global_step % log_every == 0:
                 logger.add_scalar("train/loss", float(out["loss"]), global_step)
                 for k in ("seg_loss", "cd_loss", "ct_loss"):
@@ -142,7 +142,7 @@ def evaluate(eval_step, state, eval_loader) -> Dict[str, float]:
     """The metrics of ``eval_step``'s counts over the loader, summed over the
     ranks of a data-parallel run (each rank's loader holds its share; a
     loader that gives every rank the whole set gives W times every count,
-    and the same metrics)."""
+    and the same metrics; under a space axis each rank counts its strips)."""
     metric = SegmentationMetric(2)
     cm_dev = torch.zeros((2, 2), dtype=torch.int64, device=state.device)
     for batch in eval_loader:

@@ -40,10 +40,23 @@ backward (``distributed.average_gradients``), and the step returns the
 global loss terms and counts on every rank. Under ``accum_steps`` the global
 micro-batch i is the union of every rank's contiguous local micro-batch i,
 so the local batch must split into ``accum_steps`` parts.
+
+``space > 1`` gives the spatial steps (``parallel/spatial.py``, the
+``make_spatial_*_steps`` there): the ranks form a data x space grid
+(``parallel.mesh.create_mesh``), and "rank" above reads "data shard" (the
+loader's split, the draws' rows). A data shard's augmentation runs on its
+full rows; then each rank cuts its strip of the rows of the images and
+labels, and the forward and the loss run inside ``spatial_context``. The
+losses and counts summed over every rank are those of the global batch. The
+eval step returns the counts of this rank's strip (``loops.evaluate`` sums
+them over the ranks) and the whole images' probabilities, gathered over the
+space group. ``remat`` under a space axis raises (ROADMAP.md Queue 3 known
+issue 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -55,7 +68,7 @@ from stcd_tpu_torch.data.augment import (concat_params, eval_preprocess, params_
 from stcd_tpu_torch.layers.stochastic import RowMap, set_generator
 from stcd_tpu_torch.losses.functional import bce_dice, contrastive_loss
 from stcd_tpu_torch.metrics.confusion import confusion_matrix, global_counts
-from stcd_tpu_torch.parallel import distributed
+from stcd_tpu_torch.parallel import distributed, spatial
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +90,7 @@ def _micro_slices(n: int, accum_steps: int):
     """The local rows of each micro-batch. Across W ranks global micro-batch
     i is every rank's local slice i, which needs W to divide its size."""
     if n % accum_steps != 0:
-        world = distributed.world_size()
+        world = distributed.data_size()
         where = (f" (a global batch of {n * world} over {world} ranks: {world} must divide "
                  f"the micro-batch of {n * world / accum_steps:g})") if world > 1 else ""
         raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}{where}")
@@ -100,15 +113,16 @@ def _row_map(n_local: int, device) -> Optional[RowMap]:
     global one, for the model's dropout and DropPath draws."""
     if not distributed.data_parallel():
         return None
-    world = distributed.world_size()
+    world = distributed.data_size()
     return RowMap(n_local, n_local * world,
-                  torch.arange(distributed.rank(), n_local * world, world, device=device))
+                  torch.arange(distributed.data_rank(), n_local * world, world, device=device))
 
 
 def _global_outputs(out: dict) -> dict:
     """The step's outputs over the global batch: every loss term averaged over
     the ranks (a ratio loss is the same on each, a mean of per-sample terms
-    is the mean of the ranks'), the counts summed."""
+    is the mean of the ranks', whose rows or strips are equal in number), the
+    counts summed."""
     if not distributed.data_parallel():
         return out
     terms = [k for k in out if k != "cm"]
@@ -119,7 +133,7 @@ def _global_outputs(out: dict) -> dict:
 
 
 def _accum_update(state, micro: Callable, accum_steps: int, n_micro: int, remat: bool,
-                  generator: Optional[torch.Generator]
+                  generator: Optional[torch.Generator], space: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """The micro-batch loop that the three train steps share, and one
     optimizer update. ``micro(i) -> (model inputs, loss_of)`` gives micro-batch
@@ -129,7 +143,8 @@ def _accum_update(state, micro: Callable, accum_steps: int, n_micro: int, remat:
     The model's dropouts and DropPaths draw from ``generator``
     (``layers/stochastic.py``), as the JAX steps draw them from the step's
     key; the recomputed forward of ``remat`` draws the same masks. Across
-    ranks the gradients are averaged before the update."""
+    ranks the gradients are averaged before the update. With ``space > 1``
+    the forward and the loss run inside ``spatial_context(space)``."""
     model = set_generator(state.model.train(), generator,
                           _row_map(n_micro, state.device))
     state.optimizer.zero_grad(set_to_none=True)
@@ -146,9 +161,10 @@ def _accum_update(state, micro: Callable, accum_steps: int, n_micro: int, remat:
 
             out = checkpoint(forward, *inputs, use_reentrant=False)
             buffers = [buf.clone() for buf in model.buffers()]
+            loss, micro_cm, extras = loss_of(out)
         else:
-            out = _forward(state, *inputs)
-        loss, micro_cm, extras = loss_of(out)
+            with _space_context(space):
+                loss, micro_cm, extras = loss_of(_forward(state, *inputs))
         (loss / accum_steps).backward()
         if remat:  # the recomputed forward updated the running stats again
             with torch.no_grad():
@@ -163,6 +179,40 @@ def _accum_update(state, micro: Callable, accum_steps: int, n_micro: int, remat:
     return loss_sum / accum_steps, cm, tuple(e / accum_steps for e in extras_sum)
 
 
+def _space_context(space: int):
+    return spatial.spatial_context(space) if space > 1 else contextlib.nullcontext()
+
+
+def _check_space(space: int, remat: bool) -> None:
+    if space > 1 and remat:
+        raise ValueError(f"--remat under a space axis of {space}: the recomputed forward "
+                         "would run outside the halo exchange (ROADMAP.md Queue 3 known "
+                         "issue 12)")
+
+
+def _strips(space: int, *tensors):
+    """This rank's strip of each NCHW tensor (the tensors with a space axis of
+    1)."""
+    return tensors if space == 1 else tuple(spatial.strip(t) for t in tensors)
+
+
+def _eval_outputs(space: int, probs: torch.Tensor, label: torch.Tensor) -> dict:
+    """The eval step's counts of ``probs`` (NCHW, this rank's strip under a
+    space axis) and the probabilities as (N, H, W, 1), of the whole images."""
+    label = _label_nchw(label)
+    if space > 1:
+        cm = confusion_matrix(probs > 0.5, spatial.strip(label))
+        probs = spatial.gather_strips(probs)
+    else:
+        cm = confusion_matrix(probs > 0.5, label)
+    return {"cm": cm, "probs": probs.permute(0, 2, 3, 1)}
+
+
+def _eval_forward(state, space: int, *inputs):
+    with _space_context(space):
+        return _forward(state, *_strips(space, *inputs))
+
+
 def _binary_loss(logits: torch.Tensor, label: torch.Tensor):
     """BCE + Dice on sigmoid(logits), and the counts at threshold 0.5."""
     probs = torch.sigmoid(logits.float())
@@ -170,7 +220,7 @@ def _binary_loss(logits: torch.Tensor, label: torch.Tensor):
 
 
 def make_seg_steps(model=None, augment: bool = True, remat: bool = False,
-                   accum_steps: int = 1):
+                   accum_steps: int = 1, space: int = 1):
     """Supervised segmentation (stage 1). Returns ``(train_step, eval_step)``.
 
     ``train_step(state, batch{image, label}, ...) -> {"loss", "cm"}``: every
@@ -180,6 +230,7 @@ def make_seg_steps(model=None, augment: bool = True, remat: bool = False,
 
     ``eval_step(state, batch) -> {"cm", "probs"}``: eval mode, no grad,
     probabilities as (N, H, W, 1)."""
+    _check_space(space, remat)
 
     def train_step(state, batch, generator: Optional[torch.Generator] = None,
                    aug_params=None, augment_impl: Optional[str] = None):
@@ -187,34 +238,33 @@ def make_seg_steps(model=None, augment: bool = True, remat: bool = False,
         slices = _micro_slices(n, accum_steps)
         if augment:
             if aug_params is None:
-                aug_params = sample_augment_params(generator, n * distributed.world_size(),
+                aug_params = sample_augment_params(generator, n * distributed.data_size(),
                                                    0.5)
             image = train_augment(generator, batch["image"], aug_params=_own_rows(aug_params),
                                   impl=augment_impl)
         else:
             image = eval_preprocess(batch["image"])
-        image, label = _nchw(image), _label_nchw(batch["label"]).float()
+        image, label = _strips(space, _nchw(image), _label_nchw(batch["label"]).float())
 
         def micro(i):
             ml = label[slices[i]]
             return (image[slices[i]],), lambda pred: _binary_loss(pred, ml)
 
         loss, cm, _ = _accum_update(state, micro, accum_steps, n // accum_steps, remat,
-                                    generator)
+                                    generator, space)
         return _global_outputs({"loss": loss, "cm": cm})
 
     @torch.no_grad()
     def eval_step(state, batch):
         state.model.eval()
-        probs = torch.sigmoid(_forward(state, _nchw(eval_preprocess(batch["image"]))).float())
-        cm = confusion_matrix(probs > 0.5, _label_nchw(batch["label"]))
-        return {"cm": cm, "probs": probs.permute(0, 2, 3, 1)}
+        pred = _eval_forward(state, space, _nchw(eval_preprocess(batch["image"])))
+        return _eval_outputs(space, torch.sigmoid(pred.float()), batch["label"])
 
     return train_step, eval_step
 
 
 def make_cd_steps(model=None, augment: bool = True, remat: bool = False,
-                  accum_steps: int = 1):
+                  accum_steps: int = 1, space: int = 1):
     """Pseudo-change CD pretraining (stage 2). Returns
     ``(train_step, eval_step)``.
 
@@ -225,6 +275,7 @@ def make_cd_steps(model=None, augment: bool = True, remat: bool = False,
 
     ``eval_step(state, batch) -> {"cm", "probs"}``: eval mode, no grad,
     probabilities as (N, H, W, 1)."""
+    _check_space(space, remat)
 
     def train_step(state, batch, generator: Optional[torch.Generator] = None,
                    aug_params=None, augment_impl: Optional[str] = None):
@@ -232,34 +283,33 @@ def make_cd_steps(model=None, augment: bool = True, remat: bool = False,
         slices = _micro_slices(n, accum_steps)
         if augment:
             if aug_params is None:
-                aug_params = sample_pair_params(generator, n * distributed.world_size(), 0.5)
+                aug_params = sample_pair_params(generator, n * distributed.data_size(), 0.5)
             a, b = train_augment_pair(generator, batch["A"], batch["B"], jitter_p=0.5,
                                       aug_params=_own_rows(aug_params), impl=augment_impl)
         else:
             a, b = eval_preprocess(batch["A"]), eval_preprocess(batch["B"])
-        a, b, label = _nchw(a), _nchw(b), _label_nchw(batch["label"]).float()
+        a, b, label = _strips(space, _nchw(a), _nchw(b), _label_nchw(batch["label"]).float())
 
         def micro(i):
             ml = label[slices[i]]
             return (a[slices[i]], b[slices[i]]), lambda out: _binary_loss(out[2], ml)
 
         loss, cm, _ = _accum_update(state, micro, accum_steps, n // accum_steps, remat,
-                                    generator)
+                                    generator, space)
         return _global_outputs({"loss": loss, "cm": cm})
 
     @torch.no_grad()
     def eval_step(state, batch):
         state.model.eval()
         a, b = _nchw(eval_preprocess(batch["A"])), _nchw(eval_preprocess(batch["B"]))
-        probs = torch.sigmoid(_forward(state, a, b)[2].float())
-        cm = confusion_matrix(probs > 0.5, _label_nchw(batch["label"]))
-        return {"cm": cm, "probs": probs.permute(0, 2, 3, 1)}
+        diff = _eval_forward(state, space, a, b)[2]
+        return _eval_outputs(space, torch.sigmoid(diff.float()), batch["label"])
 
     return train_step, eval_step
 
 
 def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
-                       accum_steps: int = 1):
+                       accum_steps: int = 1, space: int = 1):
     """The STCD fine-tune (stage 3). Returns ``(train_step, eval_step)``.
 
     A batch carries N synthesized pseudo-change pairs (``A``, ``B`` with the
@@ -274,6 +324,7 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
     contrastive loss between the two halves. The counts cover all 2N pairs.
     Under accumulation each micro-batch concatenates its own slices of the two
     halves. ``eval_step`` is stage 2's."""
+    _check_space(space, remat)
 
     def train_step(state, batch, generator: Optional[torch.Generator] = None,
                    aug_params=None, augment_impl: Optional[str] = None):
@@ -283,7 +334,7 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
         n = batch["A"].shape[0]
         if augment:
             if aug_params is None:
-                world = distributed.world_size()
+                world = distributed.data_size()
                 aug_params = (sample_pair_params(generator, n * world, 0.5),
                               sample_pair_params(generator, batch["CA"].shape[0] * world, 0.8))
             own = _own_rows(aug_params)
@@ -294,9 +345,9 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
             a, b, ca, cb = out.split([batch[k].shape[0] for k in names], dim=0)
         else:
             a, b, ca, cb = (eval_preprocess(batch[k]) for k in names)
-        a, b, ca, cb = (_nchw(t) for t in (a, b, ca, cb))
-        s_label, cd_label, real_label = (_label_nchw(batch[k]).float()
-                                         for k in ("s_label_A", "c_label", "CL"))
+        a, b, ca, cb, s_label, cd_label, real_label = _strips(
+            space, *(_nchw(t) for t in (a, b, ca, cb)),
+            *(_label_nchw(batch[k]).float() for k in ("s_label_A", "c_label", "CL")))
         if ca.shape[0] != n:
             raise ValueError(f"{n} synthesized pairs but {ca.shape[0]} real pairs")
         slices = _micro_slices(n, accum_steps)
@@ -320,9 +371,9 @@ def make_semi_cd_steps(model=None, augment: bool = True, remat: bool = False,
             return (data_a, data_b), loss_of
 
         loss, cm, (seg_loss, cd_loss, ct_loss) = _accum_update(
-            state, micro, accum_steps, n // accum_steps, remat, generator)
+            state, micro, accum_steps, n // accum_steps, remat, generator, space)
         return _global_outputs({"loss": loss, "seg_loss": seg_loss, "cd_loss": cd_loss,
                                 "ct_loss": ct_loss, "cm": cm})
 
-    _, eval_step = make_cd_steps(model, augment=False)
+    _, eval_step = make_cd_steps(model, augment=False, space=space)
     return train_step, eval_step

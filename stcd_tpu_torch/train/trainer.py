@@ -12,7 +12,7 @@ scores, the masks). They write through ``train/checkpoint.py`` (one
 ``torch.save`` file where the JAX package writes an orbax directory of the
 same name) and ``utils/logging.py``. Not ported: pipeline and tensor
 parallelism (``pp_stages``, ``tp_axis`` other than 1 raise; ROADMAP.md
-Queue 1 #11).
+Queue 1 #11b).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX
@@ -58,7 +58,7 @@ class TrainerConfig:
     bf16 autocast with float32 weights. ``device`` is where ``train_models``
     and ``CDEvaluator`` put the state: the card unless the caller asks for
     the CPU. ``pp_stages`` and ``tp_axis`` exist for the JAX surface; values
-    other than 1 raise (ROADMAP.md Queue 1 #11)."""
+    other than 1 raise (ROADMAP.md Queue 1 #11b)."""
 
     net_G: str = "base_transformer_pos_s4_dd8"
     n_class: int = 2
@@ -127,7 +127,7 @@ class CDTrainer:
         if cfg.tp_axis != 1 or cfg.pp_stages != 1:
             raise NotImplementedError(
                 f"tp_axis={cfg.tp_axis}, pp_stages={cfg.pp_stages}: tensor and pipeline "
-                "parallelism are not ported (ROADMAP.md Queue 1 #11)")
+                "parallelism are not ported (ROADMAP.md Queue 1 #11b)")
         self.cfg = cfg
         self.dataloaders = dataloaders or {}
         self.alpha = alpha

@@ -24,6 +24,17 @@ from stcd_tpu_torch.ops.attention import (cross_attention, cross_attention_kerne
 SEED = 0xC0FFEE42
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(n, m, d, seed=0, b=2, h=2):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(s).astype(np.float32)

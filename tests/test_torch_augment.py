@@ -23,6 +23,18 @@ from stcd_tpu_torch.data import augment as taug
 from stcd_tpu_torch.ops.augment import (REDUCE_BLOCKS, apply_augment_batch, apply_augment_kernel,
                                         augment_plan)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 2e-5
 
 

@@ -23,6 +23,18 @@ from stcd_tpu.models.changeformer import DecoderTransformerV3, SegFormerEncoder
 from stcd_tpu_torch.convert.from_flax import changeformer_v6_from_flax
 from stcd_tpu_torch.models.changeformer import ChangeFormerV6
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NARROW = dict(embed_dims=(16, 32, 48, 64), depths=(1, 1, 2, 1),
               num_heads=(1, 2, 2, 4), sr_ratios=(8, 4, 2, 1))
 NARROW_EMBED = 32

@@ -55,7 +55,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                  "encoders.senet", "encoders.densenet", "encoders.regnet", "encoders.dpn",
                  "encoders.xception", "encoders.inception", "encoders.timm_resnet",
                  "encoders.gernet", "encoders.mobileone", "losses.smp", "metrics.functional",
-                 "utils.meter", "data.oxford_pet", "datasets"):
+                 "utils.meter", "data.oxford_pet", "datasets", "parallel.distributed",
+                 "parallel.mesh", "parallel.spatial"):
         assert f"stcd_tpu_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 80
     assert res["bad"] == []

@@ -27,6 +27,18 @@ from stcd_tpu_torch.train.state import adam_poly, create_train_state
 from stcd_tpu_torch.train.steps import make_cd_steps, make_semi_cd_steps
 from stcd_tpu_torch.utils.logging import ScalarLogger, Throughput
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DEC = (32, 24, 16, 12, 8)
 HW = 32
 

@@ -36,6 +36,18 @@ from stcd_tpu_torch.models.segcd import SegCD
 
 from test_torch_changeformer import NARROW, NARROW_EMBED, JaxNarrowV6, _perturb
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for this file's tests, as tests/test_torch_cli.py
+    has: the suite runs several files at once, and at these sizes more threads
+    cost CPU time and buy little."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
