@@ -192,6 +192,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the parameters within one Adam step and at least SP_CLI_AGREE of them within 1e-5 of
    the plain run's, the running statistics within SP_CLI_STATS_SHARE. The augmentation
    kernel's launches of (a) and (b) are counted in the kernels line.
+24. pipeline parallelism (stcd_tpu_torch/parallel/pipeline.py), four ranks on the one card
+   under gloo (this script with --phase24-rank or --phase24-cli), which shows the
+   pipeline's cost, not its speed: (a)-(c) tools/check_pipeline.py's runs against this
+   process's one-process runs: ChangeFormerV6 at full width, 256x256, batch 8, fp32,
+   pp_stages 4, 4 microbatches, one train step and one eval batch with dropout off, then
+   a step with attention dropout 0.1 whose microbatches must draw one mask a stage and
+   leave the ranks' states and generators equal; base_transformer_pos_s4_dd8 at
+   pp_stages 2 x data 2; ChangeGNNV2 at pp_stages 4. Each rank's launches of kernels #1
+   and #2 (f32_cuda on V6's stages, small_m on BIT's) must be its blocks times the
+   microbatches. (d) cli.train_cd --net_G ChangeFormerV6 --embed_dim 256 --pp_stages 4
+   --device cuda:0 under torch.distributed.run --nproc_per_node 4 for one epoch of
+   cli.make_demo_data's tree. Step ms and peak GiB by rank beside the one process's.
+   Phase 3 also holds kernels #1 and #2 against their plain versions with the dropout
+   rows (o, t) = (1, 2), f32 and bf16, at M > 8 and M <= 8, and (0, 1) bit-identical to
+   the call without rows.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -672,6 +687,56 @@ def phase_attention_backward(torch, attention):
           f"{bit_calls * bit['ms']:.4f} ms (plain {bit_calls * bit['plain_ms']:.4f}, "
           f"bound {bit_calls * bit['bound_ms']:.4f})", flush=True)
     return res
+
+
+ROWS_SHAPES = ((4, 2, 1000, 37, 64), (4, 8, 1024, 4, 32))  # (B, H, N, M, D): M > 8, M <= 8
+
+
+def phase_attention_rows(torch, attention):
+    """Kernels #1 and #2 with the dropout rows of a sharded batch: at (o, t) =
+    (1, 2), dropout 0.1, the forward and the gradients of the kernels against
+    autograd through the plain version (within F32_ATOL / BWD_F32_ATOL, bf16
+    BF16_ATOL / BWD_BF16_ATOL, of max(1, max|plain|)); at (0, 1) bit-identical
+    to the call without rows; (1, 2) keeps another mask than (0, 1). Returns
+    the largest forward and backward errors."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    fwd_err = bwd_err = 0.0
+    for shape in ROWS_SHAPES:
+        b, h, n, m, d = shape
+        for dtype, fwd_atol, bwd_atol in ((torch.float32, F32_ATOL, BWD_F32_ATOL),
+                                          (torch.bfloat16, BF16_ATOL, BWD_BF16_ATOL)):
+            q, k, v, g = (torch.randn(b, h, rows, d, generator=gen).to("cuda", dtype)
+                          for rows in (n, m, m, n))
+
+            def run(impl, rows=None):
+                leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+                kw = {} if rows is None else {"dropout_rows": rows}
+                out = attention.cross_attention(*leaves, dropout_rate=0.1, dropout_seed=77,
+                                                impl=impl, **kw)
+                return out.detach(), torch.autograd.grad(out, leaves, g)
+
+            (out, grads), (want, want_grads) = run("kernel", (1, 2)), run("plain", (1, 2))
+            default, explicit, moved = run("kernel"), run("kernel", (0, 1)), out
+            torch.cuda.synchronize()
+            name = f"{shape} {str(dtype).replace('torch.', '')} " \
+                   f"[{attention.select_variant(dtype, m)}]"
+            err = (out.float() - want.float()).abs().max().item()
+            bound = fwd_atol * max(1.0, want.float().abs().max().item())
+            require(err <= bound, f"attention rows (1, 2) {name}: forward {err} > {bound}")
+            errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(grads, want_grads)]
+            bounds = [bwd_atol * max(1.0, w.float().abs().max().item()) for w in want_grads]
+            require(all(e <= c for e, c in zip(errs, bounds)),
+                    f"attention rows (1, 2) {name}: dq, dk, dv {errs} > {bounds}")
+            require(torch.equal(default[0], explicit[0])
+                    and all(torch.equal(x, y) for x, y in zip(default[1], explicit[1])),
+                    f"attention rows (0, 1) {name}: not bit-identical to the call without rows")
+            require(not torch.equal(moved, default[0]),
+                    f"attention rows {name}: (1, 2) kept the mask of (0, 1)")
+            print(f"attention rows (o, t) = (1, 2) {name} dropout 0.1: forward {err:.3e}, "
+                  f"dq dk dv {[f'{e:.3e}' for e in errs]} against plain; (0, 1) "
+                  f"bit-identical to no rows", flush=True)
+            fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, *errs)
+    return fwd_err, bwd_err
 
 
 def bn_rel_err(got, want) -> float:
@@ -3178,6 +3243,135 @@ def phase_spatial(torch, gpu_label) -> dict:
     return launches
 
 
+# phase 24: pipeline parallelism (stcd_tpu_torch/parallel/pipeline.py) on the card: four
+# ranks on cuda:0 under gloo run tools/check_pipeline.py's runs (bounds and launch counts
+# there) against this process's one-process runs, then cli.train_cd --pp_stages 4
+PP_CLI = dict(n=8, size=256, batch=4)  # 8 train and 4 val pairs; 2 steps, 1 val batch
+PP_TIMEOUT = 300
+
+
+def phase24_rank(out_dir: str) -> int:
+    """One of the four ranks of phase 24 (a)-(c), on cuda:0 under gloo."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.parallel import distributed
+    from stcd_tpu_torch.tools import check_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize("cuda:0", backend="gloo")
+    require(distributed.world_size() == 4 and device.index == 0,
+            f"rank {distributed.rank()}: world {distributed.world_size()}, {device}")
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+    print_tagged("PHASE24_RANK", check_pipeline.rank_checks(ref, device))
+    distributed.barrier("phase 24 done")
+    return 0
+
+
+def phase24_cli(argv) -> int:
+    """One rank of phase 24 (d): cli.train_cd.main(argv) and its attention launches."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.cli import train_cd
+    from stcd_tpu_torch.ops import attention
+    from stcd_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = reset_attention_counts(attention)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = train_cd.main(argv)
+    torch.cuda.synchronize()
+    print_tagged("PHASE24_CLI", {
+        "rank": distributed.rank(), "stage": distributed.stage_rank(),
+        "world": distributed.world_size(), "backend": torch.distributed.get_backend(),
+        "step": out["state"].step, "seconds": time.monotonic() - t0,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "fwd": kernel.kernel_launches, "bwd": kernel.backward_launches,
+        "variants": sorted(set(kernel.forward_variants) | set(kernel.backward_variants)),
+        "mf1": out["scores"]["mf1"]})
+    return 0
+
+
+def phase_pipeline(torch, gpu_label) -> dict:
+    """Phase 24. Returns the attention kernels' launches by path, forward and backward."""
+    from stcd_tpu_torch.cli import make_demo_data
+    from stcd_tpu_torch.tools import check_pipeline as cp
+
+    t_phase = time.monotonic()
+    fwd, bwd = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        ref = cp.reference()
+        torch.save(ref, os.path.join(root, "ref.pt"))
+        t0 = time.monotonic()
+        out = launch(torchrun(4, "--phase24-rank", root), timeout=PP_TIMEOUT)
+        ranks_s = time.monotonic() - t0
+        ranks = sorted(tagged(out, "PHASE24_RANK"), key=lambda r: r["rank"])
+        require([r["rank"] for r in ranks] == [0, 1, 2, 3]
+                and all(r["backend"] == "gloo" for r in ranks), f"phase 24: {out[-3000:]}")
+        for kind, (net_G, n, size, stages, micro, n_data) in cp.RUNS.items():
+            rows = [r[kind] for r in ranks]
+            print(f"pipeline ({kind}) ({gpu_label}): {net_G}, {size}x{size}, global batch {n}, "
+                  f"fp32, pp_stages {stages} x data {n_data}, {micro} microbatches, 4 ranks "
+                  f"on one card under gloo (the pipeline's cost, not its speed): warm train "
+                  f"step ms by rank {[round(x['step_ms'], 1) for x in rows]} against "
+                  f"{ref[kind]['step_ms']:.1f} for one process (first step "
+                  f"{[round(x['first_ms'], 1) for x in rows]} against "
+                  f"{ref[kind]['first_ms']:.1f}); warm eval ms "
+                  f"{[round(x['eval_ms'], 1) for x in rows]} against "
+                  f"{ref[kind]['eval_ms']:.1f}; peak GiB {[round(x['peak_gib'], 3) for x in rows]}"
+                  f" against {ref[kind]['peak_gib']:.3f}; against one process by rank "
+                  f"{[{k: float(f'{v:.3g}') for k, v in x['errors'].items()} for x in rows]}; "
+                  f"attention launches by rank (train fwd/bwd, eval fwd) "
+                  f"{[(x['launches']['train']['fwd'], x['launches']['train']['bwd'], x['launches']['eval']['fwd']) for x in rows]}"
+                  + (f"; dropout 0.1 step: {[x['dropout_calls'] for x in rows]} attention calls "
+                     f"by rank, one mask a stage, states and generators equal"
+                     if kind == "v6" else ""), flush=True)
+            fails = [f"rank {i}: {f}" for i, x in enumerate(rows) for f in x["fails"]]
+            require(not fails, f"phase 24 {kind}: {fails}")
+            fwd[f"pp_{kind}"] = sum(x["launches"]["train"]["fwd"] + x["launches"]["eval"]["fwd"]
+                                    for x in rows)
+            bwd[f"pp_{kind}"] = sum(x["launches"]["train"]["bwd"] for x in rows)
+        require(fwd["pp_v6"] == 2 * 13 * 4 and fwd["pp_bit"] == 2 * 2 * 8 * 2 * 2
+                and fwd["pp_vig"] == 0, f"phase 24 launches {fwd} {bwd}")
+
+        # (d) cli.train_cd --pp_stages 4 under torchrun, four ranks on card 0
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(PP_CLI["n"]), "--size", str(PP_CLI["size"])])
+        cli = ["--phase24-cli", "--net_G", "ChangeFormerV6", "--embed_dim", "256",
+               "--pp_stages", "4", "--root_path", data, "--dataset_name", "LEVIR",
+               "--img_size", str(PP_CLI["size"]), "--batch_size", str(PP_CLI["batch"]),
+               "--max_epochs", "1", "--n_cpu", "1", "--device", "cuda:0",
+               "--checkpoint_dir", os.path.join(root, "cli")]
+        t0 = time.monotonic()
+        info = sorted(tagged(launch(torchrun(4, *cli), timeout=PP_TIMEOUT), "PHASE24_CLI"),
+                      key=lambda r: r["rank"])
+        cli_s = time.monotonic() - t0
+        steps = PP_CLI["n"] // PP_CLI["batch"]
+        evals = 2 * -(-max(PP_CLI["n"] // 2, 2) // PP_CLI["batch"])  # the epoch's and the final
+        require(len(info) == 4, f"phase 24 (d): {info}")
+        for r in info:
+            blocks = cp.BLOCKS["v6"][r["stage"]] * 4  # a stage's blocks times 4 microbatches
+            require(r["world"] == 4 and r["backend"] == "gloo" and r["step"] == steps
+                    and r["fwd"] == blocks * (steps + evals) and r["bwd"] == blocks * steps
+                    and r["variants"] == ["f32_cuda"],
+                    f"phase 24 (d) rank {r['rank']}: {r}")
+        fwd["pp_cli_v6"] = sum(r["fwd"] for r in info)
+        bwd["pp_cli_v6"] = sum(r["bwd"] for r in info)
+        print(f"pipeline (d) ({gpu_label}): cli.train_cd --net_G ChangeFormerV6 --embed_dim "
+              f"256 --pp_stages 4 --device cuda:0 (torchrun --nproc_per_node 4, one card, "
+              f"gloo), {PP_CLI['n']} pairs of {PP_CLI['size']}x{PP_CLI['size']}, batch "
+              f"{PP_CLI['batch']}, 1 epoch ({steps} steps): {cli_s:.1f} s; attention launches "
+              f"by rank (fwd, bwd) {[(r['fwd'], r['bwd']) for r in info]}; peak GiB by rank "
+              f"{[round(r['peak_gib'], 3) for r in info]}; val mF1 "
+              f"{[round(r['mf1'], 4) for r in info]}", flush=True)
+        require(len({r["mf1"] for r in info}) == 1, f"phase 24 (d): the ranks' scores {info}")
+    print(f"pipeline: ranks {ranks_s:.1f} s, phase {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3210,7 +3404,9 @@ def main() -> int:
     attn = phase_kernels(torch, attention)
     aug = phase_augment_kernel(torch)
     attn_bwd = phase_attention_backward(torch, attention)
-    attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"])
+    rows_fwd_err, rows_bwd_err = phase_attention_rows(torch, attention)
+    attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"], rows_fwd_err)
+    attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], rows_bwd_err)
     bn = phase_bn_stats(torch)
     mm = phase_matmul_stats(torch)
 
@@ -3274,6 +3470,8 @@ def main() -> int:
     aug_by_path.update(phase_data_parallel(torch, gpu_label))
     # phase 23: spatial partitioning, its ranks in processes of their own
     aug_by_path.update(phase_spatial(torch, gpu_label))
+    # phase 24: pipeline parallelism, its ranks in processes of their own
+    pp_launches = phase_pipeline(torch, gpu_label)
     aug["launches"] = sum(aug_by_path.values())
 
     # every path's count was taken from 0 just before it and read just after
@@ -3282,26 +3480,29 @@ def main() -> int:
                    "train_cd_v6": train_cd["v6"]["fwd"], "train_cd_bit": train_cd["bit"]["fwd"],
                    **{f"{k.lower()}_eval_and_step": v["eval_fwd"] + v["train_fwd"]
                       for k, v in zoo.items()},
-                   "export_v6_loaded": export_v6, "smp_fpn_mit_b2": smp_fwd}
+                   "export_v6_loaded": export_v6, "smp_fpn_mit_b2": smp_fwd,
+                   **pp_launches["fwd"]}
     bwd_by_path = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
                    "bit_training": bit_bwd, "train_cd_v6": train_cd["v6"]["bwd"],
                    "train_cd_bit": train_cd["bit"]["bwd"],
                    **{f"{k.lower()}_step": v["train_bwd"] for k, v in zoo.items()},
-                   "smp_fpn_mit_b2": smp_bwd}
+                   "smp_fpn_mit_b2": smp_bwd, **pp_launches["bwd"]}
     attn["launches"], attn["launches_by_path"] = sum(fwd_by_path.values()), fwd_by_path
     attn_bwd["launches"], attn_bwd["launches_by_path"] = sum(bwd_by_path.values()), bwd_by_path
     # the variant each path launched (each path's run required that it launched no other)
     f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded",
-                 "smp_fpn_mit_b2")
+                 "smp_fpn_mit_b2", "pp_v6", "pp_cli_v6")
     attn["variants"] = {
         "f32_cuda": sum(fwd_by_path[k] for k in f32_paths) + sum(
             v["eval_fwd"] + v["train_fwd"] for v in zoo.values()),
         V6_TRAIN["variant"]: v6_fwd,
-        BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"]}
+        BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"] + fwd_by_path["pp_bit"]}
     attn_bwd["variants"] = {
         "f32_cuda": v6_fp32_bwd + train_cd["v6"]["bwd"] + smp_bwd + sum(
-            v["train_bwd"] for v in zoo.values()),
-        V6_TRAIN["variant"]: v6_bwd, BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"]}
+            v["train_bwd"] for v in zoo.values()) + bwd_by_path["pp_v6"]
+        + bwd_by_path["pp_cli_v6"],
+        V6_TRAIN["variant"]: v6_bwd,
+        BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"] + bwd_by_path["pp_bit"]}
     attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3354,4 +3555,8 @@ if __name__ == "__main__":
         sys.exit(phase22_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--phase23-rank"]:
         sys.exit(phase23_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase24-rank"]:
+        sys.exit(phase24_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase24-cli"]:
+        sys.exit(phase24_cli(sys.argv[2:]))
     sys.exit(main())

@@ -25,7 +25,7 @@ a halo rule for every op), and ``--remat`` is refused. Ranks that share one
 card (``--device cuda:0`` under torchrun) run gloo, since NCCL refuses two
 ranks on one device (``distributed.initialize``).
 ``--model_axis`` other than 1 raises (tensor parallel is ROADMAP.md Queue 1
-#11b).
+#11c).
 
 The helpers below the JAX ones build what every stage CLI builds the same way:
 the seeded model and train state, the loaders, the augmentation generator,
@@ -111,7 +111,7 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
                    help="spatial partitioning: the ranks that split each image's rows "
                         "into strips (it divides the launch's W; data axis W / S)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11b)")
+                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11c)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
     return p
@@ -129,7 +129,7 @@ def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace
     if args.model_axis != 1:
         raise NotImplementedError(
             f"--model_axis {args.model_axis}: tensor parallel is not ported "
-            "(ROADMAP.md Queue 1 #11b)")
+            "(ROADMAP.md Queue 1 #11c)")
     if args.space_axis > 1 and not args.encoder.startswith(SPATIAL_ENCODERS):
         raise ValueError(
             f"--space_axis {args.space_axis} with --encoder {args.encoder}: spatial "

@@ -16,8 +16,20 @@ Usage:
   python -m stcd_tpu_torch.cli.train_cd --net_G SNUNet --checkpoint_dir runs/SNUNet
   python -m stcd_tpu_torch.cli.train_cd --net_G IFNet --n_class 1 --loss bce  # a 1-channel head
 
-``--pp_stages``, ``--pp_microbatches`` and ``--tp_axis`` other than 1 (0) raise:
-the port runs on one card (ROADMAP.md Queue 1 #11b).
+Under ``torchrun --nproc_per_node W`` the W ranks train one model on a
+``data`` x ``stage`` grid (``CDTrainer``): ``--pp_stages S`` pipelines the
+BIT ``_dd8`` decoder, the ChangeFormer V4-V6 MiT encoder (S = its stage
+count: 5 for V4, else 4) or the ChangeVIG-family encoder (S = 4) over S
+ranks with ``--pp_microbatches`` microbatches a step (0: S), and D = W / S
+data shards each load ``--batch_size / D`` rows of the global batch. One card
+a rank under NCCL; ``--device cuda:0`` puts every rank on one card under
+gloo; ``--device cpu`` runs gloo on the host:
+
+  torchrun --nproc_per_node 4 -m stcd_tpu_torch.cli.train_cd --net_G ChangeFormerV6 \\
+      --pp_stages 4 --dataset_name synthetic --checkpoint_dir runs/V6pp
+  torchrun --nproc_per_node 4 -m stcd_tpu_torch.cli.train_cd --pp_stages 2  # BIT, data 2
+
+``--tp_axis`` other than 1 raises (tensor parallelism, ROADMAP.md Queue 1 #11c).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import torch
 
 from stcd_tpu_torch.cli.predict import resolve_device
 from stcd_tpu_torch.models.factory import NET_G_KEYS
+from stcd_tpu_torch.parallel import distributed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,11 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 autocast (parameters and BatchNorm statistics stay fp32)")
     p.add_argument("--pp_stages", type=int, default=1,
-                   help="pipeline stages; the port runs on one card (1)")
+                   help="pipeline stages over the launch's ranks (torchrun); 1: none")
     p.add_argument("--pp_microbatches", type=int, default=0,
-                   help="pipeline microbatches; the port runs on one card (0)")
+                   help="pipeline microbatches a step (0: --pp_stages)")
     p.add_argument("--tp_axis", type=int, default=1,
-                   help="tensor-parallel size; the port runs on one card (1)")
+                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11c)")
     p.add_argument("--eval_only", action="store_true",
                    help="skip training; CDEvaluator on --eval_ckpt")
     p.add_argument("--eval_ckpt", default="best_ckpt", choices=("best_ckpt", "last_ckpt"))
@@ -77,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_loaders(args) -> dict:
+def make_loaders(args, n_data: int = 1) -> dict:
+    """The train and val loaders of this rank: ``--batch_size / n_data`` rows of
+    each global batch (the default process split of ``data.loader``)."""
     from stcd_tpu_torch.data.datasets import CDDataset, SyntheticCDDataset
     from stcd_tpu_torch.data.loader import DataLoader
 
@@ -88,23 +103,29 @@ def make_loaders(args) -> dict:
     else:
         train_ds = CDDataset(args.root_path, args.dataset_name, "train")
         val_ds = CDDataset(args.root_path, args.dataset_name, "val")
-    train = DataLoader(train_ds, args.batch_size, shuffle=True, num_workers=args.n_cpu,
+    local = args.batch_size // n_data
+    train = DataLoader(train_ds, local, shuffle=True, num_workers=args.n_cpu,
                        seed=args.seed, drop_last=True, device=args.device)
-    val = DataLoader(val_ds, args.batch_size, num_workers=args.n_cpu, device=args.device)
+    val = DataLoader(val_ds, local, num_workers=args.n_cpu, device=args.device)
     return {"train": train, "val": val}
 
 
 def main(argv=None) -> dict:
     from stcd_tpu_torch.train.trainer import CDEvaluator, CDTrainer, TrainerConfig
 
+    from stcd_tpu_torch.parallel.mesh import TP_ITEM, create_mesh
+
     args = build_parser().parse_args(argv)
-    if args.pp_stages != 1 or args.pp_microbatches != 0 or args.tp_axis != 1:
-        raise NotImplementedError(
-            f"--pp_stages {args.pp_stages} --pp_microbatches {args.pp_microbatches} "
-            f"--tp_axis {args.tp_axis}: pipeline and tensor parallelism are not ported "
-            "(ROADMAP.md Queue 1 #11b)")
+    if args.tp_axis != 1:
+        raise NotImplementedError(f"--tp_axis {args.tp_axis}: tensor parallelism is not "
+                                  f"ported ({TP_ITEM})")
     resolve_device(args.device)
-    print(args)
+    args.device = str(distributed.initialize(args.device))
+    mesh = create_mesh(stage=args.pp_stages)
+    if args.batch_size % mesh.data:
+        raise ValueError(f"--batch_size {args.batch_size} is the global batch: the "
+                         f"{mesh.data} data shards must divide it")
+    distributed.print_primary(args)
     cfg = TrainerConfig(
         net_G=args.net_G, n_class=args.n_class, embed_dim=args.embed_dim,
         img_size=args.img_size, lr=args.lr, optimizer=args.optimizer,
@@ -115,18 +136,19 @@ def main(argv=None) -> dict:
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
         vis_dir=args.vis_dir or os.path.join(args.checkpoint_dir, "vis"),
         dtype=torch.bfloat16 if args.bf16 else None, augment=args.augment,
-        device=args.device)
-    loaders = make_loaders(args)
+        pp_stages=args.pp_stages, pp_microbatches=args.pp_microbatches, device=args.device)
+    loaders = make_loaders(args, mesh.data)
 
     trainer = state = None
     if not args.eval_only:
         trainer = CDTrainer(cfg, loaders)
         state = trainer.train_models()
-        print(f"training done; best val mF1 {trainer.best_val_acc:.4f} "
-              f"@ epoch {trainer.best_epoch_id}")
+        distributed.print_primary(f"training done; best val mF1 {trainer.best_val_acc:.4f} "
+                                  f"@ epoch {trainer.best_epoch_id}")
 
     scores = CDEvaluator(cfg, loaders["val"]).eval_models(args.eval_ckpt)
-    print("val scores: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(scores.items())))
+    distributed.print_primary("val scores: " + " ".join(f"{k}={v:.4f}"
+                                                         for k, v in sorted(scores.items())))
     return {"trainer": trainer, "state": state, "scores": scores}
 
 

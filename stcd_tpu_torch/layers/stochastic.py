@@ -26,11 +26,17 @@ class RowMap(NamedTuple):
     """Where a rank's rows sit in the global batch. A tensor whose batch is k
     blocks of ``local`` rows (the step's rows, concatenated k times, as SegCD
     folds A and B) has row j of block q at global row
-    ``q * n_global + rows[j]`` of k blocks of ``n_global``."""
+    ``q * n_global + rows[j]`` of k blocks of ``n_global``. ``off`` and
+    ``stride`` say the same of the strided split ``rows = off + stride *
+    arange(local)``, ``n_global = stride * local``, where a local row J of
+    any block is global row ``off + stride * J``: the attention kernels'
+    dropout hash reads them (``ops/attention.py``, ``dropout_rows``)."""
 
     local: int
     n_global: int
     rows: torch.Tensor  # (local,) int64, on the model's device
+    off: int = 0
+    stride: int = 1
 
     def take(self, draw, n: int) -> torch.Tensor:
         """``draw(m)`` makes a mask of m rows: the rows of the global batch's

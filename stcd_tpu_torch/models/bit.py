@@ -17,9 +17,11 @@ with the JAX semantics (``layers/norm.py``). The decoder's softmax
 cross-attention goes through ``ops.attention.cross_attention`` (the CUDA
 kernels on a CUDA tensor, at M = token_len keys); the encoder's
 self-attention over the 2 * token_len tokens is plain tensor code, as it is
-plain einsum in the JAX package. The GPipe routing of the decoder
-(``pipeline_decoder``) and the spatial sharding constraints have no
-counterpart here.
+plain einsum in the JAX package. ``pipeline_decoder`` (None: sequential)
+is ``{"n_micro": m}`` to run the decoder's blocks as a GPipe over the grid's
+stage axis (``parallel.pipeline.pipelined_decoder_apply``, JAX's
+stcd_tpu/models/bit.py:249-251, 328-335); the same weights run either way.
+The spatial sharding constraints have no counterpart here.
 """
 
 from __future__ import annotations
@@ -275,11 +277,19 @@ class BASETransformer(ResNetCD):
         pool = F.adaptive_max_pool2d if self.pool_mode == "max" else F.adaptive_avg_pool2d
         return pool(x, self.pool_size).flatten(2).transpose(1, 2)
 
+    pipeline_decoder = None
+
     def _decode(self, x, m):
         b, c, h, w = x.shape
         if self.with_decoder_pos in ("fix", "learned"):
             x = x + self.pos_embedding_decoder
-        out = self.transformer_decoder(x.flatten(2).transpose(1, 2), m)
+        tokens = x.flatten(2).transpose(1, 2)
+        if self.pipeline_decoder is not None:
+            from stcd_tpu_torch.parallel.pipeline import pipelined_decoder_apply
+            out = pipelined_decoder_apply(self.transformer_decoder, tokens, m,
+                                          n_micro=self.pipeline_decoder.get("n_micro"))
+        else:
+            out = self.transformer_decoder(tokens, m)
         return out.transpose(1, 2).reshape(b, c, h, w)
 
     def forward(self, x1, x2):

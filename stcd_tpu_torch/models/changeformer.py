@@ -85,7 +85,9 @@ class SRAttention(Stochastic):
     """Spatial-reduction attention (ref :298-358): queries from every token,
     keys and values from an sr-strided conv + LayerNorm (eps 1e-5). In
     training with ``attn_drop > 0`` each call draws one uint32 seed for the
-    attention kernel's hash mask from ``self.generator``, on the device."""
+    attention kernel's hash mask from ``self.generator``, on the device, and
+    hashes its batch rows where ``self.rows`` places them in the global batch
+    (a data shard's rows, a pipeline microbatch's)."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = True, attn_drop: float = 0.0,
@@ -119,8 +121,10 @@ class SRAttention(Stochastic):
             rate = self.attn_drop
         else:
             seed, rate = None, 0.0
+        rows = (0, 1) if self.rows is None else (self.rows.off, self.rows.stride)
         out = cross_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              scale=self.scale, dropout_rate=rate, dropout_seed=seed)
+                              scale=self.scale, dropout_rate=rate, dropout_seed=seed,
+                              dropout_rows=rows)
         out = out.transpose(1, 2).reshape(b, n, c)
         return self.proj_drop(self.proj(out))
 
@@ -145,8 +149,19 @@ class Block(nn.Module):
 
 
 class SegFormerEncoder(nn.Module):
-    """The MiT encoder of V6 (EncoderTransformer_v3, ref :1342-1473),
-    sequential path. NCHW in, one NCHW map per stage out."""
+    """The MiT encoder of V6 (EncoderTransformer_v3, ref :1342-1473). NCHW
+    in, one NCHW map per stage out.
+
+    ``pipeline`` (None: sequential) is ``{"n_micro": m}`` to run the stages
+    as a heterogeneous GPipe over the grid's stage axis, whose size must be
+    the stage count (4; V4's encoder 5): ``parallel.pipeline.gpipe_hetero``
+    with each stage's map as its aux, as the JAX encoder's ``_pipelined``
+    (stcd_tpu/models/changeformer.py:225-290). The same weights run either
+    way. In training each stage draws its dropout, DropPath and attention
+    seeds from its own generator, reseeded for every microbatch
+    (``pipeline.stage_draws``): JAX's one key a stage."""
+
+    pipeline = None
 
     def __init__(self, in_chans: int = 3, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  depths: Sequence[int] = (3, 3, 4, 3),
@@ -176,17 +191,50 @@ class SegFormerEncoder(nn.Module):
             cur += depth
             prev = dim
 
-    def forward(self, x) -> List[torch.Tensor]:
-        outs = []
+    def stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage ``s`` (0-based): patch embed, blocks, norm; NCHW in and out."""
         b = x.shape[0]
-        for s in range(1, len(self.depths) + 1):
-            x, h, w = getattr(self, f"patch_embed{s}")(x)
-            for blk in getattr(self, f"block{s}"):
-                x = blk(x, h, w)
-            x = getattr(self, f"norm{s}")(x)
-            x = x.transpose(1, 2).reshape(b, -1, h, w)
+        x, h, w = getattr(self, f"patch_embed{s + 1}")(x)
+        for blk in getattr(self, f"block{s + 1}"):
+            x = blk(x, h, w)
+        x = getattr(self, f"norm{s + 1}")(x)
+        return x.transpose(1, 2).reshape(b, -1, h, w)
+
+    def stage_modules(self) -> List[nn.Module]:
+        """One container a stage of the modules it runs (built once; not
+        registered, so the state_dict keeps its names)."""
+        if "_stages" not in self.__dict__:
+            self.__dict__["_stages"] = [
+                nn.ModuleList([getattr(self, f"{k}{s}") for k in ("patch_embed", "block",
+                                                                   "norm")])
+                for s in range(1, len(self.depths) + 1)]
+        return self.__dict__["_stages"]
+
+    def forward(self, x) -> List[torch.Tensor]:
+        if self.pipeline is not None:
+            return self._pipelined(x)
+        outs = []
+        for s in range(len(self.depths)):
+            x = self.stage(s, x)
             outs.append(x)
         return outs
+
+    def _pipelined(self, x) -> List[torch.Tensor]:
+        from stcd_tpu_torch.parallel.pipeline import gpipe_hetero, stage_draws, with_draws
+
+        mods = self.stage_modules()
+        n_micro = self.pipeline.get("n_micro") or len(mods)
+        draws = stage_draws(mods, x.shape[0] // n_micro, x.device)
+
+        def fn(s):
+            def run(a):
+                y = self.stage(s, a)
+                return y, y  # the next stage's input and this stage's map
+            return with_draws(run, mods[s], draws[s] if draws else None)
+
+        _, feats = gpipe_hetero([fn(s) for s in range(len(mods))], x, n_micro=n_micro,
+                                collect_aux=True, stage_modules=mods)
+        return list(feats)
 
 
 class ConvDiff(nn.Sequential):

@@ -19,11 +19,13 @@ block's ``0`` Grapher and ``1`` FFN), ``decoder.hffm1.cross_conc.diff.0``,
 ``decoder.vffm1.up.up``, ``TDec_x2.csam1.batch_normal1`` and so on; ``VIG``
 keeps its encoder under ``VIG_x2`` and its decoder under ``TDec_x2``. The
 Siamese encoder runs once on the 2N-batched pair, as in the JAX models.
-GPipe routing of the encoder stages is not ported (ROADMAP.md Queue 1 #11b).
+``VIGBackbone.pipeline`` runs the encoder's stages as a GPipe over the
+grid's stage axis (``parallel.pipeline``).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Sequence
 
 import torch
@@ -37,6 +39,8 @@ from stcd_tpu_torch.models.changeformer import (MLP, ConvDiff, ConvLayer, MakePr
                                                 ResidualBlock, UpsampleConvLayer)
 from stcd_tpu_torch.models.gcn_lib import Grapher, act_layer, linear_resize_matrix
 from stcd_tpu_torch.models.snunet import Up
+
+_PP_TRAIN_WARNED = False
 
 VIG_CHANNELS = (80, 160, 400, 640)
 
@@ -99,16 +103,24 @@ def resize_linear_2d(x: torch.Tensor, size) -> torch.Tensor:
 
 class VIGBackbone(nn.Module):
     """Pyramid ViG encoder; ``forward(x)`` -> the 4 stage outputs at /4 /8
-    /16 /32. ``pipeline`` (GPipe routing of the stages) is not ported."""
+    /16 /32.
+
+    ``pipeline`` (None: sequential) is ``{"n_micro": m}`` to run the stages
+    as a heterogeneous GPipe over the grid's stage axis (its size the stage
+    count, 4), each stage's output its aux (JAX's ``VIGBackbone._pipelined``,
+    stcd_tpu/models/changevig.py:160-245). The stem and ``pos_embed`` run
+    before the pipeline. Inside it the stages run in eval mode, BatchNorm on
+    its running statistics and no DropPath, also in training: JAX's
+    documented deviation (per-microbatch batch statistics would differ from
+    the sequential ones anyway), of which training warns once. The decoder
+    keeps train-mode BatchNorm."""
 
     def __init__(self, blocks: Sequence[int] = (2, 2, 6, 2),
                  channels: Sequence[int] = VIG_CHANNELS, k: int = 9, conv: str = "mr",
                  act: str = "gelu", drop_path_rate: float = 0.0, img_size: int = 256,
                  in_chans: int = 3, pipeline=None, device=None):
         super().__init__()
-        if pipeline is not None:
-            raise NotImplementedError("VIGBackbone.pipeline (GPipe over the encoder stages) "
-                                      "is not ported (ROADMAP.md Queue 1 #11b)")
+        self.pipeline = pipeline
         n_blocks = sum(blocks)
         dpr = [drop_path_rate * i / max(n_blocks - 1, 1) for i in range(n_blocks)]
         max_dilation = 49 // k
@@ -131,12 +143,47 @@ class VIGBackbone(nn.Module):
             self.taps.append(len(layers) - 1)
         self.backbone = nn.ModuleList(layers)
 
+    def stage_modules(self) -> List[nn.Module]:
+        """The layers of each stage (a Downsample first after stage 0), one
+        container a stage, built once and not registered."""
+        if "_stages" not in self.__dict__:
+            ends = [-1] + list(self.taps)
+            self.__dict__["_stages"] = [nn.Sequential(*self.backbone[a + 1:b + 1])
+                                        for a, b in zip(ends[:-1], ends[1:])]
+        return self.__dict__["_stages"]
+
+    def _pipelined(self, h: torch.Tensor) -> List[torch.Tensor]:
+        from stcd_tpu_torch.parallel.pipeline import eval_mode, gpipe_hetero
+
+        global _PP_TRAIN_WARNED
+        if self.training and not _PP_TRAIN_WARNED:
+            _PP_TRAIN_WARNED = True
+            logging.getLogger(__name__).warning(
+                "VIGBackbone.pipeline in training: the pipelined encoder stages run "
+                "frozen-BN / no-DropPath (the JAX package's documented deviation); "
+                "from-scratch pp training normalizes with init-valued running stats")
+        mods = self.stage_modules()
+
+        def fn(stage):
+            def run(a):
+                with eval_mode([stage]):
+                    y = stage(a)
+                return y, y
+            return run
+
+        _, feats = gpipe_hetero([fn(m) for m in mods], h,
+                                n_micro=self.pipeline.get("n_micro") or len(mods),
+                                collect_aux=True, stage_modules=mods)
+        return list(feats)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         h = self.stem(x)
         pos = self.pos_embed
         if tuple(h.shape[2:]) != tuple(pos.shape[2:]):  # other input sizes
             pos = resize_linear_2d(pos, h.shape[2:])
         h = h + pos.to(h.dtype)
+        if self.pipeline is not None:
+            return self._pipelined(h)
         outs = []
         for i, layer in enumerate(self.backbone):
             h = layer(h)

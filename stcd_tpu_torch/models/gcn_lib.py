@@ -97,13 +97,18 @@ _BIAS_CACHE: Dict[tuple, torch.Tensor] = {}
 def relative_pos_bias(channels: int, n: int, m: int, grid_hw=None,
                       device=None) -> torch.Tensor:
     """``relative_pos_bias_np`` as a tensor on ``device``, made once per
-    shape and device (a constant: no copy per forward)."""
+    shape and device (a constant: no copy per forward). Under a fake tensor
+    mode (the pipeline's shape pass) the tensor made is fake and is not
+    kept: a fake constant in the cache would make later real forwards fake."""
+    from torch._subclasses.fake_tensor import is_fake
+
     grid = None if grid_hw is None else tuple(int(v) for v in grid_hw)
     key = (channels, n, m, grid, str(torch.device(device or "cpu")))
     t = _BIAS_CACHE.get(key)
     if t is None:
         t = torch.from_numpy(relative_pos_bias_np(channels, n, m, grid)).to(device)
-        _BIAS_CACHE[key] = t
+        if not is_fake(t):
+            _BIAS_CACHE[key] = t
     return t
 
 

@@ -20,7 +20,12 @@ on the tensor's device:
 
 The dropout decision is the stateless uint32 hash of ``dropout_keep_mask``
 on (seed, flattened b*H+h, global row, col). The JAX package, the plain
-version here and the CUDA kernel compute it bit for bit alike.
+version here and the CUDA kernel compute it bit for bit alike. A call on a
+shard of a batch (a data-parallel rank's rows ``d::D``, a pipeline's
+microbatch of them) passes ``dropout_rows=(o, t)``: its row b is row
+``o + t b`` of the global array that the JAX program draws the mask on, and
+the hash takes ``(o + t b) H + h`` where it took ``b H + h``; memory stays
+indexed by the local b. ``(0, 1)``, the default, is the array itself.
 
 The TPU's auto rule (Pallas only for N >= 1024 and M >= 64) and its padding
 of M and D to 128 are not carried over: on a CUDA tensor every call goes to
@@ -82,7 +87,7 @@ def dropout_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     return h >= _threshold(rate)
 
 
-def _check_args(q, k, v, dropout_rate, dropout_seed):
+def _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1)):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("cross_attention takes (B, H, N, D) q and (B, H, M, D) k, v")
     b, h, _, d = q.shape
@@ -93,20 +98,31 @@ def _check_args(q, k, v, dropout_rate, dropout_seed):
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    off, stride = dropout_rows
+    if off < 0 or stride < 1:
+        raise ValueError(f"dropout_rows (offset, stride) must be >= (0, 1), got {dropout_rows}")
+
+
+def hash_heads(b: int, h: int, dropout_rows=(0, 1), device=None) -> torch.Tensor:
+    """(b, h) int64: the index of each local (batch, head) in the hash, the
+    flat b*H+h of the global array whose row ``o + t b`` local row b is."""
+    off, stride = dropout_rows
+    rows = off + stride * torch.arange(b, device=device)
+    return rows[:, None] * h + torch.arange(h, device=device)[None, :]
 
 
 def attention_plain(q, k, v, scale: float, dropout_rate: float = 0.0,
-                    dropout_seed=None) -> torch.Tensor:
+                    dropout_seed=None, dropout_rows=(0, 1)) -> torch.Tensor:
     """The plain version: f32 scores, softmax, the hash mask, f32 product;
     the output takes q's dtype. Materialises the (B, H, N, M) matrix."""
-    _check_args(q, k, v, dropout_rate, dropout_seed)
+    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
     b, h, n, _ = q.shape
     m = k.shape[2]
     s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
         dev = q.device
-        bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+        bh = hash_heads(b, h, dropout_rows, dev).reshape(b, h, 1, 1)
         rows = torch.arange(n, device=dev).reshape(1, 1, n, 1)
         cols = torch.arange(m, device=dev).reshape(1, 1, 1, m)
         keep = dropout_keep_mask(dropout_seed, bh, rows, cols, dropout_rate)
@@ -291,8 +307,8 @@ def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
             "keys_per_pass": keys_per_pass, "passes": -(-m // keys_per_pass)}
 
 
-def _check_kernel_args(q, k, v, dropout_rate, dropout_seed):
-    _check_args(q, k, v, dropout_rate, dropout_seed)
+def _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1)):
+    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise RuntimeError("cross_attention_kernel needs CUDA tensors, got "
                            f"{q.device}, {k.device}, {v.device}")
@@ -330,10 +346,12 @@ def _dropout_args(dropout_rate, dropout_seed):
     return 1, value, ptr, _threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
 
 
-def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
+def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool,
+                   dropout_rows=(0, 1)):
     """One launch of the forward kernel on checked arguments: ``(out, lse)``,
     where ``lse`` is the float32 (B, H, N) log-sum-exp of each row's scaled
-    scores, which the backward kernel reads, or None when not asked for."""
+    scores, which the backward kernel reads, or None when not asked for.
+    ``dropout_rows``: the (offset, stride) of the hash's batch rows."""
     b, h, n, d = q.shape
     m = k.shape[2]
     variant = select_variant(q.dtype, m)
@@ -351,7 +369,8 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
         lse.data_ptr() if want_lse else None, b * h, n, m, d, _DTYPE_CODE[q.dtype],
         VARIANTS.index(variant), plan["rows_per_block"], plan["row_tiles"],
         plan["smem_bytes"],
-        float(scale), use_dropout, seed, seed_ptr, threshold, keep_scale, q.device.index,
+        float(scale), use_dropout, seed, seed_ptr, threshold, keep_scale, h,
+        int(dropout_rows[0]), int(dropout_rows[1]), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_fwd ({variant})")
     cross_attention_kernel.kernel_launches += 1
@@ -359,10 +378,12 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool):
     return out, lse
 
 
-def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed):
+def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed,
+                    dropout_rows=(0, 1)):
     """One launch of the backward kernel (and of the sum over its partials) on
     the forward's inputs, its output ``out`` and log-sum-exp ``lse``, and the
-    contiguous incoming gradient ``g`` in q's dtype: ``(dq, dk, dv)``."""
+    contiguous incoming gradient ``g`` in q's dtype: ``(dq, dk, dv)``. The
+    dropout arguments are the forward's."""
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError(f"the gradient must be contiguous, of q's shape and dtype, got "
                          f"{g.dtype} {tuple(g.shape)} for q {q.dtype} {tuple(q.shape)}")
@@ -383,7 +404,8 @@ def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed):
         dk_part.data_ptr(), dv_part.data_ptr(), plan["parts"], b * h, n, m, d,
         _DTYPE_CODE[q.dtype], VARIANTS.index(variant), plan["rows_per_split"],
         plan["smem_bytes"], float(scale), use_dropout, value, seed_ptr, threshold,
-        keep_scale, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        keep_scale, h, int(dropout_rows[0]), int(dropout_rows[1]), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_bwd ({variant})")
     cross_attention_kernel.backward_launches += 1
     cross_attention_kernel.backward_variants[variant] += 1
@@ -406,14 +428,17 @@ def _seed_arg(dropout_seed):
 @torch.library.custom_op("stcd::cross_attention_fwd", mutates_args=(), device_types="cuda")
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             seed_tensor: Optional[torch.Tensor], scale: float, dropout_rate: float,
-            int_seed: int, want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+            int_seed: int, want_lse: bool, row_off: int = 0,
+            row_stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     seed = seed_tensor if seed_tensor is not None else int_seed
-    out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, want_lse)
+    out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, want_lse,
+                              (row_off, row_stride))
     return out, lse if lse is not None else q.new_empty((0,), dtype=torch.float32)
 
 
 @_fwd_op.register_fake
-def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse):
+def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse, row_off=0,
+              row_stride=1):
     lse_shape = q.shape[:3] if want_lse else (0,)
     return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
 
@@ -421,14 +446,16 @@ def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse):
 @torch.library.custom_op("stcd::cross_attention_bwd", mutates_args=(), device_types="cuda")
 def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
             lse: torch.Tensor, g: torch.Tensor, seed_tensor: Optional[torch.Tensor],
-            scale: float, dropout_rate: float,
-            int_seed: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            scale: float, dropout_rate: float, int_seed: int, row_off: int = 0,
+            row_stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     seed = seed_tensor if seed_tensor is not None else int_seed
-    return launch_backward(q, k, v, out, lse, g, scale, dropout_rate, seed)
+    return launch_backward(q, k, v, out, lse, g, scale, dropout_rate, seed,
+                           (row_off, row_stride))
 
 
 @_bwd_op.register_fake
-def _bwd_fake(q, k, v, out, lse, g, seed_tensor, scale, dropout_rate, int_seed):
+def _bwd_fake(q, k, v, out, lse, g, seed_tensor, scale, dropout_rate, int_seed, row_off=0,
+              row_stride=1):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -436,9 +463,10 @@ def _fwd_setup(ctx, inputs, output):
     """The backward kernel's inputs: q, k, v, the output and the rows'
     log-sum-exp (the JAX side saves q, k, v and the seed and rebuilds the
     rest), so that it needs one pass over the keys."""
-    q, k, v, seed_tensor, scale, dropout_rate, int_seed, _ = inputs
+    q, k, v, seed_tensor, scale, dropout_rate, int_seed, _, row_off, row_stride = inputs
     ctx.save_for_backward(q, k, v, output[0], output[1], seed_tensor)
     ctx.scale, ctx.dropout_rate, ctx.int_seed = scale, dropout_rate, int_seed
+    ctx.rows = (row_off, row_stride)
 
 
 def _fwd_backward(ctx, g, _g_lse):
@@ -446,15 +474,15 @@ def _fwd_backward(ctx, g, _g_lse):
     have another dtype: it is cast to q's and made contiguous."""
     q, k, v, out, lse, seed_tensor = ctx.saved_tensors
     dq, dk, dv = _bwd_op(q, k, v, out, lse, g.to(q.dtype).contiguous(), seed_tensor,
-                         ctx.scale, ctx.dropout_rate, ctx.int_seed)
-    return dq, dk, dv, None, None, None, None, None
+                         ctx.scale, ctx.dropout_rate, ctx.int_seed, *ctx.rows)
+    return dq, dk, dv, None, None, None, None, None, None, None
 
 
 _fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
-                           dropout_seed=None) -> torch.Tensor:
+                           dropout_seed=None, dropout_rows=(0, 1)) -> torch.Tensor:
     """Launch ``csrc/cross_attention.cu`` on q's device and current stream,
     through the custom op ``torch.ops.stcd.cross_attention_fwd``.
 
@@ -466,13 +494,14 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
     forward launches and ``backward_launches`` the backward ones, those of a
     program exported with ``torch.export`` and run included;
     ``forward_variants`` and ``backward_variants`` count them by the variant
-    that ``select_variant`` picked."""
-    _check_kernel_args(q, k, v, dropout_rate, dropout_seed)
+    that ``select_variant`` picked. ``dropout_rows`` (offset, stride) places
+    the batch rows in the global array for the dropout hash."""
+    _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
     want_lse = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad)
     seed_tensor, int_seed = _seed_arg(dropout_seed if dropout_rate > 0.0 else None)
     return _fwd_op(q, k, v, seed_tensor, float(scale), float(dropout_rate), int_seed,
-                   want_lse)[0]
+                   want_lse, int(dropout_rows[0]), int(dropout_rows[1]))[0]
 
 
 cross_attention_kernel.kernel_launches = 0
@@ -483,8 +512,11 @@ cross_attention_kernel.backward_variants = collections.Counter()
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
-                    dropout_seed=None, impl: Optional[str] = None) -> torch.Tensor:
+                    dropout_seed=None, impl: Optional[str] = None,
+                    dropout_rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, H, N, D) q and (B, H, M, D) k, v.
+    ``dropout_rows`` = (o, t): this batch's row b is row o + t b of the global
+    array whose dropout mask the hash draws (module docstring).
 
     ``impl=None`` picks by device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. ``impl="plain"`` or ``"kernel"`` forces
@@ -495,7 +527,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl is None:
         impl = "kernel" if q.is_cuda else "plain"
     if impl == "kernel":
-        return cross_attention_kernel(q, k, v, scale, dropout_rate, dropout_seed)
+        return cross_attention_kernel(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows)
     if impl == "plain":
-        return attention_plain(q, k, v, scale, dropout_rate, dropout_seed)
+        return attention_plain(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows)
     raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")

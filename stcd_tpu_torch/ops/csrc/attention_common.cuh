@@ -48,6 +48,24 @@ __device__ __forceinline__ bool keep_element(uint32_t seed, uint32_t bh, uint32_
   return keep_from_sum(seed + bh * kHashBh + row * kHashRow + col * kHashCol, bh, threshold);
 }
 
+// The batch rows of the hash. A launch over one shard of a batch (a data-parallel
+// rank's rows, a pipeline's microbatch) hashes its head bh = b * heads + h as
+// (off + stride * b) * heads + h, the index that head has in the global array's
+// mask; memory is indexed by bh as before. {1, 0, 1} hashes bh itself, and so does
+// any heads with {0, 1}.
+struct HashRows {
+  int heads, off, stride;
+};
+
+__device__ __forceinline__ uint32_t hash_bh(int bh, HashRows r) {
+  return (uint32_t)(r.off + r.stride * (bh / r.heads)) * (uint32_t)r.heads +
+         (uint32_t)(bh % r.heads);
+}
+
+inline bool hash_rows_valid(int bh, int heads, int off, int stride) {
+  return heads >= 1 && bh % heads == 0 && off >= 0 && stride >= 1;
+}
+
 // The seed is a host value, or the low 32 bits of an int64 that lies on the
 // device (so that drawing it on the card forces no host sync).
 __device__ __forceinline__ uint32_t resolve_seed(uint32_t seed, const long long* seed_ptr) {

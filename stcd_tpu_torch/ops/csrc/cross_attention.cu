@@ -128,7 +128,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ lse, int n, int m, int d, int rows_per_block,
                          int kv_rows, float scale, int use_dropout, uint32_t seed_value,
                          const long long* __restrict__ seed_ptr, uint32_t threshold,
-                         float keep_scale, int vec_flag) {
+                         float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int LD = DP + 4;
   constexpr int G4 = DP / 64, G1 = (DP % 64) / 16, C = 4 * G4 + G1;
   constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
@@ -140,6 +140,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int block_row0 = blockIdx.y * rows_per_block;
   const int row_end = min(n, block_row0 + rows_per_block);
   const bool vec = vec_flag != 0;
@@ -239,7 +240,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
             l_run[r] += e;
             float w = e;  // the numerator takes the keep mask, the denominator does not
             if (use_dropout &&
-                !keep_element(seed, (uint32_t)bh, (uint32_t)(row0 + row),
+                !keep_element(seed, hbh, (uint32_t)(row0 + row),
                               (uint32_t)(sc + c0 + tx + 16 * i), threshold)) {
               w = 0.f;
             }
@@ -308,7 +309,7 @@ template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                        int n, int m, int d, int rows_per_block, int smem_bytes, float scale,
                        int use_dropout, uint32_t seed, const long long* seed_ptr,
-                       uint32_t threshold, float keep_scale, cudaStream_t stream) {
+                       uint32_t threshold, float keep_scale, HashRows hrows, cudaStream_t stream) {
   constexpr int LD = DP + 4;
   const int kv_rows = f32_kv_rows(m, DP);
   const int smem = 2 * kv_rows * LD * 4 + f32_tile_bytes(DP);
@@ -325,7 +326,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   kernel<<<dim3(bh, blocks_y), kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, n, m, d, rows_per_block, kv_rows, scale, use_dropout, seed,
-      seed_ptr, threshold, keep_scale, vec);
+      seed_ptr, threshold, keep_scale, hrows, vec);
   return cudaGetLastError();
 }
 
@@ -343,7 +344,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ lse, int n, int m, int d, int rows_per_block,
                          int kv_rows, float scale, int use_dropout, uint32_t seed_value,
                          const long long* __restrict__ seed_ptr, uint32_t threshold,
-                         float keep_scale, int vec_flag) {
+                         float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int DPAD = KSTEPS * 16;
   constexpr int LD = DPAD + kMmaPad;
   constexpr int NT = DPAD / 8;       // 8-column tiles of the output
@@ -361,6 +362,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qbuf = vs + (size_t)kv_rows * LD + warp * 2 * WR * LD;  // this warp's two Q tiles
 
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int block_row0 = blockIdx.y * rows_per_block;
   const int rounds = rows_per_block / (kMmaWarps * WR);
   const bool vec = vec_flag != 0;
@@ -418,7 +420,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r = 0; r < 2; ++r) {
         m_run[mt][r] = -INFINITY;
         l_run[mt][r] = 0.f;
-        row_hash[mt][r] = seed + (uint32_t)bh * kHashBh +
+        row_hash[mt][r] = seed + hbh * kHashBh +
                           (uint32_t)(row0 + mt * 16 + g + 8 * r) * kHashRow;
       }
 #pragma unroll
@@ -514,7 +516,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               for (int e = 0; e < 4; ++e) {
                 const uint32_t h = row_hash[mt][e >> 1] + col_hash +
                                    (uint32_t)(i * 8 + (e & 1)) * kHashCol;
-                if (!keep_from_sum(h, (uint32_t)bh, threshold)) s[mt][i][e] = 0.f;
+                if (!keep_from_sum(h, hbh, threshold)) s[mt][i][e] = 0.f;
               }
             }
           }
@@ -614,7 +616,7 @@ template <int KSTEPS, int MT, int MINB>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                        int n, int m, int d, int rows_per_block, int smem_bytes, float scale,
                        int use_dropout, uint32_t seed, const long long* seed_ptr,
-                       uint32_t threshold, float keep_scale, cudaStream_t stream) {
+                       uint32_t threshold, float keep_scale, HashRows hrows, cudaStream_t stream) {
   constexpr int DPAD = KSTEPS * 16;
   const int kv_rows = mma_fwd_kv_rows(m, DPAD, MT);
   const int row_bytes = (DPAD + kMmaPad) * 2;
@@ -633,7 +635,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   kernel<<<dim3(bh, blocks_y), kMmaWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, n, m, d, rows_per_block, kv_rows, scale, use_dropout, seed,
-      seed_ptr, threshold, keep_scale, vec);
+      seed_ptr, threshold, keep_scale, hrows, vec);
   return cudaGetLastError();
 }
 
@@ -646,7 +648,7 @@ attention_fwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              float* __restrict__ lse, int n, int m, int d, int rows_per_block,
                              float scale, int use_dropout, uint32_t seed_value,
                              const long long* __restrict__ seed_ptr, uint32_t threshold,
-                             float keep_scale, int vec_flag) {
+                             float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int DS = 8 * G;                 // columns a group covers
   constexpr int RPP = kSmallThreads / G;    // rows per pass of the block
   __shared__ __align__(16) float ks[kSmallM * DS];
@@ -654,6 +656,7 @@ attention_fwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int j = tid % G;
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int block_row0 = blockIdx.y * rows_per_block;
   const int row_end = min(n, block_row0 + rows_per_block);
   const bool vec = vec_flag != 0;
@@ -691,7 +694,7 @@ attention_fwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l += e;
         float w = e;
         if (use_dropout) {
-          w = keep_element(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)jk, threshold)
+          w = keep_element(seed, hbh, (uint32_t)row, (uint32_t)jk, threshold)
                   ? e * keep_scale
                   : 0.f;
         }
@@ -712,7 +715,7 @@ template <typename T, int G>
 cudaError_t launch_small_m(const void* q, const void* k, const void* v, void* o, float* lse,
                            int bh, int n, int m, int d, int rows_per_block, float scale,
                            int use_dropout, uint32_t seed, const long long* seed_ptr,
-                           uint32_t threshold, float keep_scale, cudaStream_t stream) {
+                           uint32_t threshold, float keep_scale, HashRows hrows, cudaStream_t stream) {
   const int blocks_y = (n + rows_per_block - 1) / rows_per_block;
   if (rows_per_block < 1 || rows_per_block % (kSmallThreads / 8) != 0 || blocks_y > 65535) {
     return cudaErrorInvalidValue;
@@ -721,7 +724,7 @@ cudaError_t launch_small_m(const void* q, const void* k, const void* v, void* o,
   attention_fwd_small_m_kernel<T, G><<<dim3(bh, blocks_y), kSmallThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, n, m, d, rows_per_block, scale, use_dropout, seed, seed_ptr,
-      threshold, keep_scale, vec);
+      threshold, keep_scale, hrows, vec);
   return cudaGetLastError();
 }
 
@@ -735,7 +738,8 @@ cudaError_t launch_small_m(const void* q, const void* k, const void* v, void* o,
 // 2; 1 for the others); smem_bytes: the block's dynamic shared memory; all as
 // the wrapper sized them, and the call is refused when they are not the kernel's own.
 // seed_ptr: a device int64 whose low 32 bits are the dropout seed, or null to
-// take `seed`. Returns a cudaError_t.
+// take `seed`. heads, batch_off, batch_stride: the rows of the dropout hash
+// (HashRows; 1, 0, 1 hash each head's own index). Returns a cudaError_t.
 extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void* v,
                                         void* o, float* lse, int bh, int n, int m, int d,
                                         int dtype, int variant, int rows_per_block,
@@ -743,15 +747,18 @@ extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void
                                         int use_dropout,
                                         unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
+                                        int heads, int batch_off, int batch_stride,
                                         int device, void* stream) {
-  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1) {
+  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
+      !hash_rows_valid(bh, heads, batch_off, batch_stride)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_FWD_ARGS q, k, v, o, lse, bh, n, m, d
-#define STCD_FWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s
+  const HashRows hrows{heads, batch_off, batch_stride};
+#define STCD_FWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, hrows, s
   if (variant == kVariantF32) {
     if (dtype != 0 || row_tiles != 1) return (int)cudaErrorInvalidValue;
 #define STCD_F32(DP) launch_f32<DP>(STCD_FWD_ARGS, rows_per_block, smem_bytes, STCD_FWD_TAIL)

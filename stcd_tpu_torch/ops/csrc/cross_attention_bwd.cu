@@ -206,7 +206,7 @@ attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dv_part, int n, int m, int d, int rows_per_split,
                          float scale, int use_dropout, uint32_t seed_value,
                          const long long* __restrict__ seed_ptr, uint32_t threshold,
-                         float keep_scale, int vec_flag) {
+                         float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int KP = f32_bwd_keys(DP);
   constexpr int QB = f32_bwd_buffers(DP);
   constexpr int R = kBwdF32Rows;
@@ -228,6 +228,7 @@ attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int range0 = blockIdx.y * rows_per_split;
   const int range1 = min(n, range0 + rows_per_split);
   const int tiles = (range1 - range0 + R - 1) / R;
@@ -356,7 +357,7 @@ attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           const float p = valid ? fast_exp2(fmaf(s[r][i], c2, -lse2)) : 0.f;
           float md = 1.f;
           if (use_dropout) {
-            md = keep_element(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)key, threshold)
+            md = keep_element(seed, hbh, (uint32_t)row, (uint32_t)key, threshold)
                      ? keep_scale
                      : 0.f;
           }
@@ -455,7 +456,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
                        float* dk_part, float* dv_part, int parts, int bh, int n, int m, int d,
                        int rows_per_split, int smem_bytes, float scale, int use_dropout,
                        uint32_t seed, const long long* seed_ptr, uint32_t threshold,
-                       float keep_scale, cudaStream_t stream) {
+                       float keep_scale, HashRows hrows, cudaStream_t stream) {
   if (rows_per_split < 1 || rows_per_split % kBwdF32Rows != 0 ||
       rows_per_split > kBwdF32MaxRange) {
     return cudaErrorInvalidValue;
@@ -473,7 +474,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(g), lse, static_cast<float*>(dq),
       dk_part, dv_part, n, m, d, rows_per_split, scale, use_dropout, seed, seed_ptr, threshold,
-      keep_scale, vec);
+      keep_scale, hrows, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_parts(0, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
@@ -500,7 +501,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ dv_part, int n, int m, int d, int rows_per_split,
                          int kvr_alloc, int kg_count, float scale, int use_dropout,
                          uint32_t seed_value, const long long* __restrict__ seed_ptr,
-                         uint32_t threshold, float keep_scale, int vec_flag) {
+                         uint32_t threshold, float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int DPAD = KSTEPS * 16;
   constexpr int LD = DPAD + kMmaPad;
   constexpr int NT = DPAD / 8;
@@ -525,6 +526,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane >> 2;
   const int t = lane & 3;
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int split = blockIdx.y;
   const int range0 = split * rows_per_split;
   const int range1 = min(n, range0 + rows_per_split);
@@ -552,7 +554,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool has_keys = kg * KW < kv_n;
     // the hash's terms in seed, bh and the first of this lane's keys
     const uint32_t key_hash =
-        seed + (uint32_t)bh * kHashBh + (uint32_t)(kp + kg * KW + gq) * kHashCol;
+        seed + hbh * kHashBh + (uint32_t)(kp + kg * KW + gq) * kHashCol;
 
     float dk_acc[KM][NT][4], dv_acc[KM][NT][4];
 #pragma unroll
@@ -660,7 +662,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 for (int e = 0; e < 4; ++e) {
                   const uint32_t h = key_hash + (uint32_t)(mt * 16 + 8 * (e >> 1)) * kHashCol +
                                      row_hash + (uint32_t)(nt * 8 + (e & 1)) * kHashRow;
-                  mdv[nt][e] = keep_from_sum(h, (uint32_t)bh, threshold) ? keep_scale : 0.f;
+                  mdv[nt][e] = keep_from_sum(h, hbh, threshold) ? keep_scale : 0.f;
                 }
               }
             }
@@ -806,7 +808,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
                        float* dk_part, float* dv_part, int parts, int bh, int n, int m, int d,
                        int rows_per_split, int smem_bytes, float scale, int use_dropout,
                        uint32_t seed, const long long* seed_ptr, uint32_t threshold,
-                       float keep_scale, cudaStream_t stream) {
+                       float keep_scale, HashRows hrows, cudaStream_t stream) {
   constexpr int DPAD = KSTEPS * 16;
   constexpr int KW = 16 * KM;
   constexpr int PASS = kMmaWarps * KW;
@@ -829,7 +831,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(g), lse, static_cast<bf16*>(dq),
       dk_part, dv_part, n, m, d, rows_per_split, kvr_alloc, kg_count, scale, use_dropout, seed,
-      seed_ptr, threshold, keep_scale, vec);
+      seed_ptr, threshold, keep_scale, hrows, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_parts(1, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
@@ -847,7 +849,7 @@ attention_bwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              float* __restrict__ dv_part, int n, int m, int d,
                              int rows_per_split, float scale, int use_dropout,
                              uint32_t seed_value, const long long* __restrict__ seed_ptr,
-                             uint32_t threshold, float keep_scale, int vec_flag) {
+                             uint32_t threshold, float keep_scale, HashRows hrows, int vec_flag) {
   constexpr int DS = 8 * G;
   constexpr int RPP = kSmallThreads / G;
   constexpr int WARPS = kSmallThreads / 32;
@@ -859,6 +861,7 @@ attention_bwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int j = tid % G;
   const int bh = blockIdx.x;
+  const uint32_t hbh = hash_bh(bh, hrows);  // the head's row of the global batch
   const int split = blockIdx.y;
   const int range0 = split * rows_per_split;
   const int range1 = min(n, range0 + rows_per_split);
@@ -907,7 +910,7 @@ attention_bwd_small_m_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pr[jk] = valid ? expf(s * scale - lse_r) : 0.f;
         float md = 1.f;
         if (use_dropout) {
-          md = keep_element(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)jk, threshold)
+          md = keep_element(seed, hbh, (uint32_t)row, (uint32_t)jk, threshold)
                    ? keep_scale
                    : 0.f;
         }
@@ -977,7 +980,7 @@ cudaError_t launch_small_m(int dtype, const void* q, const void* k, const void* 
                            void* dv, float* dk_part, float* dv_part, int parts, int bh, int n,
                            int m, int d, int rows_per_split, float scale, int use_dropout,
                            uint32_t seed, const long long* seed_ptr, uint32_t threshold,
-                           float keep_scale, cudaStream_t stream) {
+                           float keep_scale, HashRows hrows, cudaStream_t stream) {
   if (rows_per_split < 1 || rows_per_split % (kSmallThreads / 8) != 0) {
     return cudaErrorInvalidValue;
   }
@@ -989,7 +992,7 @@ cudaError_t launch_small_m(int dtype, const void* q, const void* k, const void* 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, static_cast<T*>(dq), dk_part, dv_part, n, m, d,
       rows_per_split, scale, use_dropout, seed, seed_ptr, threshold,
-      keep_scale, vec);
+      keep_scale, hrows, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_parts(dtype, dk_part, dv_part, dk, dv, parts, bh, m, d, stream);
@@ -1001,11 +1004,11 @@ cudaError_t dispatch_small_m(int dtype, const void* q, const void* k, const void
                              void* dk, void* dv, float* dk_part, float* dv_part, int parts,
                              int bh, int n, int m, int d, int rows_per_split, float scale,
                              int use_dropout, uint32_t seed, const long long* seed_ptr,
-                             uint32_t threshold, float keep_scale, cudaStream_t stream) {
+                             uint32_t threshold, float keep_scale, HashRows hrows, cudaStream_t stream) {
 #define STCD_SMALL(G, MM)                                                                   \
   launch_small_m<T, G, MM>(dtype, q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part, parts, \
                            bh, n, m, d, rows_per_split, scale, use_dropout, seed, seed_ptr, \
-                           threshold, keep_scale, stream)
+                           threshold, keep_scale, hrows, stream)
   if (d <= 64) return m <= 4 ? STCD_SMALL(8, 4) : STCD_SMALL(8, 8);
   return m <= 4 ? STCD_SMALL(16, 4) : STCD_SMALL(16, 8);
 #undef STCD_SMALL
@@ -1021,7 +1024,8 @@ cudaError_t dispatch_small_m(int dtype, const void* q, const void* k, const void
 // the partials a head leaves in the scratch; smem_bytes: the block's dynamic
 // shared memory; all three as the wrapper sized them, and the call is refused
 // when they are not the kernel's own. seed_ptr: a device int64 whose low 32 bits
-// are the dropout seed, or null to take `seed`. Returns a cudaError_t.
+// are the dropout seed, or null to take `seed`. heads, batch_off, batch_stride: the
+// rows of the dropout hash, as the forward took them. Returns a cudaError_t.
 extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* g, const float* lse,
                                         void* dq, void* dk, void* dv, float* dk_part,
@@ -1030,15 +1034,18 @@ extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void
                                         int smem_bytes, float scale, int use_dropout,
                                         unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
+                                        int heads, int batch_off, int batch_stride,
                                         int device, void* stream) {
-  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1) {
+  if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
+      !hash_rows_valid(bh, heads, batch_off, batch_stride)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_BWD_ARGS q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part
-#define STCD_BWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, s
+  const HashRows hrows{heads, batch_off, batch_stride};
+#define STCD_BWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, hrows, s
   if (variant == kVariantF32) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;
 #define STCD_F32(DP)                                                                        \

@@ -1,10 +1,11 @@
-"""Data-parallel and spatial training over processes (counterpart of
-stcd_tpu/parallel).
+"""Data-parallel, spatial and pipeline training over processes (counterpart
+of stcd_tpu/parallel).
 
 One process a card (torchrun, NCCL between cards, gloo on the CPU).
 ``distributed`` holds the process group and its collectives; ``mesh`` the
 ``data`` x ``space`` grid over the processes: a data shard holds rows
 ``d::D`` of the global batch, and the ranks of a space group each hold a
 strip of its images' rows; ``spatial`` the halo exchange and the spatial
-steps. Tensor and pipeline parallelism (the JAX mesh's ``model`` and
-``stage`` axes) are not ported (ROADMAP.md Queue 1 #11b)."""
+steps; ``pipeline`` the GPipe schedule of the ``stage`` axis, whose S ranks
+hold the same rows and run one stage each. Tensor parallelism (the JAX
+mesh's ``model`` axis) is not ported (ROADMAP.md Queue 1 #11c)."""

@@ -29,6 +29,14 @@ stay over every rank: the strips of all the data shards are the global batch.
 What follows the data axis alone (the loader's split, the draws' rows) reads
 ``data_size`` and ``data_rank``; without a space axis they are the world's.
 
+Pipeline parallelism (``parallel/pipeline.py``) makes the grid ``data`` x
+``stage`` instead (stage the inner axis: rank r is data shard ``r // S`` and
+stage ``r % S``). The S ranks of a stage group hold the same rows, so what
+is summed over rows (BatchNorm's moments, the ratio losses, the confusion
+counts) sums over the data group, the D ranks of one stage index
+(``data_group``); the stage group's own traffic is point to point
+(``send`` / ``recv``) and ``broadcast_in``.
+
 Every collective here is a no-op in one process (``data_parallel()`` false),
 so one process runs the arithmetic it runs without this module. Nothing
 creates a process group at import.
@@ -100,15 +108,20 @@ def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
 
 
-# the data x space grid that mesh.create_mesh sets: the space axis's size and
-# this rank's space group (None with a space axis of 1)
-_GRID = {"space": 1, "space_group": None}
+# the grid that mesh.create_mesh sets: the space and stage axes' sizes, this rank's
+# space and stage groups (None with an axis of 1) and its data group (None: every
+# rank holds rows of its own or strips of them)
+_GRID = {"space": 1, "space_group": None, "stage": 1, "stage_group": None,
+         "data_group": None}
 
 
-def set_grid(space: int, space_group=None) -> None:
+def set_grid(space: int, space_group=None, stage: int = 1, stage_group=None,
+             data_group=None) -> None:
     """Record the grid that ``mesh.create_mesh`` checked: a space axis of
-    ``space`` ranks and this rank's space group."""
-    _GRID.update(space=space, space_group=space_group)
+    ``space`` ranks and this rank's space group, a stage axis of ``stage``
+    ranks and this rank's stage and data groups."""
+    _GRID.update(space=space, space_group=space_group, stage=stage,
+                 stage_group=stage_group, data_group=data_group)
 
 
 def space_size() -> int:
@@ -126,14 +139,42 @@ def space_group():
     return _GRID["space_group"] if space_size() > 1 else None
 
 
+def stage_size() -> int:
+    """The ranks of a pipeline: the stages one data shard's rows pass."""
+    return _GRID["stage"] if is_initialized() else 1
+
+
+def stage_rank() -> int:
+    """Which stage of its pipeline this rank runs."""
+    return rank() % stage_size()
+
+
+def stage_group():
+    """This rank's stage group (the ranks of its pipeline), or None."""
+    return _GRID["stage_group"] if stage_size() > 1 else None
+
+
+def stage_ranks() -> list:
+    """The global ranks of this rank's pipeline, stage 0 first."""
+    first = rank() - stage_rank()
+    return list(range(first, first + stage_size()))
+
+
+def data_group():
+    """The ranks whose rows together are the global batch once each: with a
+    stage axis the D ranks of this rank's stage index, else None (every rank,
+    which a space axis splits into strips of the rows)."""
+    return _GRID["data_group"] if stage_size() > 1 else None
+
+
 def data_size() -> int:
     """The data axis: the shards the global batch is split into."""
-    return world_size() // space_size()
+    return world_size() // (space_size() * stage_size())
 
 
 def data_rank() -> int:
     """Which shard of the global batch this rank holds."""
-    return rank() // space_size()
+    return rank() // (space_size() * stage_size())
 
 
 def is_primary() -> bool:
@@ -193,17 +234,21 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``x`` summed over the ranks (of ``group``, default all of them),
-    differentiably; ``x`` itself in one process. Every rank of the group must
-    call it, in the same order."""
-    return _AllReduceSum.apply(x, group) if data_parallel() else x
+    """``x`` summed over the ranks (of ``group``, default ``data_group()``:
+    every rank but the copies a stage axis makes), differentiably; ``x``
+    itself in one process. Every rank of the group must call it, in the same
+    order."""
+    if not data_parallel():
+        return x
+    return _AllReduceSum.apply(x, data_group() if group is None else group)
 
 
-def all_reduce_(x: torch.Tensor, op=None) -> torch.Tensor:
-    """In place: ``x`` reduced over the ranks by ``op`` (default the sum),
-    without a gradient. Returns ``x``."""
+def all_reduce_(x: torch.Tensor, op=None, group=None) -> torch.Tensor:
+    """In place: ``x`` reduced by ``op`` (default the sum) over ``group``
+    (default ``data_group()``), without a gradient. Returns ``x``."""
     if data_parallel():
-        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                        group=data_group() if group is None else group)
     return x
 
 
@@ -238,6 +283,48 @@ def broadcast_(x: torch.Tensor, src: int = 0) -> torch.Tensor:
     if staged is not x:
         x.copy_(staged)
     return x
+
+
+def _gloo_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A host byte view of ``x`` for gloo, whose point-to-point calls take
+    host tensors only; bytes carry every dtype."""
+    return x.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+
+
+def send(x: torch.Tensor, dst: int) -> None:
+    """``x`` to global rank ``dst``, which calls ``recv`` with its shape and
+    dtype. Under NCCL the tensor goes as it is, under gloo as host bytes. The
+    two ranks must pair their sends and receives in one order (NCCL has no
+    tags)."""
+    if dist.get_backend() == "nccl":
+        dist.send(x.detach().contiguous(), dst)
+    else:
+        dist.send(_gloo_bytes(x), dst)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on ``device`` from global rank
+    ``src``'s ``send``."""
+    if dist.get_backend() == "nccl":
+        out = torch.empty(shape, dtype=dtype, device=device)
+        dist.recv(out, src)
+        return out
+    host = torch.empty(shape, dtype=dtype)
+    dist.recv(host.reshape(-1).view(torch.uint8), src)
+    return host.to(device)
+
+
+def broadcast_in(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Global rank ``src``'s ``x`` on every rank of ``group``: every rank
+    passes a tensor of the shape and dtype, and gets the result (``x``
+    itself on ``src``). Under gloo through host bytes."""
+    if dist.get_backend() == "nccl":
+        x = x.detach().contiguous()
+        dist.broadcast(x, src, group=group)
+        return x
+    host = _gloo_bytes(x).clone()
+    dist.broadcast(host, src, group=group)
+    return host.view(x.dtype).reshape(x.shape).to(x.device)
 
 
 def global_or(flag: bool) -> bool:

@@ -113,9 +113,9 @@ def _row_map(n_local: int, device) -> Optional[RowMap]:
     global one, for the model's dropout and DropPath draws."""
     if not distributed.data_parallel():
         return None
-    world = distributed.data_size()
+    world, rank = distributed.data_size(), distributed.data_rank()
     return RowMap(n_local, n_local * world,
-                  torch.arange(distributed.data_rank(), n_local * world, world, device=device))
+                  torch.arange(rank, n_local * world, world, device=device), rank, world)
 
 
 def _global_outputs(out: dict) -> dict:

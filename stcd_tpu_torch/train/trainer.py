@@ -10,9 +10,20 @@ the ``train_acc.npy`` / ``val_acc.npy`` curves, the scalar log) and
 ``CDEvaluator`` (weights-only load of ``best_ckpt`` or ``last_ckpt``, the
 scores, the masks). They write through ``train/checkpoint.py`` (one
 ``torch.save`` file where the JAX package writes an orbax directory of the
-same name) and ``utils/logging.py``. Not ported: pipeline and tensor
-parallelism (``pp_stages``, ``tp_axis`` other than 1 raise; ROADMAP.md
-Queue 1 #11b).
+same name) and ``utils/logging.py``.
+
+Over a process group (``torchrun --nproc_per_node W``) the trainer runs a
+``data`` x ``stage`` grid, D = W / ``pp_stages`` (``parallel/mesh.py``): each
+step takes this rank's rows of the global batch (``d::D``, as the loader
+splits them), draws the augmentation for the global batch and keeps its
+rows, and with ``pp_stages`` S > 1 pipelines the model through
+``parallel/pipeline.py``'s route for it (the BIT ``_dd8`` decoder, the
+ChangeFormer V4-V6 MiT encoder, the ViG encoder; JAX's
+stcd_tpu/train/trainer.py:216-272). BatchNorm, the losses and the counts sum
+over the data group, the gradients are made whole across the stages and
+averaged over the data shards (``pipeline.sync_gradients``); rank 0 writes
+the checkpoints and curves, every rank its log. ``tp_axis`` other than 1
+raises (tensor parallelism, ROADMAP.md Queue 1 #11c).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX
@@ -30,18 +41,24 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from stcd_tpu_torch.data.augment import eval_preprocess, to_float01, train_augment_pair
+from stcd_tpu_torch.data.augment import (eval_preprocess, sample_pair_params, to_float01,
+                                         train_augment_pair)
 from stcd_tpu_torch.data.io import save_mask_png
 from stcd_tpu_torch.layers.modules import upsample_nearest
 from stcd_tpu_torch.layers.stochastic import set_generator
 from stcd_tpu_torch.losses import functional as L
-from stcd_tpu_torch.metrics.confusion import SegmentationMetric, confusion_matrix
+from stcd_tpu_torch.metrics.confusion import (SegmentationMetric, confusion_matrix,
+                                              global_counts)
 from stcd_tpu_torch.models.factory import define_G, init_weights
+from stcd_tpu_torch.parallel import distributed
+from stcd_tpu_torch.parallel import pipeline as pp
+from stcd_tpu_torch.parallel.mesh import TP_ITEM, Mesh, create_mesh, place_train_state
 from stcd_tpu_torch.train.checkpoint import CheckpointManager
 from stcd_tpu_torch.train.loops import _device_batch
 from stcd_tpu_torch.train.schedules import Schedule, get_scheduler
 from stcd_tpu_torch.train.state import (AdamConfig, AdamWConfig, OptimizerConfig, SGDConfig,
                                         TrainState, create_train_state)
+from stcd_tpu_torch.train.steps import _own_rows, _row_map
 from stcd_tpu_torch.utils.logging import ScalarLogger
 
 # pixels of confusion counts summed on the device before they go to the host's
@@ -57,8 +74,9 @@ class TrainerConfig:
     ``dtype`` is None or ``torch.float32`` for float32, ``torch.bfloat16`` for
     bf16 autocast with float32 weights. ``device`` is where ``train_models``
     and ``CDEvaluator`` put the state: the card unless the caller asks for
-    the CPU. ``pp_stages`` and ``tp_axis`` exist for the JAX surface; values
-    other than 1 raise (ROADMAP.md Queue 1 #11b)."""
+    the CPU. ``pp_stages`` S > 1 pipelines the model over S ranks of the
+    launch (``pp_microbatches`` microbatches a step, 0: S); ``tp_axis``
+    other than 1 raises (ROADMAP.md Queue 1 #11c)."""
 
     net_G: str = "base_transformer_pos_s4_dd8"
     n_class: int = 2
@@ -84,6 +102,7 @@ class TrainerConfig:
     normalize: bool = True
     augment: bool = False
     pp_stages: int = 1
+    pp_microbatches: int = 0
     tp_axis: int = 1
     device: str = "cuda"
 
@@ -120,19 +139,32 @@ class CDTrainer:
     iterables of dict batches with a length). The schedules are per epoch, of
     ``len(dataloaders["train"])`` steps, or of ``steps_per_epoch`` where no
     loaders are given. ``alpha`` is the class counts of the losses fl and
-    miou; None scans the train loader for them when the loop starts."""
+    miou; None scans the train loader for them when the loop starts.
+
+    In a process group the trainer makes the data x stage grid of the
+    launch (module docstring); the loaders and the steps' tensors are this
+    rank's rows of the global batch. ``pp_stages`` > 1 with a model that
+    no route pipelines raises JAX's NotImplementedError, and so does a
+    stage count that the model does not allow (``pipeline.check_stages``)."""
 
     def __init__(self, cfg: TrainerConfig, dataloaders: Optional[dict] = None,
                  alpha=None, steps_per_epoch: Optional[int] = None):
-        if cfg.tp_axis != 1 or cfg.pp_stages != 1:
-            raise NotImplementedError(
-                f"tp_axis={cfg.tp_axis}, pp_stages={cfg.pp_stages}: tensor and pipeline "
-                "parallelism are not ported (ROADMAP.md Queue 1 #11b)")
+        if cfg.tp_axis != 1:
+            raise NotImplementedError(f"tp_axis={cfg.tp_axis}: tensor parallelism is not "
+                                      f"ported ({TP_ITEM})")
         self.cfg = cfg
         self.dataloaders = dataloaders or {}
         self.alpha = alpha
         self.model = define_G(cfg.net_G, n_class=cfg.n_class, embed_dim=cfg.embed_dim,
                               img_size=cfg.img_size)
+        self.stage_params: list = []
+        if cfg.pp_stages > 1:
+            pp.pipeline_route(self.model, cfg.net_G)
+            pp.check_stages(self.model, cfg.pp_stages)
+        self.mesh = _grid(cfg.pp_stages)
+        if cfg.pp_stages > 1:
+            pp.set_pipeline(self.model, cfg.pp_microbatches or None)
+            self.stage_params = pp.stage_parameters(self.model)
         if steps_per_epoch is None:
             steps_per_epoch = len(self.dataloaders["train"]) if "train" in self.dataloaders else 1
         schedule = get_scheduler(cfg.lr_policy, cfg.lr, max(steps_per_epoch, 1),
@@ -153,6 +185,13 @@ class CDTrainer:
         return create_train_state(self.model, self.tx, device=device,
                                   bf16=self.cfg.dtype == torch.bfloat16,
                                   seed=self.cfg.seed)
+
+    def _global(self, loss: torch.Tensor, cm: torch.Tensor):
+        """The loss averaged and the counts summed over the data shards."""
+        if not distributed.data_parallel():
+            return loss, cm
+        mean = distributed.all_reduce_(loss.detach().double().reshape(1)) / self.mesh.data
+        return mean[0].to(loss.dtype), global_counts(cm)
 
     # --- loss dispatch ---
     def _pxl_loss(self, preds: List[torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
@@ -222,17 +261,21 @@ class CDTrainer:
     # --- the steps ---
     def train_step(self, state: TrainState, a: torch.Tensor, b: torch.Tensor,
                    label: torch.Tensor):
-        """One update of ``state`` in place; returns ``(loss, cm)``. The
-        augmentation's draws, every dropout and DropPath mask and the attention
-        seeds come from the state's generator, which ``init_state`` seeds."""
+        """One update of ``state`` in place; returns ``(loss, cm)``, of the
+        global batch. The augmentation's draws, every dropout and DropPath
+        mask and the attention seeds come from the state's generator, which
+        ``init_state`` seeds; in a process group they are drawn for the global
+        batch and each rank keeps its rows."""
         cfg = self.cfg
         gen = state.generator
-        model = set_generator(state.model.train(), gen)
+        n = a.shape[0]
+        model = set_generator(state.model.train(), gen, _row_map(n, a.device))
         if cfg.augment:
             if gen is None:
                 raise ValueError("augment=True needs a state with a generator: build "
                                  "it with CDTrainer.init_state")
-            a, b = train_augment_pair(gen, a, b)
+            draws = sample_pair_params(gen, n * distributed.data_size(), 0.5)
+            a, b = train_augment_pair(gen, a, b, aug_params=_own_rows(draws))
         elif cfg.normalize:
             a, b = eval_preprocess(a), eval_preprocess(b)
         else:
@@ -243,14 +286,16 @@ class CDTrainer:
             preds = _as_list(model(a, b))
         loss = self._pxl_loss(preds, label)
         loss.backward()
+        pp.sync_gradients(model, self.stage_params)
         state.apply_gradients()
         _, cm = self._counts([p.detach() for p in preds], label)
-        return loss.detach(), cm
+        return self._global(loss.detach(), cm)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, a: torch.Tensor, b: torch.Tensor,
                   label: torch.Tensor):
-        """Eval mode, no grad; returns ``(final NCHW prediction, cm)``."""
+        """Eval mode, no grad; returns ``(final NCHW prediction, cm)``, the
+        prediction of this rank's rows and the counts of the global batch."""
         cfg = self.cfg
         model = state.model.eval()
         if cfg.normalize or cfg.augment:
@@ -259,7 +304,8 @@ class CDTrainer:
             a, b = to_float01(a), to_float01(b)
         with state.autocast():
             preds = _as_list(model(_nchw(a), _nchw(b)))
-        return self._counts(preds, _nchw(label))
+        final, cm = self._counts(preds, _nchw(label))
+        return final, global_counts(cm)
 
     # --- the epoch loop ---
     @staticmethod
@@ -330,6 +376,7 @@ class CDTrainer:
                 path = os.path.join(cfg.checkpoint_dir, name)
                 if os.path.exists(path):
                     curve.extend(np.load(path)[:self.epoch_to_start].tolist())
+        place_train_state(self.mesh, state)
         try:
             for epoch_id in range(self.epoch_to_start, cfg.max_epochs):
                 m, loss = self._run_epoch(state, self.dataloaders["train"], training=True)
@@ -353,12 +400,24 @@ class CDTrainer:
                                name="last_ckpt")
                 for name, curve in (("train_acc.npy", train_curve),
                                     ("val_acc.npy", val_curve)):
-                    np.save(os.path.join(cfg.checkpoint_dir, name),
-                            np.asarray(curve, np.float32))
+                    if distributed.is_primary():
+                        np.save(os.path.join(cfg.checkpoint_dir, name),
+                                np.asarray(curve, np.float32))
                 logger.flush()
         finally:
             logger.close()
         return state
+
+
+def _grid(stages: int) -> Mesh:
+    """The launch's data x stage grid: the one the process group has where
+    its stage axis is ``stages`` already (a trainer and its evaluator share
+    it), else a new one (``create_mesh``, which raises where the launch does
+    not divide)."""
+    if distributed.stage_size() == stages and distributed.space_size() == 1 and (
+            stages > 1 or not distributed.data_parallel()):
+        return Mesh(distributed.data_size(), distributed.rank(), 1, stages)
+    return create_mesh(stage=stages)
 
 
 class CDEvaluator:
@@ -387,9 +446,11 @@ class CDEvaluator:
         return CheckpointManager(self.cfg.checkpoint_dir).load_weights(state, path)
 
     def eval_models(self, ckpt_name: str = "best_ckpt", save_vis: bool = True) -> dict:
-        """The scores of ``ckpt_name`` over the loader. With ``save_vis`` each
-        named sample's predicted classes go to ``{vis_dir}/{name}`` as a PNG
-        (class ids spread over 0..255: {0, 255} for two classes)."""
+        """The scores of ``ckpt_name`` over the loader (over every rank's rows
+        in a process group). With ``save_vis`` each named sample's predicted
+        classes go to ``{vis_dir}/{name}`` as a PNG (class ids spread over
+        0..255: {0, 255} for two classes), from the rank that holds it (stage
+        0 of its pipeline)."""
         state = self.load(ckpt_name)
         metric = SegmentationMetric(self.cfg.n_class)
         os.makedirs(self.cfg.vis_dir, exist_ok=True)
@@ -399,7 +460,7 @@ class CDEvaluator:
             final, cm = self.trainer.eval_step(state, batch["A"], batch["B"],
                                                batch["label"].float())
             metric.confusionMatrix += cm.cpu().numpy().astype(np.float64)
-            if save_vis and names is not None:
+            if save_vis and names is not None and distributed.stage_rank() == 0:
                 preds = self.trainer._pred_to_labels(final).cpu().numpy()
                 for i, name in enumerate(names):
                     save_mask_png(preds[i].astype(np.float32) / denom,

@@ -387,5 +387,13 @@ def test_vig_backbones_and_the_pipeline_option():
         feats = changevig.pvig_ti(img_size=64)(torch.zeros(1, 3, 64, 64))
     assert [tuple(f.shape[1:]) for f in feats] == [(48, 16, 16), (96, 8, 8), (240, 4, 4),
                                                    (384, 2, 2)]
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        changevig.VIGBackbone(pipeline={"n_micro": 2})
+    # the pipeline option builds; with no stage axis (one process) its stages run in
+    # sequence, in eval mode as inside a pipeline, and give the sequential encoder's maps
+    kw = dict(blocks=(1, 1, 1, 1), channels=(8, 12, 16, 24), k=4, img_size=32)
+    piped = changevig.VIGBackbone(pipeline={"n_micro": 2}, **kw).eval()
+    plain = changevig.VIGBackbone(**kw).eval()
+    plain.load_state_dict(piped.state_dict())
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for got, want in zip(piped(x), plain(x)):
+            assert torch.equal(got, want)

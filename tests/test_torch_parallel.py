@@ -646,7 +646,7 @@ def test_cli_data_axis_and_refusals(run):
         assert refusals["--batch_size 4 --data_axis 3"].startswith("ValueError")
         assert "torchrun --nproc_per_node 3" in refusals["--batch_size 4 --data_axis 3"]
         assert refusals["--batch_size 4 --model_axis 2"].startswith("NotImplementedError")
-        assert "Queue 1 #11b" in refusals["--batch_size 4 --model_axis 2"]
+        assert "Queue 1 #11c" in refusals["--batch_size 4 --model_axis 2"]
         assert refusals["--batch_size 3"].startswith("ValueError")
         assert rank["jax_imported"] == []
 

@@ -750,7 +750,7 @@ def test_cli_space_axis_refusals(run):
         assert "#11" in ref["--space_axis 2 --encoder se_resnet50"]
         assert ref["--space_axis 2 --remat"].startswith("ValueError")
         assert ref["--model_axis 2"].startswith("NotImplementedError")
-        assert "#11b" in ref["--model_axis 2"]
+        assert "#11c" in ref["--model_axis 2"]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -153,12 +153,18 @@ def test_scores_and_alpha_match_jax():
 
 
 def test_parallel_fields_raise(tmp_path):
-    for kw in (dict(tp_axis=2), dict(pp_stages=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-            tt.CDTrainer(_cfg(tmp_path, **kw))
+    """tp_axis is not ported (Queue 1 #11c); pp_stages is: one process takes
+    it and asks for the ranks of its pipeline (tests/test_torch_pipeline.py
+    runs them)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+        tt.CDTrainer(_cfg(tmp_path, tp_axis=2))
+    with pytest.raises(ValueError, match="'stage' axis of 2 .* torchrun --nproc_per_node 2"):
+        tt.CDTrainer(_cfg(tmp_path, pp_stages=2))
     from stcd_tpu_torch.cli import train_cd
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
         train_cd.main(["--tp_axis", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        train_cd.main(["--pp_stages", "2", "--device", "cpu"])
 
 
 def test_train_cd_cli_and_predict_with_default_flags(tmp_path, capsys):
