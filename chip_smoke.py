@@ -128,8 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    DTCDSCN, IFNet, ChangeGNNV1, ChangeGNNV2, ChangeGNNV2_sub/_abs/_conc and GNN at the
    widths of the JAX CLI defaults (embed_dim 64; the ViG encoder 80/160/400/640):
    each through CDTrainer (sgd 0.01, ce; IFNet bce with n_class 1), fp32, augment
-   on, 6 steps of 8 pairs of 256x256 tiles (finite losses, one augmentation call a
-   step, the median ms of the last 5 and the peak memory), and one eval forward of 2 pairs on
+   on, 3 steps of 8 pairs of 256x256 tiles (finite losses, one augmentation call a
+   step, the median ms of the last 2 and the peak memory), and one eval forward of 1 pair on
    the card against the same weights on the CPU within ZOO_ATOL (the ViG keys on the
    card's KNN indices, with ZOO_NEIGHBOUR_SHARE of the CPU's own equal to them); then
    cli.train_cd --augment and cli.predict --load_path for SNUNet and ChangeGNNV2.
@@ -138,20 +138,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    vgg16_bn (the center block), MAnet, Linknet over resnext50_32x4d, FPN, FPN over
    mit_b2 (the attention kernels), PSPNet (encoder depth 3), DeepLabV3 over resnet50
    (output stride 8), DeepLabV3+ and PAN (output stride 16), the rest over resnet34:
-   each 6 steps of make_seg_steps (augment on, Adam) on 8 images of 256x256, fp32
-   (finite losses, one augmentation call a step, the median ms of the last 5 and the
-   peak memory), and predict of 2 images on the card against the CPU within ZOO_ATOL;
+   each 4 steps of make_seg_steps (augment on, Adam) on 8 images of 256x256, fp32
+   (finite losses, one augmentation call a step, the median ms of the last 3 and the
+   peak memory), and predict of 1 image on the card against the CPU within ZOO_ATOL;
    FPN over mit_b2 with 16 f32_cuda forward launches in predict and 16 + 16 a train
    step, and one fp32 step with the kernels against the plain attention.
 20. the encoder families of get_encoder: SegCD (decoder 256..16, classes 1) over
    efficientnet-b4, timm-efficientnet-b3, mobilenet_v2, timm-mobilenetv3_large_100,
    se_resnext50_32x4d, densenet121, timm-regnety_016, dpn68, xception, inceptionv4,
    timm-res2net50_26w_4s, timm-resnest50d, timm-skresnet34, timm-gernet_m and
-   mobileone_s1, each 6 make_cd_steps steps (augment on, Adam, drop_connect live) on
+   mobileone_s1, each 3 make_cd_steps steps (augment on, Adam, drop_connect live) on
    8 pairs of 256x256, fp32, and DeepLabV3+ over mobilenet_v2 (output stride 16) and
-   DeepLabV3 over se_resnext50_32x4d (output stride 8) through create_model, 6
+   DeepLabV3 over se_resnext50_32x4d (output stride 8) through create_model, 3
    make_seg_steps steps each (finite losses, one augmentation call a step, the median
-   ms of the last 5 and the peak memory); the eval forward of 2 on the card against
+   ms of the last 2 and the peak memory); the eval forward of 1 on the card against
    the CPU within ZOO_ATOL; then cli.make_demo_data, cli.train_pse_cd --encoder
    efficientnet-b4 for one epoch and cli.predict --load_path on what it saved.
 21. smp's fit loop (utils.meter TrainEpoch / ValidEpoch): (a) the CamVid configuration
@@ -166,34 +166,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    Median batch ms, images/s, peak memory; the eight kernels' counters do not move.
 22. data-parallel training (stcd_tpu_torch/parallel), the ranks in processes of their own
    (this script with --phase22-cli or --phase22-rank): (a) cli.train_pse_cd at full width
-   (SegCD-r50, decoder 256..16, 16 pairs of 256x256 from cli.make_demo_data, batch 8,
+   (SegCD-r50, decoder 256..16, 8 pairs of 256x256 from cli.make_demo_data, batch 8,
    fp32, 1 epoch) under torch.distributed.run --nproc_per_node 1 (NCCL, a world of 1) and
    in a plain process, at once, with cuDNN's deterministic algorithms: the two runs'
    weights equal. (b) two ranks on the one card under gloo (initialize(backend="gloo");
    NCCL refuses two ranks on one device): the stage-2 step at global batch 8, fp32, TF32
-   off, SGD, 3 steps, each rank holding rows r::2, against the one-process step of this
+   off, SGD, 2 steps, each rank holding rows r::2, against the one-process step of this
    process: the first loss within DP_LOSS_RTOL, the counts but for STEP_CM_PIXELS, the
    parameters and running statistics within DP_PARAM_SHARE and DP_STATS_SHARE, both ranks'
-   states equal; then bf16 at global batch 64 (32 a rank): step ms by rank, peak GiB, the
+   states equal; then bf16 at global batch 64 (32 a rank), 2 warm and 4 timed steps: step
+   ms by rank, peak GiB, the
    augmentation kernel's launches (counted in the kernels line).
 23. spatial partitioning (stcd_tpu_torch/parallel/spatial.py), the ranks in processes of
-   their own (this script with --phase22-cli or --phase23-rank): (a) two ranks on the one
+   their own, one launch for (a) and (b) (this script with --phase23-rank), started while
+   this process takes its one-process steps: (a) two ranks on the one
    card under gloo at a space axis of 2, each holding a strip of 256 rows of every image:
    the stage-2 spatial step of SegCD-r50 (decoder 256..16) at 512x512, global batch 4,
-   SGD, 3 steps, in fp32 (TF32 off) and then in bf16, against the one-process step of
+   SGD, 2 steps, in fp32 (TF32 off) and then in bf16, against the one-process step of
    this process on the same batches and draws: the losses, counts, parameters and
    running statistics within the bounds of tools/check_spatial.py (bf16: the SP_BF16_*
    bounds), both ranks' states
    equal; each rank's step ms and peak memory beside the one process's. (b)
    cli.train_pse_cd --space_axis 2 --device cuda:0 at full width (SegCD-r50, 4 pairs of
-   512x512, batch 4, 1 epoch: one Adam step) under torch.distributed.run
-   --nproc_per_node 2, so gloo (two ranks on one card), and the same CLI in a plain
-   process, at once: both ranks end with one state; the first loss within LOSS_RTOL,
+   512x512, batch 4, 1 epoch: one Adam step) in (a)'s two ranks, so gloo (two ranks on
+   one card), then the same CLI in this process: both ranks end with one state; the first loss within LOSS_RTOL,
    the parameters within one Adam step and at least SP_CLI_AGREE of them within 1e-5 of
    the plain run's, the running statistics within SP_CLI_STATS_SHARE. The augmentation
    kernel's launches of (a) and (b) are counted in the kernels line.
 24. pipeline parallelism (stcd_tpu_torch/parallel/pipeline.py), four ranks on the one card
-   under gloo (this script with --phase24-rank or --phase24-cli), which shows the
+   under gloo in one launch for (a)-(d), started while this process computes the
+   reference (this script with --phase24-rank), which shows the
    pipeline's cost, not its speed: (a)-(c) tools/check_pipeline.py's runs against this
    process's one-process runs: ChangeFormerV6 at full width, 256x256, batch 8, fp32,
    pp_stages 4, 4 microbatches, one train step and one eval batch with dropout off, then
@@ -202,11 +204,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    pp_stages 2 x data 2; ChangeGNNV2 at pp_stages 4. Each rank's launches of kernels #1
    and #2 (f32_cuda on V6's stages, small_m on BIT's) must be its blocks times the
    microbatches. (d) cli.train_cd --net_G ChangeFormerV6 --embed_dim 256 --pp_stages 4
-   --device cuda:0 under torch.distributed.run --nproc_per_node 4 for one epoch of
-   cli.make_demo_data's tree. Step ms and peak GiB by rank beside the one process's.
+   --device cuda:0 in the same four ranks for one epoch of cli.make_demo_data's tree
+   (4 pairs: one step). Step ms and peak GiB by rank beside the one process's.
    Phase 3 also holds kernels #1 and #2 against their plain versions with the dropout
    rows (o, t) = (1, 2), f32 and bf16, at M > 8 and M <= 8, and (0, 1) bit-identical to
    the call without rows.
+25. tensor parallelism (stcd_tpu_torch/parallel/tensor.py), two ranks on the one card
+   under gloo in one launch (this script with --phase25-rank), which shows TP's cost,
+   not its speed: tools/check_tensor_parallel.py's runs at model 2 against this
+   process's one-process runs: (a) the SegCD-r50 stage-2 step (decoder 256..16, 256x256,
+   global batch 8, fp32, SGD, augmentation on) through cli.common's make_mesh /
+   place_state and make_cd_steps; (b) CDTrainer(tp_axis=2) over ChangeFormerV6 at embed
+   256, 256x256, batch 8, fp32, one step and one eval batch with dropout off, then a
+   step with the encoder's attention and MLP dropout at 0.1 after which both ranks hold
+   one state and generator; (c) cli.train_cd --net_G base_transformer_pos_s4_dd8
+   --tp_axis 2 --device cuda:0 for one epoch of 8 synthetic pairs. Each rank's errors,
+   bytes of parameters and Adam moments against one process's, peak GiB, step ms and
+   launches of kernels #1 and #2 (on its own heads: f32_cuda for V6's stages 2-4 at
+   head offsets h0 = rank x heads / 2, stage 1 whole; small_m for BIT's decoder at
+   h0 = 4 rank). Phase 3 also holds kernels #1 and #2 against their plain versions at
+   the head offsets (h0, H) = (1, 2) and (4, 8) with rows (1, 2), f32 and bf16, M > 8
+   and M <= 8, and (0, h) bit-identical to the call without heads. Every phase prints
+   its seconds.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -215,7 +234,6 @@ before it lists the kernels with their launches, errors, times and bounds.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import contextlib
 import functools
 import json
@@ -239,7 +257,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 ROUNDS = 4  # rounds of 4 concurrent requests; the first one is not timed
 SRA_DEPTHS = (3, 3, 4, 3)  # SRA calls per encoder stage
-TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 64, 3, 10
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 64, 2, 5
 LOOP_BATCH, LOOP_BATCHES = 16, 3  # the epoch loop: pairs a batch, batches an epoch
 STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernel against plain augmentation
 STEP_CM_PIXELS = 64  # of 8 x 256 x 256: pixels whose probability sits at the threshold
@@ -251,9 +269,9 @@ BWD_BF16_ATOL = 2e-2  # bf16 roundings of g, of the saved output and of the resu
 # max(1, max |plain|): over M = 4 keys an output reaches 4, where one bf16 ulp is 1.6e-2
 LSE_ATOL = 2e-5  # rows' log-sum-exp (about 6, f32 whatever the inputs) against torch.logsumexp
 BN_REL_TOL = 1e-5  # bn_stats against a float64 sum, relative to max(1, |sum|)
-V6_TRAIN = dict(batch=8, size=512, warm=2, steps=10, launches=13, variant="mma_bf16")
-V6_FP32_TRAIN = dict(batch=8, size=512, warm=2, steps=5, launches=13)
-BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=10, launches=16, variant="small_m")
+V6_TRAIN = dict(batch=8, size=512, warm=2, steps=5, launches=13, variant="mma_bf16")
+V6_FP32_TRAIN = dict(batch=8, size=512, warm=1, steps=3, launches=13)
+BIT_TRAIN = dict(batch=32, size=256, warm=2, steps=5, launches=16, variant="small_m")
 ATTN_STEP_LOSS_ATOL = 1e-4  # one fp32 train step, kernels against plain attention
 BIT_SHAPE = (32, 8, 4096, 4, 64)  # (B, H, N, M, D) of one decoder block at batch 32
 BIT_SCALE = 32 ** -0.5  # BIT scales by the model dim, not the head dim
@@ -690,6 +708,7 @@ def phase_attention_backward(torch, attention):
 
 
 ROWS_SHAPES = ((4, 2, 1000, 37, 64), (4, 8, 1024, 4, 32))  # (B, H, N, M, D): M > 8, M <= 8
+HEADS_CASES = ((1, 2), (4, 8))  # (h0, H): heads h0 .. H - 1 of a tensor-parallel rank
 
 
 def phase_attention_rows(torch, attention):
@@ -736,6 +755,40 @@ def phase_attention_rows(torch, attention):
                   f"dq dk dv {[f'{e:.3e}' for e in errs]} against plain; (0, 1) "
                   f"bit-identical to no rows", flush=True)
             fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, *errs)
+            for h0, total in HEADS_CASES:  # a tensor-parallel rank's heads h0 .. H - 1 of H
+                lq, lk, lv, lg = (t.repeat(1, total, 1, 1)[:, :total - h0].contiguous()
+                                  for t in (q, k, v, g))
+
+                def run_heads(impl, heads):
+                    leaves = tuple(t.clone().requires_grad_() for t in (lq, lk, lv))
+                    kw = {} if heads is None else {"dropout_heads": heads}
+                    out = attention.cross_attention(*leaves, dropout_rate=0.1,
+                                                    dropout_seed=77, impl=impl,
+                                                    dropout_rows=(1, 2), **kw)
+                    return out.detach(), torch.autograd.grad(out, leaves, lg)
+
+                (out, grads), (want, want_grads) = (run_heads("kernel", (h0, total)),
+                                                    run_heads("plain", (h0, total)))
+                default, own = run_heads("kernel", None), run_heads("kernel", (0, total - h0))
+                torch.cuda.synchronize()
+                tag = f"attention heads (h0, H) = ({h0}, {total}), rows (1, 2) {name}"
+                err = (out.float() - want.float()).abs().max().item()
+                bound = fwd_atol * max(1.0, want.float().abs().max().item())
+                require(err <= bound, f"{tag}: forward {err} > {bound}")
+                errs = [(a.float() - w.float()).abs().max().item()
+                        for a, w in zip(grads, want_grads)]
+                bounds = [bwd_atol * max(1.0, w.float().abs().max().item()) for w in want_grads]
+                require(all(e <= c for e, c in zip(errs, bounds)),
+                        f"{tag}: dq, dk, dv {errs} > {bounds}")
+                require(torch.equal(default[0], own[0])
+                        and all(torch.equal(x, y) for x, y in zip(default[1], own[1])),
+                        f"{tag}: (0, h) not bit-identical to the call without heads")
+                require(not torch.equal(out, default[0]),
+                        f"{tag}: the offset kept the mask of (0, h)")
+                print(f"{tag} dropout 0.1: forward {err:.3e}, dq dk dv "
+                      f"{[f'{e:.3e}' for e in errs]} against plain; (0, h) bit-identical to "
+                      "no heads", flush=True)
+                fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, *errs)
     return fwd_err, bwd_err
 
 
@@ -2039,7 +2092,7 @@ ZOO_KEYS = ("Unet", "SiamUnet_sub", "SiamUnet_abs", "SiamUnet_conc", "SiamUnet_c
             "SNUNet", "DTCDSCN", "IFNet", "ChangeGNNV1", "ChangeGNNV2", "ChangeGNNV2_sub",
             "ChangeGNNV2_abs", "ChangeGNNV2_conc", "GNN")
 # train_cd's default batch; the first step is not timed; the CLI runs take cli_steps
-ZOO_TRAIN = dict(batch=8, size=256, steps=6, cli_steps=2, cpu_batch=2)
+ZOO_TRAIN = dict(batch=8, size=256, steps=3, cli_steps=2, cpu_batch=1)
 # the card's eval forward against the CPU's on the same weights and inputs (fp32, TF32
 # off on the card), x max(1, max |CPU output|): the two sum each conv in another order
 ZOO_ATOL = 1e-3
@@ -2088,12 +2141,12 @@ def phase_zoo(torch, augment_kernel, gpu_label, root):
     """The 14 define_G keys of this phase at full width (the ViG encoder's
     80/160/400/640, embed_dim 64): for each, CDTrainer with the TrainerConfig
     defaults (sgd 0.01, ce; IFNet bce with n_class 1), fp32 with TF32 off,
-    augment on, seeded weights (models.factory.init_weights) and data, 6 train
-    steps of 8 pairs of 256x256 tiles: finite losses, one augmentation call a
-    step (counted from 0), the median ms of the last 5 steps (CUDA events) and
+    augment on, seeded weights (models.factory.init_weights) and data, ZOO_TRAIN's
+    train steps of 8 pairs of 256x256 tiles: finite losses, one augmentation call a
+    step (counted from 0), the median ms of the steps after the first (CUDA events) and
     the peak memory. Then one
-    eval forward of 2 pairs on the card held against the same weights on the
-    CPU (ZOO_ATOL; the ViG keys on the card's neighbours, ZOO_NEIGHBOUR_SHARE).
+    eval forward of ZOO_TRAIN's cpu_batch pairs on the card held against the
+    same weights on the CPU (ZOO_ATOL; the ViG keys on the card's neighbours, ZOO_NEIGHBOUR_SHARE).
     Then cli.train_cd --augment (1 epoch of 2 steps, synthetic data) and
     cli.predict --load_path on what it wrote, for SNUNet and ChangeGNNV2.
     Returns the augmentation calls by path."""
@@ -2220,7 +2273,7 @@ SMP_MODELS = (
     ("pan", "pan", "resnet34", {}),
 )
 SMP_AUX = {"classes": 4}  # the aux head of unet_scse's eval check (trained without it)
-SMP_TRAIN = dict(batch=8, size=256, steps=6, cpu_batch=2)  # the first step is not timed
+SMP_TRAIN = dict(batch=8, size=256, steps=4, cpu_batch=1)  # the first step is not timed
 SMP_MIT_LAUNCHES = 16  # SRA calls of mit_b2 a forward: depths 3 + 4 + 6 + 3
 
 
@@ -2231,7 +2284,7 @@ def phase_smp(torch, attention, augment_kernel, gpu_label):
     of make_seg_steps(augment=True) with Adam on 8 images of 256x256, fp32
     with TF32 off, one fixed seeded batch: finite losses, one augmentation
     call a step (counted from 0), the median ms of the steps after the first
-    (CUDA events) and the peak memory. Its eval forward (``predict``) of 2
+    (CUDA events) and the peak memory. Its eval forward (``predict``) of cpu_batch
     images on the card is held against the same weights on the CPU within
     ZOO_ATOL x max(1, max |CPU|); unet_scse's eval model carries the aux head
     (both outputs held), and the model it trains has none. fpn_mit_b2 runs the
@@ -2363,7 +2416,7 @@ ENC_ZOO = ("efficientnet-b4", "timm-efficientnet-b3", "mobilenet_v2",
 # (label, arch, encoder): dilated encoders through create_model, make_seg_steps
 ENC_ZOO_DILATED = (("deeplabv3plus_mobilenet_v2_os16", "deeplabv3plus", "mobilenet_v2"),
                    ("deeplabv3_se_resnext50_os8", "deeplabv3", "se_resnext50_32x4d"))
-ENC_ZOO_TRAIN = dict(batch=8, size=256, steps=6, cpu_batch=2)  # the first step is not timed
+ENC_ZOO_TRAIN = dict(batch=8, size=256, steps=3, cpu_batch=1)  # the first step is not timed
 ENC_ZOO_DECODER = (256, 128, 64, 32, 16)
 ENC_ZOO_CLI = dict(encoder="efficientnet-b4", n=8, size=256, batch=4)  # 2 steps an epoch
 
@@ -2378,8 +2431,8 @@ def phase_encoder_zoo(torch, augment_kernel, gpu_label):
     dilated models of ENC_ZOO_DILATED take as many make_seg_steps steps.
     Requires finite losses, one augmentation call a step (counted from 0) and
     state.step == steps; prints the losses, the median ms of the steps after
-    the first (CUDA events) and the peak memory. The eval forward of 2 pairs
-    (2 images for the DeepLabs) on the card is held against the same weights
+    the first (CUDA events) and the peak memory. The eval forward of cpu_batch
+    pairs (images for the DeepLabs) on the card is held against the same weights
     on the CPU within ZOO_ATOL x max(1, max |CPU|). Then from the command
     line: cli.make_demo_data, cli.train_pse_cd --encoder efficientnet-b4 for
     one epoch, and cli.predict --encoder efficientnet-b4 --load_path on what
@@ -2789,9 +2842,9 @@ def phase_smp_fit(torch, counters, gpu_label):
 # at full width as one torchrun rank under NCCL, against the same CLI in a plain process;
 # (b) two ranks on the one card under gloo (NCCL refuses two ranks on one device), the
 # stage-2 step against the one-process step at the same global batch, then bf16 steps
-DP_CLI = dict(n=16, size=256, batch=8)  # one epoch of 2 steps of SegCD-r50 (CLI defaults)
-DP_STEP = dict(batch=8, size=256, steps=3, lr=1e-3)  # fp32, SGD momentum 0.9, 4 pairs a rank
-DP_BF16 = dict(batch=64, warm=2, steps=8)  # bf16 autocast, 32 pairs a rank
+DP_CLI = dict(n=8, size=256, batch=8)  # one epoch of 1 step of SegCD-r50 (CLI defaults)
+DP_STEP = dict(batch=8, size=256, steps=2, lr=1e-3)  # fp32, SGD momentum 0.9, 4 pairs a rank
+DP_BF16 = dict(batch=64, warm=2, steps=4)  # bf16 autocast, 32 pairs a rank
 DP_LOSS_RTOL = 1e-5  # the first step's loss, two ranks against one process
 # after DP_STEP's 3 steps, two ranks against one process, |d| over max(1, the tensor's
 # largest magnitude): float32 sums in another order and cuDNN's algorithms for 4 pairs
@@ -2832,10 +2885,20 @@ def print_tagged(tag: str, obj: dict) -> None:
 def launch(cmd: list, timeout: int = DP_TIMEOUT) -> str:
     """Run ``cmd`` in a session of its own and return its output; on a time-out
     the whole session (torchrun and its ranks) is killed. A failure raises."""
-    import signal
+    return finish(start(cmd), cmd, timeout)
+
+
+def start(cmd: list) -> subprocess.Popen:
+    """``cmd`` started in a session of its own (``finish`` waits for it)."""
     env = {k: v for k, v in os.environ.items() if k not in DP_ENV_DROP}
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             env=env, start_new_session=True)
+
+
+def finish(proc: subprocess.Popen, cmd: list, timeout: int = DP_TIMEOUT) -> str:
+    """The output of ``start(cmd)``'s process; on a time-out its whole session is
+    killed. A failure raises."""
+    import signal
     try:
         out = proc.communicate(timeout=timeout)[0]
     except subprocess.TimeoutExpired:
@@ -2847,6 +2910,23 @@ def launch(cmd: list, timeout: int = DP_TIMEOUT) -> str:
     return out
 
 
+def wait_for(path: str, timeout: int = DP_TIMEOUT) -> None:
+    """Block until ``path`` exists: a rank started before its reference was
+    written (so its start-up overlaps the reference's computation) waits here
+    before it touches the card."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        require(time.monotonic() - t0 < timeout, f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+
+
+def save_for_ranks(torch, obj, path: str) -> None:
+    """``torch.save`` under a temporary name, then renamed: a waiting rank never
+    reads a partial file."""
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
 def torchrun(nproc: int, *args) -> list:
     return [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
             str(nproc), "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
@@ -2855,7 +2935,7 @@ def torchrun(nproc: int, *args) -> list:
 
 def dp_fp32_run(torch, rows) -> dict:
     """DP_STEP's fp32 stage-2 steps (SegCD-r50, decoder 256..16, augmentation on, SGD)
-    on the global batches from seeds 10, 11, 12, this process holding ``rows`` of each;
+    on the global batches from seeds 10, 11, ..., this process holding ``rows`` of each;
     the draws from one generator on the card seeded 2."""
     from stcd_tpu_torch.models.segcd import SegCD, init_weights
     from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
@@ -2894,26 +2974,41 @@ def state_errors(want: dict, got: dict) -> dict:
 
 
 def phase22_cli(argv) -> int:
-    """One process of phase 22 (a): cli.train_pse_cd.main(argv) with cuDNN's
-    deterministic algorithms, so that two runs can be held to equal weights."""
-    import torch
+    """One process of phase 22 (a) or a rank of phase 23 (b):
+    cli.train_pse_cd.main(argv) with cuDNN's deterministic algorithms, so that
+    two runs can be held to equal weights."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    print_tagged("PHASE22_CLI", deterministic_cli(argv))
+    return 0
+
+
+def deterministic_cli(argv) -> dict:
+    """cli.train_pse_cd.main(argv) with TF32 off and cuDNN's deterministic
+    algorithms (the flags put back after): its step, augmentation launches,
+    world and device."""
+    import torch
     from stcd_tpu_torch.cli import train_pse_cd
+    from stcd_tpu_torch.data import io as data_io
     from stcd_tpu_torch.ops import augment
     from stcd_tpu_torch.parallel import distributed
 
+    kept = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    kept_uint8 = data_io._UINT8_TRANSFER
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     augment.apply_augment_kernel.kernel_launches = 0
-    out = train_pse_cd.main(argv)
-    torch.cuda.synchronize()
-    print_tagged("PHASE22_CLI", {
-        "launches": augment.apply_augment_kernel.kernel_launches, "step": out["state"].step,
-        "world": distributed.world_size(), "device": str(out["state"].device),
-        "backend": torch.distributed.get_backend() if distributed.is_initialized() else None})
-    return 0
+    try:
+        out = train_pse_cd.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = kept
+        data_io.set_uint8_transfer(kept_uint8)
+    return {"launches": augment.apply_augment_kernel.kernel_launches,
+            "step": out["state"].step, "world": distributed.world_size(),
+            "device": str(out["state"].device),
+            "backend": torch.distributed.get_backend() if distributed.is_initialized()
+            else None}
 
 
 def phase22_rank(out_dir: str) -> int:
@@ -2931,6 +3026,7 @@ def phase22_rank(out_dir: str) -> int:
     require(world == 2 and torch.distributed.get_backend() == "gloo" and device.index == 0,
             f"rank {rank}: world {world}, {torch.distributed.get_backend()}, {device}")
     rows = distributed.global_batch_sharding()
+    wait_for(os.path.join(out_dir, "go"))
     augment.apply_augment_kernel.kernel_launches = 0
     t0 = time.monotonic()
     fp32 = dp_fp32_run(torch, rows)
@@ -2966,7 +3062,13 @@ def phase_data_parallel(torch, gpu_label) -> dict:
     t_phase = time.monotonic()
     launches = {}
     with tempfile.TemporaryDirectory() as root:
-        # (a) the CLI as one torchrun rank under NCCL and in a plain process, at once
+        # (b)'s two ranks start up now and touch the card once (a) and this process's
+        # one-process reference are done (``go``)
+        t_ranks = time.monotonic()
+        ranks_cmd = torchrun(2, "--phase22-rank", root)
+        ranks_proc = start(ranks_cmd)
+        # (a) the CLI as one torchrun rank under NCCL and in a plain process, at once,
+        # while this process computes (b)'s reference
         data = os.path.join(root, "data")
         make_demo_data.main([data, "--n", str(DP_CLI["n"]), "--size", str(DP_CLI["size"])])
         cli = ["--phase22-cli", "--root_path", data, "--dataset_name", "LEVIR",
@@ -2977,9 +3079,11 @@ def phase_data_parallel(torch, gpu_label) -> dict:
                 "plain": [sys.executable, os.path.abspath(__file__), *cli, "--save_name",
                           os.path.join(root, "plain")]}
         t0 = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
-            futures = {k: pool.submit(launch, cmd) for k, cmd in runs.items()}
-            info = {k: tagged(f.result(), "PHASE22_CLI")[0] for k, f in futures.items()}
+        procs = {k: start(cmd) for k, cmd in runs.items()}
+        one = dp_fp32_run(torch, slice(None))
+        torch.cuda.empty_cache()
+        info = {k: tagged(finish(proc, runs[k]), "PHASE22_CLI")[0]
+                for k, proc in procs.items()}
         cli_s = time.monotonic() - t0
         want_steps = DP_CLI["n"] // DP_CLI["batch"]
         require(info["nccl"]["backend"] == "nccl" and info["nccl"]["world"] == 1
@@ -2998,17 +3102,17 @@ def phase_data_parallel(torch, gpu_label) -> dict:
         print(f"data parallel (a) ({gpu_label}): cli.train_pse_cd SegCD-r50 (256..16), "
               f"{DP_CLI['n']} pairs of {DP_CLI['size']}x{DP_CLI['size']}, batch "
               f"{DP_CLI['batch']}, 1 epoch: torchrun --nproc_per_node 1 (NCCL, world 1) and a "
-              f"plain process, at once, {cli_s:.1f} s; weights equal (max |d| {cli_diff}); "
+              f"plain process, at once (and (b)'s reference in this process), {cli_s:.1f} s; "
+              f"weights equal (max |d| {cli_diff}); "
               f"augment launches {info['nccl']['launches']} + {info['plain']['launches']}",
               flush=True)
         del saved
 
-        # (b) the one-process reference, then two ranks on the one card under gloo
-        one = dp_fp32_run(torch, slice(None))
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        out = launch(torchrun(2, "--phase22-rank", root))
-        ranks_s = time.monotonic() - t0
+        # (b) two ranks on the one card under gloo against the one-process reference
+        with open(os.path.join(root, "go"), "w"):
+            pass
+        out = finish(ranks_proc, ranks_cmd)
+        ranks_s = time.monotonic() - t_ranks
         ranks = sorted(tagged(out, "PHASE22_RANK"), key=lambda r: r["rank"])
         require([r["rank"] for r in ranks] == [0, 1], f"phase 22 (b): {out[-3000:]}")
         states = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
@@ -3041,7 +3145,8 @@ def phase_data_parallel(torch, gpu_label) -> dict:
           f"{[round(r['bf16_step_ms'], 1) for r in ranks]}, peak GiB by rank "
           f"{[round(r['peak_gib'], 2) for r in ranks]}, augment launches by rank "
           f"{[r['launches'] for r in ranks]}; losses {ranks[0]['bf16_losses'][0]:.4f} -> "
-          f"{ranks[0]['bf16_losses'][-1]:.4f}; launch {ranks_s:.1f} s (the fp32 steps "
+          f"{ranks[0]['bf16_losses'][-1]:.4f}; launch {ranks_s:.1f} s from its start with (a) "
+          f"(the fp32 steps "
           f"{ranks[0]['fp32_s']:.1f} s); phase "
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
     for r in ranks:
@@ -3081,8 +3186,10 @@ SP_CLI_AGREE = 0.95
 SP_CLI_STATS_SHARE = 1e-4  # the statistics of one forward
 
 
-def phase23_rank(out_dir: str) -> int:
-    """One of the two ranks of phase 23 (a), on cuda:0 under gloo, a space axis of 2."""
+def phase23_rank(out_dir: str, cli: list) -> int:
+    """One of the two ranks of phase 23, on cuda:0 under gloo: (a) at a space axis
+    of 2 once this process's one-process steps are done (``go``), then (b),
+    cli.train_pse_cd with ``cli``, in the same processes."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stcd_tpu_torch.ops import augment
@@ -3098,6 +3205,7 @@ def phase23_rank(out_dir: str) -> int:
     require(mesh.space == 2 and mesh.data == 1 and device.index == 0
             and torch.distributed.get_backend() == "gloo",
             f"rank {rank}: {mesh}, {torch.distributed.get_backend()}, {device}")
+    wait_for(os.path.join(out_dir, "go"))
     augment.apply_augment_kernel.kernel_launches = 0
     res = {}
     for prec in ("fp32", "bf16"):
@@ -3106,6 +3214,11 @@ def phase23_rank(out_dir: str) -> int:
     print_tagged("PHASE23_RANK", {
         "rank": rank, "space_rank": distributed.space_rank(), **res,
         "launches": augment.apply_augment_kernel.kernel_launches})
+    torch.cuda.empty_cache()
+    distributed.barrier("phase 23 (a) done")
+    t0 = time.monotonic()
+    info = deterministic_cli(cli)
+    print_tagged("PHASE22_CLI", {**info, "seconds": time.monotonic() - t0})
     distributed.barrier("phase 23 done")
     return 0
 
@@ -3120,15 +3233,28 @@ def phase_spatial(torch, gpu_label) -> dict:
     t_phase = time.monotonic()
     launches = {}
     with tempfile.TemporaryDirectory() as root:
-        # (a) the one-process steps of this process, then the two strips on the one card
+        # (b)'s data, and its command for the ranks: they run it after (a) in one launch
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(SP_CLI["n"]), "--size", str(SP_CLI["size"])])
+        cli = ["--root_path", data, "--dataset_name", "LEVIR",
+               "--CDdataset_name", "LEVIR", "--batch_size", str(SP_CLI["batch"]),
+               "--n_epochs", "1", "--img_height", str(SP_CLI["size"]), "--img_width",
+               str(SP_CLI["size"]), "--device", "cuda", "--no_preempt"]
+        # (a) the two strips on the one card start up while this process takes the
+        # one-process steps; they touch the card once it is done (``go``)
+        t0 = time.monotonic()
+        cmd = torchrun(2, "--phase23-rank", root, *cli, "--space_axis", "2", "--device",
+                       "cuda:0", "--save_name", os.path.join(root, "space2"))
+        proc = start(cmd)
         one = {}
         augment.apply_augment_kernel.kernel_launches = 0
         for prec in ("fp32", "bf16"):
             one[prec] = cd_steps_run(prec == "bf16")
             torch.cuda.empty_cache()
         launches["sp_one_process"] = augment.apply_augment_kernel.kernel_launches
-        t0 = time.monotonic()
-        out = launch(torchrun(2, "--phase23-rank", root))
+        with open(os.path.join(root, "go"), "w"):
+            pass
+        out = finish(proc, cmd)
         ranks_s = time.monotonic() - t0
         ranks = sorted(tagged(out, "PHASE23_RANK"), key=lambda r: r["rank"])
         require([(r["rank"], r["space_rank"]) for r in ranks] == [(0, 0), (1, 1)],
@@ -3178,23 +3304,14 @@ def phase_spatial(torch, gpu_label) -> dict:
                     f"phase 23 (a) rank {r['rank']}: {r['launches']} augment launches")
         launches["sp_two_ranks"] = sum(r["launches"] for r in ranks)
 
-        # (b) the CLI at space 2 under torchrun and in a plain process, at once
-        data = os.path.join(root, "data")
-        make_demo_data.main([data, "--n", str(SP_CLI["n"]), "--size", str(SP_CLI["size"])])
-        cli = ["--phase22-cli", "--root_path", data, "--dataset_name", "LEVIR",
-               "--CDdataset_name", "LEVIR", "--batch_size", str(SP_CLI["batch"]),
-               "--n_epochs", "1", "--img_height", str(SP_CLI["size"]), "--img_width",
-               str(SP_CLI["size"]), "--device", "cuda", "--no_preempt"]
-        # both ranks on card 0 (a card would otherwise be cuda:LOCAL_RANK)
-        runs = {"space2": torchrun(2, *cli, "--space_axis", "2", "--device", "cuda:0",
-                                   "--save_name", os.path.join(root, "space2")),
-                "plain": [sys.executable, os.path.abspath(__file__), *cli, "--save_name",
-                          os.path.join(root, "plain")]}
+        # (b) the CLI at space 2 ran in the ranks after (a) (both on card 0; a card would
+        # otherwise be cuda:LOCAL_RANK); the plain run in this process
+        runs = ("space2", "plain")
         t0 = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
-            futures = {k: pool.submit(launch, cmd) for k, cmd in runs.items()}
-            info = {k: tagged(f.result(), "PHASE22_CLI") for k, f in futures.items()}
-        cli_s = time.monotonic() - t0
+        info = {"space2": tagged(out, "PHASE22_CLI"),
+                "plain": [deterministic_cli([*cli, "--save_name",
+                                             os.path.join(root, "plain")])]}
+        cli_s = max(v["seconds"] for v in info["space2"]) + time.monotonic() - t0
         want_steps = SP_CLI["n"] // SP_CLI["batch"]
         require(len(info["space2"]) == 2 and len(info["plain"]) == 1, f"phase 23 (b): {info}")
         for v in info["space2"]:
@@ -3223,7 +3340,7 @@ def phase_spatial(torch, gpu_label) -> dict:
                          / v.abs().max().clamp(min=1.0)).item()
                         for k, v in saved["plain"].items() if "running" in k)
         print(f"spatial (b) ({gpu_label}): cli.train_pse_cd --space_axis 2 --device cuda:0 "
-              f"(torchrun --nproc_per_node 2, one card, gloo) and a plain process, at once, "
+              f"(the ranks of (a), one card, gloo) and a plain run in this process, "
               f"SegCD-r50, {SP_CLI['n']} pairs of {SP_CLI['size']}x{SP_CLI['size']}, batch "
               f"{SP_CLI['batch']}, 1 epoch: {cli_s:.1f} s; first loss {first_loss['space2']} vs "
               f"{first_loss['plain']} (rel {loss_err:.2e}); after the Adam step the "
@@ -3246,12 +3363,14 @@ def phase_spatial(torch, gpu_label) -> dict:
 # phase 24: pipeline parallelism (stcd_tpu_torch/parallel/pipeline.py) on the card: four
 # ranks on cuda:0 under gloo run tools/check_pipeline.py's runs (bounds and launch counts
 # there) against this process's one-process runs, then cli.train_cd --pp_stages 4
-PP_CLI = dict(n=8, size=256, batch=4)  # 8 train and 4 val pairs; 2 steps, 1 val batch
+PP_CLI = dict(n=4, size=256, batch=4)  # 4 train and 2 val pairs; 1 step, 1 val batch
 PP_TIMEOUT = 300
 
 
-def phase24_rank(out_dir: str) -> int:
-    """One of the four ranks of phase 24 (a)-(c), on cuda:0 under gloo."""
+def phase24_rank(out_dir: str, cli: list) -> int:
+    """One of the four ranks of phase 24, on cuda:0 under gloo: (a)-(c) once the
+    reference is written, then (d), cli.train_cd.main(cli), in the same
+    processes."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stcd_tpu_torch.parallel import distributed
@@ -3262,22 +3381,24 @@ def phase24_rank(out_dir: str) -> int:
     device = distributed.initialize("cuda:0", backend="gloo")
     require(distributed.world_size() == 4 and device.index == 0,
             f"rank {distributed.rank()}: world {distributed.world_size()}, {device}")
+    wait_for(os.path.join(out_dir, "ref.pt"))
     ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
     print_tagged("PHASE24_RANK", check_pipeline.rank_checks(ref, device))
+    del ref
+    torch.cuda.empty_cache()
+    distributed.barrier("phase 24 (a)-(c) done")
+    phase24_cli(cli)
     distributed.barrier("phase 24 done")
     return 0
 
 
 def phase24_cli(argv) -> int:
-    """One rank of phase 24 (d): cli.train_cd.main(argv) and its attention launches."""
+    """Phase 24 (d) on this rank: cli.train_cd.main(argv) and its attention launches."""
     import torch
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stcd_tpu_torch.cli import train_cd
     from stcd_tpu_torch.ops import attention
     from stcd_tpu_torch.parallel import distributed
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kernel = reset_attention_counts(attention)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -3302,10 +3423,21 @@ def phase_pipeline(torch, gpu_label) -> dict:
     t_phase = time.monotonic()
     fwd, bwd = {}, {}
     with tempfile.TemporaryDirectory() as root:
-        ref = cp.reference()
-        torch.save(ref, os.path.join(root, "ref.pt"))
+        # (d)'s data first: the ranks run it after (a)-(c) in the same launch, which starts
+        # while this process computes the reference
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(PP_CLI["n"]), "--size", str(PP_CLI["size"])])
+        cli = ["--net_G", "ChangeFormerV6", "--embed_dim", "256",
+               "--pp_stages", "4", "--root_path", data, "--dataset_name", "LEVIR",
+               "--img_size", str(PP_CLI["size"]), "--batch_size", str(PP_CLI["batch"]),
+               "--max_epochs", "1", "--n_cpu", "1", "--device", "cuda:0",
+               "--checkpoint_dir", os.path.join(root, "cli")]
         t0 = time.monotonic()
-        out = launch(torchrun(4, "--phase24-rank", root), timeout=PP_TIMEOUT)
+        cmd = torchrun(4, "--phase24-rank", root, *cli)
+        proc = start(cmd)
+        ref = cp.reference()
+        save_for_ranks(torch, ref, os.path.join(root, "ref.pt"))
+        out = finish(proc, cmd, timeout=PP_TIMEOUT)
         ranks_s = time.monotonic() - t0
         ranks = sorted(tagged(out, "PHASE24_RANK"), key=lambda r: r["rank"])
         require([r["rank"] for r in ranks] == [0, 1, 2, 3]
@@ -3336,18 +3468,9 @@ def phase_pipeline(torch, gpu_label) -> dict:
         require(fwd["pp_v6"] == 2 * 13 * 4 and fwd["pp_bit"] == 2 * 2 * 8 * 2 * 2
                 and fwd["pp_vig"] == 0, f"phase 24 launches {fwd} {bwd}")
 
-        # (d) cli.train_cd --pp_stages 4 under torchrun, four ranks on card 0
-        data = os.path.join(root, "data")
-        make_demo_data.main([data, "--n", str(PP_CLI["n"]), "--size", str(PP_CLI["size"])])
-        cli = ["--phase24-cli", "--net_G", "ChangeFormerV6", "--embed_dim", "256",
-               "--pp_stages", "4", "--root_path", data, "--dataset_name", "LEVIR",
-               "--img_size", str(PP_CLI["size"]), "--batch_size", str(PP_CLI["batch"]),
-               "--max_epochs", "1", "--n_cpu", "1", "--device", "cuda:0",
-               "--checkpoint_dir", os.path.join(root, "cli")]
-        t0 = time.monotonic()
-        info = sorted(tagged(launch(torchrun(4, *cli), timeout=PP_TIMEOUT), "PHASE24_CLI"),
-                      key=lambda r: r["rank"])
-        cli_s = time.monotonic() - t0
+        # (d) cli.train_cd --pp_stages 4 in the same four ranks on card 0
+        info = sorted(tagged(out, "PHASE24_CLI"), key=lambda r: r["rank"])
+        cli_s = max(r["seconds"] for r in info)
         steps = PP_CLI["n"] // PP_CLI["batch"]
         evals = 2 * -(-max(PP_CLI["n"] // 2, 2) // PP_CLI["batch"])  # the epoch's and the final
         require(len(info) == 4, f"phase 24 (d): {info}")
@@ -3361,15 +3484,154 @@ def phase_pipeline(torch, gpu_label) -> dict:
         bwd["pp_cli_v6"] = sum(r["bwd"] for r in info)
         print(f"pipeline (d) ({gpu_label}): cli.train_cd --net_G ChangeFormerV6 --embed_dim "
               f"256 --pp_stages 4 --device cuda:0 (torchrun --nproc_per_node 4, one card, "
-              f"gloo), {PP_CLI['n']} pairs of {PP_CLI['size']}x{PP_CLI['size']}, batch "
-              f"{PP_CLI['batch']}, 1 epoch ({steps} steps): {cli_s:.1f} s; attention launches "
+              f"gloo, in the launch of (a)-(c)), {PP_CLI['n']} pairs of "
+              f"{PP_CLI['size']}x{PP_CLI['size']}, batch {PP_CLI['batch']}, 1 epoch ({steps} "
+              f"steps): {cli_s:.1f} s; attention launches "
               f"by rank (fwd, bwd) {[(r['fwd'], r['bwd']) for r in info]}; peak GiB by rank "
               f"{[round(r['peak_gib'], 3) for r in info]}; val mF1 "
               f"{[round(r['mf1'], 4) for r in info]}", flush=True)
         require(len({r["mf1"] for r in info}) == 1, f"phase 24 (d): the ranks' scores {info}")
-    print(f"pipeline: ranks {ranks_s:.1f} s, phase {time.monotonic() - t_phase:.1f} s",
-          flush=True)
+    print(f"pipeline: the ranks' launch {ranks_s:.1f} s (the reference computed while they "
+          f"start), phase {time.monotonic() - t_phase:.1f} s", flush=True)
     return {"fwd": fwd, "bwd": bwd}
+
+
+# phase 25: tensor parallelism (stcd_tpu_torch/parallel/tensor.py) on the card: two ranks
+# on cuda:0 under gloo, in one launch, run tools/check_tensor_parallel.py's runs at model
+# 2 (bounds and launch counts there) against this process's one-process runs, then
+# cli.train_cd --net_G base_transformer_pos_s4_dd8 --tp_axis 2 for one epoch
+TP_CLI = dict(n=8, size=256, batch=4)  # synthetic pairs: 2 steps, 1 val batch
+TP_TIMEOUT = 300
+
+
+def phase25_rank(out_dir: str) -> int:
+    """One of the two ranks of phase 25, on cuda:0 under gloo."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.cli import train_cd
+    from stcd_tpu_torch.ops import attention
+    from stcd_tpu_torch.parallel import distributed, tensor
+    from stcd_tpu_torch.tools import check_tensor_parallel as ctp
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize("cuda:0", backend="gloo")
+    require(distributed.world_size() == 2 and device.index == 0,
+            f"rank {distributed.rank()}: world {distributed.world_size()}, {device}")
+    wait_for(os.path.join(out_dir, "ref.pt"))
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+    t0 = time.monotonic()
+    report = ctp.rank_checks(ref, device)
+    del ref
+    report["checks_s"] = time.monotonic() - t0
+    # (c) cli.train_cd over BIT at --tp_axis 2
+    kernel = reset_attention_counts(attention)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = train_cd.main([
+        "--net_G", "base_transformer_pos_s4_dd8", "--tp_axis", "2", "--dataset_name",
+        "synthetic", "--synthetic_length", str(TP_CLI["n"]), "--img_size", str(TP_CLI["size"]),
+        "--batch_size", str(TP_CLI["batch"]), "--max_epochs", "1", "--n_cpu", "1",
+        "--device", "cuda:0", "--checkpoint_dir", os.path.join(out_dir, "cli")])
+    torch.cuda.synchronize()
+    heads = [m.heads_split for m in out["state"].model.modules()
+             if getattr(m, "heads_split", None) is not None]
+    state = out["state"]
+    report["cli"] = {
+        "seconds": time.monotonic() - t0, "step": state.step,
+        "bytes": tensor.state_bytes(state.model, state.optimizer),
+        "one_process_bytes": one_process_bytes(torch, state),
+        "split": tensor.is_split(out["state"].model), "heads": sorted(set(heads)),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "fwd": kernel.kernel_launches, "bwd": kernel.backward_launches,
+        "variants": sorted(set(kernel.forward_variants) | set(kernel.backward_variants)),
+        "mf1": out["scores"]["mf1"]}
+    print_tagged("PHASE25_RANK", report)
+    distributed.barrier("phase 25 done")
+    return 0
+
+
+def one_process_bytes(torch, state) -> int:
+    """The bytes of a split train state's parameters and optimizer state in
+    one process: each split tensor at its full size (``tp_split``)."""
+    n = 0
+    for p in state.model.parameters():
+        scale = p.tp_split.size // p.shape[p.tp_split.dim] if hasattr(p, "tp_split") else 1
+        n += p.numel() * p.element_size() * scale
+        for v in state.optimizer.state.get(p, {}).values():
+            if torch.is_tensor(v):
+                n += v.numel() * v.element_size() * (scale if v.shape == p.shape else 1)
+    return n
+
+
+def phase_tensor_parallel(torch, gpu_label) -> dict:
+    """Phase 25. Returns the kernels' launches by path: attention forward and
+    backward, and the augmentation's."""
+    from stcd_tpu_torch.tools import check_tensor_parallel as ctp
+
+    t_phase = time.monotonic()
+    kinds = list(ctp.GRIDS[2])
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        cmd = torchrun(2, "--phase25-rank", root)
+        proc = start(cmd)  # the ranks start while this process computes the reference
+        ref = ctp.reference(kinds, "cuda")
+        save_for_ranks(torch, ref, os.path.join(root, "ref.pt"))
+        out = finish(proc, cmd, timeout=TP_TIMEOUT)
+        ranks_s = time.monotonic() - t0
+    ranks = sorted(tagged(out, "PHASE25_RANK"), key=lambda r: r["rank"])
+    require([r["rank"] for r in ranks] == [0, 1] and all(r["backend"] == "gloo"
+                                                         for r in ranks),
+            f"phase 25: {out[-3000:]}")
+    what = {"segcd": "(a) SegCD-r50 stage-2 step (make_mesh / place_state / make_cd_steps, "
+                     "augmentation on), decoder 256..16",
+            "v6": "(b) CDTrainer(tp_axis=2) over ChangeFormerV6, embed 256"}
+    for kind in kinds:
+        rows, want = [r[kind] for r in ranks], ref[kind]
+        print(f"tensor parallel {what[kind]} ({gpu_label}): 256x256, global batch 8, fp32, "
+              f"model 2 x data 1, two ranks on one card under gloo (TP's cost, not its "
+              f"speed): errors against one process by rank "
+              f"{[{k: float(f'{v:.3g}') for k, v in x['errors'].items()} for x in rows]}; "
+              f"bytes of parameters and Adam moments by rank "
+              f"{[x['adam_bytes'] for x in rows]} against {want['adam_bytes']} "
+              f"({[round(x['bytes_ratio'], 4) for x in rows]}); peak GiB "
+              f"{[round(x['peak_gib'], 3) for x in rows]} against {want['peak_gib']:.3f}; "
+              f"step ms (first, warm) {[(round(x['first_ms'], 1), round(x['step_ms'], 1)) for x in rows]}"
+              f" against ({want['first_ms']:.1f}, {want['step_ms']:.1f}); launches by rank "
+              f"{[x['launches'] for x in rows]}", flush=True)
+        fails = [f"rank {i}: {f}" for i, x in enumerate(rows) for f in x["fails"]]
+        require(not fails, f"phase 25 {kind}: {fails}")
+    cli = [r["cli"] for r in ranks]
+    steps = TP_CLI["n"] // TP_CLI["batch"]
+    per_forward = 16  # BIT's 8 decoder blocks, decoding A and B
+    evals = 2 * -(-max(TP_CLI["n"] // 2, 2) // TP_CLI["batch"])  # the epoch's and the final
+    for i, c in enumerate(cli):
+        require(c["split"] and c["step"] == steps and c["fwd"] == per_forward * (steps + evals)
+                and c["bwd"] == per_forward * steps and c["variants"] == ["small_m"]
+                and c["heads"] == [[4 * i, 4]], f"phase 25 (c) rank {i}: {c}")
+    require(cli[0]["mf1"] == cli[1]["mf1"], f"phase 25 (c): the ranks' scores {cli}")
+    print(f"tensor parallel (c) ({gpu_label}): cli.train_cd --net_G base_transformer_pos_s4_dd8 "
+          f"--tp_axis 2 --device cuda:0 (two ranks, one card, gloo), {TP_CLI['n']} synthetic "
+          f"pairs of {TP_CLI['size']}x{TP_CLI['size']}, batch {TP_CLI['batch']}, 1 epoch: "
+          f"{[round(c['seconds'], 1) for c in cli]} s by rank; bytes of parameters and SGD "
+          f"momentum by rank {[c['bytes'] for c in cli]} against {cli[0]['one_process_bytes']} "
+          f"in one process ({[round(c['bytes'] / c['one_process_bytes'], 4) for c in cli]}); "
+          f"no one-process run to hold it against (its scores equal on both ranks); "
+          f"decoder heads (h0, h) by rank "
+          f"{[c['heads'] for c in cli]}; attention launches by rank (fwd, bwd) "
+          f"{[(c['fwd'], c['bwd']) for c in cli]} (small_m); peak GiB "
+          f"{[round(c['peak_gib'], 3) for c in cli]}; val mF1 {cli[0]['mf1']:.4f}", flush=True)
+    print(f"tensor parallel: the ranks' launch {ranks_s:.1f} s, the reference computed while "
+          f"they start (checks {[round(r['checks_s'], 1) for r in ranks]} s by rank), phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    v6 = [r["v6"]["launches"] for r in ranks]
+    drop = [r["v6"]["dropout_launches"] for r in ranks]
+    return {"fwd": {"tp_v6": sum(x["train"]["fwd"] + x["eval"]["fwd"] for x in v6)
+                    + sum(d["fwd"] for d in drop),
+                    "tp_cli_bit": sum(c["fwd"] for c in cli)},
+            "bwd": {"tp_v6": sum(x["train"]["bwd"] for x in v6) + sum(d["bwd"] for d in drop),
+                    "tp_cli_bit": sum(c["bwd"] for c in cli)},
+            "aug": {"tp_segcd": sum(r["segcd"]["launches"]["train"]["aug"] for r in ranks)}}
 
 
 def main() -> int:
@@ -3381,6 +3643,16 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     from stcd_tpu_torch.ops import _build, attention, augment
+
+    t_start = time.monotonic()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def timed(name: str):
+        t0 = time.monotonic()
+        yield
+        seconds[name] = round(time.monotonic() - t0, 1)
+        print(f"phase {name}: {seconds[name]} s", flush=True)
 
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
@@ -3395,48 +3667,57 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # phase 2: build
-    t0 = time.monotonic()
-    lib_path = _build.build()
-    _build.load_library()
-    print(f"build: {time.monotonic() - t0:.1f} s -> {lib_path}", flush=True)
+    with timed("2 build"):
+        lib_path = _build.build()
+        _build.load_library()
+    print(f"build: {seconds['2 build']} s -> {lib_path}", flush=True)
 
     # phase 3: kernels against their plain versions
-    attn = phase_kernels(torch, attention)
-    aug = phase_augment_kernel(torch)
-    attn_bwd = phase_attention_backward(torch, attention)
-    rows_fwd_err, rows_bwd_err = phase_attention_rows(torch, attention)
-    attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"], rows_fwd_err)
-    attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], rows_bwd_err)
-    bn = phase_bn_stats(torch)
-    mm = phase_matmul_stats(torch)
+    with timed("3 kernels"):
+        attn = phase_kernels(torch, attention)
+        aug = phase_augment_kernel(torch)
+        attn_bwd = phase_attention_backward(torch, attention)
+        rows_fwd_err, rows_bwd_err = phase_attention_rows(torch, attention)
+        attn["max_abs_err"] = max(attn["max_abs_err"], attn_bwd["fwd_max_abs_err"],
+                                  rows_fwd_err)
+        attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], rows_bwd_err)
+        bn = phase_bn_stats(torch)
+        mm = phase_matmul_stats(torch)
 
     # phase 4: serving
-    serving_launches = phase_serving(torch, np, attention, gpu_label)
+    with timed("4 serving"):
+        serving_launches = phase_serving(torch, np, attention, gpu_label)
 
     # phase 5: training, the stage-2 step
-    aug_by_path = {"stage2_step": phase_training(torch, augment.apply_augment_kernel,
-                                                 gpu_label)}
+    with timed("5 stage2 step"):
+        aug_by_path = {"stage2_step": phase_training(torch, augment.apply_augment_kernel,
+                                                     gpu_label)}
     aug["library_ms"] = None  # no single PyTorch call computes this function
 
     # phase 6: SegCD serving
-    phase_segcd_serving(torch, np)
+    with timed("6 segcd serving"):
+        phase_segcd_serving(torch, np)
 
     # phases 7 and 8: the trainer's step for ChangeFormerV6 and for BIT
-    v6_fwd, v6_bwd = phase_trainer(torch, attention, gpu_label, "ChangeFormerV6",
-                                   V6_TRAIN, fp32_batch=2)
-    v6_fp32 = phase_v6_fp32_step(torch, attention, gpu_label)["kernel"]
-    v6_fp32_fwd, v6_fp32_bwd = v6_fp32["forward_launches"], v6_fp32["backward_launches"]
-    bit_fwd, bit_bwd = phase_trainer(torch, attention, gpu_label,
-                                     "base_transformer_pos_s4_dd8", BIT_TRAIN, fp32_batch=8)
+    with timed("7-8 trainer steps"):
+        v6_fwd, v6_bwd = phase_trainer(torch, attention, gpu_label, "ChangeFormerV6",
+                                       V6_TRAIN, fp32_batch=2)
+        v6_fp32 = phase_v6_fp32_step(torch, attention, gpu_label)["kernel"]
+        v6_fp32_fwd, v6_fp32_bwd = v6_fp32["forward_launches"], v6_fp32["backward_launches"]
+        bit_fwd, bit_bwd = phase_trainer(torch, attention, gpu_label,
+                                         "base_transformer_pos_s4_dd8", BIT_TRAIN,
+                                         fp32_batch=8)
     # phases 9 to 11: the stage-1 and stage-3 steps and the epoch loop
-    for stage in (1, 3):
-        aug_by_path[f"stage{stage}_step"] = phase_training(
-            torch, augment.apply_augment_kernel, gpu_label, stage=stage)
-    aug_by_path["run_training"] = phase_loop(torch, augment.apply_augment_kernel)
+    with timed("9-11 stage steps and loop"):
+        for stage in (1, 3):
+            aug_by_path[f"stage{stage}_step"] = phase_training(
+                torch, augment.apply_augment_kernel, gpu_label, stage=stage)
+        aug_by_path["run_training"] = phase_loop(torch, augment.apply_augment_kernel)
 
     # phase 12: the three feasibility benchmarks, the matmul kernels' and bn_stats' entry
     # points
-    tool_launches, tool_routes = phase_tools(torch)
+    with timed("12 tools"):
+        tool_launches, tool_routes = phase_tools(torch)
     for name, took in tool_routes.items():
         mm[name]["launches_by_route"] = took
     for name, launches in tool_launches.items():
@@ -3445,34 +3726,53 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         # phase 13: the pipeline from the command line
-        aug_by_path["pipeline_cli"], float_metrics = phase_pipeline_cli(
-            torch, augment.apply_augment_kernel, gpu_label, root)
+        with timed("13 pipeline cli"):
+            aug_by_path["pipeline_cli"], float_metrics = phase_pipeline_cli(
+                torch, augment.apply_augment_kernel, gpu_label, root)
         # phase 14: cli.train_cd at full width
-        train_cd = phase_train_cd(torch, attention, augment.apply_augment_kernel, gpu_label,
-                                  root)
+        with timed("14 train_cd"):
+            train_cd = phase_train_cd(torch, attention, augment.apply_augment_kernel,
+                                      gpu_label, root)
         aug_by_path["train_cd"] = train_cd["v6"]["aug"] + train_cd["bit"]["aug"]
         # phase 15: ChangeFormer V1-V5 at their published widths
-        zoo = phase_changeformer_zoo(torch, attention, gpu_label)
+        with timed("15 changeformer zoo"):
+            zoo = phase_changeformer_zoo(torch, attention, gpu_label)
         # phase 16: int8 evaluation, prediction and serving
-        phase_int8(torch, np, root, float_metrics, gpu_label)
+        with timed("16 int8"):
+            phase_int8(torch, np, root, float_metrics, gpu_label)
         # phase 17: export
-        export_v6 = phase_export(torch, np, attention, root, gpu_label)
+        with timed("17 export"):
+            export_v6 = phase_export(torch, np, attention, root, gpu_label)
         # phase 18: the rest of the define_G zoo
-        aug_by_path.update(phase_zoo(torch, augment.apply_augment_kernel, gpu_label, root))
+        with timed("18 zoo"):
+            aug_by_path.update(phase_zoo(torch, augment.apply_augment_kernel, gpu_label,
+                                         root))
     # phase 19: the smp architectures of create_model
-    aug_by_path["smp_zoo"], smp_fwd, smp_bwd = phase_smp(
-        torch, attention, augment.apply_augment_kernel, gpu_label)
+    with timed("19 smp"):
+        aug_by_path["smp_zoo"], smp_fwd, smp_bwd = phase_smp(
+            torch, attention, augment.apply_augment_kernel, gpu_label)
     # phase 20: the encoder families of get_encoder
-    aug_by_path.update(phase_encoder_zoo(torch, augment.apply_augment_kernel, gpu_label))
+    with timed("20 encoders"):
+        aug_by_path.update(phase_encoder_zoo(torch, augment.apply_augment_kernel, gpu_label))
     # phase 21: smp's fit loop (launches none of the kernels)
-    phase_smp_fit(torch, lambda: kernel_counts(attention, augment), gpu_label)
+    with timed("21 smp fit"):
+        phase_smp_fit(torch, lambda: kernel_counts(attention, augment), gpu_label)
     # phase 22: data-parallel training, its ranks in processes of their own
-    aug_by_path.update(phase_data_parallel(torch, gpu_label))
+    with timed("22 data parallel"):
+        aug_by_path.update(phase_data_parallel(torch, gpu_label))
     # phase 23: spatial partitioning, its ranks in processes of their own
-    aug_by_path.update(phase_spatial(torch, gpu_label))
+    with timed("23 spatial"):
+        aug_by_path.update(phase_spatial(torch, gpu_label))
     # phase 24: pipeline parallelism, its ranks in processes of their own
-    pp_launches = phase_pipeline(torch, gpu_label)
+    with timed("24 pipeline"):
+        pp_launches = phase_pipeline(torch, gpu_label)
+    # phase 25: tensor parallelism, its ranks in processes of their own
+    with timed("25 tensor parallel"):
+        tp_launches = phase_tensor_parallel(torch, gpu_label)
+    aug_by_path.update(tp_launches["aug"])
     aug["launches"] = sum(aug_by_path.values())
+    print(f"phase seconds: {json.dumps(seconds)}; total {time.monotonic() - t_start:.1f} s",
+          flush=True)
 
     # every path's count was taken from 0 just before it and read just after
     fwd_by_path = {"v6_serving": serving_launches, "v6_training": v6_fwd,
@@ -3481,28 +3781,30 @@ def main() -> int:
                    **{f"{k.lower()}_eval_and_step": v["eval_fwd"] + v["train_fwd"]
                       for k, v in zoo.items()},
                    "export_v6_loaded": export_v6, "smp_fpn_mit_b2": smp_fwd,
-                   **pp_launches["fwd"]}
+                   **pp_launches["fwd"], **tp_launches["fwd"]}
     bwd_by_path = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
                    "bit_training": bit_bwd, "train_cd_v6": train_cd["v6"]["bwd"],
                    "train_cd_bit": train_cd["bit"]["bwd"],
                    **{f"{k.lower()}_step": v["train_bwd"] for k, v in zoo.items()},
-                   "smp_fpn_mit_b2": smp_bwd, **pp_launches["bwd"]}
+                   "smp_fpn_mit_b2": smp_bwd, **pp_launches["bwd"], **tp_launches["bwd"]}
     attn["launches"], attn["launches_by_path"] = sum(fwd_by_path.values()), fwd_by_path
     attn_bwd["launches"], attn_bwd["launches_by_path"] = sum(bwd_by_path.values()), bwd_by_path
     # the variant each path launched (each path's run required that it launched no other)
     f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded",
-                 "smp_fpn_mit_b2", "pp_v6", "pp_cli_v6")
+                 "smp_fpn_mit_b2", "pp_v6", "pp_cli_v6", "tp_v6")
     attn["variants"] = {
         "f32_cuda": sum(fwd_by_path[k] for k in f32_paths) + sum(
             v["eval_fwd"] + v["train_fwd"] for v in zoo.values()),
         V6_TRAIN["variant"]: v6_fwd,
-        BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"] + fwd_by_path["pp_bit"]}
+        BIT_TRAIN["variant"]: bit_fwd + train_cd["bit"]["fwd"] + fwd_by_path["pp_bit"]
+        + fwd_by_path["tp_cli_bit"]}
     attn_bwd["variants"] = {
         "f32_cuda": v6_fp32_bwd + train_cd["v6"]["bwd"] + smp_bwd + sum(
             v["train_bwd"] for v in zoo.values()) + bwd_by_path["pp_v6"]
-        + bwd_by_path["pp_cli_v6"],
+        + bwd_by_path["pp_cli_v6"] + bwd_by_path["tp_v6"],
         V6_TRAIN["variant"]: v6_bwd,
-        BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"] + bwd_by_path["pp_bit"]}
+        BIT_TRAIN["variant"]: bit_bwd + train_cd["bit"]["bwd"] + bwd_by_path["pp_bit"]
+        + bwd_by_path["tp_cli_bit"]}
     attn["ms_by_path"] = {"f32_serving_batch": attn["ms"], **attn_bwd.pop("fwd_ms_by_path")}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3554,9 +3856,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase22-rank"]:
         sys.exit(phase22_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--phase23-rank"]:
-        sys.exit(phase23_rank(sys.argv[2]))
+        sys.exit(phase23_rank(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--phase24-rank"]:
-        sys.exit(phase24_rank(sys.argv[2]))
-    if sys.argv[1:2] == ["--phase24-cli"]:
-        sys.exit(phase24_cli(sys.argv[2:]))
+        sys.exit(phase24_rank(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--phase25-rank"]:
+        sys.exit(phase25_rank(sys.argv[2]))
     sys.exit(main())

@@ -24,8 +24,12 @@ multiple of 32 S), the encoder must be a resnet or resnext (the surface with
 a halo rule for every op), and ``--remat`` is refused. Ranks that share one
 card (``--device cuda:0`` under torchrun) run gloo, since NCCL refuses two
 ranks on one device (``distributed.initialize``).
-``--model_axis`` other than 1 raises (tensor parallel is ROADMAP.md Queue 1
-#11c).
+Tensor parallel: ``--model_axis T`` makes the grid ``data`` x ``model`` (W =
+D x T); the T ranks of a model group load the same images and each holds a
+shard of the wide convs' kernels and of their Adam moments
+(``parallel/tensor.py``; for SegCD the rule that splits a kernel is JAX's
+wide-conv one, at least 2^20 elements). ``--space_axis`` beside it raises
+(ROADMAP.md Queue 1 #11d).
 
 The helpers below the JAX ones build what every stage CLI builds the same way:
 the seeded model and train state, the loaders, the augmentation generator,
@@ -111,7 +115,8 @@ def base_parser(dataset_default: str, save_default: str) -> argparse.ArgumentPar
                    help="spatial partitioning: the ranks that split each image's rows "
                         "into strips (it divides the launch's W; data axis W / S)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11c)")
+                   help="tensor-parallel size: the ranks that split each wide parameter "
+                        "(it divides the launch's W; data axis W / T)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
     return p
@@ -121,15 +126,16 @@ SPATIAL_ENCODERS = ("resnet", "resnext")  # the encoders of the spatial surface
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the port does not run: a model axis, a spatial
-    axis over another encoder family, or a card that is not there.
-    ``make_mesh`` checks the grid against the launch, the spatial steps
-    refuse ``--remat``."""
+    """Parse, and refuse what the port does not run: a spatial axis beside a
+    model axis, a spatial axis over another encoder family, or a card that
+    is not there. ``make_mesh`` checks the grid against the launch, the
+    spatial steps refuse ``--remat``."""
     args = parser.parse_args(argv)
-    if args.model_axis != 1:
+    if args.space_axis > 1 and args.model_axis > 1:
+        from stcd_tpu_torch.parallel.mesh import COMPOSED_SPACE_ITEM
         raise NotImplementedError(
-            f"--model_axis {args.model_axis}: tensor parallel is not ported "
-            "(ROADMAP.md Queue 1 #11c)")
+            f"--space_axis {args.space_axis} with --model_axis {args.model_axis}: spatial "
+            f"partitioning with tensor parallelism is not ported ({COMPOSED_SPACE_ITEM})")
     if args.space_axis > 1 and not args.encoder.startswith(SPATIAL_ENCODERS):
         raise ValueError(
             f"--space_axis {args.space_axis} with --encoder {args.encoder}: spatial "
@@ -142,9 +148,11 @@ def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace
 
 def make_mesh(args):
     """Join the process group of a torchrun launch (a no-op in a plain
-    process) and make the data x space grid over it. ``args.device`` becomes
+    process) and make the data x model or data x space grid over it.
+    ``args.device`` becomes
     this rank's device (``cuda:LOCAL_RANK``). Raises where ``--data_axis`` x
-    ``--space_axis`` is not the launch's size or the data axis does not divide
+    ``--model_axis`` x ``--space_axis`` is not the launch's size or the data
+    axis does not divide
     ``--batch_size``. Returns the ``parallel.mesh.Mesh``."""
     from stcd_tpu_torch.parallel.mesh import create_mesh
 
@@ -171,8 +179,9 @@ def pick_steps(mesh, make_steps, args):
 
 
 def place_state(mesh, state):
-    """Every rank's state made rank 0's; called after ``resume_and_guard``, so
-    that a restored state is placed too."""
+    """Every rank's state made rank 0's, and with a model axis split into
+    each rank's shards; called after ``resume_and_guard``, so that a restored
+    state is placed too."""
     from stcd_tpu_torch.parallel.mesh import place_train_state
     return place_train_state(mesh, state)
 

@@ -17,10 +17,12 @@ Usage:
   python -m stcd_tpu_torch.cli.train_cd --net_G IFNet --n_class 1 --loss bce  # a 1-channel head
 
 Under ``torchrun --nproc_per_node W`` the W ranks train one model on a
-``data`` x ``stage`` grid (``CDTrainer``): ``--pp_stages S`` pipelines the
+``data`` x ``model`` x ``stage`` grid (``CDTrainer``): ``--tp_axis T`` splits
+the attention, MLP and wide-conv parameters over T ranks
+(``parallel/tensor.py``), ``--pp_stages S`` pipelines the
 BIT ``_dd8`` decoder, the ChangeFormer V4-V6 MiT encoder (S = its stage
 count: 5 for V4, else 4) or the ChangeVIG-family encoder (S = 4) over S
-ranks with ``--pp_microbatches`` microbatches a step (0: S), and D = W / S
+ranks with ``--pp_microbatches`` microbatches a step (0: S), and D = W / (T S)
 data shards each load ``--batch_size / D`` rows of the global batch. One card
 a rank under NCCL; ``--device cuda:0`` puts every rank on one card under
 gloo; ``--device cpu`` runs gloo on the host:
@@ -28,8 +30,7 @@ gloo; ``--device cpu`` runs gloo on the host:
   torchrun --nproc_per_node 4 -m stcd_tpu_torch.cli.train_cd --net_G ChangeFormerV6 \\
       --pp_stages 4 --dataset_name synthetic --checkpoint_dir runs/V6pp
   torchrun --nproc_per_node 4 -m stcd_tpu_torch.cli.train_cd --pp_stages 2  # BIT, data 2
-
-``--tp_axis`` other than 1 raises (tensor parallelism, ROADMAP.md Queue 1 #11c).
+  torchrun --nproc_per_node 4 -m stcd_tpu_torch.cli.train_cd --tp_axis 2 --pp_stages 2
 """
 
 from __future__ import annotations
@@ -81,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches a step (0: --pp_stages)")
     p.add_argument("--tp_axis", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP.md Queue 1 #11c)")
+                   help="tensor-parallel size: ranks of the launch (torchrun) that split "
+                        "the attention, MLP and wide-conv parameters; 1: none")
     p.add_argument("--eval_only", action="store_true",
                    help="skip training; CDEvaluator on --eval_ckpt")
     p.add_argument("--eval_ckpt", default="best_ckpt", choices=("best_ckpt", "last_ckpt"))
@@ -113,15 +115,12 @@ def make_loaders(args, n_data: int = 1) -> dict:
 def main(argv=None) -> dict:
     from stcd_tpu_torch.train.trainer import CDEvaluator, CDTrainer, TrainerConfig
 
-    from stcd_tpu_torch.parallel.mesh import TP_ITEM, create_mesh
+    from stcd_tpu_torch.parallel.mesh import create_mesh
 
     args = build_parser().parse_args(argv)
-    if args.tp_axis != 1:
-        raise NotImplementedError(f"--tp_axis {args.tp_axis}: tensor parallelism is not "
-                                  f"ported ({TP_ITEM})")
     resolve_device(args.device)
     args.device = str(distributed.initialize(args.device))
-    mesh = create_mesh(stage=args.pp_stages)
+    mesh = create_mesh(model=args.tp_axis, stage=args.pp_stages)
     if args.batch_size % mesh.data:
         raise ValueError(f"--batch_size {args.batch_size} is the global batch: the "
                          f"{mesh.data} data shards must divide it")
@@ -136,7 +135,8 @@ def main(argv=None) -> dict:
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
         vis_dir=args.vis_dir or os.path.join(args.checkpoint_dir, "vis"),
         dtype=torch.bfloat16 if args.bf16 else None, augment=args.augment,
-        pp_stages=args.pp_stages, pp_microbatches=args.pp_microbatches, device=args.device)
+        pp_stages=args.pp_stages, pp_microbatches=args.pp_microbatches,
+        tp_axis=args.tp_axis, device=args.device)
     loaders = make_loaders(args, mesh.data)
 
     trainer = state = None

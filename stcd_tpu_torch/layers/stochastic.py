@@ -91,7 +91,11 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator],
 class Dropout(Stochastic):
     """Inverted dropout (flax ``nn.Dropout``): in training each element is
     kept with probability ``1 - p`` and scaled by ``1 / (1 - p)``; identity
-    in eval or at ``p == 0``."""
+    in eval or at ``p == 0``. ``columns`` = (full width, indices) marks ``x``
+    as a block of the last axis of a wider activation (a tensor-parallel
+    rank's hidden channels): the mask is drawn for the full width and the
+    block's columns kept, so the ranks of a model group together drop what
+    one process drops."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -99,11 +103,15 @@ class Dropout(Stochastic):
             raise ValueError(f"dropout probability must be in [0, 1), got {p}")
         self.p = p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, columns=None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        return x * self.bernoulli(x, x.shape, keep) / keep
+        if columns is None:
+            return x * self.bernoulli(x, x.shape, keep) / keep
+        width, index = columns
+        mask = self.bernoulli(x, (*x.shape[:-1], width), keep).index_select(-1, index)
+        return x * mask / keep
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

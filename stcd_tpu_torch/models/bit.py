@@ -57,7 +57,12 @@ class TwoLayerConv2d(nn.Sequential):
 
 
 class FeedForward(nn.Module):
-    """Linear -> exact GELU -> dropout -> Linear -> dropout, as ``net``."""
+    """Linear -> exact GELU -> dropout -> Linear -> dropout, as ``net``.
+    ``columns`` (None: the whole hidden width): a tensor-parallel rank's
+    hidden block (parallel/tensor.py), whose mask columns the hidden dropout
+    keeps."""
+
+    columns = None
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, device=None):
         super().__init__()
@@ -66,7 +71,8 @@ class FeedForward(nn.Module):
             nn.Linear(hidden_dim, dim, device=device), Dropout(dropout))
 
     def forward(self, x):
-        return self.net(x)
+        fc1, act, drop1, fc2, drop2 = self.net
+        return drop2(fc2(drop1(act(fc1(x)), self.columns)))
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -75,7 +81,11 @@ def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention over the tokens, scaled by dim ** -0.5."""
+    """Multi-head self-attention over the tokens, scaled by dim ** -0.5.
+    ``heads_split`` (None: all) is a tensor-parallel rank's first head and
+    head count (parallel/tensor.py)."""
+
+    heads_split = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
                  device=None):
@@ -88,7 +98,8 @@ class Attention(nn.Module):
 
     def forward(self, x):
         b, n, _ = x.shape
-        q, k, v = (_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=-1))
+        _, nh = self.heads_split or (0, self.heads)
+        q, k, v = (_heads(t, nh) for t in self.to_qkv(x).chunk(3, dim=-1))
         dots = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * self.scale
         attn = torch.softmax(dots, dim=-1).to(v.dtype)
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
@@ -98,7 +109,9 @@ class Attention(nn.Module):
 class CrossAttention(nn.Module):
     """Queries from the pixels x, keys and values from the tokens m. With
     ``softmax=True`` the product is ``cross_attention``; without, the raw
-    scaled scores weigh the values."""
+    scaled scores weigh the values. ``heads_split`` as in ``Attention``."""
+
+    heads_split = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
                  softmax: bool = True, device=None):
@@ -114,10 +127,11 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, m):
         b, n, _ = x.shape
-        q, k, v = (_heads(t, self.heads).contiguous()
+        h0, nh = self.heads_split or (0, self.heads)
+        q, k, v = (_heads(t, nh).contiguous()
                    for t in (self.to_q(x), self.to_k(m), self.to_v(m)))
         if self.softmax:
-            out = cross_attention(q, k, v, scale=self.scale)
+            out = cross_attention(q, k, v, scale=self.scale, dropout_heads=(h0, self.heads))
         else:
             dots = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * self.scale
             out = torch.einsum("bhij,bhjd->bhid", dots.to(v.dtype), v)

@@ -67,7 +67,13 @@ class DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """fc1 -> DWConv -> exact GELU -> fc2, with dropout (ref :260-295)."""
+    """fc1 -> DWConv -> exact GELU -> fc2, with dropout (ref :260-295).
+    ``columns`` (None: the whole hidden width) is set on a tensor-parallel
+    rank that holds a block of the hidden channels (parallel/tensor.py):
+    the full width and the rank's indices, whose mask columns the hidden
+    dropout keeps."""
+
+    columns = None
 
     def __init__(self, dim: int, hidden: int, drop: float = 0.0, device=None):
         super().__init__()
@@ -78,7 +84,7 @@ class MixFFN(nn.Module):
 
     def forward(self, x, h, w):
         x = F.gelu(self.dwconv(self.fc1(x), h, w))
-        return self.drop(self.fc2(self.drop(x)))
+        return self.drop(self.fc2(self.drop(x, self.columns)))
 
 
 class SRAttention(Stochastic):
@@ -87,7 +93,11 @@ class SRAttention(Stochastic):
     training with ``attn_drop > 0`` each call draws one uint32 seed for the
     attention kernel's hash mask from ``self.generator``, on the device, and
     hashes its batch rows where ``self.rows`` places them in the global batch
-    (a data shard's rows, a pipeline microbatch's)."""
+    (a data shard's rows, a pipeline microbatch's). ``heads_split`` (None:
+    all) is set on a tensor-parallel rank (parallel/tensor.py): its first
+    head and head count; it projects, attends and hashes those heads."""
+
+    heads_split = None
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = True, attn_drop: float = 0.0,
@@ -108,13 +118,14 @@ class SRAttention(Stochastic):
     def forward(self, x, h, w):
         b, n, c = x.shape
         hd = c // self.num_heads
-        q = self.q(x).reshape(b, n, self.num_heads, hd).transpose(1, 2)
+        h0, nh = self.heads_split or (0, self.num_heads)
+        q = self.q(x).reshape(b, n, nh, hd).transpose(1, 2)
         if self.sr_ratio > 1:
             kv_in = self.sr(x.transpose(1, 2).reshape(b, c, h, w))
             kv_in = self.norm(kv_in.flatten(2).transpose(1, 2))
         else:
             kv_in = x
-        kv = self.kv(kv_in).reshape(b, -1, 2, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        kv = self.kv(kv_in).reshape(b, -1, 2, nh, hd).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
         if self.training and self.attn_drop > 0.0:
             seed = draw_seed(self.generator, x.device)
@@ -124,8 +135,8 @@ class SRAttention(Stochastic):
         rows = (0, 1) if self.rows is None else (self.rows.off, self.rows.stride)
         out = cross_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               scale=self.scale, dropout_rate=rate, dropout_seed=seed,
-                              dropout_rows=rows)
-        out = out.transpose(1, 2).reshape(b, n, c)
+                              dropout_rows=rows, dropout_heads=(h0, self.num_heads))
+        out = out.transpose(1, 2).reshape(b, n, nh * hd)
         return self.proj_drop(self.proj(out))
 
 

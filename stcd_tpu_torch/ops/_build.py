@@ -98,10 +98,10 @@ def load_library() -> ctypes.CDLL:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     ll = ctypes.c_longlong
     lib.stcd_cross_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
-                                             i, u, p, u, f, i, i, i, i, p]
+                                             i, u, p, u, f, i, i, i, i, i, i, p]
     lib.stcd_cross_attention_fwd.restype = i
     lib.stcd_cross_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, i, i, i, i, f, i, u,
-                                                        p, u, f, i, i, i, i, p]
+                                                        p, u, f, i, i, i, i, i, i, p]
     lib.stcd_cross_attention_bwd.restype = i
     lib.stcd_bn_stats_fwd.argtypes = [p, p, p, ll, i, i, i, i, ll, i, ll, i, i, p]
     lib.stcd_bn_stats_fwd.restype = i

@@ -25,7 +25,10 @@ shard of a batch (a data-parallel rank's rows ``d::D``, a pipeline's
 microbatch of them) passes ``dropout_rows=(o, t)``: its row b is row
 ``o + t b`` of the global array that the JAX program draws the mask on, and
 the hash takes ``(o + t b) H + h`` where it took ``b H + h``; memory stays
-indexed by the local b. ``(0, 1)``, the default, is the array itself.
+indexed by the local b. ``(0, 1)``, the default, is the array itself. A call
+on a tensor-parallel rank's heads h0 .. h0 + h of H (parallel/tensor.py)
+passes ``dropout_heads=(h0, H)`` too, and the hash takes
+``(o + t b) H + h0 + h``; None, the default, is ``(0, h)``.
 
 The TPU's auto rule (Pallas only for N >= 1024 and M >= 64) and its padding
 of M and D to 128 are not carried over: on a CUDA tensor every call goes to
@@ -87,7 +90,8 @@ def dropout_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     return h >= _threshold(rate)
 
 
-def _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1)):
+def _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1),
+                dropout_heads=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("cross_attention takes (B, H, N, D) q and (B, H, M, D) k, v")
     b, h, _, d = q.shape
@@ -101,28 +105,41 @@ def _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1)):
     off, stride = dropout_rows
     if off < 0 or stride < 1:
         raise ValueError(f"dropout_rows (offset, stride) must be >= (0, 1), got {dropout_rows}")
+    h0, total = _heads_arg(dropout_heads, h)
+    if h0 < 0 or h0 + h > total:
+        raise ValueError(f"dropout_heads (h0, H) must hold the {h} heads: 0 <= h0 and "
+                         f"h0 + {h} <= H, got {dropout_heads}")
 
 
-def hash_heads(b: int, h: int, dropout_rows=(0, 1), device=None) -> torch.Tensor:
+def _heads_arg(dropout_heads, h: int) -> Tuple[int, int]:
+    """``(h0, H)``: where the call's h heads sit among the global array's H."""
+    return (0, h) if dropout_heads is None else (int(dropout_heads[0]), int(dropout_heads[1]))
+
+
+def hash_heads(b: int, h: int, dropout_rows=(0, 1), device=None,
+               dropout_heads=None) -> torch.Tensor:
     """(b, h) int64: the index of each local (batch, head) in the hash, the
-    flat b*H+h of the global array whose row ``o + t b`` local row b is."""
+    flat b*H+h of the global array whose row ``o + t b`` local row b is and
+    whose head ``h0 + h`` local head h is (``dropout_heads`` (h0, H))."""
     off, stride = dropout_rows
+    h0, total = _heads_arg(dropout_heads, h)
     rows = off + stride * torch.arange(b, device=device)
-    return rows[:, None] * h + torch.arange(h, device=device)[None, :]
+    return rows[:, None] * total + h0 + torch.arange(h, device=device)[None, :]
 
 
 def attention_plain(q, k, v, scale: float, dropout_rate: float = 0.0,
-                    dropout_seed=None, dropout_rows=(0, 1)) -> torch.Tensor:
+                    dropout_seed=None, dropout_rows=(0, 1),
+                    dropout_heads=None) -> torch.Tensor:
     """The plain version: f32 scores, softmax, the hash mask, f32 product;
     the output takes q's dtype. Materialises the (B, H, N, M) matrix."""
-    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
+    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows, dropout_heads)
     b, h, n, _ = q.shape
     m = k.shape[2]
     s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
         dev = q.device
-        bh = hash_heads(b, h, dropout_rows, dev).reshape(b, h, 1, 1)
+        bh = hash_heads(b, h, dropout_rows, dev, dropout_heads).reshape(b, h, 1, 1)
         rows = torch.arange(n, device=dev).reshape(1, 1, n, 1)
         cols = torch.arange(m, device=dev).reshape(1, 1, 1, m)
         keep = dropout_keep_mask(dropout_seed, bh, rows, cols, dropout_rate)
@@ -307,8 +324,9 @@ def backward_plan(variant: str, bh: int, n: int, m: int, d: int) -> dict:
             "keys_per_pass": keys_per_pass, "passes": -(-m // keys_per_pass)}
 
 
-def _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1)):
-    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
+def _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows=(0, 1),
+                       dropout_heads=None):
+    _check_args(q, k, v, dropout_rate, dropout_seed, dropout_rows, dropout_heads)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise RuntimeError("cross_attention_kernel needs CUDA tensors, got "
                            f"{q.device}, {k.device}, {v.device}")
@@ -347,11 +365,12 @@ def _dropout_args(dropout_rate, dropout_seed):
 
 
 def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool,
-                   dropout_rows=(0, 1)):
+                   dropout_rows=(0, 1), dropout_heads=None):
     """One launch of the forward kernel on checked arguments: ``(out, lse)``,
     where ``lse`` is the float32 (B, H, N) log-sum-exp of each row's scaled
     scores, which the backward kernel reads, or None when not asked for.
-    ``dropout_rows``: the (offset, stride) of the hash's batch rows."""
+    ``dropout_rows``: the (offset, stride) of the hash's batch rows;
+    ``dropout_heads``: the (h0, H) of its heads."""
     b, h, n, d = q.shape
     m = k.shape[2]
     variant = select_variant(q.dtype, m)
@@ -370,7 +389,8 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool,
         VARIANTS.index(variant), plan["rows_per_block"], plan["row_tiles"],
         plan["smem_bytes"],
         float(scale), use_dropout, seed, seed_ptr, threshold, keep_scale, h,
-        int(dropout_rows[0]), int(dropout_rows[1]), q.device.index,
+        int(dropout_rows[0]), int(dropout_rows[1]), *_heads_arg(dropout_heads, h),
+        q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_fwd ({variant})")
     cross_attention_kernel.kernel_launches += 1
@@ -379,7 +399,7 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool,
 
 
 def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed,
-                    dropout_rows=(0, 1)):
+                    dropout_rows=(0, 1), dropout_heads=None):
     """One launch of the backward kernel (and of the sum over its partials) on
     the forward's inputs, its output ``out`` and log-sum-exp ``lse``, and the
     contiguous incoming gradient ``g`` in q's dtype: ``(dq, dk, dv)``. The
@@ -404,12 +424,19 @@ def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed,
         dk_part.data_ptr(), dv_part.data_ptr(), plan["parts"], b * h, n, m, d,
         _DTYPE_CODE[q.dtype], VARIANTS.index(variant), plan["rows_per_split"],
         plan["smem_bytes"], float(scale), use_dropout, value, seed_ptr, threshold,
-        keep_scale, h, int(dropout_rows[0]), int(dropout_rows[1]), q.device.index,
+        keep_scale, h, int(dropout_rows[0]), int(dropout_rows[1]),
+        *_heads_arg(dropout_heads, h), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_bwd ({variant})")
     cross_attention_kernel.backward_launches += 1
     cross_attention_kernel.backward_variants[variant] += 1
     return dq, dk, dv
+
+
+def _heads_op(head0: int, head_total: int) -> Optional[Tuple[int, int]]:
+    """The custom ops' (head0, head_total) as ``dropout_heads``: -1 is the
+    default, the call's own heads."""
+    return None if head_total < 0 else (head0, head_total)
 
 
 def _seed_arg(dropout_seed):
@@ -428,17 +455,17 @@ def _seed_arg(dropout_seed):
 @torch.library.custom_op("stcd::cross_attention_fwd", mutates_args=(), device_types="cuda")
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             seed_tensor: Optional[torch.Tensor], scale: float, dropout_rate: float,
-            int_seed: int, want_lse: bool, row_off: int = 0,
-            row_stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+            int_seed: int, want_lse: bool, row_off: int = 0, row_stride: int = 1,
+            head0: int = 0, head_total: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     seed = seed_tensor if seed_tensor is not None else int_seed
     out, lse = launch_forward(q, k, v, scale, dropout_rate, seed, want_lse,
-                              (row_off, row_stride))
+                              (row_off, row_stride), _heads_op(head0, head_total))
     return out, lse if lse is not None else q.new_empty((0,), dtype=torch.float32)
 
 
 @_fwd_op.register_fake
 def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse, row_off=0,
-              row_stride=1):
+              row_stride=1, head0=0, head_total=-1):
     lse_shape = q.shape[:3] if want_lse else (0,)
     return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
 
@@ -447,15 +474,16 @@ def _fwd_fake(q, k, v, seed_tensor, scale, dropout_rate, int_seed, want_lse, row
 def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
             lse: torch.Tensor, g: torch.Tensor, seed_tensor: Optional[torch.Tensor],
             scale: float, dropout_rate: float, int_seed: int, row_off: int = 0,
-            row_stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            row_stride: int = 1, head0: int = 0,
+            head_total: int = -1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     seed = seed_tensor if seed_tensor is not None else int_seed
     return launch_backward(q, k, v, out, lse, g, scale, dropout_rate, seed,
-                           (row_off, row_stride))
+                           (row_off, row_stride), _heads_op(head0, head_total))
 
 
 @_bwd_op.register_fake
 def _bwd_fake(q, k, v, out, lse, g, seed_tensor, scale, dropout_rate, int_seed, row_off=0,
-              row_stride=1):
+              row_stride=1, head0=0, head_total=-1):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -463,10 +491,11 @@ def _fwd_setup(ctx, inputs, output):
     """The backward kernel's inputs: q, k, v, the output and the rows'
     log-sum-exp (the JAX side saves q, k, v and the seed and rebuilds the
     rest), so that it needs one pass over the keys."""
-    q, k, v, seed_tensor, scale, dropout_rate, int_seed, _, row_off, row_stride = inputs
+    (q, k, v, seed_tensor, scale, dropout_rate, int_seed, _, row_off, row_stride, head0,
+     head_total) = inputs
     ctx.save_for_backward(q, k, v, output[0], output[1], seed_tensor)
     ctx.scale, ctx.dropout_rate, ctx.int_seed = scale, dropout_rate, int_seed
-    ctx.rows = (row_off, row_stride)
+    ctx.rows = (row_off, row_stride, head0, head_total)
 
 
 def _fwd_backward(ctx, g, _g_lse):
@@ -475,14 +504,15 @@ def _fwd_backward(ctx, g, _g_lse):
     q, k, v, out, lse, seed_tensor = ctx.saved_tensors
     dq, dk, dv = _bwd_op(q, k, v, out, lse, g.to(q.dtype).contiguous(), seed_tensor,
                          ctx.scale, ctx.dropout_rate, ctx.int_seed, *ctx.rows)
-    return dq, dk, dv, None, None, None, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 _fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
-                           dropout_seed=None, dropout_rows=(0, 1)) -> torch.Tensor:
+                           dropout_seed=None, dropout_rows=(0, 1),
+                           dropout_heads=None) -> torch.Tensor:
     """Launch ``csrc/cross_attention.cu`` on q's device and current stream,
     through the custom op ``torch.ops.stcd.cross_attention_fwd``.
 
@@ -495,13 +525,15 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
     program exported with ``torch.export`` and run included;
     ``forward_variants`` and ``backward_variants`` count them by the variant
     that ``select_variant`` picked. ``dropout_rows`` (offset, stride) places
-    the batch rows in the global array for the dropout hash."""
-    _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows)
+    the batch rows and ``dropout_heads`` (h0, H) the heads in the global
+    array for the dropout hash."""
+    _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows, dropout_heads)
     want_lse = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad)
     seed_tensor, int_seed = _seed_arg(dropout_seed if dropout_rate > 0.0 else None)
     return _fwd_op(q, k, v, seed_tensor, float(scale), float(dropout_rate), int_seed,
-                   want_lse, int(dropout_rows[0]), int(dropout_rows[1]))[0]
+                   want_lse, int(dropout_rows[0]), int(dropout_rows[1]),
+                   *_heads_arg(dropout_heads, q.shape[1]))[0]
 
 
 cross_attention_kernel.kernel_launches = 0
@@ -513,10 +545,12 @@ cross_attention_kernel.backward_variants = collections.Counter()
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
                     dropout_seed=None, impl: Optional[str] = None,
-                    dropout_rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                    dropout_rows: Tuple[int, int] = (0, 1),
+                    dropout_heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, H, N, D) q and (B, H, M, D) k, v.
     ``dropout_rows`` = (o, t): this batch's row b is row o + t b of the global
-    array whose dropout mask the hash draws (module docstring).
+    array whose dropout mask the hash draws; ``dropout_heads`` = (h0, H): its
+    head h is head h0 + h of that array's H (module docstring).
 
     ``impl=None`` picks by device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. ``impl="plain"`` or ``"kernel"`` forces
@@ -527,7 +561,9 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl is None:
         impl = "kernel" if q.is_cuda else "plain"
     if impl == "kernel":
-        return cross_attention_kernel(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows)
+        return cross_attention_kernel(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows,
+                                      dropout_heads)
     if impl == "plain":
-        return attention_plain(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows)
+        return attention_plain(q, k, v, scale, dropout_rate, dropout_seed, dropout_rows,
+                               dropout_heads)
     raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")

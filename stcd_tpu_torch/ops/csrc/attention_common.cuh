@@ -48,22 +48,24 @@ __device__ __forceinline__ bool keep_element(uint32_t seed, uint32_t bh, uint32_
   return keep_from_sum(seed + bh * kHashBh + row * kHashRow + col * kHashCol, bh, threshold);
 }
 
-// The batch rows of the hash. A launch over one shard of a batch (a data-parallel
-// rank's rows, a pipeline's microbatch) hashes its head bh = b * heads + h as
-// (off + stride * b) * heads + h, the index that head has in the global array's
-// mask; memory is indexed by bh as before. {1, 0, 1} hashes bh itself, and so does
-// any heads with {0, 1}.
+// The batch rows and heads of the hash. A launch over one shard of a batch (a
+// data-parallel rank's rows, a pipeline's microbatch) and of its heads (a
+// tensor-parallel rank's heads h0 .. h0 + heads of head_total) hashes its head
+// bh = b * heads + h as (off + stride * b) * head_total + h0 + h, the index that
+// head has in the global array's mask; memory is indexed by bh as before.
+// {1, 0, 1, 0, 1} hashes bh itself, and so does any heads with {0, 1, 0, heads}.
 struct HashRows {
-  int heads, off, stride;
+  int heads, off, stride, h0, head_total;
 };
 
 __device__ __forceinline__ uint32_t hash_bh(int bh, HashRows r) {
-  return (uint32_t)(r.off + r.stride * (bh / r.heads)) * (uint32_t)r.heads +
-         (uint32_t)(bh % r.heads);
+  return (uint32_t)(r.off + r.stride * (bh / r.heads)) * (uint32_t)r.head_total +
+         (uint32_t)(r.h0 + bh % r.heads);
 }
 
-inline bool hash_rows_valid(int bh, int heads, int off, int stride) {
-  return heads >= 1 && bh % heads == 0 && off >= 0 && stride >= 1;
+inline bool hash_rows_valid(int bh, int heads, int off, int stride, int h0, int head_total) {
+  return heads >= 1 && bh % heads == 0 && off >= 0 && stride >= 1 && h0 >= 0 &&
+         h0 + heads <= head_total;
 }
 
 // The seed is a host value, or the low 32 bits of an int64 that lies on the

@@ -738,8 +738,9 @@ cudaError_t launch_small_m(const void* q, const void* k, const void* v, void* o,
 // 2; 1 for the others); smem_bytes: the block's dynamic shared memory; all as
 // the wrapper sized them, and the call is refused when they are not the kernel's own.
 // seed_ptr: a device int64 whose low 32 bits are the dropout seed, or null to
-// take `seed`. heads, batch_off, batch_stride: the rows of the dropout hash
-// (HashRows; 1, 0, 1 hash each head's own index). Returns a cudaError_t.
+// take `seed`. heads, batch_off, batch_stride, head0, head_total: the rows and heads
+// of the dropout hash (HashRows; 1, 0, 1, 0, 1 hash each head's own index). Returns
+// a cudaError_t.
 extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void* v,
                                         void* o, float* lse, int bh, int n, int m, int d,
                                         int dtype, int variant, int rows_per_block,
@@ -748,16 +749,17 @@ extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void
                                         unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
                                         int heads, int batch_off, int batch_stride,
-                                        int device, void* stream) {
+                                        int head0, int head_total, int device,
+                                        void* stream) {
   if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
-      !hash_rows_valid(bh, heads, batch_off, batch_stride)) {
+      !hash_rows_valid(bh, heads, batch_off, batch_stride, head0, head_total)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_FWD_ARGS q, k, v, o, lse, bh, n, m, d
-  const HashRows hrows{heads, batch_off, batch_stride};
+  const HashRows hrows{heads, batch_off, batch_stride, head0, head_total};
 #define STCD_FWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, hrows, s
   if (variant == kVariantF32) {
     if (dtype != 0 || row_tiles != 1) return (int)cudaErrorInvalidValue;

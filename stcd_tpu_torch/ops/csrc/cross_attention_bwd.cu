@@ -1024,8 +1024,9 @@ cudaError_t dispatch_small_m(int dtype, const void* q, const void* k, const void
 // the partials a head leaves in the scratch; smem_bytes: the block's dynamic
 // shared memory; all three as the wrapper sized them, and the call is refused
 // when they are not the kernel's own. seed_ptr: a device int64 whose low 32 bits
-// are the dropout seed, or null to take `seed`. heads, batch_off, batch_stride: the
-// rows of the dropout hash, as the forward took them. Returns a cudaError_t.
+// are the dropout seed, or null to take `seed`. heads, batch_off, batch_stride, head0,
+// head_total: the rows and heads of the dropout hash, as the forward took them.
+// Returns a cudaError_t.
 extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* g, const float* lse,
                                         void* dq, void* dk, void* dv, float* dk_part,
@@ -1035,16 +1036,17 @@ extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void
                                         unsigned int seed, const long long* seed_ptr,
                                         unsigned int threshold, float keep_scale,
                                         int heads, int batch_off, int batch_stride,
-                                        int device, void* stream) {
+                                        int head0, int head_total, int device,
+                                        void* stream) {
   if (bh < 1 || n < 1 || m < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 1 ||
-      !hash_rows_valid(bh, heads, batch_off, batch_stride)) {
+      !hash_rows_valid(bh, heads, batch_off, batch_stride, head0, head_total)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_BWD_ARGS q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part
-  const HashRows hrows{heads, batch_off, batch_stride};
+  const HashRows hrows{heads, batch_off, batch_stride, head0, head_total};
 #define STCD_BWD_TAIL scale, use_dropout, seed, seed_ptr, threshold, keep_scale, hrows, s
   if (variant == kVariantF32) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;

@@ -7,5 +7,7 @@ One process a card (torchrun, NCCL between cards, gloo on the CPU).
 ``d::D`` of the global batch, and the ranks of a space group each hold a
 strip of its images' rows; ``spatial`` the halo exchange and the spatial
 steps; ``pipeline`` the GPipe schedule of the ``stage`` axis, whose S ranks
-hold the same rows and run one stage each. Tensor parallelism (the JAX
-mesh's ``model`` axis) is not ported (ROADMAP.md Queue 1 #11c)."""
+hold the same rows and run one stage each; ``tensor`` the splits of the
+``model`` axis, whose T ranks hold the same rows and each a shard of the
+wide parameters. A space axis beside a model or stage axis is ROADMAP.md
+Queue 1 #11d."""

@@ -37,6 +37,17 @@ counts) sums over the data group, the D ranks of one stage index
 (``data_group``); the stage group's own traffic is point to point
 (``send`` / ``recv``) and ``broadcast_in``.
 
+Tensor parallelism (``parallel/tensor.py``) adds a ``model`` axis between
+the two (rank r is data shard ``r // (T S)``, model index ``(r // S) % T``
+and stage ``r % S``, with S the stage axis). The T ranks of a model group
+hold the same rows and each a shard of the split parameters; their layers
+meet through Megatron's two functions, ``copy_in`` (forward identity,
+backward all-reduce over the model group) and ``reduce_out`` (forward
+all-reduce, backward identity), and ``gather_channels``. What is summed
+over rows sums over the data group (the D ranks of one model index and
+stage), and a split parameter's gradient is averaged over the ranks that
+hold its shard (``average_gradients``).
+
 Every collective here is a no-op in one process (``data_parallel()`` false),
 so one process runs the arithmetic it runs without this module. Nothing
 creates a process group at import.
@@ -108,20 +119,24 @@ def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
 
 
-# the grid that mesh.create_mesh sets: the space and stage axes' sizes, this rank's
-# space and stage groups (None with an axis of 1) and its data group (None: every
-# rank holds rows of its own or strips of them)
+# the grid that mesh.create_mesh sets: the space, model and stage axes' sizes, this
+# rank's space, model and stage groups (None with an axis of 1), its data group (None:
+# every rank holds rows of its own or strips of them) and its shard group (the ranks
+# of its model index)
 _GRID = {"space": 1, "space_group": None, "stage": 1, "stage_group": None,
-         "data_group": None}
+         "data_group": None, "model": 1, "model_group": None, "shard_group": None}
 
 
 def set_grid(space: int, space_group=None, stage: int = 1, stage_group=None,
-             data_group=None) -> None:
+             data_group=None, model: int = 1, model_group=None,
+             shard_group=None) -> None:
     """Record the grid that ``mesh.create_mesh`` checked: a space axis of
-    ``space`` ranks and this rank's space group, a stage axis of ``stage``
-    ranks and this rank's stage and data groups."""
+    ``space`` ranks and this rank's space group, a model axis of ``model``
+    ranks and this rank's model and shard groups, a stage axis of ``stage``
+    ranks and this rank's stage group, and its data group."""
     _GRID.update(space=space, space_group=space_group, stage=stage,
-                 stage_group=stage_group, data_group=data_group)
+                 stage_group=stage_group, data_group=data_group, model=model,
+                 model_group=model_group, shard_group=shard_group)
 
 
 def space_size() -> int:
@@ -160,21 +175,49 @@ def stage_ranks() -> list:
     return list(range(first, first + stage_size()))
 
 
+def model_size() -> int:
+    """The ranks of a model group: the shards of a split parameter."""
+    return _GRID["model"] if is_initialized() else 1
+
+
+def model_rank() -> int:
+    """Which shard of each split parameter this rank holds."""
+    return (rank() // stage_size()) % model_size()
+
+
+def model_group():
+    """This rank's model group (the T ranks of its data shard and stage), or
+    None."""
+    return _GRID["model_group"] if model_size() > 1 else None
+
+
+def shard_group():
+    """The ranks that hold this rank's shard of a split parameter (its model
+    index: D x S ranks), or None without a model axis."""
+    return _GRID["shard_group"] if model_size() > 1 else None
+
+
 def data_group():
     """The ranks whose rows together are the global batch once each: with a
-    stage axis the D ranks of this rank's stage index, else None (every rank,
-    which a space axis splits into strips of the rows)."""
-    return _GRID["data_group"] if stage_size() > 1 else None
+    model or stage axis the D ranks of this rank's model and stage index,
+    else None (every rank, which a space axis splits into strips of the
+    rows)."""
+    return _GRID["data_group"] if stage_size() * model_size() > 1 else None
+
+
+def data_group_size() -> int:
+    """The ranks of ``data_group()``: D, or every rank under a space axis."""
+    return world_size() // (stage_size() * model_size())
 
 
 def data_size() -> int:
     """The data axis: the shards the global batch is split into."""
-    return world_size() // (space_size() * stage_size())
+    return world_size() // (space_size() * model_size() * stage_size())
 
 
 def data_rank() -> int:
     """Which shard of the global batch this rank holds."""
-    return rank() // (space_size() * stage_size())
+    return rank() // (space_size() * model_size() * stage_size())
 
 
 def is_primary() -> bool:
@@ -252,34 +295,133 @@ def all_reduce_(x: torch.Tensor, op=None, group=None) -> torch.Tensor:
     return x
 
 
-def average_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
-    """Replace every gradient by its mean over the ranks: one all-reduce a
-    (device, dtype) group of one flat buffer. Every rank holds gradients for
-    the same parameters, as the same model on every rank does."""
+def average_gradients(parameters: Iterable[torch.nn.Parameter], staged=()) -> None:
+    """Replace every gradient by its mean over the data shards: one
+    all-reduce a (device, dtype, split) group of one flat buffer. A
+    parameter that ``parallel/tensor.py`` split (``tp_split``) sums over its
+    shard group (the ranks that hold its shard), any other over every rank.
+    Each sum is divided by the copies of the gradient in it: the data
+    group's ranks (D; every rank under a space axis, whose strips'
+    gradients are partial sums), times S unless the parameter is in
+    ``staged`` (a pipeline stage's parameters have their gradient on the
+    stage's ranks only, zeros elsewhere), times T unless it is split. Every
+    rank holds gradients for the same parameters, as the same model on every
+    rank does."""
     if not data_parallel():
         return
+    staged = {id(p) for p in staged}
     groups: Dict[tuple, list] = {}
     for p in parameters:
         if p.grad is not None:
-            groups.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
-    n = world_size()
-    for grads in groups.values():
+            split = hasattr(p, "tp_split")
+            copies = data_group_size() * (1 if id(p) in staged else stage_size()) * (
+                1 if split else model_size())
+            groups.setdefault((p.grad.device, p.grad.dtype, split), []).append(
+                (p.grad, copies))
+    for (_, _, split), members in groups.items():
+        grads = [g for g, _ in members]
         flat = torch._utils._flatten_dense_tensors(grads)
-        dist.all_reduce(flat)
-        flat.div_(n)
-        for g, synced in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
-            g.copy_(synced)
+        dist.all_reduce(flat, group=shard_group() if split else None)
+        for (g, copies), synced in zip(members,
+                                       torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(synced).div_(copies)
 
 
-def broadcast_(x: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """In place: rank ``src``'s ``x`` on every rank. A host tensor under NCCL
-    and a tensor in another memory layout go through a copy."""
+def _model_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=model_group())
+    return out
+
+
+def _fake(x: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over the model group
+    backward (a replicated input of column-parallel layers)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _model_all_reduce(grad)
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: the sum over the model group forward (a row-parallel
+    layer's partial products), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return _model_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The model group's blocks of ``dim``, rank order, as one tensor; the
+    backward keeps this rank's block. Each rank writes its block into zeros
+    and the group sums them (exact: every other term is 0), which gloo and
+    NCCL both run on host and card tensors."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= model_size()
+        full = x.new_zeros(shape)
+        full.narrow(dim, model_rank() * ctx.size, ctx.size).copy_(x)
+        dist.all_reduce(full, group=model_group())
+        return full
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(ctx.dim, model_rank() * ctx.size, ctx.size), None
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f over the model group (``x`` itself without a model axis
+    and in a shape pass over fake tensors)."""
+    if model_size() == 1 or _fake(x):
+        return x
+    return _CopyIn.apply(x)
+
+
+def reduce_out(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g over the model group (``x`` itself without a model axis
+    and in a shape pass over fake tensors)."""
+    if model_size() == 1 or _fake(x):
+        return x
+    return _ReduceOut.apply(x)
+
+
+def gather_channels(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The model group's equal blocks of ``dim`` in rank order, differentiably
+    (the backward keeps this rank's block). In a shape pass over fake
+    tensors: T copies of ``x``."""
+    if model_size() == 1:
+        return x
+    if _fake(x):
+        return torch.cat([x] * model_size(), dim)
+    return _GatherChannels.apply(x, dim)
+
+
+def broadcast_(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """In place: global rank ``src``'s ``x`` on every rank (of ``group``,
+    default all). A host tensor under NCCL and a tensor in another memory
+    layout go through a copy."""
     if not data_parallel():
         return x
     staged = x
     if not x.is_contiguous() or (dist.get_backend() == "nccl" and not x.is_cuda):
         staged = x.to(_comm_device() if not x.is_cuda else x.device).contiguous()
-    dist.broadcast(staged, src)
+    dist.broadcast(staged, src, group=group)
     if staged is not x:
         x.copy_(staged)
     return x

@@ -1,19 +1,21 @@
-"""The ``data``, ``space`` and ``stage`` axes of the JAX mesh over processes
-(counterpart of stcd_tpu/parallel/mesh.py, those three axes).
+"""The ``data``, ``model``, ``space`` and ``stage`` axes of the JAX mesh over
+processes (counterpart of stcd_tpu/parallel/mesh.py).
 
-In the JAX package a mesh's ``data`` axis shards the batch, its ``space``
-axis the rows of each image and its ``stage`` axis a pipeline's stages, and
-XLA replicates the parameters. Here the axes are a grid over the process
-group, ``data`` x ``space`` or ``data`` x ``stage`` with the second the inner
-axis, as in JAX (stcd_tpu/parallel/mesh.py:29-48, order data, model, space,
-stage): rank r is data shard ``r // S`` and strip or stage ``r % S``. A data
-shard holds rows ``d::D`` of the batch (``batch_sharding``); the S ranks of
-a space group hold the same images, each a strip of their rows
+In the JAX package a mesh's ``data`` axis shards the batch, its ``model``
+axis the wide parameters (``param_sharding``), its ``space`` axis the rows
+of each image and its ``stage`` axis a pipeline's stages. Here the axes are a
+grid over the process group in JAX's order (stcd_tpu/parallel/mesh.py:29-48:
+data, model, space, stage; the last the innermost): rank r is data shard
+``r // (T S)``, model index ``(r // S) % T`` and strip or stage ``r % S``. A
+data shard holds rows ``d::D`` of the batch (``batch_sharding``); the T ranks
+of a model group hold the same rows and each a shard of the split parameters
+and of their optimizer state (``parallel/tensor.py``); the S ranks of a space
+group hold the same images, each a strip of their rows
 (``parallel/spatial.py``); the S ranks of a stage group hold the same rows
-and each runs one stage of the pipeline (``parallel/pipeline.py``). Every
-rank holds a full copy of the train state, which ``place_train_state``
-makes equal to rank 0's. The ``model`` axis (tensor parallelism) and a
-space axis beside a stage axis are ROADMAP.md Queue 1 #11c.
+and each runs one stage of the pipeline (``parallel/pipeline.py``).
+``place_train_state`` makes every rank's state rank 0's and then keeps each
+rank's shards. A space axis beside a model or stage axis is ROADMAP.md Queue
+1 #11d.
 """
 
 from __future__ import annotations
@@ -24,88 +26,122 @@ import torch
 
 from stcd_tpu_torch.parallel import distributed
 
-TP_ITEM = "ROADMAP.md Queue 1 #11c"  # tensor parallelism, and space x stage
+COMPOSED_SPACE_ITEM = "ROADMAP.md Queue 1 #11d"  # space x {model, stage}
 
 
 class Mesh(NamedTuple):
-    """``data`` x ``space`` x ``stage`` ranks (space or stage 1), this process
-    being rank ``rank``."""
+    """``data`` x ``model`` x ``space`` x ``stage`` ranks (space 1 beside a
+    model or stage axis), this process being rank ``rank``."""
 
     data: int
     rank: int
     space: int = 1
     stage: int = 1
+    model: int = 1
+
+
+def _axes_text(model: int, space: int, stage: int) -> str:
+    axes = [f"'{name}' axis of {size}" for name, size in
+            (("model", model), ("space", space), ("stage", stage)) if size > 1]
+    return " x a ".join(axes) or "'space' axis of 1"
 
 
 def create_mesh(data: Optional[int] = None, model: int = 1, space: int = 1,
                 stage: int = 1) -> Mesh:
-    """The data x space or data x stage grid over the process group: ``data``
-    None means the world over the inner axis. A grid of another size than the
-    group raises, and so do a ``model`` axis other than 1 and a space axis
-    beside a stage axis. Every rank creates the groups of the inner axis (and
-    with a stage axis the S data groups, the ranks of one stage index) with
-    ``dist.new_group``, in one order on every rank, and keeps its own. Sums
-    over rows (BatchNorm's, the losses', the counts') run over the data group
-    under a stage axis and over every rank otherwise (``distributed``)."""
-    if model != 1:
+    """The data x model x space x stage grid over the process group: ``data``
+    None means the world over the other axes. A grid of another size than the
+    group raises, and so does a space axis beside a model or stage axis.
+    Every rank creates every group of the grid with ``dist.new_group``, in
+    one order on every rank, and keeps its own: the space groups, the model
+    groups (the T ranks of a data shard and stage), the stage groups, the
+    data groups (the D ranks of one model and stage index) and the shard
+    groups (the D x S ranks of one model index). Sums over rows (BatchNorm's,
+    the losses', the counts') run over the data group under a model or stage
+    axis and over every rank otherwise (``distributed``)."""
+    if space > 1 and (model > 1 or stage > 1):
         raise NotImplementedError(
-            f"a 'model' axis of {model}: tensor parallelism is not ported ({TP_ITEM})")
-    if space > 1 and stage > 1:
-        raise NotImplementedError(
-            f"a 'space' axis of {space} beside a 'stage' axis of {stage}: spatial "
-            f"partitioning inside a pipeline is not ported ({TP_ITEM})")
-    inner = space * stage
-    name = "space" if space > 1 or stage == 1 else "stage"
+            f"a 'space' axis of {space} beside a 'model' axis of {model} and a 'stage' axis "
+            f"of {stage}: spatial partitioning with tensor or pipeline parallelism is not "
+            f"ported ({COMPOSED_SPACE_ITEM})")
+    inner = model * space * stage
     world = distributed.world_size()
+    axes = _axes_text(model, space, stage)
     if inner < 1 or world % inner:
         raise ValueError(
-            f"a '{name}' axis of {inner} in a run of {world} process(es): launch a multiple "
-            f"of it, torchrun --nproc_per_node {inner * (data or 1)} -m <module> ...")
+            f"a {axes} in a run of {world} process(es): launch a multiple of {inner}, "
+            f"torchrun --nproc_per_node {inner * (data or 1)} -m <module> ...")
     if data is None:
         data = world // inner
     if data * inner != world:
         raise ValueError(
-            f"a 'data' axis of {data} x a '{name}' axis of {inner} in a run of {world} "
-            f"process(es): launch one process a device, torchrun --nproc_per_node "
-            f"{data * inner} -m <module> ... (or leave the data axis to the launch)")
+            f"a 'data' axis of {data} x a {axes} in a run of {world} process(es): launch "
+            f"one process a device, torchrun --nproc_per_node {data * inner} -m <module> "
+            "... (or leave the data axis to the launch)")
     groups = {}
     if inner > 1:
         import torch.distributed as dist
 
         me = distributed.rank()
-        for d in range(data):
-            group = dist.new_group(list(range(d * inner, (d + 1) * inner)))
-            if me // inner == d:
-                groups["inner"] = group
-        if stage > 1:
-            for s in range(stage):
-                group = dist.new_group(list(range(s, world, stage)))
-                if me % stage == s:
-                    groups["data"] = group
-    if stage > 1:
-        distributed.set_grid(1, None, stage, groups["inner"], groups["data"])
-    else:
-        distributed.set_grid(space, groups.get("inner"))
-    return Mesh(data=data, rank=distributed.rank(), space=space, stage=stage)
+
+        def keep(name, ranks):
+            group = dist.new_group(ranks)
+            if me in ranks:
+                groups[name] = group
+
+        if space > 1:
+            for d in range(data):
+                keep("space", list(range(d * inner, (d + 1) * inner)))
+        else:
+            for d in range(data):
+                for s in range(stage if model > 1 else 0):
+                    keep("model", [d * inner + m * stage + s for m in range(model)])
+                for m in range(model if stage > 1 else 0):
+                    keep("stage", [d * inner + m * stage + s for s in range(stage)])
+            for m in range(model):
+                for s in range(stage):
+                    keep("data", [d * inner + m * stage + s for d in range(data)])
+            for m in range(model if model > 1 else 0):
+                keep("shard", [d * inner + m * stage + s for d in range(data)
+                               for s in range(stage)])
+    distributed.set_grid(space, groups.get("space"), stage, groups.get("stage"),
+                         groups.get("data"), model, groups.get("model"), groups.get("shard"))
+    return Mesh(data=data, rank=distributed.rank(), space=space, stage=stage, model=model)
 
 
 def batch_sharding(mesh: Mesh) -> slice:
     """The rows of a global batch that this rank's data shard holds."""
-    return distributed.global_batch_sharding(mesh.data,
-                                             mesh.rank // (mesh.space * mesh.stage))
+    return distributed.global_batch_sharding(
+        mesh.data, mesh.rank // (mesh.model * mesh.space * mesh.stage))
 
 
 def place_train_state(mesh: Mesh, state):
     """Make every rank's train state rank 0's: its parameters, its buffers
-    (BatchNorm's running statistics) and its optimizer state, broadcast.
+    (BatchNorm's running statistics) and its optimizer state, broadcast;
+    then, with a model axis, split the model by ``parallel/tensor.py``'s plan
+    (JAX's ``param_sharding`` rules) so that each rank keeps its shard of
+    each split parameter and of its optimizer moments (JAX shards Adam's
+    moments with the parameters, stcd_tpu/parallel/mesh.py:83-113). A state
+    split already is made equal to its shard's owners in data shard 0.
     Call it after any restore from a checkpoint, as the JAX CLIs place a
     restored state. Returns ``state``, changed in place."""
-    if mesh.data * mesh.space * mesh.stage == 1:
+    from stcd_tpu_torch.parallel import tensor
+
+    if mesh.data * mesh.model * mesh.space * mesh.stage == 1:
         return state
-    tensors = [*state.model.parameters(), *state.model.buffers()]
-    for per_param in state.optimizer.state.values():
-        tensors += [v for v in per_param.values() if torch.is_tensor(v)]
+    shards, whole = [], list(state.model.buffers())
+    for p in state.model.parameters():
+        split = hasattr(p, "tp_split")
+        (shards if split else whole).append(p)
+        for v in state.optimizer.state.get(p, {}).values():
+            if torch.is_tensor(v):
+                (shards if split and v.shape == p.shape else whole).append(v)
     with torch.no_grad():
-        for t in tensors:
+        for t in whole:
             distributed.broadcast_(t)
+        for t in shards:  # from the rank of data shard 0 that holds the same shard
+            distributed.broadcast_(t, src=mesh.rank % (mesh.model * mesh.stage),
+                                   group=distributed.data_group())
+    if mesh.model > 1 and not tensor.is_split(state.model):
+        tensor.split_model(state.model, mesh.model, distributed.model_rank(),
+                           state.optimizer)
     return state

@@ -552,15 +552,15 @@ def changevig_pipeline_forward(model, x1, x2, *, n_micro: Optional[int] = None):
 def sync_gradients(model: nn.Module, stage_params) -> None:
     """Make every rank's gradients those of the global batch, after a
     pipelined backward. A stage's parameters have their gradient on the
-    rank that runs the stage only; the others (the BIT backbone, the
-    decoders) have the same gradient on every rank of a stage group, from
-    the same rows. One all-reduce over every rank sums them: a stage's
-    parameter then holds the sum over the data shards of its owners'
-    gradients and is divided by D, any other the sum over D x S copies and
-    is divided by D x S: the mean over the data shards, as in
-    ``distributed.average_gradients``. A parameter keeps None where no rank
-    has a gradient (one flag all-reduce), so the optimizer skips it as one
-    process does."""
+    rank that runs the stage only (zeros are put in elsewhere); the others
+    (the BIT backbone, the decoders) have the same gradient on every rank of
+    a stage group, from the same rows. ``distributed.average_gradients``
+    then sums each over every rank (a tensor-parallel shard over the ranks
+    of its model index) and divides by its copies: a stage's parameter by
+    D (its owners, one a data shard), any other by D x S, each times T
+    unless it is split: the mean over the data shards. A parameter keeps
+    None where no rank has a gradient (one flag all-reduce), so the
+    optimizer skips it as one process does."""
     import torch.distributed as dist
 
     if not distributed.data_parallel():
@@ -569,20 +569,10 @@ def sync_gradients(model: nn.Module, stage_params) -> None:
     has = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8,
                        device=distributed._comm_device())
     dist.all_reduce(has, op=dist.ReduceOp.MAX)
-    staged = {id(p) for p in stage_params}
-    n_data, n_all = distributed.data_size(), distributed.world_size()
-    groups: dict = {}
     for p, flag in zip(params, has.tolist()):
-        if flag:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            groups.setdefault((p.grad.device, p.grad.dtype), []).append(p)
-    for ps in groups.values():
-        grads = [p.grad for p in ps]
-        flat = torch._utils._flatten_dense_tensors(grads)
-        dist.all_reduce(flat)
-        for p, g in zip(ps, torch._utils._unflatten_dense_tensors(flat, grads)):
-            p.grad.copy_(g).div_(n_data if id(p) in staged else n_all)
+        if flag and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    distributed.average_gradients(params, staged=stage_params)
 
 
 def stage_parameters(model: nn.Module) -> list:

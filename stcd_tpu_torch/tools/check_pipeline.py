@@ -153,10 +153,11 @@ def dropout_step(run: dict) -> dict:
     plain = changeformer.cross_attention
 
     def record(q, k, v, scale=None, dropout_rate=0.0, dropout_seed=None, impl=None,
-               dropout_rows=(0, 1)):
+               dropout_rows=(0, 1), dropout_heads=None):
         if dropout_rate > 0.0:
             calls.append([int(dropout_seed), list(dropout_rows), list(q.shape)])
-        return plain(q, k, v, scale, dropout_rate, dropout_seed, impl, dropout_rows)
+        return plain(q, k, v, scale, dropout_rate, dropout_seed, impl, dropout_rows,
+                     dropout_heads)
 
     no_dropout(state.model, attention=ATTN_DROPOUT)
     changeformer.cross_attention = record

@@ -31,7 +31,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-RUN = dict(batch=4, size=512, steps=3, lr=1e-3)  # SGD momentum 0.9, draws from seed 2
+RUN = dict(batch=4, size=512, steps=2, lr=1e-3)  # SGD momentum 0.9, draws from seed 2
 OP_TOL = 1e-12  # float64, the same products summed in another order
 # after RUN's 3 fp32 steps (TF32 off), |d| over max(1, the tensor's largest magnitude):
 # float32 sums in another order, cuDNN's algorithms for strips of 256 rows against whole
@@ -45,7 +45,7 @@ STATS_SHARE = 5e-4
 
 
 def cd_steps_run(bf16: bool = False, mesh=None, device="cuda") -> dict:
-    """RUN's stage-2 steps on the global batches from seeds 10, 11, 12: the
+    """RUN's stage-2 steps on the global batches from seeds 10, 11, ...: the
     one-process steps (``mesh`` None) or the spatial steps of ``mesh``, this
     rank holding its data shard's rows. Returns the losses, counts, state,
     the fastest step's ms after the first, the first's, and the peak GiB."""

@@ -15,6 +15,14 @@ Data parallel (``parallel.distributed``): every rank holds the same state,
 so only rank 0 writes (``_is_primary``), on a file system that the ranks
 share, and every save ends at a barrier (``_barrier``), after which every
 rank sees the new file. Every rank loads the same bytes.
+
+Tensor parallel (``parallel/tensor.py``): a file holds the one-process
+layout. Before rank 0 writes, every rank gathers its model group's shards
+(the parameters and their optimizer moments, ``kv`` and ``to_qkv`` back in
+their head order); a load into a split model keeps this rank's shard of
+the full tensors. So a file written under a model axis loads in one
+process, and the reverse, as the JAX package's orbax checkpoints hold
+global arrays.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from stcd_tpu_torch.parallel import distributed
+from stcd_tpu_torch.parallel import distributed, tensor
 
 
 def _is_primary() -> bool:
@@ -61,13 +69,15 @@ class CheckpointManager:
     def save_last(self, state, epoch_id: int, best_val_acc: float, best_epoch_id: int,
                   name: str = "last_ckpt") -> str:
         path = os.path.join(self.directory, name)
+        model = tensor.full_state_dict(state.model)
+        optimizer = tensor.full_optimizer_state_dict(state.optimizer, state.model)
         if _is_primary():
             _save_atomic({
                 "epoch_id": int(epoch_id),
                 "best_val_acc": float(best_val_acc),
                 "best_epoch_id": int(best_epoch_id),
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+                "model": model,
+                "optimizer": optimizer,
                 "step": int(state.step),
             }, path)
         _barrier("save_last")
@@ -81,8 +91,10 @@ class CheckpointManager:
         if not os.path.exists(path):
             return None
         restored = _load(path, state.device)
-        state.model.load_state_dict(restored["model"], strict=True)
-        state.optimizer.load_state_dict(restored["optimizer"])
+        state.model.load_state_dict(tensor.split_state_dict(state.model, restored["model"]),
+                                    strict=True)
+        state.optimizer.load_state_dict(tensor.split_optimizer_state_dict(
+            state.optimizer, state.model, restored["optimizer"]))
         state.step = int(restored["step"])
         return (state, int(restored["epoch_id"]), float(restored["best_val_acc"]),
                 int(restored["best_epoch_id"]))
@@ -92,8 +104,9 @@ class CheckpointManager:
         """Keep only the current best, named ``%.2f_best_model`` (x 100). The
         new best is in place before the old one is deleted."""
         path = os.path.join(self.directory, "%.2f_best_model" % (metric * 100))
+        model = tensor.full_state_dict(state.model)
         if _is_primary():
-            _save_atomic({"model": state.model.state_dict()}, path)
+            _save_atomic({"model": model}, path)
             for old in glob.glob(os.path.join(self.directory, "*_best_model")):
                 if old != path:
                     os.remove(old)
@@ -102,15 +115,18 @@ class CheckpointManager:
 
     def save_snapshot(self, state, epoch: int) -> str:
         path = os.path.join(self.directory, "%.2f_model" % epoch)
+        model = tensor.full_state_dict(state.model)
         if _is_primary():
-            _save_atomic({"model": state.model.state_dict()}, path)
+            _save_atomic({"model": model}, path)
         _barrier("save_snapshot")
         return path
 
     def load_weights(self, state, path: str):
         """Weights-only load (parameters and BatchNorm buffers) into ``state``
         in place; the optimizer and the step stay."""
-        state.model.load_state_dict(_load(path, state.device)["model"], strict=True)
+        state.model.load_state_dict(
+            tensor.split_state_dict(state.model, _load(path, state.device)["model"]),
+            strict=True)
         return state
 
     def best_path(self) -> Optional[str]:

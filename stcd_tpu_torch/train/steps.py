@@ -127,7 +127,7 @@ def _global_outputs(out: dict) -> dict:
         return out
     terms = [k for k in out if k != "cm"]
     means = distributed.all_reduce_(torch.stack([out[k].double() for k in terms]))
-    means /= distributed.world_size()
+    means /= distributed.data_group_size()
     return {**{k: means[i].to(out[k].dtype) for i, k in enumerate(terms)},
             "cm": global_counts(out["cm"])}
 

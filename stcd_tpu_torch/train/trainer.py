@@ -13,7 +13,8 @@ scores, the masks). They write through ``train/checkpoint.py`` (one
 same name) and ``utils/logging.py``.
 
 Over a process group (``torchrun --nproc_per_node W``) the trainer runs a
-``data`` x ``stage`` grid, D = W / ``pp_stages`` (``parallel/mesh.py``): each
+``data`` x ``model`` x ``stage`` grid, D = W / (``tp_axis`` x ``pp_stages``)
+(``parallel/mesh.py``; JAX's stcd_tpu/train/trainer.py:204-214): each
 step takes this rank's rows of the global batch (``d::D``, as the loader
 splits them), draws the augmentation for the global batch and keeps its
 rows, and with ``pp_stages`` S > 1 pipelines the model through
@@ -22,8 +23,12 @@ ChangeFormer V4-V6 MiT encoder, the ViG encoder; JAX's
 stcd_tpu/train/trainer.py:216-272). BatchNorm, the losses and the counts sum
 over the data group, the gradients are made whole across the stages and
 averaged over the data shards (``pipeline.sync_gradients``); rank 0 writes
-the checkpoints and curves, every rank its log. ``tp_axis`` other than 1
-raises (tensor parallelism, ROADMAP.md Queue 1 #11c).
+the checkpoints (in the one-process layout) and curves, every rank its log.
+With ``tp_axis`` T > 1 the T ranks of a model group hold the same rows and
+each a shard of the attention, MLP and wide-conv parameters and of their
+optimizer moments (``parallel/tensor.py``): ``init_state`` places the state
+as JAX's ``_init_state`` does (stcd_tpu/train/trainer.py:331-333), and
+``train_models`` places it again after a resume (:426-429).
 
 The steps take ``a`` and ``b`` as (N, H, W, 3) NHWC images, uint8 or float in
 [0, 1], and ``label`` as (N, H, W, 1), all on the state's device, as the JAX
@@ -52,7 +57,8 @@ from stcd_tpu_torch.metrics.confusion import (SegmentationMetric, confusion_matr
 from stcd_tpu_torch.models.factory import define_G, init_weights
 from stcd_tpu_torch.parallel import distributed
 from stcd_tpu_torch.parallel import pipeline as pp
-from stcd_tpu_torch.parallel.mesh import TP_ITEM, Mesh, create_mesh, place_train_state
+from stcd_tpu_torch.parallel import tensor
+from stcd_tpu_torch.parallel.mesh import Mesh, create_mesh, place_train_state
 from stcd_tpu_torch.train.checkpoint import CheckpointManager
 from stcd_tpu_torch.train.loops import _device_batch
 from stcd_tpu_torch.train.schedules import Schedule, get_scheduler
@@ -75,8 +81,8 @@ class TrainerConfig:
     bf16 autocast with float32 weights. ``device`` is where ``train_models``
     and ``CDEvaluator`` put the state: the card unless the caller asks for
     the CPU. ``pp_stages`` S > 1 pipelines the model over S ranks of the
-    launch (``pp_microbatches`` microbatches a step, 0: S); ``tp_axis``
-    other than 1 raises (ROADMAP.md Queue 1 #11c)."""
+    launch (``pp_microbatches`` microbatches a step, 0: S); ``tp_axis`` T > 1
+    splits its wide parameters over T ranks (``parallel/tensor.py``)."""
 
     net_G: str = "base_transformer_pos_s4_dd8"
     n_class: int = 2
@@ -141,17 +147,14 @@ class CDTrainer:
     loaders are given. ``alpha`` is the class counts of the losses fl and
     miou; None scans the train loader for them when the loop starts.
 
-    In a process group the trainer makes the data x stage grid of the
-    launch (module docstring); the loaders and the steps' tensors are this
+    In a process group the trainer makes the data x model x stage grid of
+    the launch (module docstring); the loaders and the steps' tensors are this
     rank's rows of the global batch. ``pp_stages`` > 1 with a model that
     no route pipelines raises JAX's NotImplementedError, and so does a
     stage count that the model does not allow (``pipeline.check_stages``)."""
 
     def __init__(self, cfg: TrainerConfig, dataloaders: Optional[dict] = None,
                  alpha=None, steps_per_epoch: Optional[int] = None):
-        if cfg.tp_axis != 1:
-            raise NotImplementedError(f"tp_axis={cfg.tp_axis}: tensor parallelism is not "
-                                      f"ported ({TP_ITEM})")
         self.cfg = cfg
         self.dataloaders = dataloaders or {}
         self.alpha = alpha
@@ -161,7 +164,7 @@ class CDTrainer:
         if cfg.pp_stages > 1:
             pp.pipeline_route(self.model, cfg.net_G)
             pp.check_stages(self.model, cfg.pp_stages)
-        self.mesh = _grid(cfg.pp_stages)
+        self.mesh = _grid(cfg.pp_stages, cfg.tp_axis)
         if cfg.pp_stages > 1:
             pp.set_pipeline(self.model, cfg.pp_microbatches or None)
             self.stage_params = pp.stage_parameters(self.model)
@@ -178,13 +181,20 @@ class CDTrainer:
     def init_state(self, device="cuda", init_seed: Optional[int] = None) -> TrainState:
         """The model on ``device`` with its optimizer and a generator seeded
         with ``cfg.seed`` for the steps' draws. ``init_seed`` gives seeded
-        random weights (``models.factory.init_weights``); None keeps the
-        weights the modules hold."""
+        random weights (``models.factory.init_weights``, on the whole model:
+        a split one is gathered first); None keeps the weights the modules
+        hold. With a model axis the state is placed (``place_train_state``),
+        each rank keeping its shards."""
         if init_seed is not None:
+            if tensor.is_split(self.model):
+                tensor.unsplit_model(self.model)
             init_weights(self.model, init_seed)
-        return create_train_state(self.model, self.tx, device=device,
-                                  bf16=self.cfg.dtype == torch.bfloat16,
-                                  seed=self.cfg.seed)
+        state = create_train_state(self.model, self.tx, device=device,
+                                   bf16=self.cfg.dtype == torch.bfloat16,
+                                   seed=self.cfg.seed)
+        if self.mesh.model > 1:
+            place_train_state(self.mesh, state)
+        return state
 
     def _global(self, loss: torch.Tensor, cm: torch.Tensor):
         """The loss averaged and the counts summed over the data shards."""
@@ -409,15 +419,16 @@ class CDTrainer:
         return state
 
 
-def _grid(stages: int) -> Mesh:
-    """The launch's data x stage grid: the one the process group has where
-    its stage axis is ``stages`` already (a trainer and its evaluator share
-    it), else a new one (``create_mesh``, which raises where the launch does
-    not divide)."""
-    if distributed.stage_size() == stages and distributed.space_size() == 1 and (
-            stages > 1 or not distributed.data_parallel()):
-        return Mesh(distributed.data_size(), distributed.rank(), 1, stages)
-    return create_mesh(stage=stages)
+def _grid(stages: int, model: int) -> Mesh:
+    """The launch's data x model x stage grid: the one the process group has
+    where its stage and model axes are ``stages`` and ``model`` already (a
+    trainer and its evaluator share it), else a new one (``create_mesh``,
+    which raises where the launch does not divide)."""
+    if (distributed.stage_size() == stages and distributed.model_size() == model
+            and distributed.space_size() == 1
+            and (stages * model > 1 or not distributed.data_parallel())):
+        return Mesh(distributed.data_size(), distributed.rank(), 1, stages, model)
+    return create_mesh(model=model, stage=stages)
 
 
 class CDEvaluator:
@@ -450,7 +461,7 @@ class CDEvaluator:
         in a process group). With ``save_vis`` each named sample's predicted
         classes go to ``{vis_dir}/{name}`` as a PNG (class ids spread over
         0..255: {0, 255} for two classes), from the rank that holds it (stage
-        0 of its pipeline)."""
+        0 and model index 0 of its data shard)."""
         state = self.load(ckpt_name)
         metric = SegmentationMetric(self.cfg.n_class)
         os.makedirs(self.cfg.vis_dir, exist_ok=True)
@@ -460,7 +471,8 @@ class CDEvaluator:
             final, cm = self.trainer.eval_step(state, batch["A"], batch["B"],
                                                batch["label"].float())
             metric.confusionMatrix += cm.cpu().numpy().astype(np.float64)
-            if save_vis and names is not None and distributed.stage_rank() == 0:
+            if save_vis and names is not None and distributed.stage_rank() == 0 and (
+                    distributed.model_rank() == 0):
                 preds = self.trainer._pred_to_labels(final).cpu().numpy()
                 for i, name in enumerate(names):
                     save_mask_png(preds[i].astype(np.float32) / denom,

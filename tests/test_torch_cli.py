@@ -217,10 +217,11 @@ def test_every_cli_needs_the_card_unless_asked(data, monkeypatch, tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     (["--data_axis", "2"], ValueError, "torchrun --nproc_per_node 2"),
     (["--space_axis", "2"], ValueError, "torchrun --nproc_per_node 2"),
-    (["--model_axis", "4"], NotImplementedError, "Queue 1 #11c")])
+    (["--model_axis", "4"], ValueError, "torchrun --nproc_per_node 4"),
+    (["--space_axis", "2", "--model_axis", "2"], NotImplementedError, "Queue 1 #11d")])
 def test_mesh_flags_other_than_one_raise(data, flags, error, match):
-    """One process: a data axis or a space axis of 2 says how to launch two
-    ranks; the model axis is not ported."""
+    """One process: a data, space or model axis says how to launch its ranks;
+    a space axis beside a model axis is not ported."""
     with pytest.raises(error, match=match):
         train_pse_cd.main([*TINY, "--root_path", data, *LEVIR, *flags])
 

@@ -38,7 +38,7 @@ one-process and JAX references; the tests then read what each rank wrote.
 6. Logs: ``scalars.jsonl`` on rank 0, ``scalars.p1.jsonl`` on rank 1, the
    TensorBoard writer on rank 0 only.
 7. The CLI surface: cli.train_pse_cd with --data_axis 2 trains the same state
-   on both ranks; --data_axis 3, --model_axis 2 and a --batch_size that 2
+   on both ranks; --data_axis 3, --model_axis 3 and a --batch_size that 2
    does not divide raise (the space axis: tests/test_torch_spatial.py).
 """
 
@@ -250,7 +250,7 @@ def _cli(rank, tmp, out):
                   "state": {k: v.clone() for k, v in got["state"].model.state_dict().items()}}
     refusals = {}
     for flags in (["--batch_size", "4", "--data_axis", "3"],
-                  ["--batch_size", "4", "--model_axis", "2"],
+                  ["--batch_size", "4", "--model_axis", "3"],
                   ["--batch_size", "3"]):
         try:
             train_pse_cd.main([*base, *flags])
@@ -645,8 +645,8 @@ def test_cli_data_axis_and_refusals(run):
         refusals = rank["refusals"]
         assert refusals["--batch_size 4 --data_axis 3"].startswith("ValueError")
         assert "torchrun --nproc_per_node 3" in refusals["--batch_size 4 --data_axis 3"]
-        assert refusals["--batch_size 4 --model_axis 2"].startswith("NotImplementedError")
-        assert "Queue 1 #11c" in refusals["--batch_size 4 --model_axis 2"]
+        assert refusals["--batch_size 4 --model_axis 3"].startswith("ValueError")
+        assert "torchrun --nproc_per_node 3" in refusals["--batch_size 4 --model_axis 3"]
         assert refusals["--batch_size 3"].startswith("ValueError")
         assert rank["jax_imported"] == []
 

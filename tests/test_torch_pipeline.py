@@ -38,8 +38,8 @@ converted to JAX's trees with stcd_tpu.convert.torch_to_flax.
    every stage another seed, and leaves every rank's generator in one state.
 5. cli.train_cd --pp_stages 2 on 2 ranks trains what one process trains.
 6. Refusals: a CNN net_G, ChangeFormer V1-V3, V4 at S = 4, a stage count
-   that does not divide BIT's depth, tp_axis, space x stage, B % m != 0, and
-   pp_stages 2 in one process (which says how to launch).
+   that does not divide BIT's depth, space x stage, B % m != 0, and
+   tp_axis 2 or pp_stages 2 in one process (which say how to launch).
 """
 
 import os
@@ -313,11 +313,12 @@ def _attention_masks(n_micro):
     plain = changeformer.cross_attention
 
     def record(q, k, v, scale=None, dropout_rate=0.0, dropout_seed=None, impl=None,
-               dropout_rows=(0, 1)):
+               dropout_rows=(0, 1), dropout_heads=None):
         if dropout_rate > 0.0:
             calls.append({"seed": int(dropout_seed), "rows": tuple(dropout_rows),
                           "shape": (tuple(q.shape), k.shape[2])})
-        return plain(q, k, v, scale, dropout_rate, dropout_seed, impl, dropout_rows)
+        return plain(q, k, v, scale, dropout_rate, dropout_seed, impl, dropout_rows,
+                     dropout_heads)
 
     changeformer.cross_attention = record
     try:
@@ -822,11 +823,11 @@ def test_tensor_parallel_and_space_by_stage_refused():
     from stcd_tpu_torch.parallel.mesh import create_mesh
     from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+    with pytest.raises(ValueError, match="'model' axis of 2 .* torchrun --nproc_per_node 2"):
         CDTrainer(TrainerConfig(tp_axis=2, device="cpu"), steps_per_epoch=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #11d"):
         create_mesh(space=2, stage=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         create_mesh(model=2)
 
 

@@ -39,7 +39,7 @@ references; the tests then read what each wrote.
 5. The four stage CLIs with --space_axis 2 log the loss that one process
    logs (LOSS_RTOL) and train the state that it trains (CLI_ATOL,
    CLI_AGREE); --space_axis 3, a non-resnet encoder, --remat and
-   --model_axis 2 raise.
+   --space_axis 2 with --model_axis 2 raise.
 """
 
 import os
@@ -321,7 +321,8 @@ def _ops(world):
 def _cli_refusals(tmp):
     refusals = {}
     for flags in (["--space_axis", "3"], ["--space_axis", "2", "--encoder", "se_resnet50"],
-                  ["--space_axis", "2", "--remat"], ["--model_axis", "2"]):
+                  ["--space_axis", "2", "--remat"],
+                  ["--space_axis", "2", "--model_axis", "2"]):
         try:
             run_cli("train_pse_cd", os.path.join(tmp, "demo"), os.path.join(tmp, "refused"),
                     flags)
@@ -749,8 +750,8 @@ def test_cli_space_axis_refusals(run):
         assert ref["--space_axis 2 --encoder se_resnet50"].startswith("ValueError")
         assert "#11" in ref["--space_axis 2 --encoder se_resnet50"]
         assert ref["--space_axis 2 --remat"].startswith("ValueError")
-        assert ref["--model_axis 2"].startswith("NotImplementedError")
-        assert "#11c" in ref["--model_axis 2"]
+        assert ref["--space_axis 2 --model_axis 2"].startswith("NotImplementedError")
+        assert "#11d" in ref["--space_axis 2 --model_axis 2"]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

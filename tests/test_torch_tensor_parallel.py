@@ -1,0 +1,716 @@
+"""Tensor parallelism of stcd_tpu_torch (parallel/tensor.py, the model axis of
+parallel/mesh.py, CDTrainer(tp_axis), cli.train_cd --tp_axis, the stage CLIs'
+--model_axis) against one process and the JAX package.
+
+The ranks are processes that run this file as a script (``--worker``) over
+gloo with a ``file://`` rendezvous under the test's tmp_path, one torch
+thread each, and import no JAX: the jobs of JOBS (2 ranks at model 2 for the
+trainers and modules, 2 more for the CLIs, 4 at data 2 x model 2, 4 at model
+2 x stage 2, and one process for the one-process references) run at once, while the parent computes the JAX
+references; the tests then read what each wrote.
+
+1. The placement: the parameters the port splits, by state_dict name and
+   axis, are those JAX's ``param_sharding`` shards on the tree that
+   ``stcd_tpu.convert.torch_to_flax`` makes from the port's state_dict, for
+   SegCD-r50, ChangeFormerV6 at embed 256 and BIT ``_dd8`` at full width,
+   from shapes alone; the one difference is ROADMAP.md Queue 3 known issue
+   13 (a block whose heads T does not divide keeps its attention whole).
+2. BIT's loss and gradients at data 2 x model 2 against JAX's sharded
+   ``value_and_grad`` on the data 4 x model 2 CPU mesh, at
+   tests/test_parallel.py:127-167's bounds.
+3. CDTrainer(tp_axis=2) for BIT and V6, BIT at data 2 x model 2 with the
+   augmentation, and BIT at tp 2 x pp 2 against one process: the loss within
+   2e-5 relative, the counts exactly, the eval logits within 2e-4
+   (tests/test_trainer.py:152-240), the state after one SGD step within
+   STATE_SHARE, the same on every rank; V6 with attention and MLP dropout on
+   equals one process too. Each rank holds its shard of the split
+   parameters and of their SGD and Adam moments only.
+4. cli.train_pse_cd --model_axis 2 and cli.train_cd --tp_axis 2 (alone and
+   with --pp_stages 2) train what one process trains.
+5. Checkpoints: the file a model-2 run writes is the one-process layout,
+   and a one-process file restores into the split state.
+6. The dropout: attention_plain with dropout_heads (h0, H) keeps the heads'
+   weights that JAX's _einsum_attention keeps on the whole array; MixFFN's
+   and BIT FeedForward's hidden dropout split over two ranks equals one
+   process's.
+7. Refusals: space x model and space x stage (#11d), a grid that is not the
+   world, tp_axis in one process.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HW = 32
+WORKER_TIMEOUT = 300
+# job: ranks (model 2 twice, data 2 x model 2, model 2 x stage 2; "one" is one process)
+JOBS = {"m2": 2, "m2_cli": 2, "d2m2": 4, "m2s2": 4, "one": 1}
+GRID = {"m2": (2, 1), "m2_cli": (2, 1), "d2m2": (2, 1), "m2s2": (2, 2)}  # (model, stage)
+N = 4  # pairs of a trainer batch
+# One SGD step (lr 0.01, momentum 0.99, weight decay 5e-4) against one process, as
+# tests/test_torch_pipeline.py holds the pipelined trainer: the split layers sum their
+# products in another order (the row-parallel Linears' partial products, the gathered
+# convs' bias added after), BatchNorm the same rows.
+STATE_SHARE = 3.2e-6
+LOSS_RTOL, LOGIT_TOL = 2e-5, 2e-4  # tests/test_trainer.py:152-240
+# cli.train_pse_cd: one Adam step (lr 1e-3); a near-zero gradient may flip its step's
+# sign, 2 lr, as in tests/test_torch_spatial.py
+CLI_ATOL = 2 * 1e-3
+CLI_AGREE = 0.999
+CLI_FLAGS = ["--root_path", None, "--dataset_name", "LEVIR", "--CDdataset_name", "LEVIR",
+             "--encoder", "resnet18", "--decoder_channels", "16,12,8,8,8", "--img_height",
+             str(HW), "--img_width", str(HW), "--n_epochs", "1", "--n_cpu", "1",
+             "--device", "cpu", "--no_preempt", "--batch_size", "2"]
+BIT = "base_transformer_pos_s4_dd8"
+# cli.train_cd over BIT: one epoch of two SGD steps, then CDEvaluator on best_ckpt
+TRAIN_CD_ARGS = ["--device", "cpu", "--dataset_name", "synthetic", "--img_size", str(HW),
+                 "--batch_size", "2", "--synthetic_length", "4", "--max_epochs", "1",
+                 "--n_cpu", "1"]
+TRAIN_CD_SHARE = 1e-5  # two SGD steps, as tests/test_torch_pipeline.py's CLI_SHARE
+# tests/test_parallel.py:127-167's model and bounds
+BIT_SMALL = dict(output_nc=2, resnet_stages_num=3, with_pos="learned", enc_depth=1,
+                 dec_depth=2, decoder_dim_head=16)
+GRAD_ATOL, GRAD_RTOL = 5e-4, 5e-3
+
+
+# --------------------------------------------------------------------------
+# shared by the ranks and the parent (no JAX)
+# --------------------------------------------------------------------------
+
+def _batch(n, seed):
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (n, HW, HW, 3), dtype=np.uint8))
+            for _ in range(2))
+    label = torch.from_numpy((rng.uniform(size=(n, HW, HW, 1)) > 0.7).astype(np.float32))
+    return a, b, label
+
+
+def _dropout(model, rate):
+    """Every Dropout and the attention dropout of ``model`` at ``rate``,
+    DropPath off."""
+    from stcd_tpu_torch.tools.check_pipeline import no_dropout
+    from stcd_tpu_torch.layers.stochastic import Dropout
+
+    no_dropout(model, attention=rate)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = rate
+    return model
+
+
+def _trainer_step(net_G, seed, tp=1, pp=1, rows=slice(None), augment=False, dropout=0.0,
+                  optimizer="sgd", tmp=None):
+    """One CDTrainer train_step and eval_step on this rank's ``rows`` of a
+    global batch of N: loss, counts, eval logits, the full state, and this
+    rank's shapes of the split parameters and of their moments."""
+    from stcd_tpu_torch.parallel import tensor
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    cfg = TrainerConfig(net_G=net_G, img_size=HW, batch_size=N, device="cpu", tp_axis=tp,
+                        pp_stages=pp, pp_microbatches=2 if pp > 1 else 0, augment=augment,
+                        optimizer=optimizer, lr=0.01 if optimizer == "sgd" else 1e-3,
+                        checkpoint_dir=tmp or ".")
+    trainer = CDTrainer(cfg, steps_per_epoch=2)
+    state = trainer.init_state("cpu", init_seed=seed)
+    _dropout(state.model, dropout)
+    a, b, label = (t[rows] for t in _batch(N, seed + 1))
+    loss, cm = trainer.train_step(state, a, b, label)
+    logits, cm_eval = trainer.eval_step(state, a, b, label)
+    shapes = {k: (tuple(p.shape), [tuple(v.shape) for v in state.optimizer.state[p].values()
+                                   if torch.is_tensor(v) and v.dim()])
+              for k, p in state.model.named_parameters() if hasattr(p, "tp_split")}
+    return {"loss": loss.item(), "cm": cm.clone(), "cm_eval": cm_eval.clone(),
+            "logits": logits.clone(),
+            "state": {k: v.clone() for k, v in tensor.full_state_dict(state.model).items()},
+            "local": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "shapes": shapes, "bytes": tensor.state_bytes(state.model, state.optimizer),
+            "generator": state.generator.get_state(), "trainer": trainer, "obj": state}
+
+
+def _strip(out):
+    return {k: v for k, v in out.items() if k not in ("trainer", "obj")}
+
+
+def _mlp_masks():
+    """MixFFN and BIT FeedForward at dropout 0.5 in train mode: the output
+    in one process, then split over the model group, from the same
+    generator seed."""
+    from stcd_tpu_torch.layers.stochastic import set_generator
+    from stcd_tpu_torch.models.bit import FeedForward
+    from stcd_tpu_torch.models.changeformer import MixFFN
+    from stcd_tpu_torch.parallel import distributed, tensor
+
+    out = {}
+    for name, make, args in (("mixffn", lambda: MixFFN(8, 32, drop=0.5), (4, 4)),
+                             ("feedforward", lambda: FeedForward(8, 16, dropout=0.5), ())):
+        torch.manual_seed(0)
+        mod = make().train()
+        x = torch.randn(3, 16, 8)
+        runs = []
+        for split in (False, True):
+            if split:
+                tensor.split_model(mod, 2, distributed.model_rank())
+            set_generator(mod, torch.Generator().manual_seed(7))
+            runs.append(mod(x, *args).detach())
+        out[name] = runs
+    return out
+
+
+def _wide_convs():
+    """The wide-conv rule's three split layers in float64 (a Conv2d, a grouped
+    Conv2d and a ConvTranspose2d of at least 2^20 elements), in one process
+    and then split over the model group: the output, the input gradient and
+    the full parameter gradients (gathered)."""
+    from stcd_tpu_torch.parallel import distributed, tensor
+
+    torch.manual_seed(1)
+    mods = torch.nn.ModuleList([
+        torch.nn.Conv2d(512, 256, 3, padding=1), torch.nn.Conv2d(2048, 2048, 3, padding=1,
+                                                                 groups=32),
+        torch.nn.ConvTranspose2d(256, 256, 4, 2, 1)]).double()
+    xs = [torch.randn(2, c, 3, 3, dtype=torch.float64) for c in (512, 2048, 256)]
+    runs = []
+    for split in (False, True):
+        if split:
+            tensor.split_model(mods, 2, distributed.model_rank())
+        got = []
+        for mod, x in zip(mods, xs):
+            x = x.clone().requires_grad_()
+            mod.zero_grad()
+            y = mod(x)
+            (y * torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape).sin()).sum().backward()
+            got.append({"y": y.detach(), "dx": x.grad,
+                        **{k: tensor._gather(p.grad, p.tp_split) if hasattr(p, "tp_split")
+                           else p.grad for k, p in mod.named_parameters()}})
+        runs.append(got)
+    return {"runs": runs, "kinds": [type(m).__name__ for m in mods]}
+
+
+def _bit_grads(inputs):
+    """BIT (tests/test_parallel.py's configuration) split over this rank's
+    model group: the global CE loss of the eval-mode forward and every
+    parameter's full gradient, averaged over the data shards."""
+    from stcd_tpu_torch.losses.functional import cross_entropy
+    from stcd_tpu_torch.models.bit import BASETransformer
+    from stcd_tpu_torch.parallel import distributed, tensor
+
+    model = BASETransformer(**BIT_SMALL)
+    model.load_state_dict(inputs["sd"])
+    tensor.split_model(model, distributed.model_size(), distributed.model_rank())
+    model.eval()
+    rows = distributed.global_batch_sharding()
+    loss = cross_entropy(model(inputs["x1"][rows], inputs["x2"][rows]),
+                         inputs["label"][rows])
+    loss.backward()
+    distributed.average_gradients(model.parameters())
+    grads = {k: tensor._gather(p.grad, p.tp_split) if hasattr(p, "tp_split") else p.grad
+             for k, p in model.named_parameters()}
+    return {"loss": loss.item(), "grads": grads}
+
+
+def _checkpoints(got, tmp):
+    """The model-2 BIT trainer run ``got`` writes its state, then restores the
+    one-process file the parent wrote (its shards and momentum)."""
+    from stcd_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = got["obj"]
+    CheckpointManager(os.path.join(tmp, "ckpt_m2")).save_last(state, 0, 0.5, 0)
+    restored = CheckpointManager(os.path.join(tmp, "ckpt_one")).restore_last(state)
+    index = {id(p): i for i, p in enumerate(p for g in state.optimizer.param_groups
+                                            for p in g["params"])}
+    return {"restored_epoch": restored[1],
+            "shards": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "momentum": {k: state.optimizer.state[p]["momentum_buffer"].clone()
+                         for k, p in state.model.named_parameters()
+                         if "momentum_buffer" in state.optimizer.state.get(p, {})},
+            "param_index": {k: index[id(p)] for k, p in state.model.named_parameters()},
+            "parts": {k: (p.tp_split.dim, p.tp_split.parts[got["trainer"].mesh.rank % 2])
+                      for k, p in state.model.named_parameters() if hasattr(p, "tp_split")}}
+
+
+def _cli(tmp, extra):
+    from stcd_tpu_torch.cli import train_pse_cd
+    from stcd_tpu_torch.parallel import tensor
+
+    argv = [os.path.join(tmp, "demo") if a is None else a for a in CLI_FLAGS]
+    got = train_pse_cd.main([*argv, "--save_name", os.path.join(tmp, "cli" + "".join(extra)),
+                             *extra])
+    return {"step": got["state"].step, "split": tensor.is_split(got["state"].model),
+            "state": tensor.full_state_dict(got["state"].model)}
+
+
+def _train_cd(tmp, name, extra):
+    """cli.train_cd over BIT with ``extra`` flags: the full state it trained
+    and the evaluator's scores of best_ckpt."""
+    from stcd_tpu_torch.cli import train_cd
+    from stcd_tpu_torch.parallel import tensor
+
+    got = train_cd.main(TRAIN_CD_ARGS + ["--checkpoint_dir", os.path.join(tmp, name), *extra])
+    return {"state": tensor.full_state_dict(got["state"].model), "scores": got["scores"],
+            "split": tensor.is_split(got["state"].model)}
+
+
+def _refusals(tmp):
+    from stcd_tpu_torch.cli import train_pse_cd
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+
+    out = {}
+    for what, fn in (("mesh model 3", lambda: create_mesh(model=3)),
+                     ("cli model 3", lambda: train_pse_cd.main(
+                         [os.path.join(tmp, "demo") if a is None else a for a in CLI_FLAGS]
+                         + ["--model_axis", "3", "--save_name", os.path.join(tmp, "x")]))):
+        try:
+            fn()
+            out[what] = None
+        except (ValueError, NotImplementedError) as e:
+            out[what] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def _one_process(tmp):
+    return {"bit": _strip(_trainer_step(BIT, seed=2)),
+            "v6": _strip(_trainer_step("ChangeFormerV6", seed=3)),
+            "v6_dropout": _strip(_trainer_step("ChangeFormerV6", seed=4, dropout=0.1)),
+            "bit_aug": _strip(_trainer_step(BIT, seed=5, augment=True)),
+            "bit_adam": _strip(_trainer_step(BIT, seed=6, optimizer="adam")),
+            "cli": _cli(tmp, []), "train_cd": _train_cd(tmp, "train_cd_one", [])}
+
+
+def _worker(job: str, rank: int, tmp: str) -> int:
+    """Rank ``rank`` of ``job`` (JOBS): writes what it computed to
+    ``{job}_rank{rank}.pt``."""
+    sys.modules["tensorflow"] = None  # tensorboard's import of TF may import JAX
+    torch.set_num_threads(1)
+    from stcd_tpu_torch.parallel import distributed
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+
+    if job == "one":
+        torch.save(_one_process(tmp), os.path.join(tmp, "one_rank0.pt"))
+        return 0
+    distributed.initialize("cpu", init_method="file://" + os.path.join(tmp, f"rdv_{job}"),
+                           world_size=JOBS[job], rank=rank)
+    model, stage = GRID[job]
+    create_mesh(model=model, stage=stage)
+    rows = distributed.global_batch_sharding()
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    out = {}
+    if job == "m2":
+        bit = _trainer_step(BIT, seed=2, tp=2)
+        out["bit"] = _strip(bit)
+        out["ckpt"] = _checkpoints(bit, tmp)
+        out["v6"] = _strip(_trainer_step("ChangeFormerV6", seed=3, tp=2))
+        out["v6_dropout"] = _strip(_trainer_step("ChangeFormerV6", seed=4, tp=2,
+                                                 dropout=0.1))
+        out["bit_adam"] = _strip(_trainer_step(BIT, seed=6, tp=2, optimizer="adam"))
+        out["masks"] = _mlp_masks()
+        out["wide"] = _wide_convs()
+    elif job == "m2_cli":
+        out["refusals"] = _refusals(tmp)
+        out["cli"] = _cli(tmp, ["--model_axis", "2"])
+        out["train_cd"] = _train_cd(tmp, "train_cd_m2", ["--tp_axis", "2"])
+    elif job == "d2m2":
+        out["bit_grads"] = _bit_grads(inputs["bit_small"])
+        out["bit_aug"] = _strip(_trainer_step(BIT, seed=5, tp=2, rows=rows, augment=True))
+    else:
+        out["bit"] = _strip(_trainer_step(BIT, seed=2, tp=2, pp=2))
+        out["train_cd"] = _train_cd(tmp, "train_cd_m2s2", ["--tp_axis", "2", "--pp_stages", "2"])
+    out["jax_imported"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stcd_tpu"))
+    torch.save(out, os.path.join(tmp, f"{job}_rank{rank}.pt"))
+    distributed.barrier("done")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# the parent: references, spawn, checks
+# --------------------------------------------------------------------------
+
+def _bit_small_inputs():
+    """tests/test_parallel.py's BIT: the port's seeded weights and 8 pairs of
+    16x16 NCHW inputs with a label."""
+    from stcd_tpu_torch.models.bit import BASETransformer
+    from stcd_tpu_torch.models.factory import init_weights
+
+    sd = init_weights(BASETransformer(**BIT_SMALL), 9).state_dict()
+    rng = np.random.default_rng(9)
+    x1, x2 = (rng.standard_normal((8, 3, 16, 16)).astype(np.float32) for _ in range(2))
+    label = (rng.uniform(size=(8, 16, 16)) > 0.7).astype(np.int64)
+    return {"sd": sd, "x1": torch.from_numpy(x1), "x2": torch.from_numpy(x2),
+            "label": torch.from_numpy(label)}
+
+
+def _jax_bit_grads(inputs):
+    """JAX's sharded value_and_grad of tests/test_parallel.py:127-167 on the
+    data 4 x model 2 mesh, from the same weights and inputs; the gradients
+    under the port's names."""
+    import jax
+    import jax.numpy as jnp
+    from stcd_tpu.convert import torch_to_flax as t2f
+    from stcd_tpu.losses.functional import cross_entropy
+    from stcd_tpu.models.bit import BASETransformer
+    from stcd_tpu.parallel.mesh import batch_sharding, create_mesh, param_sharding
+    from stcd_tpu_torch.convert.from_flax import bit_from_flax
+
+    sd = {k: v.numpy() for k, v in inputs["sd"].items()}
+    params, stats = t2f.convert_bit(sd, (2, 2, 2, 2), enc_depth=1, dec_depth=2,
+                                    resnet_stages_num=3)
+    model = BASETransformer(**BIT_SMALL)
+    x1, x2 = (jnp.asarray(inputs[k].numpy().transpose(0, 2, 3, 1)) for k in ("x1", "x2"))
+    label = jnp.asarray(inputs["label"].numpy()[..., None].astype(np.int32))
+
+    def loss_fn(p, a, b):
+        return cross_entropy(model.apply({"params": p, "batch_stats": stats}, a, b), label)
+
+    mesh = create_mesh(data=4, model=2)
+    p_sh = jax.device_put(params, param_sharding(mesh, params, min_size_to_shard=1 << 30))
+    bs = batch_sharding(mesh)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(p_sh, jax.device_put(x1, bs),
+                                                       jax.device_put(x2, bs))
+    return {"loss": float(loss), "grads": bit_from_flax(jax.device_get(grads), stats)}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Prepare the inputs and the one-process checkpoint, spawn the ranks,
+    compute the JAX references while they run."""
+    from stcd_tpu_torch.cli import make_demo_data
+    from stcd_tpu_torch.train.checkpoint import CheckpointManager
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    tmp = str(tmp_path_factory.mktemp("tensor"))
+    inputs = {"bit_small": _bit_small_inputs()}
+    torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+    make_demo_data.make_tree(os.path.join(tmp, "demo"), n=2, size=HW)
+    one_ckpt = _trainer_step(BIT, seed=8, tmp=os.path.join(tmp, "ckpt_one"))
+    CheckpointManager(os.path.join(tmp, "ckpt_one")).save_last(one_ckpt["obj"], 3, 0.25, 2)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [(job, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", job, str(r), tmp],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for job, world in JOBS.items() for r in range(world)]
+    try:
+        jax_ref = _jax_bit_grads(inputs["bit_small"])
+        logs = [p.communicate(timeout=WORKER_TIMEOUT)[0] for _, p in procs]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+        torch.set_num_threads(threads)
+    for (job, p), log in zip(procs, logs):
+        assert p.returncode == 0, f"a rank of {job}:\n{log[-4000:]}"
+    ranks = {job: [torch.load(os.path.join(tmp, f"{job}_rank{r}.pt"), weights_only=False)
+                   for r in range(world)] for job, world in JOBS.items()}
+    yield {"ranks": ranks, "one": ranks.pop("one")[0], "jax": jax_ref, "tmp": tmp,
+           "one_ckpt": torch.load(os.path.join(tmp, "ckpt_one", "last_ckpt"),
+                                  weights_only=True)}
+
+
+def _share(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(1.0, np.abs(want).max())
+
+
+# --- 1. the placement against JAX's param_sharding ---
+
+def _jax_split_axes(sd, convert):
+    """{(state_dict name, torch axis)} that JAX's param_sharding puts on the
+    model axis of a data 4 x model 2 mesh, on ``convert(sd)``'s tree. Each
+    tensor is filled with its index in ``sd`` (which flax leaf is which) and
+    then with its coordinate along each axis (which axis the split is)."""
+    import jax
+    from stcd_tpu.parallel.mesh import create_mesh, param_sharding
+
+    names = list(sd)
+
+    def tree(fill):
+        out = convert({k: fill(i, v) if v.is_floating_point() else v.numpy()
+                       for i, (k, v) in enumerate(sd.items())})
+        return out[0] if isinstance(out, tuple) else out
+
+    def along(j):
+        def fill(i, v):
+            if v.dim() <= j:
+                return np.zeros(tuple(v.shape), np.float32)
+            shape = [-1 if a == j else 1 for a in range(v.dim())]
+            return np.broadcast_to(np.arange(v.shape[j], dtype=np.float32).reshape(shape),
+                                   tuple(v.shape)).copy()
+        return jax.tree_util.tree_leaves(tree(fill))
+
+    ident = tree(lambda i, v: np.full(tuple(v.shape), float(i), np.float32))
+    specs = jax.tree_util.tree_leaves(
+        param_sharding(create_mesh(data=4, model=2), ident), is_leaf=lambda x: hasattr(x, "spec"))
+    coords = [along(j) for j in range(4)]
+    out = set()
+    for k, (leaf, sharding) in enumerate(zip(jax.tree_util.tree_leaves(ident), specs)):
+        spec = tuple(sharding.spec)
+        if "model" not in spec:
+            continue
+        a, leaf = spec.index("model"), np.asarray(leaf)
+        assert (leaf == leaf.flat[0]).all()
+        axes = [j for j in range(4) if np.ptp(np.asarray(coords[j][k]), axis=a).max() > 0]
+        assert len(axes) == 1, (names[int(leaf.flat[0])], axes)
+        out.add((names[int(leaf.flat[0])], axes[0]))
+    return out
+
+
+def _placement_model(name):
+    from stcd_tpu.convert import torch_to_flax as t2f
+    from stcd_tpu_torch.models.factory import define_G
+    from stcd_tpu_torch.models.segcd import SegCD
+
+    if name == "segcd_r50":
+        return (SegCD("resnet50", classes=1, decoder_channels=(256, 128, 64, 32, 16)),
+                lambda sd: t2f.convert_unetseg(sd, (3, 4, 6, 3)))
+    if name == "v6_256":
+        return (define_G("ChangeFormerV6", embed_dim=256),
+                lambda sd: t2f.convert_changeformer_v6(sd, depths=(3, 3, 4, 3)))
+    return (define_G(BIT), lambda sd: t2f.convert_bit(sd, dec_depth=8, resnet_stages_num=4))
+
+
+@pytest.mark.parametrize("name", ["segcd_r50", "v6_256", "bit"])
+def test_placement_equals_jax_param_sharding(name):
+    from stcd_tpu_torch.models.bit import Attention, CrossAttention
+    from stcd_tpu_torch.models.changeformer import SRAttention
+    from stcd_tpu_torch.parallel import tensor
+
+    model, convert = _placement_model(name)
+    want = _jax_split_axes(model.state_dict(), convert)
+    got = {(k, split.dim) for k, split in tensor.plan(model, 2).items()}
+    # known issue 13: JAX splits inside a head where T does not divide the heads
+    whole = tuple(prefix + "." for prefix, mod in model.named_modules()
+                  if isinstance(mod, (SRAttention, Attention, CrossAttention))
+                  and getattr(mod, "num_heads", getattr(mod, "heads", 0)) % 2)
+    kept = {(k, dim) for k, dim in want if whole and k.startswith(whole)}
+    assert got <= want
+    assert want - got == kept
+    assert (name == "v6_256") == bool(kept)  # V6's stage 1 has one head
+    assert len(got) == {"segcd_r50": 10, "v6_256": 123, "bit": 61}[name]
+
+
+# --- 2. BIT's loss and gradients against JAX's sharded value_and_grad ---
+
+def test_bit_loss_and_gradients_equal_jax_sharded(run):
+    want = run["jax"]
+    for rank in run["ranks"]["d2m2"]:
+        got = rank["bit_grads"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=2e-5)
+        assert set(got["grads"]) <= set(want["grads"])
+        for k, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), np.asarray(want["grads"][k]),
+                                       atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=k)
+    first = run["ranks"]["d2m2"][0]["bit_grads"]["grads"]
+    for rank in run["ranks"]["d2m2"][1:]:
+        for k, g in first.items():
+            assert torch.equal(rank["bit_grads"]["grads"][k], g), k
+
+
+# --- 3. CDTrainer(tp_axis=2) against one process ---
+
+@pytest.mark.parametrize("name,job", [("bit", "m2"), ("v6", "m2"), ("v6_dropout", "m2"),
+                                      ("bit_aug", "d2m2"), ("bit", "m2s2")])
+def test_cdtrainer_tensor_parallel_equals_one_process(run, name, job):
+    want = run["one"][name]
+    ranks = [r[name] for r in run["ranks"][job]]
+    model, stage = GRID[job]
+    n_data = len(ranks) // (model * stage)
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        assert torch.equal(got["cm"], want["cm"])
+        assert torch.equal(got["cm_eval"], want["cm_eval"])
+        rows = slice(r // (model * stage), None, n_data)
+        np.testing.assert_allclose(got["logits"].numpy(), want["logits"][rows].numpy(),
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        assert got["state"].keys() == want["state"].keys()
+        for k, w in want["state"].items():
+            if w.is_floating_point():
+                assert _share(got["state"][k], w) <= STATE_SHARE, k
+            else:
+                assert torch.equal(got["state"][k], w), k
+        if stage == 1:  # a pipeline draws its stages' seeds besides
+            assert torch.equal(got["generator"], want["generator"])
+    for got in ranks[1:]:  # every rank ends the step with one state, its shards apart
+        for k, w in ranks[0]["state"].items():
+            assert torch.equal(got["state"][k], w), k
+        for k, w in ranks[0]["local"].items():
+            if k not in ranks[0]["shapes"]:
+                assert torch.equal(got["local"][k], w), k
+
+
+@pytest.mark.parametrize("name", ["v6", "bit_adam"])
+def test_each_rank_holds_its_shards_and_their_moments(run, name):
+    """The split parameters and their optimizer moments (SGD's momentum,
+    Adam's two) hold half the full tensor's split axis on each rank, and the
+    two ranks' shards together are the full tensor."""
+    ranks = [r[name] for r in run["ranks"]["m2"]]
+    want = run["one"][name]
+    assert ranks[0]["shapes"]
+    for got in ranks:
+        for k, (shape, moments) in got["shapes"].items():
+            full = tuple(want["state"][k].shape)
+            assert sum(a != b for a, b in zip(shape, full)) == 1, k
+            assert np.prod(shape) * 2 == np.prod(full), k
+            assert moments and all(m == shape for m in moments), k
+        assert got["bytes"] < want["bytes"]
+    assert not torch.equal(ranks[0]["local"][next(iter(ranks[0]["shapes"]))],
+                           ranks[1]["local"][next(iter(ranks[0]["shapes"]))])
+
+
+# --- 4. the stage CLI ---
+
+def test_cli_model_axis_trains_what_one_process_trains(run):
+    want = run["one"]["cli"]
+    ranks = [r["cli"] for r in run["ranks"]["m2_cli"]]
+    for got in ranks:
+        assert got["step"] == want["step"] == 1
+        assert got["split"] and not want["split"]
+        assert got["state"].keys() == want["state"].keys()
+        agree = total = 0
+        for k, w in want["state"].items():
+            d = (got["state"][k].double() - w.double()).abs()
+            assert d.max() <= CLI_ATOL + 1e-6 * max(1.0, w.abs().max().item()), k
+            if w.is_floating_point():
+                agree += (d <= 1e-5).sum().item()
+                total += w.numel()
+        assert agree >= CLI_AGREE * total, agree / total
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(ranks[1]["state"][k], v), k
+
+
+@pytest.mark.parametrize("job", ["m2_cli", "m2s2"])
+def test_cli_train_cd_tp_axis_trains_what_one_process_trains(run, job):
+    """cli.train_cd --tp_axis 2 (and with --pp_stages 2): the state after one
+    epoch and the evaluator's scores of its best_ckpt, on every rank."""
+    want = run["one"]["train_cd"]
+    for rank in run["ranks"][job]:
+        got = rank["train_cd"]
+        assert got["split"] and not want["split"]
+        for k, w in want["state"].items():
+            if w.is_floating_point():
+                assert _share(got["state"][k], w) <= TRAIN_CD_SHARE, k
+        assert got["scores"] == pytest.approx(want["scores"], rel=1e-6, abs=1e-9)
+
+
+# --- 5. checkpoints ---
+
+def test_a_model_axis_checkpoint_is_the_one_process_layout(run):
+    """The file the model-2 trainer wrote loads into one process's model and
+    holds the ranks' gathered state; its optimizer state is one process's
+    too (one momentum a parameter, of the full shape)."""
+    from stcd_tpu_torch.models.factory import define_G
+    from stcd_tpu_torch.train.checkpoint import CheckpointManager
+    from stcd_tpu_torch.train.state import SGDConfig, create_train_state
+
+    state = create_train_state(define_G(BIT, img_size=HW), SGDConfig(lambda s: 0.01),
+                               device="cpu")
+    restored = CheckpointManager(os.path.join(run["tmp"], "ckpt_m2")).restore_last(state)
+    assert restored is not None and restored[1:] == (0, 0.5, 0)
+    want = run["ranks"]["m2"][0]["bit"]
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, want["state"][k]), k
+    for p in state.model.parameters():
+        assert state.optimizer.state[p]["momentum_buffer"].shape == p.shape
+
+
+def test_a_one_process_checkpoint_restores_into_the_split_state(run):
+    one = run["one_ckpt"]
+    for r, rank in enumerate(run["ranks"]["m2"]):
+        got = rank["ckpt"]
+        assert got["restored_epoch"] == 3
+        assert set(got["parts"]) and len(got["parts"]) == 61
+        for k, v in one["model"].items():
+            if k in got["parts"]:
+                dim, index = got["parts"][k]
+                assert torch.equal(got["shards"][k], v.index_select(dim, index)), k
+            else:
+                assert torch.equal(got["shards"][k], v), k
+        for k, m in got["momentum"].items():
+            full = one["optimizer"]["state"][got["param_index"][k]]["momentum_buffer"]
+            want = full.index_select(*got["parts"][k]) if k in got["parts"] else full
+            assert torch.equal(m, want), k
+
+
+# --- 6. the dropout ---
+
+@pytest.mark.parametrize("rows,heads", [((0, 1), (1, 2)), ((1, 2), (4, 8)), ((1, 2), (0, 8)),
+                                        ((0, 1), (6, 8))])
+def test_attention_plain_heads_equal_jax_global_mask(rows, heads):
+    """Heads h0 .. h0 + h of H, hashed at dropout_heads (h0, H) (and a data
+    shard's rows at dropout_rows), keep the attention weights that JAX's
+    _einsum_attention keeps on the whole array."""
+    import jax.numpy as jnp
+    from stcd_tpu.ops.attention import _einsum_attention
+    from stcd_tpu_torch.ops.attention import attention_plain
+
+    h0, total = heads
+    h = max(1, total // 4) if h0 else total // 2
+    off, stride = rows
+    rng = np.random.default_rng(h0 * 10 + total)
+    b, n, m, d = 4, 6, 5, 4
+    q, k, v = (rng.standard_normal((b, total, x, d)).astype(np.float32) for x in (n, m, m))
+    seed, rate = 987654, 0.3
+    want = np.asarray(_einsum_attention(*(jnp.asarray(t) for t in (q, k, v)), 0.5, rate,
+                                        seed))
+    local = [torch.from_numpy(t[off::stride, h0:h0 + h].copy()) for t in (q, k, v)]
+    got = attention_plain(*local, 0.5, rate, seed, dropout_rows=rows, dropout_heads=heads)
+    np.testing.assert_allclose(got.numpy(), want[off::stride, h0:h0 + h], rtol=1e-6,
+                               atol=1e-6)
+    whole = [torch.from_numpy(t) for t in (q, k, v)]
+    assert torch.equal(attention_plain(*whole, 0.5, rate, seed),
+                       attention_plain(*whole, 0.5, rate, seed, dropout_heads=(0, total)))
+
+
+@pytest.mark.parametrize("name", ["mixffn", "feedforward"])
+def test_hidden_dropout_split_equals_one_process(run, name):
+    for rank in run["ranks"]["m2"]:
+        one, split = rank["masks"][name]
+        torch.testing.assert_close(split, one, rtol=1e-6, atol=1e-6)
+
+
+def test_wide_conv_splits_equal_one_process_in_float64(run):
+    """A Conv2d split by output channels (gathered), a grouped one by its
+    groups, a ConvTranspose2d by input channels (reduced): forward, input
+    and parameter gradients equal one process's to float64 rounding."""
+    for rank in run["ranks"]["m2"]:
+        one, split = rank["wide"]["runs"]
+        assert rank["wide"]["kinds"] == ["OutConv2d", "OutConv2d", "InConvTranspose2d"]
+        for want, got in zip(one, split):
+            assert want.keys() == got.keys()
+            for k, w in want.items():
+                torch.testing.assert_close(got[k], w, rtol=1e-12, atol=1e-12, msg=k)
+
+
+# --- 7. refusals ---
+
+def test_model_axis_refusals(run, tmp_path):
+    from stcd_tpu_torch.cli import train_pse_cd
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+    from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
+
+    for kwargs in ({"space": 2, "model": 2}, {"space": 2, "stage": 2}):
+        with pytest.raises(NotImplementedError, match="Queue 1 #11d"):
+            create_mesh(**kwargs)
+    with pytest.raises(NotImplementedError, match="#11d"):
+        train_pse_cd.main(["--space_axis", "2", "--model_axis", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="'model' axis of 2 .* torchrun --nproc_per_node 2"):
+        CDTrainer(TrainerConfig(tp_axis=2, device="cpu"), steps_per_epoch=1)
+    for rank in run["ranks"]["m2_cli"]:
+        for what in ("mesh model 3", "cli model 3"):
+            assert rank["refusals"][what].startswith("ValueError"), what
+            assert "torchrun --nproc_per_node" in rank["refusals"][what], what
+
+
+def test_no_jax_in_the_ranks(run):
+    for job in run["ranks"]:
+        for rank in run["ranks"][job]:
+            assert rank["jax_imported"] == []
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
+    sys.exit(_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))

@@ -153,15 +153,15 @@ def test_scores_and_alpha_match_jax():
 
 
 def test_parallel_fields_raise(tmp_path):
-    """tp_axis is not ported (Queue 1 #11c); pp_stages is: one process takes
-    it and asks for the ranks of its pipeline (tests/test_torch_pipeline.py
-    runs them)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+    """tp_axis and pp_stages: one process takes them and asks for the ranks of
+    its model group or pipeline (tests/test_torch_tensor_parallel.py and
+    tests/test_torch_pipeline.py run them)."""
+    with pytest.raises(ValueError, match="'model' axis of 2 .* torchrun --nproc_per_node 2"):
         tt.CDTrainer(_cfg(tmp_path, tp_axis=2))
     with pytest.raises(ValueError, match="'stage' axis of 2 .* torchrun --nproc_per_node 2"):
         tt.CDTrainer(_cfg(tmp_path, pp_stages=2))
     from stcd_tpu_torch.cli import train_cd
-    with pytest.raises(NotImplementedError, match="Queue 1 #11c"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_cd.main(["--tp_axis", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_cd.main(["--pp_stages", "2", "--device", "cpu"])
