@@ -224,8 +224,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    head offsets h0 = rank x heads / 2, stage 1 whole; small_m for BIT's decoder at
    h0 = 4 rank). Phase 3 also holds kernels #1 and #2 against their plain versions at
    the head offsets (h0, H) = (1, 2) and (4, 8) with rows (1, 2), f32 and bf16, M > 8
-   and M <= 8, and (0, h) bit-identical to the call without heads. Every phase prints
-   its seconds.
+   and M <= 8, and (0, h) bit-identical to the call without heads.
+26. serving split over replicas (stcd_tpu_torch/serving/replicas.py): the full-width
+   ChangeFormerV6 (embed 256, seeded weights), fp32 with TF32 off, tile 256, batch 16,
+   behind BatchingEngine(devices=["cuda:0", "cuda:0"]), two replicas from
+   cli.predict.make_replicas on the one card, warmed, then
+   4 concurrent 512x512 requests: the stitched P(changed) within PROBS_ATOL of the
+   one-replica engine's on the same weights and scenes, /stats devices 2, mesh_sharded
+   and no error, 13 f32_cuda attention launches a replica step (two a batch). Then
+   SegCD-r50 (decoder 256..16) with --int8: two replicas with one scale table against
+   the one-replica int8 engine, /stats quantized, the decisions at 0.5 agreeing on at
+   least 1 - INT8_F1_TOL of the pixels. The 4-card run of the same path is
+   stcd_tpu_torch/tools/check_sharded_serving.py. Every phase prints its seconds.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -1676,6 +1686,7 @@ def reset_attention_counts(attention):
     kernel.kernel_launches = kernel.backward_launches = 0
     kernel.forward_variants.clear()
     kernel.backward_variants.clear()
+    kernel.launches_by_device.clear()
     return kernel
 
 
@@ -3634,6 +3645,83 @@ def phase_tensor_parallel(torch, gpu_label) -> dict:
             "aug": {"tp_segcd": sum(r["segcd"]["launches"]["train"]["aug"] for r in ranks)}}
 
 
+REPLICAS = ["cuda:0", "cuda:0"]  # two replicas on the one card
+
+
+def phase_replicas(torch, np, attention, gpu_label) -> int:
+    """Serving split over two replicas on the one card (phase 26): V6 fp32
+    against one replica, then SegCD-r50 int8 against one replica. Returns the
+    attention launches of the two-replica V6 run."""
+    from stcd_tpu_torch.cli.predict import add_model_args, build_model, make_replicas
+    from stcd_tpu_torch.serving.server import BatchingEngine
+
+    parser = argparse.ArgumentParser()
+    add_model_args(parser)
+    common = ["--init_seed", "0", "--device", "cuda", "--tile", str(TILE)]
+    args = parser.parse_args(["--net_G", "ChangeFormerV6", "--embed_dim", "256", *common])
+    model = build_model(args)
+    rng = np.random.default_rng(3)
+    scenes = [tuple(rng.uniform(0, 1, (SCENE, SCENE, 3)).astype(np.float32)
+                    for _ in range(2)) for _ in range(4)]
+
+    def engine_over(fns, devices, quantized=False):
+        engine = BatchingEngine(fns, tile=TILE, batch=BATCH, max_wait_ms=50.0,
+                                devices=devices, quantized=quantized)
+        engine.warm()
+        return engine
+
+    one = engine_over(make_replicas(args, model, REPLICAS[:1]), REPLICAS[:1])
+    try:
+        want = drive(one, scenes)
+    finally:
+        one.close()
+    engine = engine_over(make_replicas(args, model, REPLICAS), REPLICAS)
+    try:
+        kernel = reset_attention_counts(attention)
+        t0 = time.monotonic()
+        got = drive(engine, scenes)
+        seconds = time.monotonic() - t0
+        launches, variants = kernel.kernel_launches, dict(kernel.forward_variants)
+        stats = engine.stats_snapshot()
+    finally:
+        engine.close()
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    steps = len(REPLICAS) * stats["batches"]
+    print(f"replicas ({gpu_label}): V6 fp32 over {REPLICAS}: {stats['tiles']} tiles in "
+          f"{stats['batches']} batches ({steps} replica steps) in {seconds:.2f} s, step_ms "
+          f"p50 {stats['step_ms']['p50']}; attention launches {launches} {variants}; "
+          f"max|dP| against one replica {err:.3e} (atol {PROBS_ATOL})", flush=True)
+    require(stats["devices"] == 2 and stats["mesh_sharded"] is True
+            and stats["errors"] == 0 and stats["requests"] == 4, f"replica /stats {stats}")
+    require(launches == 13 * steps and variants == {"f32_cuda": launches},
+            f"{launches} launches {variants} for {steps} replica steps")
+    require(err <= PROBS_ATOL, f"two replicas against one: max|dP| {err}")
+    del model
+
+    args = parser.parse_args([*common, "--int8"])
+    model = build_model(args)
+    calib = [torch.from_numpy(np.stack([s[k][:TILE, :TILE] for s in scenes])).cuda()
+             for k in (0, 1)]
+    maps = {}
+    for devices in (REPLICAS[:1], REPLICAS):
+        engine = engine_over(make_replicas(args, model, devices, calib), devices,
+                             quantized=True)
+        try:
+            maps[len(devices)] = drive(engine, scenes)
+            stats = engine.stats_snapshot()
+        finally:
+            engine.close()
+        require(stats["quantized"] is True and stats["devices"] == len(devices)
+                and stats["errors"] == 0, f"int8 /stats {stats}")
+    agree = float(np.mean([np.mean((g > 0.5) == (w > 0.5)) for g, w in zip(maps[2], maps[1])]))
+    err = max(float(np.abs(g - w).max()) for g, w in zip(maps[2], maps[1]))
+    print(f"replicas: SegCD-r50 int8, two replicas against one: decisions agree on "
+          f"{agree:.6f} of the pixels (>= {1 - INT8_F1_TOL}), max|dP| {err:.3e}; /stats "
+          f"quantized", flush=True)
+    require(agree >= 1 - INT8_F1_TOL, f"int8 replicas: decisions agree on {agree}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3770,6 +3858,9 @@ def main() -> int:
     with timed("25 tensor parallel"):
         tp_launches = phase_tensor_parallel(torch, gpu_label)
     aug_by_path.update(tp_launches["aug"])
+    # phase 26: serving split over replicas on the one card
+    with timed("26 replicas"):
+        replica_launches = phase_replicas(torch, np, attention, gpu_label)
     aug["launches"] = sum(aug_by_path.values())
     print(f"phase seconds: {json.dumps(seconds)}; total {time.monotonic() - t_start:.1f} s",
           flush=True)
@@ -3781,6 +3872,7 @@ def main() -> int:
                    **{f"{k.lower()}_eval_and_step": v["eval_fwd"] + v["train_fwd"]
                       for k, v in zoo.items()},
                    "export_v6_loaded": export_v6, "smp_fpn_mit_b2": smp_fwd,
+                   "v6_serving_replicas": replica_launches,
                    **pp_launches["fwd"], **tp_launches["fwd"]}
     bwd_by_path = {"v6_training": v6_bwd, "v6_fp32_training": v6_fp32_bwd,
                    "bit_training": bit_bwd, "train_cd_v6": train_cd["v6"]["bwd"],
@@ -3791,7 +3883,7 @@ def main() -> int:
     attn_bwd["launches"], attn_bwd["launches_by_path"] = sum(bwd_by_path.values()), bwd_by_path
     # the variant each path launched (each path's run required that it launched no other)
     f32_paths = ("v6_serving", "v6_fp32_training", "train_cd_v6", "export_v6_loaded",
-                 "smp_fpn_mit_b2", "pp_v6", "pp_cli_v6", "tp_v6")
+                 "smp_fpn_mit_b2", "pp_v6", "pp_cli_v6", "tp_v6", "v6_serving_replicas")
     attn["variants"] = {
         "f32_cuda": sum(fwd_by_path[k] for k in f32_paths) + sum(
             v["eval_fwd"] + v["train_fwd"] for v in zoo.values()),

@@ -45,7 +45,7 @@ import os
 
 import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.parallel import distributed
 from stcd_tpu_torch.parallel.distributed import print_primary
 

@@ -31,7 +31,7 @@ def main(argv=None) -> dict:
     result being what the step's ``main`` returned."""
     from stcd_tpu_torch.cli import (evaluate, make_demo_data, train_pse_cd, train_stcd,
                                     train_sup)
-    from stcd_tpu_torch.cli.predict import resolve_device
+    from stcd_tpu_torch.utils.device import resolve_device
     from stcd_tpu_torch.parallel import distributed
 
     p = argparse.ArgumentParser(description=__doc__,

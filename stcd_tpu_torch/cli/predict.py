@@ -20,27 +20,25 @@ The change probability is the sigmoid of a 1-channel change logit (SegCD's
 third output), or for a multi-class head the final scale's P(changed) = sum
 of the softmax classes 1..C-1. ``--int8`` runs the convs in int8
 (``serving/quant.py``), calibrated on the scene's own first tiles.
+
+With ``--device cuda`` the tile batches are split by rows over every visible
+card, one replica of the model each (``parallel/mesh.py::serving_devices``),
+as scripts/predict.py shards them over the mesh; ``--batch`` defaults to 4 x
+the card count. ``cuda:N`` or ``--no_shard`` runs on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import os
 
 import numpy as np
 import torch
 
 from stcd_tpu_torch.models.factory import NET_G_KEYS
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` without a card raises: the port never carries on silently on
-    the CPU."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return device
+from stcd_tpu_torch.utils.device import indexed_device, resolve_device
 
 
 def resolve_checkpoint(load_path: str) -> str:
@@ -144,6 +142,24 @@ def quantize_base_fn(model: torch.nn.Module, base_fn, tiles_a: torch.Tensor,
     return quantize_fn(model, base_fn, scales), scales
 
 
+def make_replicas(args, model: torch.nn.Module, devices, calib=None) -> list:
+    """One predict function for each of ``devices``: ``make_base_fn`` over the
+    eval model with its weights, copied to that device (the first device
+    keeps ``model`` itself where it lies there). Under ``args.int8`` the
+    scales are calibrated once, on ``model`` and the tiles ``calib`` (a pair
+    of NHWC tensors on its device), and every replica takes the same table, as
+    JAX applies one table to its whole sharded step."""
+    home = next(model.parameters()).device
+    replicas = [model if i == 0 and indexed_device(dev) == home
+                else copy.deepcopy(model).to(dev) for i, dev in enumerate(devices)]
+    fns = [make_base_fn(args, replica) for replica in replicas]
+    if args.int8:
+        from stcd_tpu_torch.serving.quant import quantize_fn
+        _, scales = quantize_base_fn(model, make_base_fn(args, model), *calib)
+        fns = [quantize_fn(replica, fn, scales) for replica, fn in zip(replicas, fns)]
+    return fns
+
+
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """Model and weight flags shared by predict, serve and export_model."""
     p.add_argument("--encoder", default="resnet50")
@@ -188,7 +204,10 @@ def main(argv=None):
     p.add_argument("--out", required=True, help="output change-mask PNG")
     p.add_argument("--prob_out", default=None, help="optional .npy of probs")
     p.add_argument("--stride", type=int, default=256)
-    p.add_argument("--batch", type=int, default=4, help="tiles per device step")
+    p.add_argument("--batch", type=int, default=None,
+                   help="tiles per step over all the devices (default 4 x the device count)")
+    p.add_argument("--no_shard", action="store_true",
+                   help="run on one card even when several are visible")
     add_model_args(p)
     args = p.parse_args(argv)
 
@@ -196,19 +215,21 @@ def main(argv=None):
     b = read_image(args.image_b)
     if a.shape != b.shape:
         raise SystemExit(f"scene shapes differ: {a.shape} vs {b.shape}")
-    device = resolve_device(args.device)
+    from stcd_tpu_torch.parallel.mesh import serving_devices
+    devices = serving_devices(args.device, args.batch, args.no_shard)
     model = build_model(args)
-    predict_fn = make_base_fn(args, model)
+    calib = None
     if args.int8:
         from stcd_tpu_torch.data.tiled_inference import tile_origins
         # only the calibration tiles, not the scene's whole tile stack
         t = args.tile
         cal = tile_origins(a.shape[0], a.shape[1], t, args.stride)[:8]
-        ca, cb = (torch.from_numpy(np.stack([im[y:y + t, x:x + t] for y, x in cal])).to(device)
-                  for im in (a, b))
-        predict_fn, _ = quantize_base_fn(model, predict_fn, ca, cb)
-    probs = predict_scene(predict_fn, a, b, tile=args.tile, stride=args.stride,
-                          batch=args.batch, device=device)
+        home = next(model.parameters()).device
+        calib = [torch.from_numpy(np.stack([im[y:y + t, x:x + t] for y, x in cal])).to(home)
+                 for im in (a, b)]
+    fns = make_replicas(args, model, devices, calib)
+    probs = predict_scene(fns, a, b, tile=args.tile, stride=args.stride,
+                          batch=args.batch, devices=devices)
     mask = (probs[..., 0] > args.threshold).astype(np.uint8)
     save_mask_png(mask, args.out)
     if args.prob_out:

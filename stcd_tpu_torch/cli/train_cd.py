@@ -40,7 +40,7 @@ import os
 
 import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.models.factory import NET_G_KEYS
 from stcd_tpu_torch.parallel import distributed
 

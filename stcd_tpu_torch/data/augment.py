@@ -29,6 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from stcd_tpu_torch.utils.device import indexed_device
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # torchvision rgb_to_grayscale
@@ -279,10 +281,15 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(-1, 1, 1, 1)
 
 
-@functools.lru_cache(maxsize=64)
 def _constant(values: tuple, device: torch.device) -> torch.Tensor:
     """A float32 constant on ``device``, copied there once: a copy from pageable
-    host memory waits for the device's queue, so the ops do not make one a call."""
+    host memory waits for the device's queue, so the ops do not make one a call.
+    Keyed on the device with its index, so two cards never share one."""
+    return _constant_on(values, indexed_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _constant_on(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 

@@ -33,7 +33,7 @@ from typing import Any, Dict, Iterator, Sequence
 import numpy as np
 import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.parallel import distributed
 
 PREFETCH = 2  # batches whose copy is in flight on the card

@@ -1,16 +1,15 @@
-"""Whole-scene tiled inference (counterpart of stcd_tpu/data/tiled_inference.py,
-without mesh sharding): tile a scene in memory, run the model over fixed-size
-tile batches on one device, and stitch the predictions back, averaging
-overlaps."""
+"""Whole-scene tiled inference (counterpart of stcd_tpu/data/tiled_inference.py):
+tile a scene in memory, run the model over fixed-size tile batches on one
+device or split by rows over several (``serving/replicas.py``), and stitch
+the predictions back, averaging overlaps."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.serving.replicas import Replicas
 
 
 def tile_origins(h: int, w: int, tile: int = 256, stride: int = 256) -> list:
@@ -48,19 +47,32 @@ def stitch_tiles(tiles: np.ndarray, origins: list, out_hw: Tuple[int, int]
     return (acc / np.maximum(cnt, 1)).astype(np.float32)
 
 
-@torch.inference_mode()
-def predict_scene(predict_fn: Callable, image_a: np.ndarray,
+def predict_scene(predict_fn: Union[Callable, Sequence[Callable]], image_a: np.ndarray,
                   image_b: Optional[np.ndarray] = None, tile: int = 256,
-                  stride: int = 256, batch: int = 4, device="cuda") -> np.ndarray:
+                  stride: int = 256, batch: Optional[int] = None, device="cuda",
+                  devices: Optional[Sequence] = None) -> np.ndarray:
     """Run ``predict_fn(tiles_a[, tiles_b]) -> probs`` (NHWC tensors on
     ``device``) over a whole scene. The last short batch is zero-padded to
     ``batch`` and the padding dropped after, so every step has one shape.
-    ``device`` defaults to the card; without one the call raises."""
-    device = resolve_device(device)
+    ``device`` defaults to the card; without one the call raises.
+
+    ``devices``, a list of D devices, takes the place of ``device``; then
+    ``predict_fn`` is a list of D functions, one replica each, and each batch
+    is split by rows over them as the serving engine splits it. ``batch``
+    defaults to 4 x D (the JAX function's 4 x the device count) and must
+    divide by D."""
+    fns = list(predict_fn) if devices is not None else [predict_fn]
+    devices = list(devices) if devices is not None else [device]
+    if batch is None:
+        batch = 4 * len(devices)
+    if batch % len(devices):
+        raise ValueError(f"batch={batch} does not divide across the {len(devices)} "
+                         f"devices {[str(d) for d in devices]}")
     tiles_a, origins = extract_tiles(image_a, tile, stride)
     tiles_b = extract_tiles(image_b, tile, stride)[0] if image_b is not None else None
     n = tiles_a.shape[0]
     outs = []
+    replicas = Replicas(fns, devices)
     for i in range(0, n, batch):
         parts = [tiles_a[i:i + batch]]
         if tiles_b is not None:
@@ -69,7 +81,5 @@ def predict_scene(predict_fn: Callable, image_a: np.ndarray,
         if pad:
             parts = [np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
                      for p in parts]
-        pred = predict_fn(*[torch.from_numpy(p).to(device) for p in parts])
-        pred = pred.float().cpu().numpy()
-        outs.append(pred[:batch - pad])
+        outs.append(replicas.run(*parts)[:batch - pad])
     return stitch_tiles(np.concatenate(outs), origins, image_a.shape[:2])

@@ -30,6 +30,7 @@ from torch import nn
 
 from stcd_tpu_torch.layers.norm import BatchNorm
 from stcd_tpu_torch.layers.stochastic import DropPath
+from stcd_tpu_torch.utils.device import indexed_device
 
 _ACTS = {"relu": nn.ReLU, "prelu": nn.ReLU, "leakyrelu": lambda: nn.LeakyReLU(0.2),
          "gelu": nn.GELU, "hswish": nn.Hardswish}
@@ -103,7 +104,8 @@ def relative_pos_bias(channels: int, n: int, m: int, grid_hw=None,
     from torch._subclasses.fake_tensor import is_fake
 
     grid = None if grid_hw is None else tuple(int(v) for v in grid_hw)
-    key = (channels, n, m, grid, str(torch.device(device or "cpu")))
+    device = indexed_device(device or "cpu")  # one entry a card, replicas on several
+    key = (channels, n, m, grid, str(device))
     t = _BIAS_CACHE.get(key)
     if t is None:
         t = torch.from_numpy(relative_pos_bias_np(channels, n, m, grid)).to(device)

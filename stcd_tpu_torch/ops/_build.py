@@ -21,10 +21,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stcd_tpu_torch"
+# held around every wrapper's launch counters: several host threads may launch
+# at once, and `+=` on an attribute is no atomic step
+COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 

@@ -393,8 +393,10 @@ def launch_forward(q, k, v, scale, dropout_rate, dropout_seed, want_lse: bool,
         q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_fwd ({variant})")
-    cross_attention_kernel.kernel_launches += 1
-    cross_attention_kernel.forward_variants[variant] += 1
+    with _build.COUNT_LOCK:
+        cross_attention_kernel.kernel_launches += 1
+        cross_attention_kernel.forward_variants[variant] += 1
+        cross_attention_kernel.launches_by_device[q.device.index] += 1
     return out, lse
 
 
@@ -428,8 +430,9 @@ def launch_backward(q, k, v, out, lse, g, scale, dropout_rate, dropout_seed,
         *_heads_arg(dropout_heads, h), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"stcd_cross_attention_bwd ({variant})")
-    cross_attention_kernel.backward_launches += 1
-    cross_attention_kernel.backward_variants[variant] += 1
+    with _build.COUNT_LOCK:
+        cross_attention_kernel.backward_launches += 1
+        cross_attention_kernel.backward_variants[variant] += 1
     return dq, dk, dv
 
 
@@ -524,7 +527,8 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
     forward launches and ``backward_launches`` the backward ones, those of a
     program exported with ``torch.export`` and run included;
     ``forward_variants`` and ``backward_variants`` count them by the variant
-    that ``select_variant`` picked. ``dropout_rows`` (offset, stride) places
+    that ``select_variant`` picked, and ``launches_by_device`` the forward
+    launches by card index. ``dropout_rows`` (offset, stride) places
     the batch rows and ``dropout_heads`` (h0, H) the heads in the global
     array for the dropout hash."""
     _check_kernel_args(q, k, v, dropout_rate, dropout_seed, dropout_rows, dropout_heads)
@@ -539,6 +543,7 @@ def cross_attention_kernel(q, k, v, scale: float, dropout_rate: float = 0.0,
 cross_attention_kernel.kernel_launches = 0
 cross_attention_kernel.backward_launches = 0
 cross_attention_kernel.forward_variants = collections.Counter()
+cross_attention_kernel.launches_by_device = collections.Counter()
 cross_attention_kernel.backward_variants = collections.Counter()
 
 

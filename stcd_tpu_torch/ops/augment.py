@@ -116,7 +116,8 @@ def apply_augment_kernel(imgs: torch.Tensor, params: Params) -> torch.Tensor:
         partials.data_ptr(), n, h, w, plan["tiles_x"], plan["tiles_y"], plan["smem_bytes"],
         imgs.device.index, torch.cuda.current_stream(imgs.device).cuda_stream)
     _build.check(lib, err, "stcd_augment_fwd")
-    apply_augment_kernel.kernel_launches += 1
+    with _build.COUNT_LOCK:
+        apply_augment_kernel.kernel_launches += 1
     return out
 
 

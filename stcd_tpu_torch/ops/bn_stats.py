@@ -146,7 +146,8 @@ def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         plan["part_rows"], _ticket_slot(x.device.index, stream, capturing), x.device.index,
         stream)
     _build.check(lib, err, "stcd_bn_stats_fwd")
-    bn_stats_kernel.kernel_launches += 1
+    with _build.COUNT_LOCK:
+        bn_stats_kernel.kernel_launches += 1
     return out[0], out[1]
 
 

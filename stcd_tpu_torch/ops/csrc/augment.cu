@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -565,7 +567,8 @@ extern "C" int stcd_augment_fwd(const void* img, int is_u8, const long long* per
       tiles_y > 65535 || smem_bytes != kSmemBytes) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = is_u8 ? launch<uint8_t>(img, perm, factors, jitter, gray, blur, kern, out, partials, n,

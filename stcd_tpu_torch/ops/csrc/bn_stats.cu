@@ -48,6 +48,8 @@
 
 #include <type_traits>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -344,7 +346,8 @@ extern "C" int stcd_bn_stats_fwd(const void* x, float* part, float* out, long lo
       plan.groups + 1 > kTicketsPerSlot) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return (int)err;
   // the tickets' address on this device, looked up once (not while a stream captures)
   static int* tickets_of[kMaxDevices] = {};

@@ -89,6 +89,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -755,7 +756,8 @@ extern "C" int stcd_cross_attention_fwd(const void* q, const void* k, const void
       !hash_rows_valid(bh, heads, batch_off, batch_stride, head0, head_total)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_FWD_ARGS q, k, v, o, lse, bh, n, m, d

@@ -87,6 +87,7 @@
 // - f32 accumulation, dq in q's dtype. Any N and M; D <= 128.
 
 #include "attention_common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -1042,7 +1043,8 @@ extern "C" int stcd_cross_attention_bwd(const void* q, const void* k, const void
       !hash_rows_valid(bh, heads, batch_off, batch_stride, head0, head_total)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STCD_BWD_ARGS q, k, v, o, g, lse, dq, dk, dv, dk_part, dv_part

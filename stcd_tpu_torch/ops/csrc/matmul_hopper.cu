@@ -57,6 +57,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 // the wmma routes and the fixed-order sum of the partials, matmul_stats.cu
 extern "C" int stcd_matmul_bf16_tiles(const void* x, const void* w, void* y, long long m, int k,
                                       int n, int device, void* stream);
@@ -773,9 +775,7 @@ bool same_plan(const Plan& plan, int route, int pass_cols, int passes_per_group,
 
 template <int EPI>
 cudaError_t run_wgmma(const Plan& plan, const void* x, const void* w, void* y, long long m, int k,
-                      int n, float* part_sum, float* part_sq, int device, cudaStream_t s) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+                      int n, float* part_sum, float* part_sq, cudaStream_t s) {
   switch (plan.pass_cols) {
     case 64: return launch_wgmma<64, EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
     case 128: return launch_wgmma<128, EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, s);
@@ -806,8 +806,11 @@ int run_stats(Tiles tiles, const void* x, const void* w, void* y, float* part_su
                  stream);
   }
   if (part_rows != plan.blocks_x) return (int)cudaErrorInvalidValue;
-  cudaError_t err = run_wgmma<EPI>(plan, x, w, y, m, k, n, part_sum, part_sq, device,
-                                   static_cast<cudaStream_t>(stream));
+  DeviceGuard guard;  // the sum over the partials runs on the device too
+  cudaError_t err = guard.set(device);
+  if (err != cudaSuccess) return (int)err;
+  err = run_wgmma<EPI>(plan, x, w, y, m, k, n, part_sum, part_sq,
+                       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return stcd_matmul_stats_sum_parts(part_sum, part_sq, out_sum, out_sq, part_rows, n, stream);
 }
@@ -829,7 +832,10 @@ extern "C" int stcd_matmul_bf16(const void* x, const void* w, void* y, long long
     return (int)cudaErrorInvalidValue;
   }
   if (plan.route == kRouteWmma) return stcd_matmul_bf16_tiles(x, w, y, m, k, n, device, stream);
-  return (int)run_wgmma<kEpiNone>(plan, x, w, y, m, k, n, nullptr, nullptr, device,
+  DeviceGuard guard;
+  const cudaError_t err = guard.set(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)run_wgmma<kEpiNone>(plan, x, w, y, m, k, n, nullptr, nullptr,
                                   static_cast<cudaStream_t>(stream));
 }
 

@@ -70,6 +70,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -318,7 +320,8 @@ int run(const void* x, const void* w, void* y, float* part_sum, float* part_sq,
       want_tiles * (rows ? 1 : n_tiles) > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args a;

@@ -213,8 +213,9 @@ def matmul_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     raises on anything else. ``kernel_launches`` counts the calls and
     ``routes`` counts them by route."""
     y, route = _launch("stcd_matmul_bf16", x, w, "none", grid_2d=False)
-    matmul_bf16_kernel.kernel_launches += 1
-    matmul_bf16_kernel.routes[route] += 1
+    with _build.COUNT_LOCK:
+        matmul_bf16_kernel.kernel_launches += 1
+        matmul_bf16_kernel.routes[route] += 1
     return y
 
 
@@ -226,8 +227,9 @@ def matmul_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     block for each (M tile, N tile). ``kernel_launches`` counts the calls and
     ``routes`` counts them by route."""
     out, route = _launch("stcd_matmul_stats", x, w, "cuda_cores", grid_2d=True)
-    matmul_stats_kernel.kernel_launches += 1
-    matmul_stats_kernel.routes[route] += 1
+    with _build.COUNT_LOCK:
+        matmul_stats_kernel.kernel_launches += 1
+        matmul_stats_kernel.routes[route] += 1
     return out
 
 
@@ -238,8 +240,9 @@ def matmul_stats_rows_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     (one group); ``wmma`` is the 2-D tile. ``kernel_launches`` counts the
     calls and ``routes`` counts them by route."""
     out, route = _launch("stcd_matmul_stats", x, w, "cuda_cores", grid_2d=True)
-    matmul_stats_rows_kernel.kernel_launches += 1
-    matmul_stats_rows_kernel.routes[route] += 1
+    with _build.COUNT_LOCK:
+        matmul_stats_rows_kernel.kernel_launches += 1
+        matmul_stats_rows_kernel.routes[route] += 1
     return out
 
 
@@ -250,8 +253,9 @@ def matmul_stats_mma_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     ``matmul_bf16``'s there), ``wmma`` the tile of ``matmul_stats.cu``.
     ``kernel_launches`` counts the calls and ``routes`` counts them by route."""
     out, route = _launch("stcd_matmul_stats_mma", x, w, "tensor_cores", grid_2d=False)
-    matmul_stats_mma_kernel.kernel_launches += 1
-    matmul_stats_mma_kernel.routes[route] += 1
+    with _build.COUNT_LOCK:
+        matmul_stats_mma_kernel.kernel_launches += 1
+        matmul_stats_mma_kernel.routes[route] += 1
     return out
 
 

@@ -16,6 +16,10 @@ and each runs one stage of the pipeline (``parallel/pipeline.py``).
 ``place_train_state`` makes every rank's state rank 0's and then keeps each
 rank's shards. A space axis beside a model or stage axis is ROADMAP.md Queue
 1 #11d.
+
+Serving is one process over several cards, not one process a card:
+``serving_devices`` picks the cards of its ``data`` axis, and
+``serving/replicas.py`` splits each batch by rows over them.
 """
 
 from __future__ import annotations
@@ -106,6 +110,28 @@ def create_mesh(data: Optional[int] = None, model: int = 1, space: int = 1,
     distributed.set_grid(space, groups.get("space"), stage, groups.get("stage"),
                          groups.get("data"), model, groups.get("model"), groups.get("shard"))
     return Mesh(data=data, rank=distributed.rank(), space=space, stage=stage, model=model)
+
+
+def serving_devices(device: str = "cuda", batch: Optional[int] = None,
+                    no_shard: bool = False) -> list:
+    """The devices one serving process splits its tile batch over: the
+    counterpart of scripts/serve.py:111-128's ``batch_sharding(create_mesh(
+    model=1))``. ``cuda`` is every visible card (``torch.cuda.device_count()``),
+    ``cuda:N`` that card alone, and ``no_shard`` one card; a ``batch`` that
+    the card count does not divide prints the JAX script's warning and
+    serves on one card. Any other device is itself."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None or no_shard:
+        return [dev]
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return [dev]
+    if batch is not None and batch % n:
+        print(f"warning: --batch {batch} does not divide across {n} devices; serving "
+              f"single-device (pass a multiple of {n}, or --no_shard to silence)",
+              flush=True)
+        return [torch.device("cuda", 0)]
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def batch_sharding(mesh: Mesh) -> slice:

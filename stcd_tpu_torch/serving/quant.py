@@ -31,7 +31,13 @@ module, never by patching a global function: while ``fn`` runs, each
 ``DecoderBlock`` gets an instance ``forward`` that reports to the site table,
 and loses it after. A ``DecoderBlock``'s first conv
 is run as JAX's two convs there; the ResNet blocks run their shortcut conv
-after the main branch, as the JAX blocks do.
+after the main branch, as the JAX blocks do. Two ViG modules differ from
+their JAX counterparts in kind: the ``Grapher``'s three 1x1 convs (fc1, the
+graph conv, fc2) are ``nn.Dense`` in JAX, no site, so here they stay float and
+take no slot; the crossconc fusion's grouped 3x3 conv over the (a, b)
+channel interleave is two depthwise convs summed in JAX
+(``stcd_tpu/models/changevig.py:_PairGroupedConv``), two float slots, so here
+it takes two NaN slots.
 
 The int8 product: on a CUDA tensor, an im2col of the int8 input (``F.unfold``
 on the integer values in float16, which holds them exactly) times the int8
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -53,7 +60,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_LOCK = threading.RLock()
+_LOCKS: "weakref.WeakKeyDictionary[nn.Module, threading.RLock]" = weakref.WeakKeyDictionary()
+_LOCKS_GUARD = threading.Lock()
+
+
+def _model_lock(model: nn.Module) -> threading.RLock:
+    """The lock that guards ``model``'s instance ``forward``s."""
+    with _LOCKS_GUARD:
+        lock = _LOCKS.get(model)
+        if lock is None:
+            lock = _LOCKS[model] = threading.RLock()
+        return lock
 
 
 def _composed_kernel(ka: torch.Tensor) -> torch.Tensor:
@@ -170,6 +187,13 @@ class _Sites:
         pad = tuple(d * (k - 1) - p for d, k, p in zip(m.dilation, m.kernel_size, m.padding))
         return _quantized_conv(x, w, m.bias, scale, (1, 1), pad, m.dilation)
 
+    def pair_grouped_conv(self, m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """The crossconc fusion's conv with two input channels a group: JAX's
+        two depthwise sites, both float."""
+        self._next(x, False)
+        self._next(x, False)
+        return nn.Conv2d.forward(m, x)
+
     def decoder_block(self, block, x: torch.Tensor, skip=None) -> torch.Tensor:
         """A UNet ``DecoderBlock``: its first conv as the JAX decoder's split
         form (a site for the upsampled input, one for the skip), then its
@@ -203,16 +227,21 @@ def _intercept(model: nn.Module, sites: _Sites):
     scse gates keeps its own forward, its convs sites of their own: the JAX
     block takes the split form only without gates."""
     from stcd_tpu_torch.decoders.unet import DecoderBlock
+    from stcd_tpu_torch.models.changevig import _Fuse
+    from stcd_tpu_torch.models.gcn_lib import Grapher
 
     blocks = [m for m in model.modules() if isinstance(m, DecoderBlock)
               and isinstance(m.attention2.attention, nn.Identity)]
-    claimed = {id(b.conv1[0]) for b in blocks}
+    pairs = [f.diff[0] for f in model.modules() if isinstance(f, _Fuse)
+             and f.mode == "crossconc"]
+    dense = [m for g in model.modules() if isinstance(g, Grapher) for m in g.modules()]
+    claimed = {id(m) for m in [b.conv1[0] for b in blocks] + pairs + dense}
     convs = [m for m in model.modules()
              if isinstance(m, nn.Conv2d) and id(m) not in claimed]
     convs_t = [m for m in model.modules()
                if isinstance(m, nn.ConvTranspose2d) and m.stride == (1, 1)
                and m.output_padding == (0, 0) and m.groups == 1]
-    with _LOCK:
+    with _model_lock(model):
         try:
             for m in convs:
                 m.forward = lambda x, m=m: sites.conv(m, x)
@@ -220,9 +249,11 @@ def _intercept(model: nn.Module, sites: _Sites):
                 m.forward = lambda x, output_size=None, m=m: sites.conv_transpose_s1(m, x)
             for b in blocks:
                 b.forward = lambda x, skip=None, b=b: sites.decoder_block(b, x, skip)
+            for m in pairs:
+                m.forward = lambda x, m=m: sites.pair_grouped_conv(m, x)
             yield sites
         finally:
-            for m in convs + convs_t + blocks:
+            for m in convs + convs_t + blocks + pairs:
                 m.__dict__.pop("forward", None)
 
 

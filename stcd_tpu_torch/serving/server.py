@@ -1,11 +1,15 @@
 """Micro-batching HTTP inference server (counterpart of
-stcd_tpu/serving/server.py, single device).
+stcd_tpu/serving/server.py).
 
-- ONE worker thread owns the device. It enters ``torch.inference_mode()``
-  itself (the mode is thread-local); HTTP handler threads only decode
-  images, enqueue tiles and wait on futures.
+- ONE batcher thread assembles the device batches and issues them to each
+  device's replica of the model in turn (``serving/replicas.py``), under
+  ``torch.inference_mode()``; HTTP handler threads only decode images,
+  enqueue tiles and wait on futures.
 - Fixed device batch ``batch``, zero-padded when short, so every step runs
-  one shape.
+  one shape. Over D devices each step cuts it into D contiguous slices of
+  ``batch / D`` rows, one a replica, as the JAX server's ``sharding`` over
+  the mesh's ``data`` axis does; the step ends when every device has
+  answered, and a failure on any device fails the whole batch.
 - Cross-request tile batching: each request's scene is tiled, tiles of
   concurrent requests share device batches, and each request's
   probabilities are stitched back with overlap averaging.
@@ -17,8 +21,9 @@ Endpoints (stdlib http.server, JSON/base64), with the JAX server's payloads:
 - ``POST /predict`` body {"image_a": <b64 png/jpeg>, "image_b": ...,
   ["threshold": 0.5]} -> {"mask_png", "changed", "shape", "latency_ms"}
 - ``GET /healthz`` -> {"status": "ok", "tile", "batch"}
-- ``GET /stats`` -> request/batch counters, mean batch occupancy, and the
-  p50/p90/p99 of ``request_latency_ms`` and ``step_ms``.
+- ``GET /stats`` -> request/batch counters, mean batch occupancy, the
+  p50/p90/p99 of ``request_latency_ms`` and ``step_ms``, and
+  ``mesh_sharded`` (more than one device), ``devices`` and ``quantized``.
 """
 
 from __future__ import annotations
@@ -32,30 +37,43 @@ import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
-import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
 from stcd_tpu_torch.data.tiled_inference import extract_tiles, stitch_tiles
+from stcd_tpu_torch.serving.replicas import Replicas
 
 
 class BatchingEngine:
     """Batches (tile_a, tile_b) pairs from many callers into fixed-size
     device steps over ``predict_fn(a, b) -> probs``: NHWC tensors on
     ``device`` in, (B, t, t, C) probabilities out. ``device`` defaults to the
-    card; without one the constructor raises (pass ``"cpu"`` to run there)."""
+    card; without one the constructor raises (pass ``"cpu"`` to run there).
 
-    def __init__(self, predict_fn: Callable, tile: int = 256,
+    ``devices``, a list of D devices, takes the place of ``device``; then
+    ``predict_fn`` is a list of D functions, one replica of the model on each
+    device (``cli.predict.make_replicas``), and each step splits the batch by
+    rows over them. ``batch`` must divide by D: the constructor raises
+    otherwise, as the JAX server does for its sharded axis. ``quantized``
+    only sets the /stats flag."""
+
+    def __init__(self, predict_fn: Union[Callable, Sequence[Callable]], tile: int = 256,
                  stride: Optional[int] = None, batch: int = 8,
                  max_wait_ms: float = 5.0, timeout_s: float = 120.0,
-                 device="cuda"):
-        self.predict_fn = predict_fn
+                 device="cuda", devices: Optional[Sequence] = None,
+                 quantized: bool = False):
+        fns = list(predict_fn) if isinstance(predict_fn, (list, tuple)) else [predict_fn]
+        devices = list(devices) if devices is not None else [device]
+        if batch % len(devices):
+            raise ValueError(f"batch={batch} does not divide across the {len(devices)} "
+                             f"devices {[str(d) for d in devices]} (tile={tile})")
         self.tile = tile
         self.stride = stride or tile
         self.batch = batch
-        self.device = resolve_device(device)
+        self.quantized = bool(quantized)
+        self._replicas = Replicas(fns, devices)
+        self.devices = self._replicas.devices
         self.max_wait_s = max_wait_ms / 1e3
         self.timeout_s = timeout_s
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -99,6 +117,12 @@ class BatchingEngine:
             self._req_lat_ms.append((time.monotonic() - t0) * 1e3)
         return out
 
+    def warm(self) -> None:
+        """Run one zero batch on every device, outside the counters: each
+        replica meets its one batch shape before traffic does."""
+        z = np.zeros((self.batch, self.tile, self.tile, 3), np.float32)
+        self._replicas.run(z, z)
+
     def close(self):
         self._stop.set()
         self._thread.join(timeout=5.0)
@@ -111,7 +135,7 @@ class BatchingEngine:
                     break
                 fut.set_exception(RuntimeError("serving engine closed"))
 
-    # --- device side (single worker thread) ------------------------------
+    # --- batcher thread ---------------------------------------------------
     def _take_batch(self):
         try:
             first = self._q.get(timeout=0.05)
@@ -130,17 +154,16 @@ class BatchingEngine:
         return items
 
     def _loop(self):
-        with torch.inference_mode():
-            while not self._stop.is_set():
-                items = self._take_batch()
-                if items:
-                    self._step(items)
+        while not self._stop.is_set():
+            items = self._take_batch()
+            if items:
+                self._step(items)
 
     def _step(self, items):
         t0 = time.monotonic()
         try:
             # batch assembly inside the try: a malformed tile fails these
-            # futures instead of killing the worker thread
+            # futures instead of killing the batcher thread
             pad = self.batch - len(items)
             a = np.stack([it[0] for it in items])
             b = np.stack([it[1] for it in items])
@@ -148,9 +171,7 @@ class BatchingEngine:
                 zeros = np.zeros((pad,) + a.shape[1:], a.dtype)
                 a = np.concatenate([a, zeros])
                 b = np.concatenate([b, zeros])
-            da = torch.from_numpy(a).to(self.device)
-            db = torch.from_numpy(b).to(self.device)
-            probs = self.predict_fn(da, db).float().cpu().numpy()
+            probs = self._replicas.run(a, b)
         except Exception as exc:  # surface device/assembly errors to callers
             with self._lock:
                 self.stats["errors"] += 1
@@ -183,9 +204,9 @@ class BatchingEngine:
             s["batch_tiles"] / (s["batches"] * self.batch) if s["batches"] else 0.0)
         s["request_latency_ms"] = req_lat
         s["step_ms"] = step
-        s["mesh_sharded"] = False
-        s["quantized"] = False
-        s["devices"] = 1
+        s["mesh_sharded"] = len(self.devices) > 1
+        s["quantized"] = self.quantized
+        s["devices"] = len(self.devices)
         return s
 
 

@@ -43,7 +43,7 @@ from typing import List, Tuple
 
 import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.ops import bn_stats as ops
 from stcd_tpu_torch.tools.bench_conv_bn_epilogue import (HBM_BYTES_PER_S, SEED, add_args,
                                                          describe_device, fmt)

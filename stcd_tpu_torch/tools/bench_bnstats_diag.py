@@ -31,7 +31,7 @@ from typing import List
 
 import torch
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.ops import matmul_stats as ops
 from stcd_tpu_torch.tools.bench_conv_bn_epilogue import (SEED, add_args, bound_ms,
                                                          describe_device, fmt, operands,

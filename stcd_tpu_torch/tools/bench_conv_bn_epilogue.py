@@ -37,7 +37,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.ops import matmul_stats as ops
 
 # (M, K, N): SegCD resnet50 bottleneck 1x1 shapes at 64 pairs (the Siamese fold

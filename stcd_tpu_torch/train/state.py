@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 from torch import nn
 
-from stcd_tpu_torch.cli.predict import resolve_device
+from stcd_tpu_torch.utils.device import resolve_device
 from stcd_tpu_torch.convert.pretrained import resolve_encoder_weights
 from stcd_tpu_torch.encoders import load_encoder_weights
 from stcd_tpu_torch.train.schedules import Schedule, poly_schedule

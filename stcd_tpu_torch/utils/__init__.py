@@ -1,1 +1,1 @@
-"""Training observability (counterpart of stcd_tpu/utils)."""
+"""Training observability (counterpart of stcd_tpu/utils) and device names."""
