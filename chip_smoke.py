@@ -235,7 +235,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    SegCD-r50 (decoder 256..16) with --int8: two replicas with one scale table against
    the one-replica int8 engine, /stats quantized, the decisions at 0.5 agreeing on at
    least 1 - INT8_F1_TOL of the pixels. The 4-card run of the same path is
-   stcd_tpu_torch/tools/check_sharded_serving.py. Every phase prints its seconds.
+   stcd_tpu_torch/tools/check_sharded_serving.py.
+27. spatial partitioning beside tensor parallelism (parallel/mesh.py's data x model x
+   space grid), four ranks on the one card under gloo in one launch for (a) and (b)
+   (this script with --phase27-rank), started while this process takes its one-process
+   runs: (a) data 1 x model 2 x space 2 (rank r: model index r // 2, strip r % 2 of 256
+   rows), the stage-2 spatial step of SegCD-r50 (decoder 256..16, its 10 wide convs
+   split) at 512x512, global batch 4, fp32 (TF32 off), SGD, 2 steps, augmentation on,
+   against the one-process step of this process on the same batches and draws: the
+   losses, counts, parameters and running statistics within the bounds of
+   tools/check_spatial.py, the four ranks' states equal; each rank's step ms and peak
+   GiB beside the one process's. (b) cli.train_pse_cd --space_axis 2 --model_axis 2
+   --device cuda:0 at phase 23 (b)'s size in (a)'s four ranks, against the same CLI in
+   this process, at phase 23 (b)'s bounds. The augmentation kernel's launches of (a)
+   and (b) are counted in the kernels line. Every phase prints its seconds.
 
 The last line is one JSON object: {"ok": true, "device": {...}}. The line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -3645,6 +3658,181 @@ def phase_tensor_parallel(torch, gpu_label) -> dict:
             "aug": {"tp_segcd": sum(r["segcd"]["launches"]["train"]["aug"] for r in ranks)}}
 
 
+# phase 27: spatial partitioning beside tensor parallelism on the card: four ranks on
+# cuda:0 under gloo at data 1 x model 2 x space 2. (a) tools/check_spatial.py's stage-2
+# steps (RUN) at fp32 against one process, at its bounds; (b) cli.train_pse_cd
+# --space_axis 2 --model_axis 2 against a plain run, at phase 23 (b)'s size and bounds
+SM_GRID = dict(model=2, space=2)
+SM_TIMEOUT = 400
+
+
+def phase27_rank(out_dir: str, cli: list) -> int:
+    """One of the four ranks of phase 27, on cuda:0 under gloo: (a) once this
+    process's one-process runs are done (``go``), then (b), cli.train_pse_cd
+    with ``cli``, in the same processes."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.parallel import distributed
+    from stcd_tpu_torch.parallel.mesh import create_mesh
+    from stcd_tpu_torch.tools.check_spatial import cd_steps_run
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = distributed.initialize("cuda:0", backend="gloo")
+    mesh = create_mesh(**SM_GRID)
+    rank = distributed.rank()
+    require(mesh.model == 2 and mesh.space == 2 and mesh.data == 1 and device.index == 0
+            and torch.distributed.get_backend() == "gloo",
+            f"rank {rank}: {mesh}, {torch.distributed.get_backend()}, {device}")
+    wait_for(os.path.join(out_dir, "go"), timeout=SM_TIMEOUT)
+    augment.apply_augment_kernel.kernel_launches = 0
+    res = cd_steps_run(False, mesh)
+    torch.save(res.pop("state"), os.path.join(out_dir, f"sm_rank{rank}.pt"))
+    print_tagged("PHASE27_RANK", {
+        "rank": rank, "model_rank": distributed.model_rank(),
+        "space_rank": distributed.space_rank(), **res,
+        "launches": augment.apply_augment_kernel.kernel_launches})
+    torch.cuda.empty_cache()
+    distributed.barrier("phase 27 (a) done")
+    t0 = time.monotonic()
+    info = deterministic_cli(cli)
+    print_tagged("PHASE27_CLI", {**info, "seconds": time.monotonic() - t0})
+    distributed.barrier("phase 27 done")
+    return 0
+
+
+def phase_space_model(torch, gpu_label) -> dict:
+    """Phase 27. Returns the augmentation kernel's launches by path."""
+    from stcd_tpu_torch.cli import make_demo_data
+    from stcd_tpu_torch.ops import augment
+    from stcd_tpu_torch.tools.check_spatial import (CM_PIXELS, LOSS_RTOL, PARAM_SHARE, RUN,
+                                                    STATS_SHARE, cd_steps_run)
+
+    t_phase = time.monotonic()
+    launches = {}
+    world = SM_GRID["model"] * SM_GRID["space"]
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        make_demo_data.main([data, "--n", str(SP_CLI["n"]), "--size", str(SP_CLI["size"])])
+        cli = ["--root_path", data, "--dataset_name", "LEVIR",
+               "--CDdataset_name", "LEVIR", "--batch_size", str(SP_CLI["batch"]),
+               "--n_epochs", "1", "--img_height", str(SP_CLI["size"]), "--img_width",
+               str(SP_CLI["size"]), "--device", "cuda", "--no_preempt"]
+        # the four ranks start up while this process takes (a)'s one-process steps and
+        # (b)'s plain run; they touch the card once those are done (``go``)
+        t0 = time.monotonic()
+        cmd = torchrun(world, "--phase27-rank", root, *cli, "--space_axis",
+                       str(SM_GRID["space"]), "--model_axis", str(SM_GRID["model"]),
+                       "--device", "cuda:0", "--save_name", os.path.join(root, "grid"))
+        proc = start(cmd)
+        augment.apply_augment_kernel.kernel_launches = 0
+        one = cd_steps_run(False)
+        launches["sm_one_process"] = augment.apply_augment_kernel.kernel_launches
+        torch.cuda.empty_cache()
+        t1 = time.monotonic()
+        plain = deterministic_cli([*cli, "--save_name", os.path.join(root, "plain")])
+        plain_s = time.monotonic() - t1
+        torch.cuda.empty_cache()
+        with open(os.path.join(root, "go"), "w"):
+            pass
+        out = finish(proc, cmd, timeout=SM_TIMEOUT)
+        ranks_s = time.monotonic() - t0
+        ranks = sorted(tagged(out, "PHASE27_RANK"), key=lambda r: r["rank"])
+        require([(r["rank"], r["model_rank"], r["space_rank"]) for r in ranks]
+                == [(r, r // 2, r % 2) for r in range(world)], f"phase 27 (a): {out[-3000:]}")
+        states = [torch.load(os.path.join(root, f"sm_rank{r}.pt"), weights_only=True)
+                  for r in range(world)]
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], one["losses"]))
+        flips = max(sum(abs(a - b) for ga, wa in zip(got, w) for a, b in zip(ga, wa)) // 2
+                    for r in ranks for got, w in zip(r["counts"], one["counts"]))
+        errs = state_errors(one["state"], states[0])
+        print(f"space x model (a) ({gpu_label}): 4 ranks on one card under gloo, data 1 x "
+              f"model 2 x space 2 (strips of {RUN['size'] // 2} rows, "
+              f"{ranks[0]['n_split']} split tensors), SegCD-r50 stage 2 at "
+              f"{RUN['size']}x{RUN['size']}, global batch {RUN['batch']}, fp32, "
+              f"{RUN['steps']} SGD steps against one process: losses {ranks[0]['losses']} "
+              f"vs {one['losses']} (max rel {loss_err:.2e}); after the steps, "
+              f"|d| / max(1, |w|) by group "
+              f"{ {g: (f'{e:.2e}', k) for g, (e, k) in errs.items()} }; counts differ in "
+              f"at most {flips} pixels", flush=True)
+        print(f"space x model (a) ({gpu_label}): step ms by rank (the fastest of steps "
+              f"2-{RUN['steps']}, host clock, halos, gathers and reductions through the "
+              f"host under gloo) {[round(r['step_ms'], 1) for r in ranks]} against "
+              f"{one['step_ms']:.1f} for one process; peak GiB by rank "
+              f"{[round(r['peak_gib'], 3) for r in ranks]} against {one['peak_gib']:.3f} "
+              f"for one process", flush=True)
+        require(all(torch.equal(st[k], v) for st in states[1:] for k, v in states[0].items()),
+                "phase 27 (a): the four ranks' states differ")
+        require(all(r["losses"] == ranks[0]["losses"] for r in ranks) and loss_err <= LOSS_RTOL,
+                f"phase 27 (a): losses {[r['losses'] for r in ranks]} against {one['losses']}")
+        for r in ranks:
+            require(r["n_split"] == ranks[0]["n_split"] > 0, f"phase 27 (a) rank {r['rank']}: "
+                    f"{r['n_split']} split tensors")
+            for got, w in zip(r["counts"], one["counts"]):
+                require([sum(x) for x in got] == [sum(x) for x in w],
+                        f"phase 27 (a): counts {got} against {w}")
+            require(r["launches"] == RUN["steps"],
+                    f"phase 27 (a) rank {r['rank']}: {r['launches']} augment launches")
+        require(flips <= CM_PIXELS, f"phase 27 (a): counts differ in {flips} pixels")
+        require(errs["count"][0] == 0.0 and errs["param"][0] <= PARAM_SHARE
+                and max(errs["running_mean"][0], errs["running_var"][0]) <= STATS_SHARE,
+                f"phase 27 (a): the state after the steps: {errs}")
+        del states
+        launches["sm_four_ranks"] = sum(r["launches"] for r in ranks)
+
+        # (b) the CLI on the grid ran in the ranks after (a); the plain run before them
+        info = tagged(out, "PHASE27_CLI")
+        want_steps = SP_CLI["n"] // SP_CLI["batch"]
+        require(len(info) == world, f"phase 27 (b): {info}")
+        for v in info:
+            require(v["backend"] == "gloo" and v["world"] == world and v["step"] == want_steps
+                    and v["launches"] == want_steps and v["device"].startswith("cuda"),
+                    f"phase 27 (b) grid: {v}")
+        require(plain["step"] == plain["launches"] == want_steps, f"phase 27 (b) plain: {plain}")
+        launches["sm_cli_grid"] = sum(v["launches"] for v in info)
+        launches["sm_cli_plain"] = plain["launches"]
+        runs = ("grid", "plain")
+        saved = {k: torch.load(os.path.join(root, k, "last_ckpt"), map_location="cpu",
+                               weights_only=True)["model"] for k in runs}
+        first_loss = {}
+        for k in runs:
+            with open(os.path.join(root, k, "logs", "scalars.jsonl")) as f:
+                first_loss[k] = [r["value"] for r in map(json.loads, f)
+                                 if r["tag"] == "train/loss" and r["step"] == 0][0]
+        loss_err = abs(first_loss["grid"] - first_loss["plain"]) / abs(first_loss["plain"])
+        params = [k for k, v in saved["plain"].items()
+                  if v.is_floating_point() and "running" not in k]
+        param_err = max((saved["grid"][k] - saved["plain"][k]).abs().max().item()
+                        for k in params)
+        agree = (sum(((saved["grid"][k] - saved["plain"][k]).abs() <= 1e-5).sum().item()
+                     for k in params) / sum(saved["plain"][k].numel() for k in params))
+        stats_err = max(((saved["grid"][k].double() - v.double()).abs().max()
+                         / v.abs().max().clamp(min=1.0)).item()
+                        for k, v in saved["plain"].items() if "running" in k)
+        print(f"space x model (b) ({gpu_label}): cli.train_pse_cd --space_axis 2 "
+              f"--model_axis 2 --device cuda:0 (the ranks of (a), one card, gloo) "
+              f"{[round(v['seconds'], 1) for v in info]} s by rank, and a plain run in this "
+              f"process {plain_s:.1f} s, SegCD-r50, {SP_CLI['n']} pairs of "
+              f"{SP_CLI['size']}x{SP_CLI['size']}, batch {SP_CLI['batch']}, 1 epoch: first "
+              f"loss {first_loss['grid']} vs {first_loss['plain']} (rel {loss_err:.2e}); "
+              f"after the Adam step the parameters within {param_err:.2e} ({agree:.6f} of "
+              f"them within 1e-5), the running statistics within {stats_err:.2e} of their "
+              f"largest magnitude; augment launches by rank {[v['launches'] for v in info]} "
+              f"+ {plain['launches']}", flush=True)
+        require(saved["grid"].keys() == saved["plain"].keys() and loss_err <= LOSS_RTOL
+                and param_err <= SP_CLI_ATOL and agree >= SP_CLI_AGREE
+                and stats_err <= SP_CLI_STATS_SHARE,
+                f"phase 27 (b): the grid run against the plain run: first loss {loss_err}, "
+                f"parameters {param_err} ({agree} within 1e-5), running statistics "
+                f"{stats_err}")
+        del saved
+    print(f"space x model: the ranks' launch {ranks_s:.1f} s (this process's runs while "
+          f"they start), phase {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 REPLICAS = ["cuda:0", "cuda:0"]  # two replicas on the one card
 
 
@@ -3861,6 +4049,10 @@ def main() -> int:
     # phase 26: serving split over replicas on the one card
     with timed("26 replicas"):
         replica_launches = phase_replicas(torch, np, attention, gpu_label)
+    # phase 27: spatial partitioning beside tensor parallelism, its ranks in processes of
+    # their own
+    with timed("27 space x model"):
+        aug_by_path.update(phase_space_model(torch, gpu_label))
     aug["launches"] = sum(aug_by_path.values())
     print(f"phase seconds: {json.dumps(seconds)}; total {time.monotonic() - t_start:.1f} s",
           flush=True)
@@ -3953,4 +4145,6 @@ if __name__ == "__main__":
         sys.exit(phase24_rank(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--phase25-rank"]:
         sys.exit(phase25_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase27-rank"]:
+        sys.exit(phase27_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -28,8 +28,12 @@ Tensor parallel: ``--model_axis T`` makes the grid ``data`` x ``model`` (W =
 D x T); the T ranks of a model group load the same images and each holds a
 shard of the wide convs' kernels and of their Adam moments
 (``parallel/tensor.py``; for SegCD the rule that splits a kernel is JAX's
-wide-conv one, at least 2^20 elements). ``--space_axis`` beside it raises
-(ROADMAP.md Queue 1 #11d).
+wide-conv one, at least 2^20 elements). With ``--space_axis S`` beside it
+the grid is ``data`` x ``model`` x ``space`` (W = D x T x S, launched as
+``torchrun --nproc_per_node W``): the T x S ranks of a data shard load the
+same images, each trains a strip of their rows with its shard of the split
+convs, which take their halo rows on the whole input and gather their
+channels over the model group.
 
 The helpers below the JAX ones build what every stage CLI builds the same way:
 the seeded model and train state, the loaders, the augmentation generator,
@@ -126,16 +130,11 @@ SPATIAL_ENCODERS = ("resnet", "resnext")  # the encoders of the spatial surface
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the port does not run: a spatial axis beside a
-    model axis, a spatial axis over another encoder family, or a card that
-    is not there. ``make_mesh`` checks the grid against the launch, the
-    spatial steps refuse ``--remat``."""
+    """Parse, and refuse what the port does not run: a spatial axis over
+    another encoder family than the resnets, or a card that is not there.
+    ``make_mesh`` checks the grid against the launch, the spatial steps
+    refuse ``--remat``."""
     args = parser.parse_args(argv)
-    if args.space_axis > 1 and args.model_axis > 1:
-        from stcd_tpu_torch.parallel.mesh import COMPOSED_SPACE_ITEM
-        raise NotImplementedError(
-            f"--space_axis {args.space_axis} with --model_axis {args.model_axis}: spatial "
-            f"partitioning with tensor parallelism is not ported ({COMPOSED_SPACE_ITEM})")
     if args.space_axis > 1 and not args.encoder.startswith(SPATIAL_ENCODERS):
         raise ValueError(
             f"--space_axis {args.space_axis} with --encoder {args.encoder}: spatial "
@@ -148,7 +147,7 @@ def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace
 
 def make_mesh(args):
     """Join the process group of a torchrun launch (a no-op in a plain
-    process) and make the data x model or data x space grid over it.
+    process) and make the data x model x space grid over it.
     ``args.device`` becomes
     this rank's device (``cuda:LOCAL_RANK``). Raises where ``--data_axis`` x
     ``--model_axis`` x ``--space_axis`` is not the launch's size or the data

@@ -25,7 +25,8 @@ Spatial partitioning (``parallel/spatial.py``) splits the W ranks into a
 grid of ``data`` x ``space`` (``mesh.create_mesh``; space the inner axis,
 so rank r is data index ``r // S`` and space index ``r % S``). The ranks of a
 space group hold the same images, each a strip of their rows. The sums above
-stay over every rank: the strips of all the data shards are the global batch.
+stay over every rank (over the data group under a model axis, below): the
+strips of all the data shards are the global batch.
 What follows the data axis alone (the loader's split, the draws' rows) reads
 ``data_size`` and ``data_rank``; without a space axis they are the world's.
 
@@ -37,15 +38,17 @@ counts) sums over the data group, the D ranks of one stage index
 (``data_group``); the stage group's own traffic is point to point
 (``send`` / ``recv``) and ``broadcast_in``.
 
-Tensor parallelism (``parallel/tensor.py``) adds a ``model`` axis between
-the two (rank r is data shard ``r // (T S)``, model index ``(r // S) % T``
-and stage ``r % S``, with S the stage axis). The T ranks of a model group
-hold the same rows and each a shard of the split parameters; their layers
-meet through Megatron's two functions, ``copy_in`` (forward identity,
-backward all-reduce over the model group) and ``reduce_out`` (forward
-all-reduce, backward identity), and ``gather_channels``. What is summed
-over rows sums over the data group (the D ranks of one model index and
-stage), and a split parameter's gradient is averaged over the ranks that
+Tensor parallelism (``parallel/tensor.py``) adds a ``model`` axis outside
+the space or stage axis (rank r is data shard ``r // (T S)``, model index
+``(r // S) % T`` and strip or stage ``r % S``, with S the space or the stage
+axis; the two do not meet). The T ranks of a model group hold the same rows
+(or strip) and each a shard of the split parameters; their layers meet
+through Megatron's two functions, ``copy_in`` (forward identity, backward
+all-reduce over the model group) and ``reduce_out`` (forward all-reduce,
+backward identity), and ``gather_channels``. What is summed over rows sums
+over the data group: the D ranks of one model index and stage, or under a
+space axis the D x S ranks of one model index, whose strips make the global
+batch once. A split parameter's gradient is averaged over the ranks that
 hold its shard (``average_gradients``).
 
 Every collective here is a no-op in one process (``data_parallel()`` false),
@@ -181,32 +184,35 @@ def model_size() -> int:
 
 
 def model_rank() -> int:
-    """Which shard of each split parameter this rank holds."""
-    return (rank() // stage_size()) % model_size()
+    """Which shard of each split parameter this rank holds: the model axis
+    lies outside the space and stage axes."""
+    return (rank() // (space_size() * stage_size())) % model_size()
 
 
 def model_group():
-    """This rank's model group (the T ranks of its data shard and stage), or
-    None."""
+    """This rank's model group (the T ranks of its data shard and its strip
+    or stage), or None."""
     return _GRID["model_group"] if model_size() > 1 else None
 
 
 def shard_group():
     """The ranks that hold this rank's shard of a split parameter (its model
-    index: D x S ranks), or None without a model axis."""
+    index: the D x S ranks of its data shards and strips or stages), or None
+    without a model axis."""
     return _GRID["shard_group"] if model_size() > 1 else None
 
 
 def data_group():
-    """The ranks whose rows together are the global batch once each: with a
-    model or stage axis the D ranks of this rank's model and stage index,
-    else None (every rank, which a space axis splits into strips of the
-    rows)."""
+    """The ranks whose rows, or strips of them, together are the global batch
+    once each: with a model or stage axis the D x S ranks of this rank's
+    model and stage index (D under a stage axis, where S is 1), else None
+    (every rank, which a space axis splits into strips of the rows)."""
     return _GRID["data_group"] if stage_size() * model_size() > 1 else None
 
 
 def data_group_size() -> int:
-    """The ranks of ``data_group()``: D, or every rank under a space axis."""
+    """The ranks of ``data_group()``: D x S (the world over the model and
+    stage axes)."""
     return world_size() // (stage_size() * model_size())
 
 
@@ -301,8 +307,8 @@ def average_gradients(parameters: Iterable[torch.nn.Parameter], staged=()) -> No
     parameter that ``parallel/tensor.py`` split (``tp_split``) sums over its
     shard group (the ranks that hold its shard), any other over every rank.
     Each sum is divided by the copies of the gradient in it: the data
-    group's ranks (D; every rank under a space axis, whose strips'
-    gradients are partial sums), times S unless the parameter is in
+    group's ranks (D x S under a space axis of S, whose strips' gradients
+    are partial sums), times the stage axis unless the parameter is in
     ``staged`` (a pipeline stage's parameters have their gradient on the
     stage's ranks only, zeros elsewhere), times T unless it is split. Every
     rank holds gradients for the same parameters, as the same model on every

@@ -13,9 +13,17 @@ and of their optimizer state (``parallel/tensor.py``); the S ranks of a space
 group hold the same images, each a strip of their rows
 (``parallel/spatial.py``); the S ranks of a stage group hold the same rows
 and each runs one stage of the pipeline (``parallel/pipeline.py``).
+``grid_ranks`` lays the groups out, a pure function of the axes' sizes.
 ``place_train_state`` makes every rank's state rank 0's and then keeps each
-rank's shards. A space axis beside a model or stage axis is ROADMAP.md Queue
-1 #11d.
+rank's shards.
+
+A space axis composes with a model axis, as JAX's manual ``shard_map``
+space axis does (stcd_tpu/parallel/spatial.py, ``param_sharding(
+manual_space=True)``): rank r is then data shard ``r // (T S)``, model index
+``(r // S) % T`` and strip ``r % S``; a split conv takes its halo rows on its
+whole input, then gathers its channels over the model group. A space axis
+beside a stage axis raises: JAX has no step that runs it (ROADMAP.md "No
+counterpart").
 
 Serving is one process over several cards, not one process a card:
 ``serving_devices`` picks the cards of its ``data`` axis, and
@@ -24,18 +32,16 @@ Serving is one process over several cards, not one process a card:
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional
 
 import torch
 
 from stcd_tpu_torch.parallel import distributed
 
-COMPOSED_SPACE_ITEM = "ROADMAP.md Queue 1 #11d"  # space x {model, stage}
-
-
 class Mesh(NamedTuple):
     """``data`` x ``model`` x ``space`` x ``stage`` ranks (space 1 beside a
-    model or stage axis), this process being rank ``rank``."""
+    stage axis), this process being rank ``rank``."""
 
     data: int
     rank: int
@@ -50,23 +56,58 @@ def _axes_text(model: int, space: int, stage: int) -> str:
     return " x a ".join(axes) or "'space' axis of 1"
 
 
+def grid_ranks(data: int, model: int = 1, space: int = 1, stage: int = 1) -> dict:
+    """The process groups of the data x model x space x stage grid, as lists
+    of global ranks: rank ``((d T + m) S + s) G + g`` holds data shard d,
+    model index m, strip s and stage g, JAX's device order
+    (``np.arange(W).reshape(D, T, S, G)``). Only the groups that the grid
+    uses are listed, each in one order on every rank:
+
+    - ``space``: the S ranks of one (d, m, g), in strip order (S > 1);
+    - ``model``: the T ranks of one (d, s, g), in model order (T > 1);
+    - ``stage``: the G ranks of one (d, m, s), in stage order (G > 1);
+    - ``data``: the ranks whose rows, or strips of them, make the global
+      batch once, the D x S ranks of one (m, g) (T G > 1; without a model
+      or stage axis that is every rank, and no group is made);
+    - ``shard``: the ranks that hold one shard of a split parameter, the
+      D x S x G ranks of one model index (T > 1)."""
+    def rank(d, m, s, g):
+        return ((d * model + m) * space + s) * stage + g
+
+    D, T, S, G = range(data), range(model), range(space), range(stage)
+    out = {}
+    if space > 1:
+        out["space"] = [[rank(d, m, s, g) for s in S]
+                        for d, m, g in itertools.product(D, T, G)]
+    if model > 1:
+        out["model"] = [[rank(d, m, s, g) for m in T]
+                        for d, s, g in itertools.product(D, S, G)]
+    if stage > 1:
+        out["stage"] = [[rank(d, m, s, g) for g in G]
+                        for d, m, s in itertools.product(D, T, S)]
+    if model * stage > 1:
+        out["data"] = [[rank(d, m, s, g) for d, s in itertools.product(D, S)]
+                       for m, g in itertools.product(T, G)]
+    if model > 1:
+        out["shard"] = [[rank(d, m, s, g) for d, s, g in itertools.product(D, S, G)]
+                        for m in T]
+    return out
+
+
 def create_mesh(data: Optional[int] = None, model: int = 1, space: int = 1,
                 stage: int = 1) -> Mesh:
     """The data x model x space x stage grid over the process group: ``data``
     None means the world over the other axes. A grid of another size than the
-    group raises, and so does a space axis beside a model or stage axis.
-    Every rank creates every group of the grid with ``dist.new_group``, in
-    one order on every rank, and keeps its own: the space groups, the model
-    groups (the T ranks of a data shard and stage), the stage groups, the
-    data groups (the D ranks of one model and stage index) and the shard
-    groups (the D x S ranks of one model index). Sums over rows (BatchNorm's,
-    the losses', the counts') run over the data group under a model or stage
-    axis and over every rank otherwise (``distributed``)."""
-    if space > 1 and (model > 1 or stage > 1):
+    group raises, and so does a space axis beside a stage axis. Every rank
+    creates every group of ``grid_ranks`` with ``dist.new_group``, in one
+    order on every rank, and keeps its own. Sums over rows (BatchNorm's, the
+    losses', the counts') run over the data group under a model or stage axis
+    and over every rank otherwise (``distributed``)."""
+    if space > 1 and stage > 1:
         raise NotImplementedError(
-            f"a 'space' axis of {space} beside a 'model' axis of {model} and a 'stage' axis "
-            f"of {stage}: spatial partitioning with tensor or pipeline parallelism is not "
-            f"ported ({COMPOSED_SPACE_ITEM})")
+            f"a 'space' axis of {space} beside a 'stage' axis of {stage}: the JAX package "
+            f"has no step that runs spatial partitioning with pipeline parallelism, so the "
+            'port has none to hold one against (ROADMAP.md "No counterpart")')
     inner = model * space * stage
     world = distributed.world_size()
     axes = _axes_text(model, space, stage)
@@ -86,27 +127,11 @@ def create_mesh(data: Optional[int] = None, model: int = 1, space: int = 1,
         import torch.distributed as dist
 
         me = distributed.rank()
-
-        def keep(name, ranks):
-            group = dist.new_group(ranks)
-            if me in ranks:
-                groups[name] = group
-
-        if space > 1:
-            for d in range(data):
-                keep("space", list(range(d * inner, (d + 1) * inner)))
-        else:
-            for d in range(data):
-                for s in range(stage if model > 1 else 0):
-                    keep("model", [d * inner + m * stage + s for m in range(model)])
-                for m in range(model if stage > 1 else 0):
-                    keep("stage", [d * inner + m * stage + s for s in range(stage)])
-            for m in range(model):
-                for s in range(stage):
-                    keep("data", [d * inner + m * stage + s for d in range(data)])
-            for m in range(model if model > 1 else 0):
-                keep("shard", [d * inner + m * stage + s for d in range(data)
-                               for s in range(stage)])
+        for name, sets in grid_ranks(data, model, space, stage).items():
+            for ranks in sets:
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    groups[name] = group
     distributed.set_grid(space, groups.get("space"), stage, groups.get("stage"),
                          groups.get("data"), model, groups.get("model"), groups.get("shard"))
     return Mesh(data=data, rank=distributed.rank(), space=space, stage=stage, model=model)
@@ -164,9 +189,12 @@ def place_train_state(mesh: Mesh, state):
     with torch.no_grad():
         for t in whole:
             distributed.broadcast_(t)
-        for t in shards:  # from the rank of data shard 0 that holds the same shard
-            distributed.broadcast_(t, src=mesh.rank % (mesh.model * mesh.stage),
-                                   group=distributed.data_group())
+        # from the rank of data shard 0 and strip 0 that holds the same shard (and
+        # runs the same stage): one source for the whole data group
+        src = (distributed.model_rank() * mesh.space * mesh.stage
+               + mesh.rank % mesh.stage)
+        for t in shards:
+            distributed.broadcast_(t, src=src, group=distributed.data_group())
     if mesh.model > 1 and not tensor.is_split(state.model):
         tensor.split_model(state.model, mesh.model, distributed.model_rank(),
                            state.optimizer)

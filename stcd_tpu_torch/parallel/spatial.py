@@ -24,9 +24,9 @@ in the JAX package, and so do the ops that would mix rows with no rule here
 (pools to a size, average pools, padding of the rows, unfold, attention):
 the surface is SegCD, UnetSeg and FFCTLCD over the resnet and resnext
 encoders. A mean of a whole tensor, as a loss takes, runs on the strip.
-BatchNorm's moments and the ratio losses already sum over every rank
-(``parallel/distributed.py``), which under a space axis covers every strip
-of every image.
+BatchNorm's moments and the ratio losses already sum over the data group
+(``parallel/distributed.py``: every rank, or the D x S ranks of one model
+index), which under a space axis covers every strip of every image once.
 
 The exchange follows the backend: ``batch_isend_irecv`` under NCCL; under
 gloo, whose sends and receives take host tensors only, one ``all_gather``
@@ -37,17 +37,30 @@ gather path: the whole map all-gathered. The backward is the transpose: each
 halo row's gradient goes back to the rank that owns the row and is added
 there.
 
-Gradients: every rank holds the parameters whole and takes the gradient of
-its own strip's share; the steps' flat all-reduce averages them over all
-D x S ranks, which gives the gradient of the global loss, as for data
-parallel. The exchange's backward carries the halo gradients across the
+Gradients: every rank holds the parameters (or its model shard of them)
+and takes the gradient of its own strip's share; the steps' flat all-reduce
+averages them over all D x S ranks that hold each, which gives the gradient
+of the global loss, as for data parallel. The exchange's backward carries the halo gradients across the
 strips, so nothing is summed twice (the JAX package measured exactly 2x
 where an explicit psum was added to shard_map's).
+
+With a model axis beside the space axis (``mesh.create_mesh(model=T,
+space=S)``, JAX's ``param_sharding(manual_space=True)``) a split conv of
+``parallel/tensor.py`` runs on the strip too: ``OutConv2d`` takes its
+group's input channels first (a grouped conv's ``narrow``), then
+``F.conv2d`` here takes the halo rows over the space group and the conv
+gives the rank's output channels, which ``gather_channels`` collects over
+the model group. Its backward runs the other way on every rank: the gather
+keeps the rank's channels, the conv's input gradient, the halo rows'
+gradients back over the space group, then ``copy_in``'s sum over the model
+group. The sums over rows then run over the data group, the D x S ranks of
+one model index; every rank of a model group holds the same strip.
 
 ``make_spatial_seg_steps``, ``make_spatial_cd_steps`` and
 ``make_spatial_semi_cd_steps`` are the three stages' steps with the rows
 split: the augmentation (kernel #3 on a card) runs on the data shard's full
-rows with the global batch's draws, then each rank cuts its strip.
+rows with the global batch's draws, then each rank cuts its strip. They run
+on a state that ``mesh.place_train_state`` placed (split over a model axis).
 """
 
 from __future__ import annotations

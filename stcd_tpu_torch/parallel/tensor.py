@@ -15,11 +15,14 @@ parameters explicitly, Megatron-style, matching modules by class:
 2. the MLP: ``MixFFN``'s ``fc1`` column-parallel with its depthwise conv
    split by channel, ``fc2`` row-parallel; BIT ``FeedForward``'s two
    Linears the same way;
-3. every other ``nn.Conv2d`` kernel of at least 2^20 elements over its
-   output channels (gathered after the conv) and every such
-   ``nn.ConvTranspose2d`` over the axis JAX splits, which is its input
-   channels (flax keeps a ``transpose_kernel`` kernel as (kh, kw, out, in)
-   and splits the last axis), reduced after.
+3. every other ``nn.Conv2d`` kernel of at least ``min_size_to_shard``
+   elements (JAX's argument, 2^20 by default) over its output channels
+   (gathered after the conv) and every such ``nn.ConvTranspose2d`` over the
+   axis JAX splits, which is its input channels (flax keeps a
+   ``transpose_kernel`` kernel as (kh, kw, out, in) and splits the last
+   axis), reduced after. The 1x1 convs of a ViG ``Grapher`` (``fc1``,
+   ``graph_conv.0``, ``fc2``) stay whole: JAX runs them as ``nn.Dense``
+   (stcd_tpu/models/gcn_lib.py), whose 2-D kernel this rule never takes.
 
 A split keeps whole heads: ``kv`` holds all heads' keys, then all heads'
 values, and ``to_qkv`` the queries, keys and values, so a rank's rows are
@@ -217,12 +220,12 @@ def _mlp_entries(mlp: nn.Module, t: int) -> List[_Entry]:
     return out
 
 
-def _wide_conv_entry(conv: nn.Module, t: int) -> Optional[_Entry]:
-    """JAX's wide-conv rule: a kernel of at least 2^20 elements whose split
-    axis (a Conv2d's output channels, a ConvTranspose2d's input channels) T
-    divides."""
+def _wide_conv_entry(conv: nn.Module, t: int, min_size: int) -> Optional[_Entry]:
+    """JAX's wide-conv rule: a kernel of at least ``min_size`` elements whose
+    split axis (a Conv2d's output channels, a ConvTranspose2d's input
+    channels) T divides."""
     w = conv.weight
-    if w.numel() < MIN_SIZE_TO_SPLIT or w.shape[0] % t or conv.padding_mode != "zeros":
+    if w.numel() < min_size or w.shape[0] % t or conv.padding_mode != "zeros":
         return None
     if type(conv) is nn.Conv2d and (conv.groups == 1 or conv.groups % t == 0):
         return _Entry(conv, "out_conv", {"weight": Split(0, _blocks(w.shape[0], t))})
@@ -231,9 +234,10 @@ def _wide_conv_entry(conv: nn.Module, t: int) -> Optional[_Entry]:
     return None
 
 
-def _entries(model: nn.Module, t: int) -> List[_Entry]:
+def _entries(model: nn.Module, t: int, min_size: int) -> List[_Entry]:
     from stcd_tpu_torch.models.bit import Attention, CrossAttention, FeedForward
     from stcd_tpu_torch.models.changeformer import MixFFN, SRAttention
+    from stcd_tpu_torch.models.gcn_lib import Grapher
 
     out: List[_Entry] = []
     for mod in model.modules():
@@ -241,20 +245,26 @@ def _entries(model: nn.Module, t: int) -> List[_Entry]:
             out += _attention_entries(mod, t)
         elif isinstance(mod, (MixFFN, FeedForward)):
             out += _mlp_entries(mod, t)
-    taken = {id(e.module) for e in out}
+    # a Grapher's convs are JAX's Dense layers, which the wide-conv rule leaves whole
+    taken = {id(e.module) for e in out} | {id(m) for g in model.modules()
+                                           if isinstance(g, Grapher) for m in g.modules()}
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)) and id(mod) not in taken:
-            entry = _wide_conv_entry(mod, t)
+            entry = _wide_conv_entry(mod, t, min_size)
             if entry is not None:
                 out.append(entry)
     return out
 
 
-def plan(model: nn.Module, t: int) -> Dict[str, Split]:
+def plan(model: nn.Module, t: int, min_size_to_shard: int = MIN_SIZE_TO_SPLIT
+         ) -> Dict[str, Split]:
     """The split parameters of ``model`` over a model axis of ``t``, by
-    ``state_dict`` name, from the shapes alone (the model is not changed)."""
+    ``state_dict`` name, from the shapes alone (the model is not changed; a
+    model on the meta device will do). ``min_size_to_shard`` is JAX's
+    ``param_sharding`` argument: the wide-conv rule's least kernel size."""
     names = {id(p): n for n, p in model.named_parameters()}
-    return {names[id(getattr(e.module, attr))]: split for e in _entries(model, t)
+    return {names[id(getattr(e.module, attr))]: split
+            for e in _entries(model, t, min_size_to_shard)
             for attr, split in e.splits.items()}
 
 
@@ -327,15 +337,17 @@ def is_split(model: nn.Module) -> bool:
 
 
 @torch.no_grad()
-def split_model(model: nn.Module, t: int, rank: int, optimizer=None) -> nn.Module:
-    """Apply the plan to ``model`` in place: each split parameter keeps rank
-    ``rank``'s shard (the same Parameter object, so an optimizer built over
-    the model still holds it; ``optimizer``'s moments of it are sliced too),
-    the split modules take their classes above, and the attention and MLP
-    modules read their local heads and columns. Returns ``model``."""
+def split_model(model: nn.Module, t: int, rank: int, optimizer=None,
+                min_size_to_shard: int = MIN_SIZE_TO_SPLIT) -> nn.Module:
+    """Apply the plan (``plan(model, t, min_size_to_shard)``) to ``model`` in
+    place: each split parameter keeps rank ``rank``'s shard (the same
+    Parameter object, so an optimizer built over the model still holds it;
+    ``optimizer``'s moments of it are sliced too), the split modules take
+    their classes above, and the attention and MLP modules read their local
+    heads and columns. Returns ``model``."""
     if is_split(model):
         raise ValueError("the model is split already")
-    for entry in _entries(model, t):
+    for entry in _entries(model, t, min_size_to_shard):
         for attr, split in entry.splits.items():
             p = getattr(entry.module, attr)
             full_shape = p.shape

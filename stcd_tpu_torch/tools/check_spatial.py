@@ -47,9 +47,13 @@ STATS_SHARE = 5e-4
 def cd_steps_run(bf16: bool = False, mesh=None, device="cuda") -> dict:
     """RUN's stage-2 steps on the global batches from seeds 10, 11, ...: the
     one-process steps (``mesh`` None) or the spatial steps of ``mesh``, this
-    rank holding its data shard's rows. Returns the losses, counts, state,
-    the fastest step's ms after the first, the first's, and the peak GiB."""
+    rank holding its data shard's rows and, with a model axis, its shard of
+    the split convs (``place_train_state``). Returns the losses, counts, the
+    state (the one-process layout: split tensors gathered), the fastest
+    step's ms after the first, the first's, and the peak GiB."""
     from stcd_tpu_torch.models.segcd import SegCD, init_weights
+    from stcd_tpu_torch.parallel import tensor
+    from stcd_tpu_torch.parallel.mesh import batch_sharding, place_train_state
     from stcd_tpu_torch.parallel.spatial import make_spatial_cd_steps
     from stcd_tpu_torch.tools.profile_step import seeded_cd_batch
     from stcd_tpu_torch.train.state import SGDConfig, create_train_state
@@ -59,9 +63,11 @@ def cd_steps_run(bf16: bool = False, mesh=None, device="cuda") -> dict:
                          seed=0)
     state = create_train_state(model, SGDConfig(lambda step: RUN["lr"], momentum=0.9,
                                                 weight_decay=0.0), device=device, bf16=bf16)
+    if mesh is not None:
+        place_train_state(mesh, state)
     train_step = (make_cd_steps(augment=True)[0] if mesh is None
                   else make_spatial_cd_steps(None, mesh, augment=True)[0])
-    rows = slice(None) if mesh is None else slice(mesh.rank // mesh.space, None, mesh.data)
+    rows = slice(None) if mesh is None else batch_sharding(mesh)
     gen = torch.Generator(device=device).manual_seed(2)
     batches = [{k: v[rows] for k, v in seeded_cd_batch(RUN["batch"], RUN["size"], seed=10 + i,
                                                        device=device).items()}
@@ -78,7 +84,9 @@ def cd_steps_run(bf16: bool = False, mesh=None, device="cuda") -> dict:
     torch.cuda.synchronize()
     return {"losses": losses, "counts": counts, "step_ms": min(times[1:]),
             "first_ms": times[0], "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+            "n_split": sum(hasattr(p, "tp_split") for p in state.model.parameters()),
+            "state": {k: v.detach().cpu()
+                      for k, v in tensor.full_state_dict(state.model).items()}}
 
 
 def state_errors(want: dict, got: dict) -> dict:

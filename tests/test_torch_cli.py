@@ -218,10 +218,10 @@ def test_every_cli_needs_the_card_unless_asked(data, monkeypatch, tmp_path):
     (["--data_axis", "2"], ValueError, "torchrun --nproc_per_node 2"),
     (["--space_axis", "2"], ValueError, "torchrun --nproc_per_node 2"),
     (["--model_axis", "4"], ValueError, "torchrun --nproc_per_node 4"),
-    (["--space_axis", "2", "--model_axis", "2"], NotImplementedError, "Queue 1 #11d")])
+    (["--space_axis", "2", "--model_axis", "2"], ValueError, "torchrun --nproc_per_node 4")])
 def test_mesh_flags_other_than_one_raise(data, flags, error, match):
-    """One process: a data, space or model axis says how to launch its ranks;
-    a space axis beside a model axis is not ported."""
+    """One process: a data, space or model axis, or a space axis beside a
+    model axis, says how to launch its ranks."""
     with pytest.raises(error, match=match):
         train_pse_cd.main([*TINY, "--root_path", data, *LEVIR, *flags])
 

@@ -38,8 +38,8 @@ references; the tests then read what each wrote.
    tolerances against JAX.
 5. The four stage CLIs with --space_axis 2 log the loss that one process
    logs (LOSS_RTOL) and train the state that it trains (CLI_ATOL,
-   CLI_AGREE); --space_axis 3, a non-resnet encoder, --remat and
-   --space_axis 2 with --model_axis 2 raise.
+   CLI_AGREE); --space_axis 3, a non-resnet encoder and --remat raise, and
+   --space_axis 2 with --model_axis 2 on two ranks says to launch four.
 """
 
 import os
@@ -750,8 +750,9 @@ def test_cli_space_axis_refusals(run):
         assert ref["--space_axis 2 --encoder se_resnet50"].startswith("ValueError")
         assert "#11" in ref["--space_axis 2 --encoder se_resnet50"]
         assert ref["--space_axis 2 --remat"].startswith("ValueError")
-        assert ref["--space_axis 2 --model_axis 2"].startswith("NotImplementedError")
-        assert "#11d" in ref["--space_axis 2 --model_axis 2"]
+        # space x model runs on a multiple of 4 ranks (tests/test_torch_space_model.py)
+        assert ref["--space_axis 2 --model_axis 2"].startswith("ValueError")
+        assert "torchrun --nproc_per_node 4" in ref["--space_axis 2 --model_axis 2"]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -13,8 +13,12 @@ references; the tests then read what each wrote.
    axis, are those JAX's ``param_sharding`` shards on the tree that
    ``stcd_tpu.convert.torch_to_flax`` makes from the port's state_dict, for
    SegCD-r50, ChangeFormerV6 at embed 256 and BIT ``_dd8`` at full width,
-   from shapes alone; the one difference is ROADMAP.md Queue 3 known issue
-   13 (a block whose heads T does not divide keeps its attention whole).
+   from shapes alone; and for each of the 24 define_G keys the split
+   tensors by shape and split axis, the port's model on the meta device and
+   JAX's parameters from ``jax.eval_shape``. The one difference is ROADMAP.md
+   Queue 3 known issue 13 (a block whose heads T does not divide keeps its
+   attention whole); a ViG ``Grapher``'s convs stay whole, as JAX's Dense
+   layers do.
 2. BIT's loss and gradients at data 2 x model 2 against JAX's sharded
    ``value_and_grad`` on the data 4 x model 2 CPU mesh, at
    tests/test_parallel.py:127-167's bounds.
@@ -33,7 +37,8 @@ references; the tests then read what each wrote.
    weights that JAX's _einsum_attention keeps on the whole array; MixFFN's
    and BIT FeedForward's hidden dropout split over two ranks equals one
    process's.
-7. Refusals: space x model and space x stage (#11d), a grid that is not the
+7. Refusals: space x stage (no JAX counterpart), space x model in one
+   process (it says how to launch the four ranks), a grid that is not the
    world, tp_axis in one process.
 """
 
@@ -44,6 +49,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+from stcd_tpu_torch.models.factory import NET_G_KEYS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = 32
@@ -474,12 +481,83 @@ def _placement_model(name):
     return (define_G(BIT), lambda sd: t2f.convert_bit(sd, dec_depth=8, resnet_stages_num=4))
 
 
-@pytest.mark.parametrize("name", ["segcd_r50", "v6_256", "bit"])
+def _signature(shape, axis):
+    """A split tensor as the two frameworks both see it: its dimensions other
+    than 1, sorted (flax keeps HWIO and (in, out) where torch keeps OIHW and
+    (out, in), and a Grapher's Dense is torch's 1x1 conv), and the size of
+    the axis that is split."""
+    return tuple(sorted(d for d in shape if d != 1)), shape[axis]
+
+
+def _zoo_placement(net_G):
+    """The split tensors of define_G(net_G) at model 2 by signature, JAX's
+    (``param_sharding`` on a data 4 x model 2 mesh over ``jax.eval_shape``'s
+    parameters) and the port's (``tensor.plan`` on a model on the meta
+    device), and the signatures JAX splits in the attention blocks that the
+    port keeps whole (known issue 13): their column Linears' weights and
+    biases and their row Linear's weight."""
+    import collections
+
+    import jax
+    import jax.numpy as jnp
+    from stcd_tpu.models.factory import define_G as jax_define_G
+    from stcd_tpu.parallel.mesh import create_mesh, param_sharding
+    from stcd_tpu_torch.models.bit import Attention, CrossAttention
+    from stcd_tpu_torch.models.changeformer import SRAttention
+    from stcd_tpu_torch.models.factory import define_G
+    from stcd_tpu_torch.parallel import tensor
+
+    x = jax.ShapeDtypeStruct((1, 256, 256, 3), jnp.float32)
+    params = jax.eval_shape(jax_define_G(net_G, n_class=2, embed_dim=64, img_size=256).init,
+                            jax.random.PRNGKey(0), x, x)["params"]
+    specs = jax.tree_util.tree_leaves(param_sharding(create_mesh(data=4, model=2), params),
+                                      is_leaf=lambda s: hasattr(s, "spec"))
+    want = collections.Counter(
+        _signature(leaf.shape, tuple(s.spec).index("model"))
+        for leaf, s in zip(jax.tree_util.tree_leaves(params), specs) if "model" in s.spec)
+    model = define_G(net_G, embed_dim=64, img_size=256, device="meta")
+    got = collections.Counter(_signature(tuple(model.get_parameter(k).shape), split.dim)
+                              for k, split in tensor.plan(model, 2).items())
+    kept = collections.Counter()
+    for mod in model.modules():
+        if isinstance(mod, SRAttention) and mod.num_heads % 2:
+            col, row = (mod.q, mod.kv), mod.proj
+        elif isinstance(mod, (Attention, CrossAttention)) and mod.heads % 2:
+            col = ((mod.to_qkv,) if isinstance(mod, Attention)
+                   else (mod.to_q, mod.to_k, mod.to_v))
+            row = mod.to_out[0]
+        else:
+            continue
+        for lin in col:
+            kept[_signature(tuple(lin.weight.shape), 0)] += 1
+            if lin.bias is not None:
+                kept[_signature(tuple(lin.bias.shape), 0)] += 1
+        kept[_signature(tuple(row.weight.shape), 1)] += 1
+    return want, got, kept
+
+
+# the split tensors of the six ViG keys at model 2, JAX's count: a Grapher's convs whole
+VIG_SPLITS = {"ChangeGNNV1": 5, "ChangeGNNV2": 5, "ChangeGNNV2_sub": 5, "ChangeGNNV2_abs": 5,
+              "ChangeGNNV2_conc": 7, "GNN": 5}
+
+
+@pytest.mark.parametrize("name", ["segcd_r50", "v6_256", "bit", *NET_G_KEYS])
 def test_placement_equals_jax_param_sharding(name):
+    """By state_dict name and axis for SegCD-r50, V6 at 256 and BIT; by
+    signature for each of the 24 define_G keys at embed 64 and 256x256."""
     from stcd_tpu_torch.models.bit import Attention, CrossAttention
     from stcd_tpu_torch.models.changeformer import SRAttention
     from stcd_tpu_torch.parallel import tensor
 
+    if name in NET_G_KEYS:
+        want, got, kept = _zoo_placement(name)
+        # known issue 13 is the one difference: JAX splits inside a head, the port keeps
+        # those blocks whole
+        assert got - want == {}
+        assert want - got == kept
+        if name in VIG_SPLITS:  # no Grapher conv split: ROADMAP.md Queue 3 F3
+            assert not kept and sum(got.values()) == VIG_SPLITS[name]
+        return
     model, convert = _placement_model(name)
     want = _jax_split_axes(model.state_dict(), convert)
     got = {(k, split.dim) for k, split in tensor.plan(model, 2).items()}
@@ -693,10 +771,13 @@ def test_model_axis_refusals(run, tmp_path):
     from stcd_tpu_torch.parallel.mesh import create_mesh
     from stcd_tpu_torch.train.trainer import CDTrainer, TrainerConfig
 
-    for kwargs in ({"space": 2, "model": 2}, {"space": 2, "stage": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 #11d"):
-            create_mesh(**kwargs)
-    with pytest.raises(NotImplementedError, match="#11d"):
+    # space x model runs (tests/test_torch_space_model.py): one process is told to
+    # launch its four ranks; space x stage has no JAX counterpart
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
+        create_mesh(space=2, model=2)
+    with pytest.raises(NotImplementedError, match="No counterpart"):
+        create_mesh(space=2, stage=2)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         train_pse_cd.main(["--space_axis", "2", "--model_axis", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="'model' axis of 2 .* torchrun --nproc_per_node 2"):
         CDTrainer(TrainerConfig(tp_axis=2, device="cpu"), steps_per_epoch=1)
